@@ -1,0 +1,493 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the lag twin on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed 0]
+
+Run from a checkout of the repository on a machine with a CUDA card and
+``nvcc``.  Phases, each of which fails the script if it fails:
+
+1. the card's name and power limit, torch and CUDA versions;
+2. building the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. every kernel against its plain PyTorch version on the card
+   (integers exact, floats ``rtol = atol = 1e-5``), at stress shapes and
+   at the shapes the two paths give it;
+4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
+   through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
+   over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
+   window) x 14 partitions, a mix of diurnal, bursty and masked
+   topic-lifecycle traffic made on the card from ``--seed``, each rate
+   clipped to one consumer's capacity (the paper's Sec. II feasibility
+   assumption: one consumer can drain any single partition);
+5. path B: ``api.simulate`` with MWF, MBF, MWFP, MBFP, KEDA_LAG,
+   RATE_THRESHOLD and BFD through the per-step loop with
+   ``use_kernel=True`` over 1024 groups x 480 steps x 32 partitions;
+6. each kernel's time at its path's shapes beside its bound and its plain
+   version's time; ``loop_fused`` and its plain version also run path A's
+   whole input once more, and their outputs are held against each other.
+
+Kernel times (``ms``) and plain times (``plain_ms``) are device time per
+call: ``loop_fused`` is one long launch timed with CUDA events, and the
+small per-step kernels are timed as a CUDA graph of back-to-back calls,
+so that no host work is counted.  ``wrapper_ms`` is the time per eager
+call of the kernel's Python wrapper, which is what the per-step loop
+pays.
+
+Kernel launch counts are zeroed just before each path and read just
+after it; a path that launched none of its kernels fails.  The line
+before the last is a JSON object ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
+checkout, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HEURISTICS = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD")
+PATH_B = ("MWF", "MBF", "MWFP", "MBFP", "KEDA_LAG", "RATE_THRESHOLD", "BFD")
+TOL = 1e-5
+CAPACITY = 1.0                # a consumer's drain rate (LagSimConfig's default)
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1):
+    """``(mean milliseconds per call on the card, the last call's result)``
+    after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def graph_ms(fn, calls: int) -> float:
+    """Device milliseconds per call of ``fn``: ``calls`` back-to-back calls
+    captured in one CUDA graph, replayed and timed with CUDA events, so
+    that the host's per-call work is not counted."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()                         # first replay uploads the graph
+    ms, _ = cuda_ms(graph.replay, 3, warmup=0)
+    return ms / calls
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def traffic_mix(batch: int, iters: int, n: int, seed: int, dev):
+    """Diurnal, bursty and masked topic-lifecycle groups, in thirds, each
+    rate clipped to ``CAPACITY``: at the families' default knobs a few
+    percent of partition-steps exceed one consumer's drain rate, and such
+    a partition's backlog grows under every policy."""
+    import torch
+
+    from repro_torch.core import scenarios
+
+    sizes = (batch - 2 * (batch // 3), batch // 3, batch // 3)
+    rates, masks = [], []
+    for i, (fam, b) in enumerate(zip(("diurnal", "bursty", "topic_lifecycle"),
+                                     sizes)):
+        sp, act = scenarios.generate(fam, b, iters, n, seed=seed + i,
+                                     device=dev)
+        rates.append(torch.clamp(sp, max=CAPACITY))
+        masks.append(torch.ones_like(sp, dtype=torch.bool) if act is None
+                     else act)
+    return torch.cat(rates), torch.cat(masks)
+
+
+def _max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def _close(got, want, what: str) -> float:
+    import torch
+
+    err = _max_err(got, want)
+    _require(torch.allclose(got, want, rtol=TOL, atol=TOL),
+             f"{what}: kernel disagrees with its plain version "
+             f"(max abs err {err})")
+    return err
+
+
+def _exact(got, want, what: str) -> None:
+    import torch
+
+    _require(torch.equal(got, want),
+             f"{what}: kernel integers differ from its plain version")
+
+
+def check_lag_update(dev, gen, b, n, m, names):
+    """Kernel against plain at ``[b, n]`` partitions and ``m`` bins, with
+    bin names drawn below ``names``."""
+    import torch
+
+    from repro_torch.kernels import lag_update as lu
+
+    worst = 0.0
+    for masked in (False, True):
+        lag = torch.rand((b, n), generator=gen, device=dev) * 2
+        produced = torch.rand((b, n), generator=gen, device=dev)
+        assign = torch.randint(-1, names, (b, n), generator=gen, device=dev)
+        readable = torch.rand((b, n), generator=gen, device=dev) > 0.2
+        cap = torch.rand((b, m), generator=gen, device=dev) * 4
+        act = (torch.rand((b, n), generator=gen, device=dev) > 0.1
+               if masked else None)
+        got = lu.lag_update_batch(lag, produced, assign, readable, cap,
+                                  active=act)
+        want = lu.lag_update_reference(lag, produced, assign, readable, cap,
+                                       m=m, active=act)
+        torch.cuda.synchronize()
+        worst = max(worst, _close(got, want, f"lag_update masked={masked}"))
+    print(f"check lag_update B={b} N={n} M={m} names<{names} masked and "
+          f"unmasked: max_abs_err={worst!r}")
+    return worst
+
+
+def check_select_slot(dev, gen, b, n, m):
+    """Kernel against plain at ``[b, n, m]``, every strategy, masked and
+    not (the packers pass no mask)."""
+    import torch
+
+    from repro_torch.kernels import binpack_select as bs
+
+    for strategy in ("first", "best", "worst"):
+        for masked in (False, True):
+            # loads on a coarse grid so that ties are common
+            loads = torch.randint(0, 9, (b, n, m), generator=gen,
+                                  device=dev).float() / 8
+            w = torch.randint(0, 5, (b, n), generator=gen,
+                              device=dev).float() / 8
+            k = torch.randint(0, m + 1, (b, n), generator=gen, device=dev)
+            cap = torch.ones((b, n), device=dev)
+            act = (torch.rand((b, n), generator=gen, device=dev) > 0.2
+                   if masked else None)
+            got = bs.select_slot_grid(loads, w, k, cap, strategy=strategy,
+                                      active=act)
+            want = bs.select_slot_plain(loads, w, k, cap, strategy=strategy,
+                                        active=act)
+            torch.cuda.synchronize()
+            _exact(got, want, f"select_slot_grid [{b},{n},{m}] {strategy} "
+                              f"masked={masked}")
+    print(f"check select_slot_grid B={b} N={n} M={m} first/best/worst "
+          f"masked and unmasked: exact")
+    return 0.0
+
+
+def heuristic_kwargs():
+    from repro_torch.registry import get_spec
+
+    hyper = [get_spec(p).hyperparams for p in HEURISTICS]
+    return dict(strategies=[h["strategy"] for h in hyper],
+                decreasing=[h["decreasing"] for h in hyper],
+                capacity=CAPACITY, dt=1.0, migration_steps=2)
+
+
+def compare_loop_fused(got, want, tag: str) -> float:
+    """Lag total and max within tolerance, every integer output exact."""
+    import torch
+
+    torch.cuda.synchronize()
+    worst = max(_close(got[i], want[i], tag) for i in (0, 1))
+    for i in range(2, len(want)):
+        _exact(got[i], want[i], tag)
+    return worst
+
+
+def check_loop_fused(dev, seed, b=512, t=480, n=14):
+    import torch
+
+    from repro_torch.kernels import loop_fused as lf
+
+    kw = dict(heuristic_kwargs(), record_assign=True)
+    rates, act = traffic_mix(b, t, n, seed, dev)
+    lag0 = torch.rand((b, n), generator=torch.Generator(dev).manual_seed(
+        seed), device=dev)
+    worst = 0.0
+    for mask in (None, act):
+        want = lf.loop_fused_reference(rates, active=mask, initial_lag=lag0,
+                                       **kw)
+        got = lf.loop_fused(rates, active=mask, initial_lag=lag0, **kw)
+        worst = max(worst, compare_loop_fused(
+            got, want, f"loop_fused masked={mask is not None}"))
+    print(f"check loop_fused 8 heuristics B={b} T={t} N={n} masked and "
+          f"unmasked, with initial lag: max_abs_err={worst!r}, integers "
+          f"exact")
+    return worst
+
+
+FAMILIES = ("diurnal", "bursty", "topic_lifecycle")
+
+
+def _family_slices(batch: int):
+    """The rows of each family in ``traffic_mix``'s output."""
+    first = batch - 2 * (batch // 3)
+    return dict(zip(FAMILIES, (slice(0, first),
+                               slice(first, first + batch // 3),
+                               slice(first + batch // 3, batch))))
+
+
+def _print_metrics(out) -> None:
+    """Per policy: the SLO metrics over all groups, the share of steps
+    with no backlog at all (every bin drained empty), and violation_frac
+    per traffic family."""
+    fams = _family_slices(out.lag_total.shape[1])
+    for p, name in enumerate(out.policies):
+        row = {k: float(v[p].mean()) for k, v in out.metrics.items()}
+        row["zero_backlog_frac"] = float((out.lag_total[p] == 0).mean())
+        for fam, rows in fams.items():
+            row[f"violation_frac_{fam}"] = float(
+                out.metrics["violation_frac"][p, rows].mean())
+        print(f"  {name:>15s} " + " ".join(f"{k}={v!r}"
+                                           for k, v in row.items()))
+
+
+def _check_outcome(out, shape) -> None:
+    import numpy as np
+
+    _require(out.lag_total.shape == shape, f"lag_total shape "
+             f"{out.lag_total.shape}, want {shape}")
+    for name in ("lag_total", "consumers", "migrations"):
+        _require(np.isfinite(getattr(out, name)).all(),
+                 f"{name} holds non-finite values")
+    _require((out.lag_total >= 0).all(), "negative backlog")
+    _require((out.consumers >= 0).all() and (out.migrations >= 0).all(),
+             "negative consumer or migration count")
+
+
+def _agree(small, big, streams: int, steps: int, what: str) -> None:
+    """Path outputs on a slice against an independent run of the slice."""
+    import numpy as np
+
+    lt = big.lag_total[:, :streams, :steps]
+    _require(np.allclose(lt, small.lag_total, rtol=TOL, atol=TOL),
+             f"{what}: lag_total differs on the cross-check slice "
+             f"(max {np.abs(lt - small.lag_total).max()!r})")
+    for name in ("consumers", "migrations"):
+        _require(np.array_equal(getattr(big, name)[:, :streams, :steps],
+                                getattr(small, name)),
+                 f"{what}: {name} differ on the cross-check slice")
+
+
+def run_path(name, policies, rates, act, kernels, **over):
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import _build
+
+    p, (b, t, n) = len(policies), rates.shape
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = api.simulate(rates, policies=policies, active=act,
+                       device=rates.device, **over)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    for k in kernels:
+        _require(counts[k] > 0, f"path {name}: kernel {k} was not launched")
+    _check_outcome(out, (p, b, t))
+    print(f"path {name}: {p} policies x B={b} x T={t} x N={n} {over}: "
+          f"wall_s={wall!r} policy_stream_steps_per_s={p * b * t / wall!r} "
+          f"launches={ {k: counts[k] for k in kernels} }")
+    _print_metrics(out)
+    return out, {k: counts[k] for k in kernels}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "drives the port on a CUDA card", file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import binpack_select as bs
+    from repro_torch.kernels import lag_update as lu
+    from repro_torch.kernels import loop_fused as lf
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    _build.library()
+    print(f"build_s={time.perf_counter() - t0!r}")
+
+    gen = torch.Generator(dev).manual_seed(args.seed)
+    # stress shapes, then the shapes paths A and B give each kernel
+    errs = {
+        "lag_update_batch": max(
+            check_lag_update(dev, gen, 4096, 256, 514, names=64),
+            check_lag_update(dev, gen, 1024, 32, 66, names=66)),
+        "select_slot_grid": max(
+            check_select_slot(dev, gen, 1024, 32, 65),
+            check_select_slot(dev, gen, 1024, 1, 65),    # Modified Any Fit
+            check_select_slot(dev, gen, 1024, 1, 33)),   # BFD's n + 1 slots
+        "loop_fused": check_loop_fused(dev, args.seed)}
+
+    # path A: the heuristic packers through the loop_fused kernel
+    rates_a, act_a = traffic_mix(4096, 2880, 14, args.seed, dev)
+    print(f"path A data: rates {tuple(rates_a.shape)} "
+          f"{rates_a.numel() * 4 / 1e6!r} MB on the card")
+    out_a, launches_a = run_path("A", HEURISTICS, rates_a, act_a,
+                                 ("loop_fused",), fused_steps=8,
+                                 fused_kernel=True)
+    from repro_torch import api
+    small = api.simulate(rates_a[:32, :480], policies=HEURISTICS,
+                         active=act_a[:32, :480], device="cuda",
+                         fused_steps=8)
+    _agree(small, out_a, 32, 480, "path A against the wide fused path")
+    del small
+
+    # path B: the per-step loop, drain and packer selects through kernels
+    rates_b, act_b = traffic_mix(1024, 480, 32, args.seed + 10, dev)
+    out_b, launches_b = run_path("B", PATH_B, rates_b, act_b,
+                                 ("lag_update_batch", "select_slot_grid"),
+                                 use_kernel=True)
+    small = api.simulate(rates_b[:16, :48].cpu(), policies=PATH_B,
+                         active=act_b[:16, :48].cpu(), device="cpu",
+                         use_kernel=True)
+    _agree(small, out_b, 16, 48, "path B against the CPU plain versions")
+    del small, out_a, out_b
+
+    # per-kernel times at the paths' shapes
+    kernels = []
+    kw = dict(heuristic_kwargs(), active=act_a)
+    b, t, n = rates_a.shape
+    p = len(HEURISTICS)
+    ms, _ = cuda_ms(lambda: lf.loop_fused(rates_a, **kw), 3)
+    # path A's whole input once more, assignments recorded, against the
+    # plain version (whose one run is also its time)
+    got = lf.loop_fused(rates_a, record_assign=True, **kw)
+    plain, want = cuda_ms(
+        lambda: lf.loop_fused_reference(rates_a, record_assign=True, **kw),
+        1, warmup=0)
+    err = compare_loop_fused(got, want, "loop_fused at path A's shape")
+    print(f"check loop_fused 8 heuristics B={b} T={t} N={n} masked (path "
+          f"A's input): max_abs_err={err!r}, integers exact")
+    errs["loop_fused"] = max(errs["loop_fused"], err)
+    del got, want
+    m = n + 1
+    per_row_step = {"next": 3 * n, "first": 3 * n * m, "best": 3 * n * m,
+                    "worst": 3 * n * m}
+    ops = b * t * sum(per_row_step[s]
+                      + (2 * n * n if d else 0)
+                      + n * (n + 12) + 10 * n
+                      for s, d in zip(kw["strategies"], kw["decreasing"]))
+    byts = b * t * n * (4 + 4) + p * b * t * 4 * 5
+    bnd, by = bound_ms(byts, ops)
+    kernels.append(dict(
+        name="loop_fused", route="cuda",
+        source="src/repro_torch/kernels/csrc/loop_fused.cu",
+        replaces="src/repro/kernels/loop_fused.py:220",
+        launches=launches_a["loop_fused"], max_abs_err=errs["loop_fused"],
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        wrapper_ms=ms))
+
+    b, n = 1024, 32
+    m = 2 * n + 2
+    g = torch.Generator(dev).manual_seed(args.seed)
+    # inputs in the kernels' own dtypes, so the timed calls convert nothing
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    lag = torch.rand((b, n), generator=g, device=dev)
+    produced = torch.rand((b, n), generator=g, device=dev)
+    assign = i32(torch.randint(-1, n, (b, n), generator=g, device=dev))
+    readable = i32(torch.rand((b, n), generator=g, device=dev) > 0.1)
+    cap = torch.ones((b, m), device=dev)
+    act = i32(act_b[:, 0])
+    kern = lambda: lu.lag_update_batch(  # noqa: E731
+        lag, produced, assign, readable, cap, active=act)
+    ref = lambda: lu.lag_update_reference(  # noqa: E731
+        lag, produced, assign, readable, cap, m=m, active=act)
+    bnd, by = bound_ms(b * n * 4 * 6 + b * m * 4, b * n * 8)
+    kernels.append(dict(
+        name="lag_update", route="cuda",
+        source="src/repro_torch/kernels/csrc/lag_update.cu",
+        replaces="src/repro/kernels/lag_update.py:125",
+        launches=launches_b["lag_update_batch"],
+        max_abs_err=errs["lag_update_batch"], ms=graph_ms(kern, 200),
+        plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
+        library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0]))
+
+    m = 2 * n + 1                  # Modified Any Fit's slots, [R, 1, M]
+    loads = torch.rand((b, 1, m), generator=g, device=dev)
+    w = torch.rand((b, 1), generator=g, device=dev)
+    k = i32(torch.randint(0, m + 1, (b, 1), generator=g, device=dev))
+    capw = torch.ones((b, 1), device=dev)
+    kern = lambda: bs.select_slot_grid(  # noqa: E731
+        loads, w, k, capw, strategy="best")
+    ref = lambda: bs.select_slot_plain(  # noqa: E731
+        loads, w, k, capw, strategy="best")
+    bnd, by = bound_ms(b * m * 4 + b * 4 * 4, b * m * 3)
+    kernels.append(dict(
+        name="binpack_select", route="cuda",
+        source="src/repro_torch/kernels/csrc/binpack_select.cu",
+        replaces="src/repro/kernels/binpack_select.py:76",
+        launches=launches_b["select_slot_grid"],
+        max_abs_err=errs["select_slot_grid"], ms=graph_ms(kern, 200),
+        plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
+        library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0]))
+    for kern in kernels:
+        print(f"kernel {kern['name']}: ms={kern['ms']!r} "
+              f"plain_ms={kern['plain_ms']!r} bound_ms={kern['bound_ms']!r} "
+              f"({kern['bound_by']}) wrapper_ms={kern['wrapper_ms']!r} "
+              f"launches={kern['launches']}")
+
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

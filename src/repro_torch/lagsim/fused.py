@@ -1,0 +1,168 @@
+"""Fused multi-step path of the lag twin for the heuristic packer family.
+
+The heuristic bin STRUCTURE of a step -- the creation slot of each item,
+the item that created each slot, the bin count -- depends only on that
+step's speeds, never on the previous assignment.  So it is computed
+WIDE over all T steps and all ``R = policies x streams`` rows at once,
+and only the Sec. IV-C sticky NAMING plus the lag/downtime carry run
+step by step (``_fused_wide``, the ``fused_kernel=False`` path).  With
+``fused_kernel=True`` the ``loop_fused`` CUDA kernel runs the whole loop
+instead, one thread per row across all T steps.
+
+Routing (``LagSimConfig.fused_steps > 0``):
+
+=====================  ==========================================
+policy / config        fused path behavior
+=====================  ==========================================
+heuristic family       fused (``fused_kernel=True`` launches the
+                       ``loop_fused`` kernel)
+sticky family          falls back to the per-step loop (the Modified
+                       Any Fit schedule depends on the carry)
+reactive (idealized)   falls back to the per-step loop
+control_plane set      raises :class:`FusedPathError`
+n > 14 partitions      falls back (32-bit name-mask limit)
+use_kernel=True        falls back (the reference routes per-step drain
+                       kernel runs to the unfused loop)
+=====================  ==========================================
+
+Results do not depend on ``fused_steps`` (K): ``LagSimConfig.resolve``
+validates it (>= 1 with ``fused_kernel``), and otherwise it only names the
+reference's block size; neither fused path takes it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.loop_fused import (MAX_PARTITIONS, NEG, _consts,
+                                            _name_drain, _order, _outputs,
+                                            _per_policy, _record,
+                                            _select_consts, _struct,
+                                            loop_fused)
+from repro_torch.registry import get_spec
+
+FUSED_MAX_PARTITIONS = MAX_PARTITIONS
+
+
+class FusedPathError(ValueError):
+    """``fused_steps`` was combined with a config whose state cannot live
+    inside the fused loop (a control plane).  Drop ``fused_steps`` or the
+    offending piece."""
+
+
+def fused_mode(policy: str, cfg, n: int) -> str:
+    """Route one policy under ``cfg.fused_steps > 0``: ``"fused"`` or
+    ``"unfused"`` (documented fallback); raises :class:`FusedPathError`
+    for a combination the fused path refuses (see the module table)."""
+    spec = get_spec(policy)
+    if cfg.control_plane is not None:
+        raise FusedPathError(
+            "fused_steps is incompatible with control_plane: scaler "
+            "friction wraps every policy in state the fused loop does not "
+            "model; drop fused_steps or control_plane")
+    if spec.family != "heuristic" or n > FUSED_MAX_PARTITIONS:
+        return "unfused"
+    if cfg.use_kernel:
+        return "unfused"
+    return "fused"
+
+
+def _heuristics(policies: Sequence[str]) -> Tuple[list, list]:
+    hyper = [get_spec(p).hyperparams for p in policies]
+    return ([h["strategy"] for h in hyper],
+            [bool(h["decreasing"]) for h in hyper])
+
+
+def _prep(traces, decreasing: Sequence[bool], active):
+    """Traversal-ordered per-step views ``[T, R, N]`` for every (policy,
+    stream) row ``p * B + b``: speeds and item index in traversal order,
+    each item's position, and the active mask in traversal order."""
+    b, t, n = traces.shape
+    p = len(decreasing)
+    wide = lambda x: x.transpose(0, 1).repeat(1, p, 1)  # noqa: E731  [T, R, N]
+    speeds = wide(traces)
+    order_d, rank_d = _order(speeds)
+    dec = torch.tensor(decreasing, device=traces.device
+                       ).repeat_interleave(b).unsqueeze(1)
+    iota = torch.arange(n, device=traces.device)
+    order = torch.where(dec, order_d, iota)
+    pos = torch.where(dec, rank_d, iota)
+    act_ord = None if active is None else wide(active).gather(2, order)
+    return speeds.gather(2, order), order, pos, act_ord
+
+
+def _fused_wide(policies: Tuple[str, ...], traces, cfg, active,
+                initial_lag, record_assign: bool):
+    """Structure wide over T, then one lean loop over naming + drain.
+    Returns ``loop_fused``'s outputs with a leading ``[P, B]``."""
+    b, t, n = traces.shape
+    p = len(policies)
+    dev = traces.device
+    strategies, decreasing = _heuristics(policies)
+    cap, cap_step, dt = _consts(cfg.capacity, cfg.dt)
+    is_next, a_sgn, b_first = _select_consts(strategies, b, dev)
+    sp_ord, order, pos, act_ord = _prep(traces, decreasing, active)
+    slot_ord, creator, kk = _struct(sp_ord, order, act_ord, cap, is_next,
+                                    a_sgn, b_first)
+    slot_of = slot_ord.gather(2, pos)                          # [T, R, N]
+    rates = traces.repeat(p, 1, 1)                             # [R, T, N]
+    act_r = None if active is None else active.bool().repeat(p, 1, 1)
+    lag = (torch.zeros(p * b, n, device=dev) if initial_lag is None
+           else initial_lag.float().repeat(p, 1))
+    prev = torch.full((p * b, n), NEG, dtype=torch.long, device=dev)
+    down = torch.zeros_like(prev)
+    out = _outputs(p * b, t, n, record_assign, dev)
+    for step in range(t):
+        act = None if act_r is None else act_r[:, step]
+        produced = rates[:, step] * dt
+        if act is not None:
+            produced = torch.where(act, produced, 0.0)
+        lag, prev, down, moved, unread = _name_drain(
+            lag, prev, down, produced, act, slot_of[step], creator[step],
+            kk[step], cap_step=cap_step, mig=int(cfg.migration_steps))
+        _record(out, step, lag, kk[step], moved, unread, prev)
+    return _per_policy(out, p, b)
+
+
+def sweep_fused(policies: Tuple[str, ...], traces, cfg,
+                active: Optional[torch.Tensor] = None,
+                initial_lag: Optional[torch.Tensor] = None,
+                record_assign: bool = False) -> Dict[str, dict]:
+    """Family-batched fused sweep of heuristic ``policies`` over ``traces
+    f32[B, T, N]``.  Returns ``{policy: LagTrace field dict}`` of ``[B, T]``
+    tensors (plus ``assigns [B, T, N]`` with ``record_assign``)."""
+    traces = traces.to(torch.float32)
+    cfg = cfg.resolve(traces.shape[2])
+    if cfg.fused_kernel:
+        strategies, decreasing = _heuristics(policies)
+        outs = loop_fused(traces, strategies=strategies,
+                          decreasing=decreasing, capacity=cfg.capacity,
+                          dt=cfg.dt, migration_steps=cfg.migration_steps,
+                          active=active,
+                          initial_lag=initial_lag,
+                          record_assign=record_assign)
+    else:
+        outs = _fused_wide(policies, traces, cfg, active, initial_lag,
+                           record_assign)
+    names = ("lag_total", "lag_max", "consumers", "migrations",
+             "unreadable", "assigns")
+    return {name: dict(zip(names, (o[pi] for o in outs)))
+            for pi, name in enumerate(policies)}
+
+
+def simulate_fused(trace, initial_lag, policy: str, cfg,
+                   active: Optional[torch.Tensor] = None,
+                   record_assign: bool = False):
+    """Single-stream fused run: ``trace f32[T, N]`` -> ``LagTrace`` of
+    ``[T]`` tensors, or ``(LagTrace, assigns [T, N])``."""
+    from repro_torch.lagsim.engine import LagTrace
+
+    fields = sweep_fused(
+        (policy,), trace[None], cfg,
+        active=None if active is None else active[None],
+        initial_lag=None if initial_lag is None else initial_lag[None],
+        record_assign=record_assign)[policy]
+    assigns = fields.pop("assigns", None)
+    out = LagTrace(**{k: v[0] for k, v in fields.items()})
+    return (out, assigns[0]) if record_assign else out

@@ -1,0 +1,162 @@
+"""Built-in policies, in the reference's registration order:
+
+  NF NFD FF FFD BF BFD WF WFD        (Sec. II-B classical, heuristic)
+  MWF MBF MWFP MBFP                  (Sec. IV-B Algorithm 1, sticky)
+  KEDA_LAG RATE_THRESHOLD            (idealized reactive baselines)
+
+The reference's control-plane scalers and annealing optimizers wait for
+later slices of the port.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.pack import modified_any_fit, pack
+
+from . import register
+
+# identity of each classical member: name -> (fit strategy, decreasing)
+CLASSICAL_SPECS = (
+    ("NF", "next", False), ("NFD", "next", True),
+    ("FF", "first", False), ("FFD", "first", True),
+    ("BF", "best", False), ("BFD", "best", True),
+    ("WF", "worst", False), ("WFD", "worst", True),
+)
+# identity of each Modified Any Fit member: name -> (fit, consumer sort key)
+MODIFIED_SPECS = (
+    ("MWF", "worst", "cumulative"), ("MBF", "best", "cumulative"),
+    ("MWFP", "worst", "max_partition"), ("MBFP", "best", "max_partition"),
+)
+
+
+def _packing_policy(packer, capacity, device):
+    """Batched Policy over a one-shot packer: each step repacks the current
+    speeds with the previous assignment as ``prev`` (sticky naming)."""
+
+    def init(n_partitions: int):
+        return torch.zeros((), dtype=torch.long, device=device)  # stateless
+
+    def step(speeds, lag, prev_assign, state, active=None):
+        res = packer(speeds, prev_assign, capacity, active=active)
+        return res.bin_of, res.n_bins, state
+
+    return init, step
+
+
+def _register_classical(name: str, strategy: str, decreasing: bool) -> None:
+    hyper = {"strategy": strategy, "decreasing": decreasing, "sticky": True}
+
+    def one_shot(speeds, prev, capacity, active=None):
+        return pack(speeds, prev, capacity, strategy=strategy,
+                    decreasing=decreasing, active=active)
+
+    @register(name, family="heuristic", hyperparams=hyper, packer=one_shot,
+              paper_section="II-B",
+              summary=f"{'offline decreasing ' if decreasing else 'online '}"
+                      f"{strategy}-fit any-fit heuristic")
+    def _build(n, capacity, device, *, strategy=strategy,
+               decreasing=decreasing, sticky=True):
+        def packer(speeds, prev, cap, active=None):
+            return pack(speeds, prev, cap, strategy=strategy,
+                        decreasing=decreasing, sticky=sticky, active=active)
+        return _packing_policy(packer, capacity, device)
+
+
+def _register_modified(name: str, fit: str, sort_key: str) -> None:
+    hyper = {"fit": fit, "sort_key": sort_key}
+
+    def one_shot(speeds, prev, capacity, active=None):
+        return modified_any_fit(speeds, prev, capacity, fit=fit,
+                                sort_key=sort_key, active=active)
+
+    @register(name, family="sticky", hyperparams=hyper, packer=one_shot,
+              paper_section="IV-B/IV-C",
+              summary=f"Modified Any Fit: {fit}-fit insert, consumers "
+                      f"sorted by {sort_key.replace('_', ' ')}")
+    def _build(n, capacity, device, *, fit=fit, sort_key=sort_key):
+        def packer(speeds, prev, cap, active=None):
+            return modified_any_fit(speeds, prev, cap, fit=fit,
+                                    sort_key=sort_key, active=active)
+        return _packing_policy(packer, capacity, device)
+
+
+for _name, _strategy, _dec in CLASSICAL_SPECS:
+    _register_classical(_name, _strategy, _dec)
+for _name, _fit, _key in MODIFIED_SPECS:
+    _register_modified(_name, _fit, _key)
+
+
+def _f32(x) -> float:
+    """``x`` rounded to float32, as the reference's ``jnp.float32`` knobs."""
+    return float(np.float32(x))
+
+
+def _reactive_policy(kind: str, n: int, capacity, device, *, lag_threshold,
+                     target_utilization, max_consumers, scale_down_patience):
+    """KEDA-style reactive scaler: desired consumer count from a lag or
+    rate threshold, eager round-robin assignment (``partition % n``),
+    immediate scale-up, patience-gated scale-down.  With an ``active``
+    mask, dead partitions add no signal and take no round-robin seat
+    (live partitions are ranked among the live set)."""
+    pid = torch.arange(n, dtype=torch.long, device=device)
+    if max_consumers is None:
+        max_consumers = n
+    if lag_threshold is None:
+        lag_threshold = 2.0 * capacity
+    lag_threshold = _f32(lag_threshold)
+    # target_utilization * capacity is a float32 product in the reference
+    rate_div = float(np.float32(target_utilization) * np.float32(capacity))
+    max_c = int(max_consumers)
+    patience = int(scale_down_patience)
+
+    def init(n_partitions: int):
+        one = torch.ones((), dtype=torch.long, device=device)
+        return (one, torch.zeros((), dtype=torch.long, device=device))
+
+    def step(speeds, lag, prev_assign, state, active=None):
+        n_cur, under = state
+        if active is not None:
+            act = active.bool()
+            speeds = torch.where(act, speeds, 0.0)
+            lag = torch.where(act, lag, 0.0)
+        total = lag.sum(-1) if kind == "lag" else speeds.sum(-1)
+        # a tensor divisor: PyTorch turns division by a Python scalar into
+        # a multiply by its reciprocal, which rounds differently
+        div = torch.full_like(total, lag_threshold if kind == "lag"
+                              else rate_div)
+        want = torch.ceil(total / div)
+        want = torch.clamp(want.long(), 1, max_c)
+        under = torch.where(want < n_cur, under + 1, 0)
+        go_down = under >= patience
+        n_new = torch.where(want > n_cur, want,
+                            torch.where(go_down, want, n_cur))
+        under = torch.where(go_down, 0, under)
+        if active is None:
+            assign = pid % n_new.unsqueeze(-1)
+        else:
+            rank = torch.cumsum(act.long(), -1) - 1       # pid among live
+            assign = torch.where(act, rank % n_new.unsqueeze(-1), -1)
+        return assign, n_new, (n_new, under)
+
+    return init, step
+
+
+_REACTIVE_HYPER = {"lag_threshold": None, "target_utilization": 0.75,
+                   "max_consumers": None, "scale_down_patience": 3}
+
+
+@register("KEDA_LAG", family="reactive", hyperparams=_REACTIVE_HYPER,
+          paper_section="reactive baseline",
+          summary="KEDA lagThreshold rule: consumers = "
+                  "ceil(total_lag / lag_threshold)")
+def _build_keda_lag(n, capacity, device, **hyper):
+    return _reactive_policy("lag", n, capacity, device, **hyper)
+
+
+@register("RATE_THRESHOLD", family="reactive", hyperparams=_REACTIVE_HYPER,
+          paper_section="reactive baseline",
+          summary="consumption-rate target: consumers = "
+                  "ceil(total_rate / (target_utilization * C))")
+def _build_rate_threshold(n, capacity, device, **hyper):
+    return _reactive_policy("rate", n, capacity, device, **hyper)

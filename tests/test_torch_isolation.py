@@ -1,0 +1,63 @@
+"""The port stands alone: it imports nothing of JAX or the reference, and
+it never drifts onto the CPU unasked."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import CudaUnavailableError, api  # noqa: E402
+from repro_torch.core import scenarios  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.lagsim import simulate_lag, sweep_lag  # noqa: E402
+from repro_torch.registry import make_policy  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax_flax_or_repro():
+    files = _port_files()
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
+
+
+@pytest.mark.parametrize("call", (
+    lambda: api.simulate(np.zeros((1, 3, 2), np.float32), policies=("BFD",)),
+    lambda: sweep_lag(("BFD",), np.zeros((1, 3, 2), np.float32)),
+    lambda: simulate_lag(np.zeros((3, 2), np.float32), policy="BFD"),
+    lambda: make_policy("BFD", 2),
+    lambda: scenarios.generate("bursty", 1, 3, 2),
+), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
+        "scenarios.generate"))
+def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(CudaUnavailableError, match="device='cpu'"):
+        call()
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "NVCC_FALLBACKS", ())
+    monkeypatch.setattr(_build, "BUILD_ROOT", Path("/nonexistent-build-root"))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build()
