@@ -21,7 +21,17 @@ Run from a checkout of the repository on a machine with a CUDA card and
 5. path B: ``api.simulate`` with MWF, MBF, MWFP, MBFP, KEDA_LAG,
    RATE_THRESHOLD and BFD through the per-step loop with
    ``use_kernel=True`` over 1024 groups x 480 steps x 32 partitions;
-6. each kernel's time at its path's shapes beside its bound and its plain
+6. path C1: ``api.simulate`` with the annealer policies ANNEAL and
+   ANNEAL_STICKY (6 chains, 48 anneal steps a decision) over path B's
+   traffic, every move evaluation through the ``move_eval`` kernel; the
+   first 16 groups x 48 steps run once more on the CPU with the card's
+   draws injected and must give the same integers;
+7. path C2: ``api.optimize`` on one 256-partition topic (a diurnal step,
+   ``prev`` from 32 steps of BFD): the 7-lambda x 4-restart frontier over
+   250 anneal steps, all 12 packers scored against it; the same instance
+   and seed with the plain move evaluation on the card must give the same
+   frontier;
+8. each kernel's time at its path's shapes beside its bound and its plain
    version's time; ``loop_fused`` and its plain version also run path A's
    whole input once more, and their outputs are held against each other.
 
@@ -49,6 +59,7 @@ from pathlib import Path
 
 HEURISTICS = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD")
 PATH_B = ("MWF", "MBF", "MWFP", "MBFP", "KEDA_LAG", "RATE_THRESHOLD", "BFD")
+PATH_C1 = ("ANNEAL", "ANNEAL_STICKY")
 TOL = 1e-5
 CAPACITY = 1.0                # a consumer's drain rate (LagSimConfig's default)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -207,6 +218,54 @@ def check_select_slot(dev, gen, b, n, m):
     return 0.0
 
 
+def _anneal_state(dev, gen, k, n, masked):
+    """Random chain states over ``m = 2n + 2`` names: loads and counts
+    from the assignment (inactive items excluded), some unassigned items
+    (prev = -1), some oversized ones (w > C), lambda 0 or 4 per chain."""
+    import torch
+
+    m = 2 * n + 2
+    speeds = torch.rand((k, n), generator=gen, device=dev) * 1.3 * CAPACITY
+    assign = torch.randint(0, m, (k, n), generator=gen, device=dev)
+    prev = torch.randint(-1, m, (k, n), generator=gen, device=dev)
+    act = (torch.rand((k, n), generator=gen, device=dev) > 0.1 if masked
+           else torch.ones((k, n), dtype=torch.bool, device=dev))
+    w = torch.where(act, speeds, 0.0)
+    loads = torch.zeros((k, m), device=dev).scatter_add_(1, assign, w)
+    counts = torch.zeros((k, m), dtype=torch.int32, device=dev).scatter_add_(
+        1, assign, act.to(torch.int32))
+    lam = (torch.rand(k, generator=gen, device=dev) > 0.5).float() * 4.0
+    cap = torch.full((k,), CAPACITY, device=dev)
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    return ((loads, counts, i32(assign), speeds, i32(prev), lam, cap),
+            i32(act) if masked else None)
+
+
+def check_move_eval(dev, gen, k, n):
+    """Kernel against plain at ``[k, n, 2n + 2]``, bit for bit, masked and
+    unmasked."""
+    import torch
+
+    from repro_torch.kernels import move_eval as me
+
+    for masked in (False, True):
+        args, act = _anneal_state(dev, gen, k, n, masked)
+        got = me.move_delta_batch(*args, active=act)
+        want = me.move_delta_reference(*args, active=act)
+        torch.cuda.synchronize()
+        _require(torch.equal(got, want),
+                 f"move_eval [{k},{n},{2 * n + 2}] masked={masked}: kernel "
+                 f"differs from its plain version (max abs err "
+                 f"{_max_err(got, want)})")
+        blocked = want >= me.MOVE_BLOCKED / 2
+        _require(bool(blocked.any()) and bool((~blocked).any()),
+                 "move_eval check instance has no blocked or no open move")
+        del got, want
+    print(f"check move_eval K={k} N={n} M={2 * n + 2} masked and unmasked, "
+          f"prev=-1, oversized items, empty bins: bit-exact")
+    return 0.0
+
+
 def heuristic_kwargs():
     from repro_torch.registry import get_spec
 
@@ -302,6 +361,84 @@ def _agree(small, big, streams: int, steps: int, what: str) -> None:
                  f"{what}: {name} differ on the cross-check slice")
 
 
+class _Host:
+    """A ``sweep_lag`` result as numpy fields, for ``_agree``."""
+
+    def __init__(self, res):
+        for f in ("lag_total", "consumers", "migrations"):
+            setattr(self, f, getattr(res, f).cpu().numpy())
+
+
+def path_c1_agreement(out, rates, act, streams: int = 16, steps: int = 48):
+    """The first ``streams`` groups x ``steps`` steps of path C1 once more
+    on the CPU, with the draws the card's generators made injected."""
+    import torch
+
+    from repro_torch.lagsim import LagSimConfig, sweep_lag
+    from repro_torch.opt import AnnealNoise
+    from repro_torch.registry import builtin
+
+    gen = torch.Generator(device=rates.device).manual_seed(
+        builtin.ANNEAL_SEED)
+    noise = []
+    for _ in range(steps):
+        nz = AnnealNoise.draw(builtin.ANNEAL_STEPS, builtin.ANNEAL_CHAINS,
+                              rates.shape[2], generator=gen)
+        noise.append(AnnealNoise(nz.gumbel.cpu(), nz.temps.cpu()))
+    t0 = time.perf_counter()
+    small = sweep_lag(PATH_C1, rates[:streams, :steps].cpu(), LagSimConfig(),
+                      active=act[:streams, :steps].cpu(), device="cpu",
+                      policy_options={p: {"noise": noise} for p in PATH_C1})
+    _agree(_Host(small), out, streams, steps,
+           "path C1 against the CPU run with the same draws")
+    print(f"path C1 agreement: {streams} groups x {steps} steps on the CPU "
+          f"with the card's draws injected: integers exact, lag within "
+          f"{TOL} (cpu_s={time.perf_counter() - t0!r})")
+
+
+def run_path_c2(dev, seed):
+    """``api.optimize`` on one 256-partition topic; the same instance and
+    seed once more with the plain move evaluation must agree."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    from repro_torch.opt import anneal_frontier, incumbent_assignment
+
+    rates, _ = traffic_mix(3, 33, 256, seed + 20, dev)   # row 0: diurnal
+    trace = rates[0].cpu().numpy()
+    prev = incumbent_assignment(trace[:32], CAPACITY, 32, "BFD", device=dev)
+    speeds = trace[32]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = api.optimize(speeds, prev, capacity=CAPACITY, seed=seed,
+                       device=dev)
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()["move_delta_batch"]
+    _require(launches == 250, f"path C2: move_eval launched {launches} "
+             f"times, want 250")
+    _require(len(out.heuristics) == 12 and out.hypervolume > 0
+             and all(b >= 1 for b, _ in out.front),
+             "path C2: malformed frontier")
+    print(f"path C2: optimize N={speeds.shape[0]} sum(speeds)="
+          f"{float(speeds.sum())!r} 7 lambdas x 4 restarts x 250 steps: "
+          f"wall_s={wall!r} launches={{'move_delta_batch': {launches}}}")
+    print(f"  per_lambda={out.per_lambda}")
+    print(f"  front={out.front} hypervolume={out.hypervolume!r}")
+    print("  hv_ratio " + " ".join(
+        f"{k}={v['hv_ratio']!r}{'(dominated)' if v['dominated'] else ''}"
+        for k, v in out.heuristics.items()))
+    plain = anneal_frontier(speeds, prev, CAPACITY, seed=seed,
+                            use_kernel=False, device=dev)
+    _require((plain.per_lambda, plain.front, plain.hypervolume)
+             == (out.per_lambda, out.front, out.hypervolume),
+             "path C2: the plain move evaluation gives another frontier")
+    print("path C2 agreement: the plain move evaluation on the card gives "
+          "the same per_lambda, front and hypervolume")
+    return launches
+
+
 def run_path(name, policies, rates, act, kernels, **over):
     import torch
 
@@ -347,6 +484,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import binpack_select as bs
     from repro_torch.kernels import lag_update as lu
     from repro_torch.kernels import loop_fused as lf
+    from repro_torch.kernels import move_eval as me
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -356,6 +494,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
@@ -372,7 +511,11 @@ def main(argv=None) -> int:
             check_select_slot(dev, gen, 1024, 32, 65),
             check_select_slot(dev, gen, 1024, 1, 65),    # Modified Any Fit
             check_select_slot(dev, gen, 1024, 1, 33)),   # BFD's n + 1 slots
-        "loop_fused": check_loop_fused(dev, args.seed)}
+        "loop_fused": check_loop_fused(dev, args.seed),
+        "move_delta_batch": max(
+            check_move_eval(dev, gen, 6144, 32),       # path C1
+            check_move_eval(dev, gen, 28, 256),        # path C2
+            check_move_eval(dev, gen, 1024, 301))}     # stress, ragged tile
 
     # path A: the heuristic packers through the loop_fused kernel
     rates_a, act_a = traffic_mix(4096, 2880, 14, args.seed, dev)
@@ -398,6 +541,19 @@ def main(argv=None) -> int:
                          use_kernel=True)
     _agree(small, out_b, 16, 48, "path B against the CPU plain versions")
     del small, out_a, out_b
+
+    # path C1: the annealer policies, every move evaluation on the kernel
+    out_c1, launches_c1 = run_path("C1", PATH_C1, rates_b, act_b,
+                                   ("move_delta_batch",))
+    want = len(PATH_C1) * rates_b.shape[1] * 48
+    _require(launches_c1["move_delta_batch"] == want,
+             f"path C1: move_eval launched {launches_c1['move_delta_batch']} "
+             f"times, want {want}")
+    path_c1_agreement(out_c1, rates_b, act_b)
+    del out_c1
+
+    # path C2: one large topic's frontier through api.optimize
+    run_path_c2(dev, args.seed)
 
     # per-kernel times at the paths' shapes
     kernels = []
@@ -476,12 +632,47 @@ def main(argv=None) -> int:
         max_abs_err=errs["select_slot_grid"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0]))
+
+    k, n = 6144, 32                # path C1's chains and partitions
+    m = 2 * n + 2
+    margs, mact = _anneal_state(dev, g, k, n, masked=True)
+    kern = lambda: me.move_delta_batch(*margs, active=mact)  # noqa: E731
+    ref = lambda: me.move_delta_reference(*margs, active=mact)  # noqa: E731
+    bnd, by = bound_ms(k * n * m * 4 + k * m * 8 + k * n * 16 + k * 8,
+                       k * n * m * 4)
+    kernels.append(dict(
+        name="move_eval", route="cuda",
+        source="src/repro_torch/kernels/csrc/move_eval.cu",
+        replaces="src/repro/kernels/move_eval.py:135",
+        launches=launches_c1["move_delta_batch"],
+        max_abs_err=errs["move_delta_batch"], ms=graph_ms(kern, 50),
+        plain_ms=graph_ms(ref, 20), bound_ms=bnd, bound_by=by,
+        library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
+    del margs, mact
+
+    # lag_update_single: the same kernel at batch 1 ([1, 32], 66 bins);
+    # no path calls it (the per-step loop drains every stream at once),
+    # and it has no counter of its own: its launches count under
+    # lag_update_batch
+    b1 = [x[:1] for x in (lag, produced, assign, readable)]
+    cap1 = cap[0]
+    kern = lambda: lu.lag_update_single(  # noqa: E731
+        b1[0][0], b1[1][0], b1[2][0], b1[3][0], cap1, active=act[0])
+    ref = lambda: lu.lag_update_reference(  # noqa: E731
+        b1[0][0], b1[1][0], b1[2][0], b1[3][0], cap1, m=66, active=act[0])
+    bnd, by = bound_ms(32 * 4 * 6 + 66 * 4, 32 * 8)
+    print(f"kernel lag_update_single [1, 32] 66 bins: "
+          f"ms={graph_ms(kern, 200)!r} plain_ms={graph_ms(ref, 200)!r} "
+          f"bound_ms={bnd!r} ({by}) wrapper_ms={cuda_ms(kern, 200)[0]!r} "
+          f"launches=n/a (no path calls the rank-1 entry)")
+
     for kern in kernels:
         print(f"kernel {kern['name']}: ms={kern['ms']!r} "
               f"plain_ms={kern['plain_ms']!r} bound_ms={kern['bound_ms']!r} "
               f"({kern['bound_by']}) wrapper_ms={kern['wrapper_ms']!r} "
               f"launches={kern['launches']}")
 
+    print(f"total_s={time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

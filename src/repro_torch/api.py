@@ -1,22 +1,24 @@
-"""Public facade of the port (the closed-loop verb so far).
+"""Public facade of the port (the closed-loop and optimizer verbs so far).
 
 ``simulate`` runs the lag twin -- policies x traces with migration
-downtime, shared drain budgets and SLO metrics -- on the CUDA card
-unless the caller passes ``device="cpu"``.  It returns the reference's
-``SimulateOutcome`` shape (numpy arrays, the same metric dict), so the
-two packages' results compare directly.  The reference's fleet layer
-(bucketing, ragged inputs) waits for a later slice: ``simulate`` takes
-one uniform ``[B, T, N]`` batch and calls ``sweep_lag`` directly.
+downtime, shared drain budgets and SLO metrics -- and ``optimize`` traces
+one instance's bins-vs-R-score Pareto frontier with the batched annealer,
+both on the CUDA card unless the caller passes ``device="cpu"``.  They
+return the reference's ``SimulateOutcome`` / ``OptimizeOutcome`` shapes
+(numpy arrays and plain floats), so the two packages' results compare
+directly.  The reference's fleet layer (bucketing, ragged inputs) waits
+for a later slice: ``simulate`` takes one uniform ``[B, T, N]`` batch and
+calls ``sweep_lag`` directly.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from repro_torch.lagsim import LagSimConfig, slo_summary, sweep_lag
-from repro_torch.registry import list_policies
+from repro_torch.registry import PACKER_FAMILIES, list_policies
 
 #: schema version stamped on every result dataclass (the reference's)
 API_VERSION = 1
@@ -60,4 +62,48 @@ def simulate(traces, *, policies: Optional[Sequence[str]] = None,
     return SimulateOutcome(policies=res.policies, metrics=metrics, **host)
 
 
-__all__ = ["API_VERSION", "SimulateOutcome", "simulate"]
+@dataclasses.dataclass
+class OptimizeOutcome:
+    """Annealed lambda-sweep Pareto frontier of one packing instance."""
+
+    lambdas: List[float]
+    per_lambda: List[Tuple[float, float]]   # best (bins, rscore) per lambda
+    front: List[Tuple[float, float]]        # non-dominated set
+    hypervolume: float
+    heuristics: Dict[str, dict]             # name -> frontier metrics
+    schema_version: int = API_VERSION
+
+
+def optimize(speeds, prev=None, capacity: float = 1.0, *,
+             lambdas: Sequence[float] = (0.0, 0.25, 0.5, 1.0, 2.0, 4.0, 8.0),
+             restarts: int = 4, steps: int = 250, seed: int = 0,
+             score_heuristics: Union[bool, Sequence[str]] = True,
+             device=None) -> OptimizeOutcome:
+    """Trace the bins-vs-R-score Pareto frontier of one instance with the
+    batched annealer (draws from a generator seeded ``seed``), and
+    optionally place registered packers against it by domination status
+    and hypervolume share.  ``device=None`` means the CUDA card."""
+    from repro_torch.opt import anneal_frontier, heuristic_point
+
+    sp = np.asarray(speeds, np.float64)
+    pv = (np.full(sp.shape[0], -1, np.int32) if prev is None
+          else np.asarray(prev, np.int32))
+    fr = anneal_frontier(sp, pv, capacity, lambdas=tuple(lambdas),
+                         restarts=restarts, steps=steps, seed=seed,
+                         device=device)
+    if score_heuristics is True:
+        names = list_policies(family=PACKER_FAMILIES)
+    elif score_heuristics:
+        names = tuple(score_heuristics)
+    else:
+        names = ()
+    heur = {name: fr.heuristic_metrics(
+        heuristic_point(name, sp, pv, capacity, device=device))
+        for name in names}
+    return OptimizeOutcome(lambdas=fr.lambdas, per_lambda=fr.per_lambda,
+                           front=fr.front, hypervolume=fr.hypervolume,
+                           heuristics=heur)
+
+
+__all__ = ["API_VERSION", "OptimizeOutcome", "SimulateOutcome", "optimize",
+           "simulate"]

@@ -3,9 +3,10 @@
 The lag twin has no weights: its counterparts are the configuration and
 the loop's state.  ``config_from_reference`` takes
 ``dataclasses.asdict`` of a reference ``LagSimConfig``;
-``state_from_numpy`` takes the loop state as numpy arrays.  Both are
-plain data in, port objects out, so a test can feed one set of inputs to
-both packages.
+``state_from_numpy`` takes the loop state as numpy arrays;
+``anneal_noise_from_numpy`` takes an anneal's random draws (the state of
+a stochastic policy).  All are plain data in, port objects out, so a test
+can feed one set of inputs to both packages.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.lagsim.engine import LagSimConfig, NotPortedError
+from repro_torch.opt.anneal import AnnealNoise
 
 
 def config_from_reference(fields: Mapping[str, Any]) -> LagSimConfig:
@@ -62,3 +64,18 @@ def state_from_numpy(initial_lag, prev_assign=None, reactive_state=None,
         react = tuple(torch.as_tensor(np.asarray(x, np.int64), device=dev)
                       for x in reactive_state)
     return LoopState(lag=lag, prev_assign=prev, reactive_state=react)
+
+
+def anneal_noise_from_numpy(gumbel, temps, device=None) -> AnnealNoise:
+    """Numpy draws -> the annealer's ``AnnealNoise`` on ``device`` (``None``
+    = the CUDA card): ``gumbel`` f32[steps, K, N*M+1] with "stay" last,
+    ``temps`` f32[steps].  The reference's draws, made by a test with its
+    own key chain, enter the port this way."""
+    dev = resolve_device(device)
+    g = torch.tensor(np.asarray(gumbel, np.float32), device=dev)
+    t = torch.tensor(np.asarray(temps, np.float32), device=dev)
+    if g.dim() != 3 or t.shape != (g.shape[0],):
+        raise ValueError(f"gumbel must be f32[steps, K, N*M+1] and temps "
+                         f"f32[steps]; got {list(g.shape)} and "
+                         f"{list(t.shape)}")
+    return AnnealNoise(gumbel=g, temps=t)

@@ -47,6 +47,9 @@ SIGNATURES = {
     # unread, asg|NULL, P, B, T, N, capacity, cap_step, dt, mig, stream
     "loop_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _F, _F, _F, _I, _P),
+    # loads, counts, assign, speeds, prev, lam, cap, active|NULL, out,
+    # K, N, M, stream
+    "move_eval_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

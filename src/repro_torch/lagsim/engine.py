@@ -126,12 +126,13 @@ _FIELDS = ("lag_total", "lag_max", "consumers", "migrations", "unreadable")
 
 
 def _simulate(traces, initial_lag, policy: str, cfg: LagSimConfig,
-              active=None, record_assign: bool = False):
+              active=None, record_assign: bool = False, options=None):
     """The per-step loop: one policy over stream rows ``traces
     f32[B, T, N]`` -> a ``LagTrace`` of ``[B, T]`` tensors (and ``assigns [B, T, N]`` with
     ``record_assign``).  ``active`` (bool[B, T, N]) marks the partitions
     that exist: a masked one produces nothing, is assigned ``NEG``,
-    drains no budget and ends every step at exactly 0 lag."""
+    drains no budget and ends every step at exactly 0 lag.  ``options``
+    go to ``make_policy`` (an optimizer's injected ``noise``)."""
     b, t, n = traces.shape
     m = 2 * n + 2                       # packer bin-name universe
     cfg = cfg.resolve(n)
@@ -141,7 +142,7 @@ def _simulate(traces, initial_lag, policy: str, cfg: LagSimConfig,
     dt = f32(cfg.dt)
     pol = make_policy(
         policy, n, f32(cfg.capacity), device=dev, strict=False,
-        lag_threshold=f32(cfg.lag_threshold),
+        options=options, lag_threshold=f32(cfg.lag_threshold),
         target_utilization=f32(cfg.target_utilization),
         max_consumers=cfg.max_consumers,
         scale_down_patience=cfg.scale_down_patience)
@@ -213,11 +214,13 @@ def _as_tensor(x, dtype, dev):
 
 def simulate_lag(trace, *, policy: str, cfg: LagSimConfig = LagSimConfig(),
                  initial_lag=None, active=None, record_assign: bool = False,
-                 device=None):
+                 device=None, policy_options=None):
     """One policy over one stream ``f32[T, N]`` -> ``LagTrace`` of ``[T]``
     (or ``(LagTrace, assigns i32[T, N])`` with ``record_assign``).
     ``initial_lag`` (f32[N]) seeds the backlog; ``active`` (bool[T, N])
-    masks partitions.  ``device=None`` means the CUDA card."""
+    masks partitions; ``policy_options`` maps a policy name to its
+    ``make_policy`` options (see ``sweep_lag``).  ``device=None`` means
+    the CUDA card."""
     dev = resolve_device(device)
     trace = _as_tensor(trace, torch.float32, dev)
     active = _as_tensor(active, torch.bool, dev)
@@ -231,7 +234,8 @@ def simulate_lag(trace, *, policy: str, cfg: LagSimConfig = LagSimConfig(),
         return simulate_fused(trace, initial_lag, policy, cfg, active=active,
                               record_assign=record_assign)
     res = _simulate(trace[None], initial_lag[None], policy, cfg,
-                    None if active is None else active[None], record_assign)
+                    None if active is None else active[None], record_assign,
+                    (policy_options or {}).get(policy))
     if record_assign:
         tr, assigns = res
         return LagTrace(**{f: getattr(tr, f)[0] for f in _FIELDS}), assigns[0]
@@ -240,11 +244,15 @@ def simulate_lag(trace, *, policy: str, cfg: LagSimConfig = LagSimConfig(),
 
 def sweep_lag(policies: Tuple[str, ...], traces,
               cfg: LagSimConfig = LagSimConfig(), active=None,
-              device=None) -> LagSweepResult:
+              device=None, policy_options=None) -> LagSweepResult:
     """Closed-loop sweep: every policy over a batch of streams
     ``f32[B, T, N]`` -> ``[P, B, T]`` trajectories.  The heuristic family
     runs as one family-batched fused call under ``fused_steps``; every
     other policy runs the per-step loop over all streams at once.
+    ``policy_options`` maps a policy name to its ``make_policy`` options:
+    ``{"ANNEAL": {"noise": [AnnealNoise, ...]}}`` injects the annealer's
+    draws, one ``AnnealNoise`` per simulated step (one decision), shared
+    by every stream.
     ``device=None`` means the CUDA card."""
     dev = resolve_device(device)
     traces = _as_tensor(traces, torch.float32, dev)
@@ -261,7 +269,8 @@ def sweep_lag(policies: Tuple[str, ...], traces,
             fused_fields = sweep_fused(group, traces, cfg, active=active)
     zero = torch.zeros((b, n), dtype=torch.float32, device=dev)
     per_policy = [LagTrace(**fused_fields[p]) if p in fused_fields
-                  else _simulate(traces, zero, p, cfg, active)
+                  else _simulate(traces, zero, p, cfg, active,
+                                 options=(policy_options or {}).get(p))
                   for p in policies]
     return LagSweepResult(
         **{f: torch.stack([getattr(tr, f) for tr in per_policy])

@@ -19,6 +19,7 @@ heuristic family       fused (``fused_kernel=True`` launches the
 sticky family          falls back to the per-step loop (the Modified
                        Any Fit schedule depends on the carry)
 reactive (idealized)   falls back to the per-step loop
+optimizer family       raises :class:`FusedPathError`
 control_plane set      raises :class:`FusedPathError`
 n > 14 partitions      falls back (32-bit name-mask limit)
 use_kernel=True        falls back (the reference routes per-step drain
@@ -46,9 +47,9 @@ FUSED_MAX_PARTITIONS = MAX_PARTITIONS
 
 
 class FusedPathError(ValueError):
-    """``fused_steps`` was combined with a config whose state cannot live
-    inside the fused loop (a control plane).  Drop ``fused_steps`` or the
-    offending piece."""
+    """``fused_steps`` was combined with a policy or config whose state
+    cannot live inside the fused loop (an optimizer, a control plane).
+    Drop ``fused_steps`` or the offending piece."""
 
 
 def fused_mode(policy: str, cfg, n: int) -> str:
@@ -56,6 +57,11 @@ def fused_mode(policy: str, cfg, n: int) -> str:
     ``"unfused"`` (documented fallback); raises :class:`FusedPathError`
     for a combination the fused path refuses (see the module table)."""
     spec = get_spec(policy)
+    if spec.family == "optimizer":
+        raise FusedPathError(
+            f"fused_steps is incompatible with optimizer policy "
+            f"{spec.name!r}: its PRNG-carrying anneal state cannot run "
+            f"inside the fused loop; drop fused_steps or the policy")
     if cfg.control_plane is not None:
         raise FusedPathError(
             "fused_steps is incompatible with control_plane: scaler "

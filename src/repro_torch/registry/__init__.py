@@ -5,8 +5,8 @@ The reference registry (``repro.registry``) is closed to its ``py`` and
 hyperparameters equal the reference's for every policy ported so far
 (a test holds them equal).
 
-* ``PolicySpec``  -- name, family (``heuristic|sticky|reactive``),
-  hyperparams, builder, one-shot packer and paper section.
+* ``PolicySpec``  -- name, family (``heuristic|sticky|optimizer|
+  reactive``), hyperparams, builder, one-shot packer and paper section.
 * ``Policy``      -- the batched protocol every policy satisfies::
 
       init(n) -> state
@@ -17,8 +17,8 @@ hyperparameters equal the reference's for every policy ported so far
   the partitions that exist: an inactive one comes back ``-1``, adds no
   load and never raises the consumer count.  State may start as 0-dim
   tensors and broadcast to ``[R]`` on the first step.
-* ``register`` / ``make_policy`` / ``get_spec`` / ``list_policies`` --
-  publication and discovery, in registration order.
+* ``register`` / ``make_policy`` / ``get_spec`` / ``list_policies`` /
+  ``packer_for`` -- publication and discovery, in registration order.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ class PolicySpec:
     """Registered metadata of one policy."""
 
     name: str                       # canonical upper-case name
-    family: str                     # heuristic | sticky | reactive
+    family: str                     # heuristic | sticky | optimizer | reactive
     hyperparams: Mapping[str, Any]  # default knobs, overridable
     builder: Callable               # (n, capacity, device, **hyper) -> (init, step)
     packer: Optional[Callable] = None   # one-shot packer (packer families)
@@ -121,11 +121,15 @@ def get_spec(name: str) -> PolicySpec:
 
 
 def make_policy(name: str, n: int, capacity: float = 1.0, *, device=None,
-                strict: bool = True, **overrides) -> Policy:
+                strict: bool = True, options: Optional[Mapping] = None,
+                **overrides) -> Policy:
     """Build the ``Policy`` for ``name`` over ``n`` partitions of consumer
     capacity ``capacity`` on ``device`` (``None`` = the CUDA card).
     ``strict=False`` ignores overrides the spec does not declare, so the
-    lag twin can pass one uniform knob set to every policy."""
+    lag twin can pass one uniform knob set to every policy.  ``options``
+    are run-time builder arguments that are not hyperparameters: only the
+    optimizer family takes one, ``noise`` (a sequence of
+    ``opt.AnnealNoise``, one per decision, in place of its generator)."""
     from repro_torch._device import resolve_device
 
     spec = get_spec(name)
@@ -136,8 +140,26 @@ def make_policy(name: str, n: int, capacity: float = 1.0, *, device=None,
             f"policy {spec.name!r} does not take hyperparams "
             f"{sorted(unknown)}; declared: {sorted(hyper)}")
     hyper.update({k: v for k, v in overrides.items() if k in hyper})
-    init, step = spec.builder(n, capacity, resolve_device(device), **hyper)
+    options = dict(options or {})
+    if options and (spec.family != "optimizer" or set(options) - {"noise"}):
+        raise ValueError(
+            f"policy {spec.name!r} ({spec.family}) does not take options "
+            f"{sorted(options)}; only the optimizer family takes 'noise'")
+    init, step = spec.builder(n, capacity, resolve_device(device), **hyper,
+                              **options)
     return Policy(init=init, step=step, spec=spec)
+
+
+def packer_for(name: str) -> Callable:
+    """The one-shot packer registered for ``name``: ``fn(speeds f32[R, N],
+    prev int[R, N], capacity, active=None) -> PackedRows``, batched over
+    rows.  Policies outside the packer families have none and raise
+    ``ValueError``."""
+    spec = get_spec(name)
+    if spec.packer is None:
+        raise ValueError(
+            f"policy {spec.name!r} ({spec.family}) has no one-shot packer")
+    return spec.packer
 
 
 __all__ = [
@@ -148,5 +170,6 @@ __all__ = [
     "get_spec",
     "list_policies",
     "make_policy",
+    "packer_for",
     "register",
 ]

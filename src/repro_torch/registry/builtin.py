@@ -3,9 +3,10 @@
   NF NFD FF FFD BF BFD WF WFD        (Sec. II-B classical, heuristic)
   MWF MBF MWFP MBFP                  (Sec. IV-B Algorithm 1, sticky)
   KEDA_LAG RATE_THRESHOLD            (idealized reactive baselines)
+  ANNEAL ANNEAL_STICKY               (2024 follow-up optimizers)
 
-The reference's control-plane scalers and annealing optimizers wait for
-later slices of the port.
+The reference's control-plane scalers (registered between the reactive
+baselines and the optimizers there) wait for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -13,8 +14,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.pack import modified_any_fit, pack
+from repro_torch.opt.anneal import anneal_assign
 
 from . import register
+
+ANNEAL_STICKY_LAMBDA = 4.0      # R-score weight of ANNEAL_STICKY
+ANNEAL_CHAINS = 6               # chains per decision step
+ANNEAL_STEPS = 48               # anneal steps per decision step
+ANNEAL_SEED = 0x0A11EA1         # seed of each run's noise generator
 
 # identity of each classical member: name -> (fit strategy, decreasing)
 CLASSICAL_SPECS = (
@@ -160,3 +167,56 @@ def _build_keda_lag(n, capacity, device, **hyper):
                   "ceil(total_rate / (target_utilization * C))")
 def _build_rate_threshold(n, capacity, device, **hyper):
     return _reactive_policy("rate", n, capacity, device, **hyper)
+
+
+def _anneal_policy(capacity, device, *, lam, chains, steps, noise=None):
+    """Best-of-chains simulated-annealing repack once per decision step.
+    The state is ``(decision index, generator)``: ``init`` seeds a fresh
+    generator on ``device``, so two runs with the same inputs agree, and
+    every row of a step shares the step's draws.  ``noise`` (a sequence
+    of ``AnnealNoise``, one per decision) replaces the generator.
+    ``active`` masks items out of the anneal: no chain moves them, they
+    count toward no bin, and they come back ``-1``."""
+
+    def init(n_partitions: int):
+        if noise is not None:
+            return (0, None)
+        return (0, torch.Generator(device=device).manual_seed(ANNEAL_SEED))
+
+    def step(speeds, lag, prev_assign, state, active=None):
+        t, gen = state
+        if noise is not None and t >= len(noise):
+            raise ValueError(f"noise holds {len(noise)} decisions; decision "
+                             f"{t} needs one more")
+        assign, n_bins = anneal_assign(
+            speeds, prev_assign, capacity, lam=lam, chains=chains,
+            steps=steps, noise=None if noise is None else noise[t],
+            generator=gen, active=active, device=device)
+        return assign.long(), n_bins, (t + 1, gen)
+
+    return init, step
+
+
+@register("ANNEAL", family="optimizer",
+          hyperparams={"lam": 0.0, "chains": ANNEAL_CHAINS,
+                       "steps": ANNEAL_STEPS},
+          paper_section="2024 follow-up",
+          summary="batched SA minimizing consumer count alone "
+                  "(rebalance-oblivious upper baseline)")
+def _build_anneal(n, capacity, device, *, lam=0.0, chains=ANNEAL_CHAINS,
+                  steps=ANNEAL_STEPS, noise=None):
+    return _anneal_policy(capacity, device, lam=lam, chains=chains,
+                          steps=steps, noise=noise)
+
+
+@register("ANNEAL_STICKY", family="optimizer",
+          hyperparams={"lam": ANNEAL_STICKY_LAMBDA, "chains": ANNEAL_CHAINS,
+                       "steps": ANNEAL_STEPS},
+          paper_section="2024 follow-up",
+          summary="batched SA over bins + lambda*Rscore "
+                  "(stability-priced optimizer)")
+def _build_anneal_sticky(n, capacity, device, *, lam=ANNEAL_STICKY_LAMBDA,
+                         chains=ANNEAL_CHAINS, steps=ANNEAL_STEPS,
+                         noise=None):
+    return _anneal_policy(capacity, device, lam=lam, chains=chains,
+                          steps=steps, noise=noise)

@@ -8,7 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import CudaUnavailableError, api  # noqa: E402
+from repro_torch import CudaUnavailableError, api, opt  # noqa: E402
 from repro_torch.core import scenarios  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.lagsim import simulate_lag, sweep_lag  # noqa: E402
@@ -47,8 +47,16 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: simulate_lag(np.zeros((3, 2), np.float32), policy="BFD"),
     lambda: make_policy("BFD", 2),
     lambda: scenarios.generate("bursty", 1, 3, 2),
+    lambda: api.optimize(np.full(3, 0.4), steps=2),
+    lambda: opt.anneal_pack(np.full(3, 0.4), np.zeros(3, np.int32), 1.0,
+                            np.zeros(2, np.float32), steps=2),
+    lambda: opt.anneal_assign(np.full(3, 0.4), np.zeros(3, np.int32), 1.0,
+                              chains=2, steps=2),
+    lambda: opt.anneal_frontier(np.full(3, 0.4), np.zeros(3, np.int32), 1.0,
+                                steps=2),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
-        "scenarios.generate"))
+        "scenarios.generate", "api.optimize", "opt.anneal_pack",
+        "opt.anneal_assign", "opt.anneal_frontier"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):

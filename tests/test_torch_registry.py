@@ -18,7 +18,8 @@ import repro_torch.registry as treg  # noqa: E402
 from repro_torch.convert import state_from_numpy  # noqa: E402
 
 PORTED = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD",
-          "MWF", "MBF", "MWFP", "MBFP", "KEDA_LAG", "RATE_THRESHOLD")
+          "MWF", "MBF", "MWFP", "MBFP", "KEDA_LAG", "RATE_THRESHOLD",
+          "ANNEAL", "ANNEAL_STICKY")
 
 
 def test_names_follow_reference_registration_order():
@@ -41,11 +42,29 @@ def test_family_filter_and_errors():
     with pytest.raises(ValueError, match="unknown family"):
         treg.list_policies(family="bogus")
     with pytest.raises(ValueError, match="unknown policy"):
-        treg.get_spec("ANNEAL")
+        treg.get_spec("KEDA_LAG_REAL")
     with pytest.raises(ValueError, match="does not take hyperparams"):
         treg.make_policy("BFD", 4, device="cpu", gain=2.0)
     with pytest.raises(ValueError, match="already registered"):
         treg.register("BFD", family="heuristic")(lambda *a, **k: None)
+    with pytest.raises(ValueError, match="does not take options"):
+        treg.make_policy("BFD", 4, device="cpu", options={"noise": []})
+    with pytest.raises(ValueError, match="has no one-shot packer"):
+        treg.packer_for("ANNEAL")
+
+
+@pytest.mark.parametrize("name", ("ANNEAL", "ANNEAL_STICKY"))
+def test_fused_mode_refuses_optimizers_like_the_reference(name):
+    from repro.lagsim import LagSimConfig as JConfig
+    from repro.lagsim.fused import FusedPathError as JFusedPathError
+    from repro.lagsim.fused import fused_mode as j_fused_mode
+    from repro_torch.lagsim import FusedPathError, LagSimConfig, fused_mode
+
+    with pytest.raises(JFusedPathError) as want:
+        j_fused_mode(name, JConfig(fused_steps=4), 6)
+    with pytest.raises(FusedPathError) as got:
+        fused_mode(name, LagSimConfig(fused_steps=4), 6)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("masked", (False, True))
