@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the lag twin on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the lag twin, the optimizer and LLM
+serving) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -9,8 +10,9 @@ Run from a checkout of the repository on a machine with a CUDA card and
 1. the card's name and power limit, torch and CUDA versions;
 2. building the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain PyTorch version on the card
-   (integers exact, floats ``rtol = atol = 1e-5``), at stress shapes and
-   at the shapes the two paths give it;
+   (integers exact, floats ``rtol = atol = 1e-5``; the attention
+   kernels at ``2e-5`` in float32 and ``2e-2`` in bfloat16), at stress
+   shapes and at the shapes the paths give it;
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -31,9 +33,22 @@ Run from a checkout of the repository on a machine with a CUDA card and
    250 anneal steps, all 12 packers scored against it; the same instance
    and seed with the plain move evaluation on the card must give the same
    frontier;
-8. each kernel's time at its path's shapes beside its bound and its plain
-   version's time; ``loop_fused`` and its plain version also run path A's
-   whole input once more, and their outputs are held against each other.
+8. path D, dense-LLM serving: qwen3-8b at full width and depth (36
+   layers) in bfloat16 with bfloat16 weights drawn on the card from
+   ``--seed``; D1 is ``make_prefill_step`` on 8 requests x 1024 prompt
+   tokens (36 flash-attention launches), D2 is ``SharedModel.generate``
+   on the same requests with a 1152-token cache: 1024 teacher-forced steps
+   and 128 greedy ones (36 x 1152 decode-attention launches);
+9. the agreement check of the LLM kernels: qwen3-8b at full width with 4
+   layers in float32, prefill and 16 greedy decode steps once with the
+   kernels and once with their plain versions on the card: logits within
+   1e-4, the same tokens (and the same prefill on the CPU, printed);
+10. each kernel's time at its path's shapes beside its bound, its plain
+   version's time and, for the attention kernels, the time of PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
+   a yardstick the port never calls); ``loop_fused`` and its plain
+   version also run path A's whole input once more, and their outputs
+   are held against each other.
 
 Kernel times (``ms``) and plain times (``plain_ms``) are device time per
 call: ``loop_fused`` is one long launch timed with CUDA events, and the
@@ -45,8 +60,9 @@ pays.
 Kernel launch counts are zeroed just before each path and read just
 after it; a path that launched none of its kernels fails.  The line
 before the last is a JSON object ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or outside a
-checkout, the script exits non-zero and prints no result.
+``{"ok": true, "device": {...}}``; the card's name and power limit are
+printed first and again just before them.  Without a CUDA card, or
+outside a checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -64,6 +80,10 @@ TOL = 1e-5
 CAPACITY = 1.0                # a consumer's drain rate (LagSimConfig's default)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LLM = "qwen3-8b"
+D_BATCH, D_PROMPT, D_GEN = 8, 1024, 128     # path D: requests, tokens
 
 
 class SmokeFailure(RuntimeError):
@@ -113,9 +133,10 @@ def graph_ms(fn, calls: int) -> float:
     return ms / calls
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -264,6 +285,350 @@ def check_move_eval(dev, gen, k, n):
     print(f"check move_eval K={k} N={n} M={2 * n + 2} masked and unmasked, "
           f"prev=-1, oversized items, empty bins: bit-exact")
     return 0.0
+
+
+def _attn_close(got, want, dtype, what: str) -> float:
+    import torch
+
+    err = _max_err(got, want)
+    tol = ATTN_TOL[dtype]
+    _require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+             f"{what}: kernel disagrees with its plain version (max abs err "
+             f"{err})")
+    return err
+
+
+def _normal(gen, shape, dtype, dev):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=dev).to(
+        getattr(torch, dtype))
+
+
+def check_flash(dev, gen, b, h, kv, sq, skv, hd, causal=True):
+    """Kernel against plain at q [b, h, sq, hd] over k/v [b, kv, skv, hd],
+    float32 and bfloat16."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        q = _normal(gen, (b, h, sq, hd), dtype, dev)
+        k = _normal(gen, (b, kv, skv, hd), dtype, dev)
+        v = _normal(gen, (b, kv, skv, hd), dtype, dev)
+        got = fa.flash_attention_fwd(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = _attn_close(got, want, dtype,
+                          f"flash_attention q={[b, h, sq, hd]} kv={kv} "
+                          f"skv={skv} causal={causal} {dtype}")
+        print(f"check flash_attention q=[{b}, {h}, {sq}, {hd}] kv_heads={kv} "
+              f"skv={skv} causal={causal} {dtype}: max_abs_err={err!r}")
+        worst = max(worst, err)
+        del q, k, v, got, want
+    return worst
+
+
+def check_decode(dev, gen, b, kv, g, s, hd, fills):
+    """Kernel against plain at q [b, kv, g, hd] over caches [b, kv, s, hd]
+    for each fill, float32 and bfloat16."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        q = _normal(gen, (b, kv, g, hd), dtype, dev)
+        k = _normal(gen, (b, kv, s, hd), dtype, dev)
+        v = _normal(gen, (b, kv, s, hd), dtype, dev)
+        for fill in fills:
+            clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+            got = da.decode_attention_fwd(q, k, v, clen)
+            want = da.decode_attention_plain(q, k, v, clen)
+            torch.cuda.synchronize()
+            err = _attn_close(got, want, dtype, f"decode_attention q="
+                              f"{[b, kv, g, hd]} S={s} fill={fill} {dtype}")
+            print(f"check decode_attention q=[{b}, {kv}, {g}, {hd}] S={s} "
+                  f"fill={fill} {dtype}: max_abs_err={err!r}")
+            worst = max(worst, err)
+        del q, k, v
+    return worst
+
+
+def run_path_d(dev, seed):
+    """qwen3-8b serving at full width and depth in bfloat16: D1 prefill,
+    D2 greedy generation.  Returns the kernels' launch counts and the
+    prompts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_params, param_bytes
+    from repro_torch.serving import SharedModel
+
+    cfg = dataclasses.replace(configs.get(LLM), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"path D: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} bf16: {cfg.n_params()} parameters, "
+          f"{param_bytes(params)} bytes on the card, drawn in "
+          f"{time.perf_counter() - t0!r} s")
+    gen = torch.Generator(dev).manual_seed(seed)
+    prompts = torch.randint(1, cfg.vocab_size, (D_BATCH, D_PROMPT),
+                            generator=gen, device=dev)
+    prefill = make_prefill_step(cfg, dev)
+    prefill(params, {"inputs": prompts[:1, :16]})     # cuBLAS warm-up
+
+    # D1: prefill
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"inputs": prompts})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    _require(counts["flash_attention_fwd"] == cfg.n_layers,
+             f"path D1: flash_attention launched "
+             f"{counts['flash_attention_fwd']} times, want {cfg.n_layers}")
+    _require(counts["decode_attention_fwd"] == 0,
+             "path D1 launched decode_attention")
+    _require(tuple(logits.shape) == (D_BATCH, cfg.vocab_size)
+             and bool(torch.isfinite(logits).all()),
+             f"path D1: logits {tuple(logits.shape)} not finite of shape "
+             f"[{D_BATCH}, {cfg.vocab_size}]")
+    first = logits.argmax(-1)
+    print(f"path D1 (prefill): {D_BATCH} x {D_PROMPT} tokens wall_s={wall!r} "
+          f"prefill_tokens_per_s={D_BATCH * D_PROMPT / wall!r} "
+          f"launches={{'flash_attention_fwd': "
+          f"{counts['flash_attention_fwd']}}} logits_absmax="
+          f"{float(logits.float().abs().max())!r}")
+    launches = {"flash_attention_fwd": counts["flash_attention_fwd"]}
+    del logits
+
+    # D2: greedy generation through the decode path
+    model = SharedModel(cfg, max_len=D_PROMPT + D_GEN, max_batch=D_BATCH,
+                        device=dev, params=params)
+    host_prompts = prompts.cpu().tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = model.generate(host_prompts, D_GEN)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    steps = D_PROMPT + D_GEN
+    want = cfg.n_layers * steps
+    _require(counts["decode_attention_fwd"] == want,
+             f"path D2: decode_attention launched "
+             f"{counts['decode_attention_fwd']} times, want {want}")
+    _require(counts["flash_attention_fwd"] == 0,
+             "path D2 launched flash_attention")
+    _require(out.shape == (D_BATCH, D_GEN) and (out >= 0).all()
+             and (out < cfg.vocab_size).all(),
+             f"path D2: generated tokens {out.shape} out of range")
+    agree = int((out[:, 0] == first.cpu().numpy()).sum())
+    cache_bytes = 4 * cfg.n_layers * D_BATCH * cfg.n_kv_heads * steps * \
+        cfg.head_dim
+    print(f"path D2 (generate): {D_BATCH} requests x ({D_PROMPT} "
+          f"teacher-forced + {D_GEN} greedy) steps, cache {steps} tokens "
+          f"({cache_bytes} bytes): wall_s={wall!r} "
+          f"ms_per_decode_step={wall / steps * 1e3!r} "
+          f"decode_tokens_per_s={D_BATCH * steps / wall!r} "
+          f"generated_tokens_per_s={D_BATCH * D_GEN / wall!r} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated()} "
+          f"launches={{'decode_attention_fwd': "
+          f"{counts['decode_attention_fwd']}}}")
+    print(f"  first generated token equals D1's argmax in {agree} of "
+          f"{D_BATCH} requests (bf16, two kernels: printed, not required)")
+    print(f"  tokens[0, :16]={np.asarray(out[0, :16]).tolist()}")
+    launches["decode_attention_fwd"] = counts["decode_attention_fwd"]
+
+    # one decode step at the full cache: its device time replayed as a
+    # CUDA graph (no host work in it) and the torch ops it dispatches
+    state = init_decode_state(cfg, D_BATCH, steps, dev)
+    state["cache_len"].fill_(steps - 1)
+    step = make_serve_step(cfg, dev)
+    tok = prompts[:, 0]
+    step_ms = graph_ms(lambda: step(params, state, {"inputs": tok}), 1)
+    with _op_counter() as ops:
+        step(params, state, {"inputs": tok})
+    print(f"  one decode step at fill {steps - 1}: device_ms={step_ms!r} "
+          f"(CUDA graph replay) torch_ops={ops.n} "
+          f"({ops.n / cfg.n_layers!r} a layer) against "
+          f"{wall / steps * 1e3!r} ms a step in D2")
+    return launches
+
+
+def _op_counter():
+    """A dispatch mode whose ``n`` counts the torch operators dispatched
+    inside its block."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return OpCount()
+
+
+class _PlainAttention:
+    """Within the block, the model's attention calls the kernels' plain
+    versions (on the card) instead of the kernels."""
+
+    def __enter__(self):
+        from repro_torch.kernels import decode_attention as da
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models import attention
+
+        self._saved = (attention.flash_attention_fwd,
+                       attention.decode_attention_fwd)
+        attention.flash_attention_fwd = fa.flash_attention_plain
+        attention.decode_attention_fwd = da.decode_attention_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        (attention.flash_attention_fwd,
+         attention.decode_attention_fwd) = self._saved
+
+
+def llm_agreement(dev, seed, layers=4, batch=2, prompt=48, steps=16):
+    """qwen3-8b at full width with ``layers`` layers in float32: prefill
+    and ``steps`` greedy decode steps with the kernels, then with the plain
+    versions on the card.  Logits within 1e-4, the same tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_params
+
+    cfg = dataclasses.replace(configs.get(LLM), n_layers=layers,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, seed=seed + 1, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    toks = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+
+    def run():
+        logits = [make_prefill_step(cfg, dev)(params, {"inputs": toks})]
+        step = make_serve_step(cfg, dev)
+        state = init_decode_state(cfg, batch, prompt + steps, dev)
+        for t in range(prompt):
+            out, state = step(params, state, {"inputs": toks[:, t]})
+        cur, chosen = out.argmax(-1), []
+        logits.append(out)
+        for _ in range(steps - 1):
+            chosen.append(cur)
+            out, state = step(params, state, {"inputs": cur})
+            logits.append(out)
+            cur = out.argmax(-1)
+        chosen.append(cur)
+        torch.cuda.synchronize()
+        return torch.stack(logits), torch.stack(chosen, 1)
+
+    got, got_tok = run()
+    with _PlainAttention():
+        want, want_tok = run()
+    err = _max_err(got, want)
+    _require(torch.equal(got_tok, want_tok),
+             "LLM agreement: greedy tokens differ between the kernels and "
+             "their plain versions")
+    _require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+             f"LLM agreement: logits differ by {err} (> 1e-4)")
+    print(f"LLM agreement: {cfg.name} d_model={cfg.d_model} {layers} layers "
+          f"float32, prefill {batch} x {prompt} then {prompt} teacher-forced "
+          f"+ {steps} greedy decode steps: kernels vs plain versions on the "
+          f"card max_abs_err={err!r} (logits absmax "
+          f"{float(want.abs().max())!r}), tokens equal")
+    # the same prefill on the host's CPU (plain versions): how far the
+    # card's float32 (norms, RoPE, products, kernels) drifts from it
+    host = make_prefill_step(cfg, "cpu")(_tree_to(params, "cpu"),
+                                         {"inputs": toks.cpu()})
+    drift = _max_err(got[0].cpu(), host)
+    same = int((got[0].argmax(-1).cpu() == host.argmax(-1)).sum())
+    print(f"  card vs CPU, float32 prefill logits: max_abs_diff={drift!r}, "
+          f"argmax equal in {same} of {batch} (printed, not required)")
+    return err
+
+
+def _tree_to(tree, device):
+    """A copy of a parameter tree (dicts, lists, tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def attention_rows(dev, seed, launches, errs):
+    """Kernel rows of flash_attention (path D1's call) and decode_attention
+    (path D2's call at the full cache)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    b, h, kv, s, hd = D_BATCH, 32, 8, D_PROMPT, 128
+    q = _normal(gen, (b, h, s, hd), "bfloat16", dev)
+    k = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    v = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    kern = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(  # noqa: E731
+        q, k, v, causal=True)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                       4 * b * h * s * s * hd / 2, BF16_OPS_PER_S)
+    rows = [dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:73",
+        launches=launches["flash_attention_fwd"],
+        max_abs_err=errs["flash_attention_fwd"], ms=graph_ms(kern, 10),
+        plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
+        library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])]
+    del q, k, v
+
+    g, smax = h // kv, D_PROMPT + D_GEN
+    fill = smax - 1
+    q = _normal(gen, (b, kv, g, hd), "bfloat16", dev)
+    kc = _normal(gen, (b, kv, smax, hd), "bfloat16", dev)
+    vc = _normal(gen, (b, kv, smax, hd), "bfloat16", dev)
+    clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+    q4 = q.reshape(b, h, 1, hd)
+    kern = lambda: da.decode_attention_fwd(q, kc, vc, clen)  # noqa: E731
+    plain = lambda: da.decode_attention_plain(q, kc, vc, clen)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kc[:, :, :fill + 1], vc[:, :, :fill + 1], enable_gqa=True)
+    _require(torch.allclose(lib().reshape(q.shape).float(), kern().float(),
+                            rtol=2e-2, atol=2e-2),
+             "decode_attention and scaled_dot_product_attention disagree")
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
+                       4 * b * h * (fill + 1) * hd, BF16_OPS_PER_S)
+    rows.append(dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:65",
+        launches=launches["decode_attention_fwd"],
+        max_abs_err=errs["decode_attention_fwd"], ms=graph_ms(kern, 200),
+        plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
+        library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0]))
+    return rows
 
 
 def heuristic_kwargs():
@@ -463,6 +828,14 @@ def run_path(name, policies, rates, act, kernels, **over):
     return out, {k: counts[k] for k in kernels}
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -486,14 +859,13 @@ def main(argv=None) -> int:
     from repro_torch.kernels import loop_fused as lf
     from repro_torch.kernels import move_eval as me
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
+    # full float32 products: the plain versions are the yardsticks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
@@ -515,7 +887,16 @@ def main(argv=None) -> int:
         "move_delta_batch": max(
             check_move_eval(dev, gen, 6144, 32),       # path C1
             check_move_eval(dev, gen, 28, 256),        # path C2
-            check_move_eval(dev, gen, 1024, 301))}     # stress, ragged tile
+            check_move_eval(dev, gen, 1024, 301)),     # stress, ragged tile
+        "flash_attention_fwd": max(
+            check_flash(dev, gen, D_BATCH, 32, 8, D_PROMPT, D_PROMPT, 128),
+            check_flash(dev, gen, 1, 32, 8, 8192, 8192, 128),   # stress
+            check_flash(dev, gen, 2, 32, 8, 1000, 1000, 128),   # odd length
+            check_flash(dev, gen, 2, 32, 8, 333, 1000, 128, causal=False)),
+        "decode_attention_fwd": max(
+            check_decode(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN, 128,
+                         (0, 7, D_PROMPT + D_GEN - 1)),        # path D2
+            check_decode(dev, gen, D_BATCH, 8, 4, 32768, 128, (32767,)))}
 
     # path A: the heuristic packers through the loop_fused kernel
     rates_a, act_a = traffic_mix(4096, 2880, 14, args.seed, dev)
@@ -554,6 +935,12 @@ def main(argv=None) -> int:
 
     # path C2: one large topic's frontier through api.optimize
     run_path_c2(dev, args.seed)
+
+    # path D: qwen3-8b serving, prefill and greedy generation
+    launches_d = run_path_d(dev, args.seed)
+    torch.cuda.empty_cache()
+    llm_agreement(dev, args.seed)
+    torch.cuda.empty_cache()
 
     # per-kernel times at the paths' shapes
     kernels = []
@@ -666,13 +1053,19 @@ def main(argv=None) -> int:
           f"bound_ms={bnd!r} ({by}) wrapper_ms={cuda_ms(kern, 200)[0]!r} "
           f"launches=n/a (no path calls the rank-1 entry)")
 
+    kernels += attention_rows(dev, args.seed, launches_d, errs)
+
     for kern in kernels:
         print(f"kernel {kern['name']}: ms={kern['ms']!r} "
               f"plain_ms={kern['plain_ms']!r} bound_ms={kern['bound_ms']!r} "
-              f"({kern['bound_by']}) wrapper_ms={kern['wrapper_ms']!r} "
+              f"({kern['bound_by']}) library_ms={kern['library_ms']!r} "
+              f"wrapper_ms={kern['wrapper_ms']!r} "
               f"launches={kern['launches']}")
 
     print(f"total_s={time.perf_counter() - t_start!r}")
+    # the card again, so that it stands in the output's tail beside the
+    # numbers (the build's register report above is long)
+    print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

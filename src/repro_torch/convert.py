@@ -5,8 +5,9 @@ the loop's state.  ``config_from_reference`` takes
 ``dataclasses.asdict`` of a reference ``LagSimConfig``;
 ``state_from_numpy`` takes the loop state as numpy arrays;
 ``anneal_noise_from_numpy`` takes an anneal's random draws (the state of
-a stochastic policy).  All are plain data in, port objects out, so a test
-can feed one set of inputs to both packages.
+a stochastic policy).  The LLM's weights come across with
+``params_from_numpy``.  All are plain data in, port objects out, so a
+test can feed one set of inputs to both packages.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.lagsim.engine import LagSimConfig, NotPortedError
+from repro_torch.models import ArchConfig
+from repro_torch.models.transformer import param_shapes
 from repro_torch.opt.anneal import AnnealNoise
 
 
@@ -79,3 +82,56 @@ def anneal_noise_from_numpy(gumbel, temps, device=None) -> AnnealNoise:
                          f"f32[steps]; got {list(g.shape)} and "
                          f"{list(t.shape)}")
     return AnnealNoise(gumbel=g, temps=t)
+
+
+def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
+                      device=None) -> dict:
+    """The reference's parameter pytree (nested dicts of numpy arrays, any
+    float dtype, bf16 included) -> the port's params on ``device`` (``None``
+    = the CUDA card) in ``cfg.param_dtype``.
+
+    The reference stacks the layers on a leading dim (``layers.attn.wq``
+    is (L, d, H, hd)); the port keeps a list of per-layer dicts.  Leaf
+    shapes are checked against ``cfg``: ``wq`` (d, H, hd), ``wo`` (H, hd,
+    d) and so on.
+    """
+    dev = resolve_device(device)
+    shapes = param_shapes(cfg)
+
+    def leaf(name, arr):
+        t = torch.tensor(np.asarray(arr, np.float32), device=dev)
+        if name not in shapes or tuple(t.shape) != shapes[name]:
+            raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
+                             f"want {shapes.get(name, 'no such parameter')}")
+        return t.to(cfg.pdtype)
+
+    def walk(prefix, node, layer=None):
+        """The subtree's leaves as tensors; ``layer`` picks one layer out
+        of the stacked leaves."""
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                out[k] = walk(f"{prefix}{k}.", v, layer)
+            else:
+                out[k] = leaf(f"{prefix}{k}", v if layer is None else v[layer])
+        return out
+
+    out = {k: walk(f"{k}.", v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [walk(f"layers.{i}.", tree["layers"], i)
+                     for i in range(cfg.n_layers)]
+    missing = set(shapes) - set(_names(out))
+    if missing:
+        raise ValueError(f"parameters missing from the tree: "
+                         f"{sorted(missing)[:5]}")
+    return out
+
+
+def _names(node, prefix=""):
+    if isinstance(node, Mapping):
+        for k, v in node.items():
+            yield from _names(v, f"{prefix}{k}.")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _names(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1]

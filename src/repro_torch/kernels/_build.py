@@ -50,6 +50,13 @@ SIGNATURES = {
     # loads, counts, assign, speeds, prev, lam, cap, active|NULL, out,
     # K, N, M, stream
     "move_eval_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, out, B, H, KV, Sq, Skv, hd, causal, stream
+    "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k_cache, v_cache, cache_len (device int32), out, B, KV, G, S, hd,
+    # stream
+    "decode_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "decode_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

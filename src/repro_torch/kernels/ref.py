@@ -27,3 +27,39 @@ def select_slot_ref(loads, w, k, capacity, *, strategy: str = "best"):
     else:
         raise ValueError(strategy)
     return torch.where(fits.any(1), best, m).to(torch.int32)
+
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool = True):
+    """Full-softmax attention in float32.  q: (B, H, Sq, hd); k/v: (B, KV,
+    Skv, hd) with H % KV == 0, q head h reading kv head h // (H / KV) (the
+    G query heads of a group share one matrix product: nothing is
+    repeated).  ``causal`` masks ``k_pos > q_pos`` by absolute position.
+    Returns (B, H, Sq, hd) in q.dtype."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, kvh, (h // kvh) * sq, hd)
+    s = (qg @ k.float().transpose(-1, -2)) * hd ** -0.5   # (B, KV, G*Sq, Skv)
+    if causal:
+        q_pos = torch.arange(sq, device=q.device).repeat(h // kvh)
+        mask = q_pos[:, None] >= torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(mask, s, NEG_INF)
+    o = torch.softmax(s, dim=-1) @ v.float()
+    return o.reshape(b, h, sq, hd).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, cache_len):
+    """One query token per sequence against a cache, in float32.  q: (B, KV,
+    G, hd); caches: (B, KV, S, hd); ``cache_len`` an int or an integer
+    tensor of one element (on q's device): positions ``[0, cache_len]``
+    are attended.  Returns (B, KV, G, hd) in q.dtype."""
+    hd, s_len = q.shape[-1], k_cache.shape[2]
+    s = (q.float() @ k_cache.float().transpose(-1, -2)) * hd ** -0.5
+    if torch.is_tensor(cache_len):
+        cache_len = cache_len.reshape(())
+    valid = torch.arange(s_len, device=q.device) <= cache_len
+    s = torch.where(valid, s, NEG_INF)
+    o = torch.softmax(s, dim=-1) @ v_cache.float()
+    return o.to(q.dtype)

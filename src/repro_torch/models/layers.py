@@ -1,0 +1,173 @@
+"""Shared building blocks: norms, RoPE, MLPs, embeddings and logits.
+
+Each function computes what its counterpart in the reference's
+``models/layers.py`` computes, in the same dtypes: norms and RoPE in
+float32, cast back to the activation dtype; weights cast to the
+activation dtype at each use (a no-op when ``param_dtype == dtype``).
+The projections are plain matrix products (``torch.matmul``), as the
+reference leaves them to XLA.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .base import ArchConfig, NotPortedError, scaled_normal
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(cfg: ArchConfig, *, device=None) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": torch.ones(d, dtype=cfg.pdtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        return {"scale": torch.ones(d, dtype=cfg.pdtype, device=device),
+                "bias": torch.zeros(d, dtype=cfg.pdtype, device=device)}
+    if cfg.norm_type == "nonparametric_ln":   # olmo: no affine params
+        return {}
+    raise ValueError(cfg.norm_type)
+
+
+def _rms(xf: torch.Tensor) -> torch.Tensor:
+    return xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+
+
+def apply_norm(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm_type == "rmsnorm":
+        return (_rms(xf) * p["scale"].float()).to(x.dtype)
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + 1e-5)
+    if cfg.norm_type == "layernorm":
+        y = y * p["scale"].float() + p["bias"].float()
+    elif cfg.norm_type != "nonparametric_ln":
+        raise ValueError(cfg.norm_type)
+    return y.to(x.dtype)
+
+
+def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """qk-norm (qwen3): RMS norm over head_dim."""
+    return (_rms(x.float()) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings (1-D RoPE)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(cfg: ArchConfig, device=None) -> torch.Tensor:
+    """f32 (hd/2,) inverse frequencies ``1 / theta ** (2i / hd)``.  They are
+    computed on the host (``pow`` in float32) and cached per device, so
+    the card uses the same values as the CPU: PyTorch's CUDA ``pow`` with
+    a scalar base runs ``exp(x * log(base))``, ulps away."""
+    return _freqs(cfg.head_dim, float(cfg.rope_theta),
+                  str(torch.device("cpu" if device is None else device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _freqs(hd: int, theta: float, device: str) -> torch.Tensor:
+    exp = torch.arange(0, hd, 2, dtype=torch.float32) / hd
+    return (1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32), exp)
+            ).to(device)
+
+
+Rope = Tuple[torch.Tensor, torch.Tensor]
+
+
+def rope_tables(positions: torch.Tensor, cfg: ArchConfig) -> Rope:
+    """``(cos, sin)``, each f32 (B, S, 1, hd/2), for positions (B, S).
+    Every layer of one call shares them, so callers compute them once."""
+    if cfg.mrope_sections or positions.dim() == 3:
+        raise NotPortedError("M-RoPE (qwen2-vl's 3-stream positions) is not "
+                             "yet ported to repro_torch")
+    theta = positions.float()[..., None] * rope_freqs(cfg, positions.device)
+    return torch.cos(theta)[:, :, None, :], torch.sin(theta)[:, :, None, :]
+
+
+def rotate(x: torch.Tensor, rope: Rope) -> torch.Tensor:
+    """Rotate x (B, S, H, hd) by precomputed ``rope_tables``."""
+    cos, sin = rope
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int."""
+    return rotate(x, rope_tables(positions, cfg))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU or GELU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(cfg: ArchConfig, *,
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"wi": scaled_normal((d, f), d, cfg.pdtype, generator=generator),
+         "wo": scaled_normal((f, d), f, cfg.pdtype, generator=generator)}
+    if cfg.gated_mlp:
+        p["wg"] = scaled_normal((d, f), d, cfg.pdtype, generator=generator)
+    return p
+
+
+def apply_mlp(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = cfg.adtype
+    h = x @ p["wi"].to(dt)
+    if cfg.gated_mlp:
+        g = x @ p["wg"].to(dt)
+        h = F.silu(g.float()).to(dt) * h
+    else:   # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(h.float(), approximate="tanh").to(dt)
+    return h @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embeddings + logits
+# ---------------------------------------------------------------------------
+
+
+def _tokens_only(cfg: ArchConfig) -> None:
+    if cfg.input_mode != "tokens":
+        raise NotPortedError(f"input_mode={cfg.input_mode!r} (the VLM/audio "
+                             f"front end) is not yet ported to repro_torch")
+
+
+def init_embedding(cfg: ArchConfig, *,
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    _tokens_only(cfg)
+    return {"table": scaled_normal((cfg.vocab_size, cfg.d_model), cfg.d_model,
+                                   cfg.pdtype, generator=generator)}
+
+
+def embed_inputs(p: Dict, cfg: ArchConfig, inputs: torch.Tensor
+                 ) -> torch.Tensor:
+    """Token ids (...) -> embeddings (..., d) in the activation dtype (the
+    rows are gathered first, then cast: the same values as the reference's
+    cast-then-gather)."""
+    _tokens_only(cfg)
+    return p["table"][inputs.long()].to(cfg.adtype)
+
+
+def init_lm_head(cfg: ArchConfig, *,
+                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    if cfg.tie_embeddings:
+        return {}
+    return {"w": scaled_normal((cfg.d_model, cfg.vocab_size), cfg.d_model,
+                               cfg.pdtype, generator=generator)}
+
+
+def logits_fn(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = cfg.adtype
+    if cfg.tie_embeddings:
+        return x @ params["embedding"]["table"].to(dt).T
+    return x @ params["lm_head"]["w"].to(dt)

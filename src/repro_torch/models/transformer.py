@@ -1,0 +1,174 @@
+"""Dense decoder-only model assembly: init, the prefill backbone and the
+one-token serve step.
+
+The reference scans one stacked set of layer weights; the port keeps the
+layers as a list of per-layer dicts and loops over them (PyTorch runs
+eagerly; a list saves indexing every stacked leaf every step).  The MoE,
+hybrid (Mamba), RWKV and encoder-decoder branches raise
+:class:`NotPortedError`, as does the tailed decode.  ``forward`` (the
+training loss) waits for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch._device import resolve_device
+
+from .attention import (attention_block, decode_attention, init_attention,
+                        init_kv_cache)
+from .base import ArchConfig, NotPortedError
+from .layers import (apply_mlp, apply_norm, embed_inputs, init_embedding,
+                     init_lm_head, init_mlp, init_norm, logits_fn,
+                     rope_tables)
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise :class:`NotPortedError` naming the first option of ``cfg``
+    that this slice does not carry."""
+    for flag, what in ((cfg.encoder_decoder, "the encoder-decoder family "
+                        "(whisper)"),
+                       (cfg.rwkv, "the RWKV family"),
+                       (cfg.attn_layer_period > 0, "the hybrid Mamba family"),
+                       (cfg.moe, "mixture-of-experts layers"),
+                       (cfg.input_mode != "tokens", f"input_mode="
+                        f"{cfg.input_mode!r}"),
+                       (bool(cfg.mrope_sections), "M-RoPE"),
+                       (cfg.decode_tail_window > 0, "the tailed decode "
+                        "(decode_tail_window > 0)")):
+        if flag:
+            raise NotPortedError(f"{cfg.name}: {what} is not yet ported to "
+                                 f"repro_torch")
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter's shape by dotted name (layer ``i`` as
+    ``layers.i.``), the counterpart of the reference's ``eval_shape``."""
+    check_ported(cfg)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    norm = {"rmsnorm": {"scale": (d,)},
+            "layernorm": {"scale": (d,), "bias": (d,)},
+            "nonparametric_ln": {}}[cfg.norm_type]
+    layer = {"attn.wq": (d, h, hd), "attn.wk": (d, kv, hd),
+             "attn.wv": (d, kv, hd), "attn.wo": (h, hd, d),
+             "ffn.wi": (d, f), "ffn.wo": (f, d)}
+    if cfg.qk_norm:
+        layer.update({"attn.q_norm": (hd,), "attn.k_norm": (hd,)})
+    if cfg.gated_mlp:
+        layer["ffn.wg"] = (d, f)
+    for ln in ("ln1", "ln2"):
+        layer.update({f"{ln}.{k}": s for k, s in norm.items()})
+    out = {"embedding.table": (v, d)}
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{k}": s for k, s in layer.items()})
+    out.update({f"final_norm.{k}": s for k, s in norm.items()})
+    if not cfg.tie_embeddings:
+        out["lm_head.w"] = (d, v)
+    return out
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Random parameters drawn on ``device`` (``None`` = the CUDA card) from
+    a ``torch.Generator`` seeded with ``seed``, directly in
+    ``cfg.param_dtype``.  ``params["layers"]`` is a list of per-layer
+    dicts ``{"ln1", "attn", "ln2", "ffn"}``."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Dict[str, Any] = {"embedding": init_embedding(cfg, generator=gen)}
+    params["layers"] = [
+        {"ln1": init_norm(cfg, device=dev),
+         "attn": init_attention(cfg, generator=gen),
+         "ln2": init_norm(cfg, device=dev),
+         "ffn": init_mlp(cfg, generator=gen)}
+        for _ in range(cfg.n_layers)]
+    params["final_norm"] = init_norm(cfg, device=dev)
+    params["lm_head"] = init_lm_head(cfg, generator=gen)
+    return params
+
+
+def param_bytes(params) -> int:
+    """Bytes held by a parameter tree."""
+    if torch.is_tensor(params):
+        return params.numel() * params.element_size()
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    return sum(param_bytes(v) for v in params)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def _dense_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, rope) -> torch.Tensor:
+    h = apply_norm(lp["ln1"], cfg, x)
+    x = x + attention_block(lp["attn"], cfg, h, positions, rope=rope)
+    h = apply_norm(lp["ln2"], cfg, x)
+    return x + apply_mlp(lp["ffn"], cfg, h)
+
+
+def backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings (B, S, d) -> final norm output (B, S, d).  The
+    reference also returns the MoE auxiliary loss, which a dense model
+    does not have."""
+    check_ported(cfg)
+    rope = rope_tables(positions, cfg)
+    for lp in params["layers"]:
+        x = _dense_block(lp, cfg, x, positions, rope)
+    return apply_norm(params["final_norm"], cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# decode (serve_step)
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      device=None) -> Dict[str, Any]:
+    """``{"cache_len": int32 scalar, "kv": {"k", "v"}}`` on ``device``
+    (``None`` = the CUDA card), sized for ``max_len`` tokens."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    return {"cache_len": torch.zeros((), dtype=torch.int32, device=dev),
+            "kv": init_kv_cache(cfg, batch, max_len, device=dev)}
+
+
+def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
+               ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step: new token ids (B,) or (B, 1) -> logits (B, V).
+
+    The KV cache holds ``state["cache_len"]`` tokens; the step appends one,
+    writing the cache in place, and returns ``(logits, new_state)`` with
+    ``new_state["cache_len"]`` one more.  ``cache_len`` stays on the
+    device: the step never syncs the host.
+    """
+    check_ported(cfg)
+    inputs = batch["inputs"]
+    if inputs.dim() == 1:
+        inputs = inputs[:, None]
+    x = embed_inputs(params["embedding"], cfg, inputs)      # (B, 1, d)
+    clen = state["cache_len"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = clen.reshape(1, 1).expand(x.shape[0], 1)
+    rope = rope_tables(positions, cfg)
+    kc, vc = state["kv"]["k"], state["kv"]["v"]
+    for i, lp in enumerate(params["layers"]):
+        h = apply_norm(lp["ln1"], cfg, x)
+        y, _, _ = decode_attention(lp["attn"], cfg, h, kc[i], vc[i], clen,
+                                   positions, rope=rope)
+        x = x + y
+        h = apply_norm(lp["ln2"], cfg, x)
+        x = x + apply_mlp(lp["ffn"], cfg, h)
+    h = apply_norm(params["final_norm"], cfg, x)
+    logits = logits_fn(params, cfg, h)[:, 0, :]
+    return logits, {"cache_len": clen + 1, "kv": state["kv"]}
+
+
+__all__ = ["backbone", "check_ported", "init_decode_state", "init_params",
+           "param_bytes", "param_shapes", "serve_step"]

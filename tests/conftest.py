@@ -8,3 +8,9 @@ import sys
 _SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 if os.path.abspath(_SRC) not in [os.path.abspath(p) for p in sys.path]:
     sys.path.insert(0, os.path.abspath(_SRC))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips "
+        "without one")

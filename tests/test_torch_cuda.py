@@ -1,0 +1,112 @@
+"""The port's LLM kernels on the card, against their plain versions.
+
+Every test here needs a CUDA card and ``nvcc`` (the kernels are built from
+``src/repro_torch/kernels/csrc`` on first use); without a card each one
+skips.  The file imports nothing of JAX, so it also runs on a machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
+odd length, and a small model end to end; tolerances as everywhere for
+these kernels: 2e-5 in float32, 2e-2 in bfloat16.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_fwd, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_fwd, flash_attention_plain)
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.models import init_decode_state, init_params  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are built and run there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _normal(seed, shapes, dtype, dev):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(s, dtype=np.float32)).to(
+        device=dev, dtype=dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,hd", [
+    (1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 256, 64),
+    (1, 4, 1, 256, 256, 128), (1, 2, 2, 64, 192, 32),
+    (2, 4, 2, 100, 100, 16),          # odd length, smoke head dim
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, b, h, kv, sq, skv, hd, dtype,
+                                    causal):
+    q, k, v = _normal(4, [(b, h, sq, hd), (b, kv, skv, hd),
+                          (b, kv, skv, hd)], dtype, cuda)
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,kv,g,s,hd", [
+    (2, 2, 4, 256, 64), (1, 4, 1, 128, 128), (3, 1, 8, 512, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fill", [0, 7, 200])
+def test_decode_kernel_matches_plain(cuda, b, kv, g, s, hd, dtype, fill):
+    q, k, v = _normal(5, [(b, kv, g, hd), (b, kv, s, hd), (b, kv, s, hd)],
+                      dtype, cuda)
+    clen = torch.tensor(fill, dtype=torch.int32, device=cuda)
+    before = decode_attention_fwd.launches
+    got = decode_attention_fwd(q, k, v, clen)
+    torch.cuda.synchronize()
+    assert decode_attention_fwd.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), decode_attention_plain(q, k, v, clen).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "granite-3-8b"])
+def test_model_on_the_card_matches_the_cpu(cuda, arch):
+    """The smoke model in float32: prefill and six decode steps on the card
+    (kernels) against the same weights on the CPU (plain versions)."""
+    cfg = dataclasses.replace(configs.get(arch, smoke=True),
+                              dtype="float32")
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    params = {k: v for k, v in cpu_params.items() if k != "layers"}
+    params = {k: {n: t.to(cuda) for n, t in v.items()}
+              for k, v in params.items()}
+    params["layers"] = [{k: {n: t.to(cuda) for n, t in v.items()}
+                         for k, v in lp.items()}
+                        for lp in cpu_params["layers"]]
+    toks = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    torch.testing.assert_close(
+        make_prefill_step(cfg, cuda)(params, {"inputs": toks}).cpu(),
+        make_prefill_step(cfg, "cpu")(cpu_params, {"inputs": toks}),
+        rtol=1e-5, atol=1e-5)
+    states = [init_decode_state(cfg, 2, 8, d) for d in (cuda, "cpu")]
+    steps = [make_serve_step(cfg, d) for d in (cuda, "cpu")]
+    for t in range(6):
+        (got, states[0]), (want, states[1]) = (
+            step(p, st, {"inputs": toks[:, t]})
+            for step, p, st in zip(steps, (params, cpu_params), states))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert int(states[0]["cache_len"]) == 6

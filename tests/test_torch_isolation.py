@@ -8,11 +8,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import CudaUnavailableError, api, opt  # noqa: E402
+from repro_torch import CudaUnavailableError, api, configs, opt  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import scenarios  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.lagsim import simulate_lag, sweep_lag  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
+from repro_torch.models import init_decode_state, init_params  # noqa: E402
 from repro_torch.registry import make_policy  # noqa: E402
+from repro_torch.serving import SharedModel  # noqa: E402
+
+LLM = configs.get("qwen3-8b", smoke=True)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "repro")
@@ -54,9 +61,17 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
                               chains=2, steps=2),
     lambda: opt.anneal_frontier(np.full(3, 0.4), np.zeros(3, np.int32), 1.0,
                                 steps=2),
+    lambda: make_prefill_step(LLM),
+    lambda: make_serve_step(LLM),
+    lambda: SharedModel(LLM),
+    lambda: init_params(LLM),
+    lambda: init_decode_state(LLM, 1, 4),
+    lambda: params_from_numpy({}, LLM),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
-        "opt.anneal_assign", "opt.anneal_frontier"))
+        "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
+        "make_serve_step", "SharedModel", "init_params",
+        "init_decode_state", "params_from_numpy"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):
