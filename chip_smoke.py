@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (the lag twin, the optimizer and LLM
-serving) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the lag twin, the optimizer, and LLM
+serving of a dense model and of RWKV-6) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -11,8 +11,9 @@ Run from a checkout of the repository on a machine with a CUDA card and
 2. building the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain PyTorch version on the card
    (integers exact, floats ``rtol = atol = 1e-5``; the attention
-   kernels at ``2e-5`` in float32 and ``2e-2`` in bfloat16), at stress
-   shapes and at the shapes the paths give it;
+   kernels at ``2e-5`` in float32 and ``2e-2`` in bfloat16; the WKV
+   kernel within ``1e-4`` of the largest magnitude of its plain result),
+   at stress shapes and at the shapes the paths give it;
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -40,13 +41,26 @@ Run from a checkout of the repository on a machine with a CUDA card and
    on the same requests with a 1152-token cache: 1024 teacher-forced steps
    and 128 greedy ones (36 x 1152 decode-attention launches);
 9. the agreement check of the LLM kernels: qwen3-8b at full width with 4
-   layers in float32, prefill and 16 greedy decode steps once with the
+   layers in float32, prefill and 48 + 16 decode steps once with the
    kernels and once with their plain versions on the card: logits within
-   1e-4, the same tokens (and the same prefill on the CPU, printed);
-10. each kernel's time at its path's shapes beside its bound, its plain
+   1e-4, the same tokens; the decode logits at every prompt position
+   equal to the full-sequence logits within 2e-2 (the reference's own
+   property); the same prefill on the CPU, printed;
+10. path E, RWKV-6 serving: rwkv6-3b at full width and depth (32 layers)
+   in bfloat16 with bfloat16 weights drawn on the card from ``--seed``;
+   E1 is ``make_prefill_step`` on 8 requests x 1024 prompt tokens (32
+   WKV launches), E2 is ``SharedModel.generate`` on the same requests,
+   1024 teacher-forced steps and 128 greedy ones (32 x 1152 WKV
+   launches, each writing its layer's state in place);
+11. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
+   float32 (bonus and decay perturbed from their init constants), prefill
+   and 48 + 16 decode steps once with the WKV kernel and once with its
+   plain version on the card, with the same checks as phase 9;
+12. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
-   a yardstick the port never calls); ``loop_fused`` and its plain
+   a yardstick the port never calls; no PyTorch call computes the WKV
+   recurrence); ``loop_fused`` and its plain
    version also run path A's whole input once more, and their outputs
    are held against each other.
 
@@ -67,6 +81,7 @@ outside a checkout, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -83,7 +98,9 @@ FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LLM = "qwen3-8b"
-D_BATCH, D_PROMPT, D_GEN = 8, 1024, 128     # path D: requests, tokens
+D_BATCH, D_PROMPT, D_GEN = 8, 1024, 128     # paths D, E: requests, tokens
+RWKV = "rwkv6-3b"
+WKV_TOL = 1e-4                # of the plain result's largest magnitude
 
 
 class SmokeFailure(RuntimeError):
@@ -356,10 +373,39 @@ def check_decode(dev, gen, b, kv, g, s, hd, fills):
     return worst
 
 
-def run_path_d(dev, seed):
-    """qwen3-8b serving at full width and depth in bfloat16: D1 prefill,
-    D2 greedy generation.  Returns the kernels' launch counts and the
-    prompts."""
+#: the serving paths' kernel wrappers: each phase of a serving path
+#: launches its own kernel and none of the others
+SERVING_KERNELS = ("flash_attention_fwd", "decode_attention_fwd",
+                   "rwkv6_wkv_fwd")
+
+
+def _heads(cfg) -> str:
+    if cfg.rwkv:
+        return (f"heads={cfg.d_model // cfg.rwkv_head_size}x"
+                f"{cfg.rwkv_head_size}")
+    return f"heads={cfg.n_heads}/{cfg.n_kv_heads}"
+
+
+def _launched(kernel: str, want: int, what: str) -> int:
+    """The launches of ``kernel`` since the counts were zeroed; fails
+    unless they are ``want`` and no other serving kernel launched."""
+    from repro_torch.kernels import _build
+
+    counts = _build.launch_counts()
+    _require(counts[kernel] == want,
+             f"{what}: {kernel} launched {counts[kernel]} times, want {want}")
+    others = {k: counts[k] for k in SERVING_KERNELS
+              if k != kernel and counts[k]}
+    _require(not others, f"{what} launched {others}")
+    return counts[kernel]
+
+
+def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel):
+    """``name`` serving at full width and depth in bfloat16: ``tag``1
+    prefills D_BATCH x D_PROMPT tokens (one ``prefill_kernel`` launch a
+    layer), ``tag``2 is greedy generation for them through
+    ``SharedModel.generate`` (one ``decode_kernel`` launch a layer a step).
+    Returns the two phases' launch counts."""
     import dataclasses
 
     import numpy as np
@@ -371,14 +417,14 @@ def run_path_d(dev, seed):
     from repro_torch.models import init_decode_state, init_params, param_bytes
     from repro_torch.serving import SharedModel
 
-    cfg = dataclasses.replace(configs.get(LLM), dtype="bfloat16",
+    cfg = dataclasses.replace(configs.get(name), dtype="bfloat16",
                               param_dtype="bfloat16")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
-    print(f"path D: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
-          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
-          f"vocab={cfg.vocab_size} bf16: {cfg.n_params()} parameters, "
+    print(f"path {tag}: {cfg.name} {cfg.n_layers} layers d_model="
+          f"{cfg.d_model} {_heads(cfg)} d_ff={cfg.d_ff} vocab="
+          f"{cfg.vocab_size} bf16: {cfg.n_params()} parameters, "
           f"{param_bytes(params)} bytes on the card, drawn in "
           f"{time.perf_counter() - t0!r} s")
     gen = torch.Generator(dev).manual_seed(seed)
@@ -387,33 +433,27 @@ def run_path_d(dev, seed):
     prefill = make_prefill_step(cfg, dev)
     prefill(params, {"inputs": prompts[:1, :16]})     # cuBLAS warm-up
 
-    # D1: prefill
+    # prefill
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
     logits = prefill(params, {"inputs": prompts})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _build.launch_counts()
-    _require(counts["flash_attention_fwd"] == cfg.n_layers,
-             f"path D1: flash_attention launched "
-             f"{counts['flash_attention_fwd']} times, want {cfg.n_layers}")
-    _require(counts["decode_attention_fwd"] == 0,
-             "path D1 launched decode_attention")
+    launches = {f"{tag}1": _launched(prefill_kernel, cfg.n_layers,
+                                     f"path {tag}1")}
     _require(tuple(logits.shape) == (D_BATCH, cfg.vocab_size)
              and bool(torch.isfinite(logits).all()),
-             f"path D1: logits {tuple(logits.shape)} not finite of shape "
-             f"[{D_BATCH}, {cfg.vocab_size}]")
+             f"path {tag}1: logits {tuple(logits.shape)} not finite of "
+             f"shape [{D_BATCH}, {cfg.vocab_size}]")
     first = logits.argmax(-1)
-    print(f"path D1 (prefill): {D_BATCH} x {D_PROMPT} tokens wall_s={wall!r} "
-          f"prefill_tokens_per_s={D_BATCH * D_PROMPT / wall!r} "
-          f"launches={{'flash_attention_fwd': "
-          f"{counts['flash_attention_fwd']}}} logits_absmax="
-          f"{float(logits.float().abs().max())!r}")
-    launches = {"flash_attention_fwd": counts["flash_attention_fwd"]}
+    print(f"path {tag}1 (prefill): {D_BATCH} x {D_PROMPT} tokens "
+          f"wall_s={wall!r} prefill_tokens_per_s={D_BATCH * D_PROMPT / wall!r} "
+          f"launches={{'{prefill_kernel}': {launches[tag + '1']}}} "
+          f"logits_absmax={float(logits.float().abs().max())!r}")
     del logits
 
-    # D2: greedy generation through the decode path
+    # greedy generation through the decode path
     model = SharedModel(cfg, max_len=D_PROMPT + D_GEN, max_batch=D_BATCH,
                         device=dev, params=params)
     host_prompts = prompts.cpu().tolist()
@@ -423,37 +463,31 @@ def run_path_d(dev, seed):
     t0 = time.perf_counter()
     out = model.generate(host_prompts, D_GEN)
     wall = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     steps = D_PROMPT + D_GEN
-    want = cfg.n_layers * steps
-    _require(counts["decode_attention_fwd"] == want,
-             f"path D2: decode_attention launched "
-             f"{counts['decode_attention_fwd']} times, want {want}")
-    _require(counts["flash_attention_fwd"] == 0,
-             "path D2 launched flash_attention")
+    launches[f"{tag}2"] = _launched(decode_kernel, cfg.n_layers * steps,
+                                    f"path {tag}2")
     _require(out.shape == (D_BATCH, D_GEN) and (out >= 0).all()
              and (out < cfg.vocab_size).all(),
-             f"path D2: generated tokens {out.shape} out of range")
+             f"path {tag}2: generated tokens {out.shape} out of range")
     agree = int((out[:, 0] == first.cpu().numpy()).sum())
-    cache_bytes = 4 * cfg.n_layers * D_BATCH * cfg.n_kv_heads * steps * \
-        cfg.head_dim
-    print(f"path D2 (generate): {D_BATCH} requests x ({D_PROMPT} "
-          f"teacher-forced + {D_GEN} greedy) steps, cache {steps} tokens "
-          f"({cache_bytes} bytes): wall_s={wall!r} "
+    del model
+    state = init_decode_state(cfg, D_BATCH, steps, dev)
+    print(f"path {tag}2 (generate): {D_BATCH} requests x ({D_PROMPT} "
+          f"teacher-forced + {D_GEN} greedy) steps, decode state "
+          f"{param_bytes(state)} bytes: wall_s={wall!r} "
           f"ms_per_decode_step={wall / steps * 1e3!r} "
           f"decode_tokens_per_s={D_BATCH * steps / wall!r} "
           f"generated_tokens_per_s={D_BATCH * D_GEN / wall!r} "
-          f"peak_mem_bytes={torch.cuda.max_memory_allocated()} "
-          f"launches={{'decode_attention_fwd': "
-          f"{counts['decode_attention_fwd']}}}")
-    print(f"  first generated token equals D1's argmax in {agree} of "
-          f"{D_BATCH} requests (bf16, two kernels: printed, not required)")
+          f"peak_mem_bytes={peak} "
+          f"launches={{'{decode_kernel}': {launches[tag + '2']}}}")
+    print(f"  first generated token equals {tag}1's argmax in {agree} of "
+          f"{D_BATCH} requests (bf16, prefill and decode paths: printed, "
+          f"not required)")
     print(f"  tokens[0, :16]={np.asarray(out[0, :16]).tolist()}")
-    launches["decode_attention_fwd"] = counts["decode_attention_fwd"]
 
-    # one decode step at the full cache: its device time replayed as a
+    # one decode step at the last fill: its device time replayed as a
     # CUDA graph (no host work in it) and the torch ops it dispatches
-    state = init_decode_state(cfg, D_BATCH, steps, dev)
     state["cache_len"].fill_(steps - 1)
     step = make_serve_step(cfg, dev)
     tok = prompts[:, 0]
@@ -463,7 +497,7 @@ def run_path_d(dev, seed):
     print(f"  one decode step at fill {steps - 1}: device_ms={step_ms!r} "
           f"(CUDA graph replay) torch_ops={ops.n} "
           f"({ops.n / cfg.n_layers!r} a layer) against "
-          f"{wall / steps * 1e3!r} ms a step in D2")
+          f"{wall / steps * 1e3!r} ms a step in {tag}2")
     return launches
 
 
@@ -482,31 +516,31 @@ def _op_counter():
     return OpCount()
 
 
-class _PlainAttention:
-    """Within the block, the model's attention calls the kernels' plain
-    versions (on the card) instead of the kernels."""
-
-    def __enter__(self):
-        from repro_torch.kernels import decode_attention as da
-        from repro_torch.kernels import flash_attention as fa
-        from repro_torch.models import attention
-
-        self._saved = (attention.flash_attention_fwd,
-                       attention.decode_attention_fwd)
-        attention.flash_attention_fwd = fa.flash_attention_plain
-        attention.decode_attention_fwd = da.decode_attention_plain
-
-    def __exit__(self, *exc):
-        from repro_torch.models import attention
-
-        (attention.flash_attention_fwd,
-         attention.decode_attention_fwd) = self._saved
+@contextlib.contextmanager
+def _swapped(plain):
+    """Within the block, each ``(module, attribute, plain version)`` of
+    ``plain`` has the module's kernel attribute replaced by its plain
+    version (on the card)."""
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in plain]
+    for mod, attr, fn in plain:
+        setattr(mod, attr, fn)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
 
 
-def llm_agreement(dev, seed, layers=4, batch=2, prompt=48, steps=16):
-    """qwen3-8b at full width with ``layers`` layers in float32: prefill
-    and ``steps`` greedy decode steps with the kernels, then with the plain
-    versions on the card.  Logits within 1e-4, the same tokens."""
+def agreement(dev, seed, name, plain, layers=4, batch=2, prompt=48,
+              steps=16):
+    """``name`` at full width with ``layers`` layers in float32: prefill
+    and ``prompt`` teacher-forced + ``steps`` greedy decode steps with the
+    kernels, then with their plain versions on the card (``plain`` as
+    :func:`_swapped` takes it): logits within 1e-4, the same tokens.  Then
+    the reference's own property (``tests/test_arch_smoke.py``): decoding
+    token by token gives the full-sequence logits at every prompt position,
+    within 2e-2.  RWKV's bonus and decay are perturbed from their init
+    constants (u = 0 would leave the bonus term out)."""
     import dataclasses
 
     import torch
@@ -514,11 +548,20 @@ def llm_agreement(dev, seed, layers=4, batch=2, prompt=48, steps=16):
     from repro_torch import configs
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import init_decode_state, init_params
+    from repro_torch.models.layers import embed_inputs, logits_fn
+    from repro_torch.models.transformer import backbone
 
-    cfg = dataclasses.replace(configs.get(LLM), n_layers=layers,
+    cfg = dataclasses.replace(configs.get(name), n_layers=layers,
                               dtype="float32", param_dtype="float32")
     params = init_params(cfg, seed=seed + 1, device=dev)
     gen = torch.Generator(dev).manual_seed(seed + 1)
+    if cfg.rwkv:
+        for lp in params["layers"]:
+            tm = lp["tm"]
+            tm["bonus_u"] = torch.randn(tm["bonus_u"].shape, generator=gen,
+                                        device=dev) * 0.5
+            tm["decay_w0"] = torch.rand(tm["decay_w0"].shape, generator=gen,
+                                        device=dev) * 4.5 - 4.0
     toks = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=gen,
                          device=dev)
 
@@ -526,8 +569,10 @@ def llm_agreement(dev, seed, layers=4, batch=2, prompt=48, steps=16):
         logits = [make_prefill_step(cfg, dev)(params, {"inputs": toks})]
         step = make_serve_step(cfg, dev)
         state = init_decode_state(cfg, batch, prompt + steps, dev)
+        forced = []
         for t in range(prompt):
             out, state = step(params, state, {"inputs": toks[:, t]})
+            forced.append(out)
         cur, chosen = out.argmax(-1), []
         logits.append(out)
         for _ in range(steps - 1):
@@ -537,31 +582,41 @@ def llm_agreement(dev, seed, layers=4, batch=2, prompt=48, steps=16):
             cur = out.argmax(-1)
         chosen.append(cur)
         torch.cuda.synchronize()
-        return torch.stack(logits), torch.stack(chosen, 1)
+        return (torch.stack(logits), torch.stack(chosen, 1),
+                torch.stack(forced, 1))
 
-    got, got_tok = run()
-    with _PlainAttention():
-        want, want_tok = run()
+    got, got_tok, forced = run()
+    with _swapped(plain):
+        want, want_tok, _ = run()
     err = _max_err(got, want)
     _require(torch.equal(got_tok, want_tok),
-             "LLM agreement: greedy tokens differ between the kernels and "
-             "their plain versions")
+             f"{cfg.name} agreement: greedy tokens differ between the "
+             f"kernels and their plain versions")
     _require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-             f"LLM agreement: logits differ by {err} (> 1e-4)")
-    print(f"LLM agreement: {cfg.name} d_model={cfg.d_model} {layers} layers "
+             f"{cfg.name} agreement: logits differ by {err} (> 1e-4)")
+    print(f"agreement {cfg.name} d_model={cfg.d_model} {layers} layers "
           f"float32, prefill {batch} x {prompt} then {prompt} teacher-forced "
           f"+ {steps} greedy decode steps: kernels vs plain versions on the "
           f"card max_abs_err={err!r} (logits absmax "
           f"{float(want.abs().max())!r}), tokens equal")
+    positions = torch.arange(prompt, device=dev).expand(batch, prompt)
+    with torch.no_grad():
+        x = embed_inputs(params["embedding"], cfg, toks)
+        full = logits_fn(params, cfg, backbone(params, cfg, x, positions))
+    drift = _max_err(forced, full)
+    _require(torch.allclose(forced, full, rtol=2e-2, atol=2e-2),
+             f"{cfg.name} decode vs prefill: logits differ by {drift} "
+             f"(> 2e-2)")
+    print(f"  decode vs prefill at all {prompt} positions (kernels): "
+          f"max_abs_diff={drift!r} (within 2e-2)")
     # the same prefill on the host's CPU (plain versions): how far the
-    # card's float32 (norms, RoPE, products, kernels) drifts from it
+    # card's float32 (norms, products, kernels) drifts from it
     host = make_prefill_step(cfg, "cpu")(_tree_to(params, "cpu"),
                                          {"inputs": toks.cpu()})
     drift = _max_err(got[0].cpu(), host)
     same = int((got[0].argmax(-1).cpu() == host.argmax(-1)).sum())
     print(f"  card vs CPU, float32 prefill logits: max_abs_diff={drift!r}, "
           f"argmax equal in {same} of {batch} (printed, not required)")
-    return err
 
 
 def _tree_to(tree, device):
@@ -598,7 +653,7 @@ def attention_rows(dev, seed, launches, errs):
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:73",
-        launches=launches["flash_attention_fwd"],
+        launches=launches["D1"],
         max_abs_err=errs["flash_attention_fwd"], ms=graph_ms(kern, 10),
         plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])]
@@ -624,11 +679,122 @@ def attention_rows(dev, seed, launches, errs):
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:65",
-        launches=launches["decode_attention_fwd"],
+        launches=launches["D2"],
         max_abs_err=errs["decode_attention_fwd"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0]))
     return rows
+
+
+def _wkv_inputs(gen, b, t, h, hd, dev):
+    """r, k, v, w, u, s0 as ``tests/test_kernels.py`` draws them: w in
+    (0.45, 0.95), non-zero u and s0."""
+    import torch
+
+    n = lambda *s: torch.randn(s, generator=gen, device=dev)  # noqa: E731
+    return [n(b, t, h, hd), n(b, t, h, hd) * 0.3, n(b, t, h, hd),
+            torch.sigmoid(n(b, t, h, hd)) * 0.5 + 0.45, n(h, hd) * 0.1,
+            n(b, h, hd, hd) * 0.1]
+
+
+def _wkv_close(got, want, what: str):
+    """``(max abs err, max abs err / the plain result's largest
+    magnitude)``; fails above ``WKV_TOL`` of that magnitude."""
+    err, scale = _max_err(got, want), float(want.abs().max())
+    _require(err <= WKV_TOL * scale,
+             f"{what}: kernel disagrees with its plain version (max abs err "
+             f"{err}, {WKV_TOL} x max |plain| = {WKV_TOL * scale})")
+    return err, err / scale
+
+
+def _worst(*errs):
+    """The largest (abs, rel) error of each kind."""
+    return tuple(max(e) for e in zip(*errs))
+
+
+def check_wkv(dev, gen, b, t, h, hd, chunk=None):
+    """Kernel against plain at r [b, t, h, hd], with a new ``s_last`` and
+    in place (``s_last`` = s0); with ``chunk``, the chunked entry point
+    against the one-launch call too.  Returns the worst (abs, rel) error."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as ws
+
+    xs = _wkv_inputs(gen, b, t, h, hd, dev)
+    want, s_want = ws.rwkv6_wkv_plain(*xs)
+    worst = (0.0, 0.0)
+    for in_place in (False, True):
+        s0 = xs[5].clone()
+        got, s_got = ws.rwkv6_wkv_fwd(*xs[:5], s0,
+                                      s_last=s0 if in_place else None)
+        torch.cuda.synchronize()
+        _require((s_got is s0) == in_place, "rwkv6_wkv: s_last not honoured")
+        tag = f"rwkv6_wkv r={[b, t, h, hd]} in_place={in_place}"
+        worst = _worst(worst, _wkv_close(got, want, tag + " out"),
+                       _wkv_close(s_got, s_want, tag + " s_last"))
+    msg = ""
+    if chunk is not None:
+        got_c, s_c = ws.rwkv6_wkv(*xs, chunk=chunk)
+        torch.cuda.synchronize()
+        tag = f"rwkv6_wkv r={[b, t, h, hd]} chunk={chunk} vs one launch"
+        c_err = _worst(_wkv_close(got_c, got, tag + " out"),
+                       _wkv_close(s_c, s_got, tag + " s_last"))
+        msg = f"; chunk={chunk} vs one launch max_abs_err={c_err[0]!r}"
+    print(f"check rwkv6_wkv r=[{b}, {t}, {h}, {hd}] new s_last and in place: "
+          f"max_abs_err={worst[0]!r} (relative {worst[1]!r}){msg}")
+    return worst
+
+
+def wkv_row(dev, seed, launches, errs):
+    """Kernel row of rwkv6_wkv: E1's call (8 x 1024 tokens, a new state)
+    and E2's (one token, each layer's state in place in turn)."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as ws
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    h, hd, n_layers = 40, 64, 32               # rwkv6-3b's
+
+    def bound(b, t):
+        # o_t = r_t S + (sum_i r_i u_i k_i) v_t and S = w S + k^T v: 5 hd^2
+        # + 5 hd operations a (b, t, h); the streams, u and the state's
+        # read and write in bytes
+        return bound_ms(4 * (5 * b * t * h * hd + 2 * b * h * hd * hd
+                             + h * hd), b * t * h * (5 * hd * hd + 5 * hd))
+
+    xs = _wkv_inputs(gen, D_BATCH, D_PROMPT, h, hd, dev)
+    kern = lambda: ws.rwkv6_wkv_fwd(*xs)  # noqa: E731
+    plain = lambda: ws.rwkv6_wkv_plain(*xs)  # noqa: E731
+    bnd, by = bound(D_BATCH, D_PROMPT)
+    row = dict(
+        name="rwkv6_wkv", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:47",
+        launches=launches["E1"] + launches["E2"],
+        launches_by_path=launches, max_abs_err=errs["rwkv6_wkv_fwd"][0],
+        max_rel_err=errs["rwkv6_wkv_fwd"][1], ms=graph_ms(kern, 10),
+        plain_ms=graph_ms(plain, 1), bound_ms=bnd, bound_by=by,
+        library_ms=None, wrapper_ms=cuda_ms(kern, 10)[0])
+    del xs
+    # E2's call on every layer's state in turn, as a decode step makes it:
+    # the 32 states (168 MB) do not fit the 50 MB L2, so each call reads
+    # its state from HBM; times are per call
+    layers = [_wkv_inputs(gen, D_BATCH, 1, h, hd, dev)
+              for _ in range(n_layers)]
+
+    def each(fn):
+        def calls():
+            for xs in layers:
+                fn(*xs[:5], xs[5], s_last=xs[5])
+        return calls
+
+    kern, plain = each(ws.rwkv6_wkv_fwd), each(ws.rwkv6_wkv_plain)
+    bnd, by = bound(D_BATCH, 1)
+    row.update(ms_decode=graph_ms(kern, 10) / n_layers,
+               plain_ms_decode=graph_ms(plain, 5) / n_layers,
+               bound_ms_decode=bnd, bound_by_decode=by,
+               wrapper_ms_decode=cuda_ms(kern, 10)[0] / n_layers)
+    return row
 
 
 def heuristic_kwargs():
@@ -855,9 +1021,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
     from repro_torch.kernels import binpack_select as bs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lag_update as lu
     from repro_torch.kernels import loop_fused as lf
     from repro_torch.kernels import move_eval as me
+    from repro_torch.kernels import rwkv6_scan as ws
+    from repro_torch.models import attention, rwkv6
 
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -896,7 +1066,14 @@ def main(argv=None) -> int:
         "decode_attention_fwd": max(
             check_decode(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN, 128,
                          (0, 7, D_PROMPT + D_GEN - 1)),        # path D2
-            check_decode(dev, gen, D_BATCH, 8, 4, 32768, 128, (32767,)))}
+            check_decode(dev, gen, D_BATCH, 8, 4, 32768, 128, (32767,))),
+        "rwkv6_wkv_fwd": _worst(
+            check_wkv(dev, gen, D_BATCH, D_PROMPT, 40, 64),       # path E1
+            check_wkv(dev, gen, D_BATCH, 1, 40, 64),              # path E2
+            check_wkv(dev, gen, 1, 16384, 40, 64, chunk=4096),    # long
+            check_wkv(dev, gen, 2, 1000, 40, 64),                 # ragged T
+            check_wkv(dev, gen, 1, 16, 2, 16),   # the reference's tests
+            check_wkv(dev, gen, 2, 64, 4, 32))}
 
     # path A: the heuristic packers through the loop_fused kernel
     rates_a, act_a = traffic_mix(4096, 2880, 14, args.seed, dev)
@@ -937,9 +1114,21 @@ def main(argv=None) -> int:
     run_path_c2(dev, args.seed)
 
     # path D: qwen3-8b serving, prefill and greedy generation
-    launches_d = run_path_d(dev, args.seed)
+    launches_d = run_serving_path(dev, args.seed, "D", LLM,
+                                  "flash_attention_fwd",
+                                  "decode_attention_fwd")
     torch.cuda.empty_cache()
-    llm_agreement(dev, args.seed)
+    agreement(dev, args.seed, LLM, [
+        (attention, "flash_attention_fwd", fa.flash_attention_plain),
+        (attention, "decode_attention_fwd", da.decode_attention_plain)])
+    torch.cuda.empty_cache()
+
+    # path E: rwkv6-3b serving, prefill and greedy generation
+    launches_e = run_serving_path(dev, args.seed, "E", RWKV,
+                                  "rwkv6_wkv_fwd", "rwkv6_wkv_fwd")
+    torch.cuda.empty_cache()
+    agreement(dev, args.seed, RWKV,
+              [(rwkv6, "rwkv6_wkv_fwd", ws.rwkv6_wkv_plain)])
     torch.cuda.empty_cache()
 
     # per-kernel times at the paths' shapes
@@ -1039,8 +1228,8 @@ def main(argv=None) -> int:
 
     # lag_update_single: the same kernel at batch 1 ([1, 32], 66 bins);
     # no path calls it (the per-step loop drains every stream at once),
-    # and it has no counter of its own: its launches count under
-    # lag_update_batch
+    # and it has no counter of its own (its launches count under
+    # lag_update_batch), so no run measures its launches: null
     b1 = [x[:1] for x in (lag, produced, assign, readable)]
     cap1 = cap[0]
     kern = lambda: lu.lag_update_single(  # noqa: E731
@@ -1048,12 +1237,19 @@ def main(argv=None) -> int:
     ref = lambda: lu.lag_update_reference(  # noqa: E731
         b1[0][0], b1[1][0], b1[2][0], b1[3][0], cap1, m=66, active=act[0])
     bnd, by = bound_ms(32 * 4 * 6 + 66 * 4, 32 * 8)
-    print(f"kernel lag_update_single [1, 32] 66 bins: "
-          f"ms={graph_ms(kern, 200)!r} plain_ms={graph_ms(ref, 200)!r} "
-          f"bound_ms={bnd!r} ({by}) wrapper_ms={cuda_ms(kern, 200)[0]!r} "
-          f"launches=n/a (no path calls the rank-1 entry)")
+    got, want = kern(), ref()
+    kernels.append(dict(
+        name="lag_update_single", route="cuda",
+        source="src/repro_torch/kernels/csrc/lag_update.cu",
+        replaces="src/repro/kernels/lag_update.py:170", launches=None,
+        launches_note="no path calls the rank-1 entry; it launches the "
+        "lag_update kernel at batch 1, counted under lag_update",
+        max_abs_err=_close(got, want, "lag_update_single"),
+        ms=graph_ms(kern, 200), plain_ms=graph_ms(ref, 200), bound_ms=bnd,
+        bound_by=by, library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0]))
 
     kernels += attention_rows(dev, args.seed, launches_d, errs)
+    kernels.append(wkv_row(dev, args.seed, launches_e, errs))
 
     for kern in kernels:
         print(f"kernel {kern['name']}: ms={kern['ms']!r} "
@@ -1061,6 +1257,14 @@ def main(argv=None) -> int:
               f"({kern['bound_by']}) library_ms={kern['library_ms']!r} "
               f"wrapper_ms={kern['wrapper_ms']!r} "
               f"launches={kern['launches']}")
+        if "ms_decode" in kern:
+            print(f"kernel {kern['name']} at one decode step: "
+                  f"ms={kern['ms_decode']!r} "
+                  f"plain_ms={kern['plain_ms_decode']!r} "
+                  f"bound_ms={kern['bound_ms_decode']!r} "
+                  f"({kern['bound_by_decode']}) "
+                  f"wrapper_ms={kern['wrapper_ms_decode']!r} "
+                  f"launches={kern['launches_by_path']}")
 
     print(f"total_s={time.perf_counter() - t_start!r}")
     # the card again, so that it stands in the output's tail beside the

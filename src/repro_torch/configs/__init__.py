@@ -1,7 +1,8 @@
 """Architecture registry of the port: the reference's ids, each module
 exporting ``FULL`` (the published config) and ``SMOKE`` (a reduced
-same-family config for CPU tests).  This slice carries the three dense
-token-input archs; ``get`` of any other id raises :class:`NotPortedError`.
+same-family config for CPU tests).  The port carries the three dense
+token-input archs and RWKV-6; ``get`` of any other id raises
+:class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ ARCH_IDS = {
 }
 
 #: the module names of the archs this port carries
-PORTED = ("granite_3_8b", "olmo_1b", "qwen3_8b")
+PORTED = ("granite_3_8b", "olmo_1b", "qwen3_8b", "rwkv6_3b")
 
 
 def get(name: str, smoke: bool = False) -> ArchConfig:

@@ -57,6 +57,8 @@ SIGNATURES = {
     # stream
     "decode_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "decode_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # r, k, v, w, u, s0, out, s_last (may alias s0), B, T, H, hd, stream
+    "rwkv6_wkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -63,3 +63,22 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len):
     s = torch.where(valid, s, NEG_INF)
     o = torch.softmax(s, dim=-1) @ v_cache.float()
     return o.to(q.dtype)
+
+
+def rwkv6_wkv_ref(r, k, v, w, u, s0):
+    """The RWKV-6 WKV recurrence, a sequential loop over T, all float32.
+    r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd), indexed
+    (k index, v index).  Per step, with kv = k_tᵀ v_t:
+
+        o_t = r_t (S + u ⊙ kv)        (summed over the k index)
+        S  <- w_t ⊙_rows S + kv
+
+    Returns ``(out (B, T, H, hd), s_last (B, H, hd, hd))``."""
+    s = s0.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]        # (B, H, hd, hd)
+        outs.append((r[:, t, :, :, None] * (s + u[None, :, :, None] * kv)
+                     ).sum(-2))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(outs, 1), s

@@ -25,8 +25,9 @@ def _ids(x, dev: torch.device) -> torch.Tensor:
 def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
     """``prefill(params, batch) -> logits (B, V)`` of the last position:
     ``batch["inputs"]`` token ids (B, S) (a tensor or an array), optional
-    ``batch["positions"]`` (B, S).  Every layer's attention runs on the
-    flash-attention kernel on the card."""
+    ``batch["positions"]`` (B, S; RWKV reads none).  On the card every
+    dense layer's attention runs on the flash-attention kernel, every
+    RWKV layer's recurrence on the WKV kernel (one launch a layer)."""
     check_ported(cfg)
     dev = resolve_device(device)
 
@@ -45,8 +46,9 @@ def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
 
 def make_serve_step(cfg: ArchConfig, device=None) -> Callable:
     """``step(params, state, batch) -> (logits (B, V), new_state)``: one
-    decode step (``models.serve_step``); every layer's cache attention
-    runs on the decode-attention kernel on the card."""
+    decode step (``models.serve_step``); on the card every dense layer's
+    cache attention runs on the decode-attention kernel, every RWKV
+    layer's one-token recurrence on the WKV kernel, in place."""
     check_ported(cfg)
     dev = resolve_device(device)
 

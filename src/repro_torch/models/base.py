@@ -2,9 +2,9 @@
 
 ``ArchConfig`` carries every field and default of the reference's, so a
 config of either package compares with the other field for field
-(``dataclasses.asdict``).  This slice runs the dense, token-input family
-(``family="dense"``, no MoE, no RWKV, no hybrid, no encoder-decoder); the
-model functions raise :class:`NotPortedError` for the others.
+(``dataclasses.asdict``).  The port runs the dense, token-input family
+and RWKV-6 (``rwkv=True``); the model functions raise
+:class:`NotPortedError` for MoE, hybrid and encoder-decoder configs.
 
 Parameters are drawn on the run's device from an explicit
 ``torch.Generator``, directly in ``param_dtype``.  Those draws never equal
@@ -97,7 +97,7 @@ class ArchConfig:
         return torch_dtype(self.param_dtype)
 
     def n_params(self) -> int:
-        """Total parameter count of the dense model (from the shapes)."""
+        """Total parameter count (from the shapes)."""
         from .transformer import param_shapes   # local: avoids a cycle
 
         return sum(math.prod(s) for s in param_shapes(self).values())

@@ -10,8 +10,9 @@ batch is padded to ``max_batch``; shorter prompts are right-padded with
 token 0 and those zeros are teacher-forced like real tokens; the prompts
 run through the decode path one token at a time; prompts and generated
 tokens share one ``cache_len``; greedy ``argmax`` takes the first
-maximum.  Every step stays on the card; the tokens come to the host once,
-at the end.
+maximum.  An RWKV model carries its constant-size state instead of a KV
+cache (``max_len`` is then unused).  Every step stays on the card; the
+tokens come to the host once, at the end.
 """
 from __future__ import annotations
 

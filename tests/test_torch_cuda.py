@@ -9,7 +9,9 @@ has only PyTorch:
 
 Shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
 odd length, and a small model end to end; tolerances as everywhere for
-these kernels: 2e-5 in float32, 2e-2 in bfloat16.
+the attention kernels: 2e-5 in float32, 2e-2 in bfloat16; the WKV kernel
+(float32 only) within 1e-4 of the largest magnitude of its plain result,
+the reference's own tolerance for its kernel.
 """
 import dataclasses
 
@@ -23,6 +25,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_fwd, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd, flash_attention_plain)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    rwkv6_wkv, rwkv6_wkv_fwd, rwkv6_wkv_plain)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
@@ -83,7 +87,52 @@ def test_decode_kernel_matches_plain(cuda, b, kv, g, s, hd, dtype, fill):
         rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "granite-3-8b"])
+def _wkv_inputs(b, t, h, hd, dev, seed=3):
+    """As ``tests/test_kernels.py`` draws them: w in (0.45, 0.95), non-zero
+    u and s0."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s, dtype=np.float32)  # noqa: E731
+    w = 0.5 / (1.0 + np.exp(-n(b, t, h, hd))) + 0.45
+    xs = [n(b, t, h, hd), n(b, t, h, hd) * 0.3, n(b, t, h, hd), w,
+          n(h, hd) * 0.1, n(b, h, hd, hd) * 0.1]
+    return [torch.tensor(x, dtype=torch.float32, device=dev) for x in xs]
+
+
+def _wkv_close(got, want):
+    tol = 1e-4 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0.0, atol=tol)
+
+
+@pytest.mark.parametrize("b,t,h,hd", [
+    (1, 16, 2, 16), (2, 64, 4, 32), (1, 128, 1, 64),   # the reference's
+    (2, 1000, 3, 64), (3, 1, 5, 128), (1, 77, 2, 128)])
+@pytest.mark.parametrize("in_place", [False, True])
+def test_wkv_kernel_matches_plain(cuda, b, t, h, hd, in_place):
+    r, k, v, w, u, s0 = _wkv_inputs(b, t, h, hd, cuda)
+    want, s_want = rwkv6_wkv_plain(r, k, v, w, u, s0)
+    before = rwkv6_wkv_fwd.launches
+    out, s_last = rwkv6_wkv_fwd(r, k, v, w, u, s0,
+                                s_last=s0 if in_place else None)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv_fwd.launches == before + 1
+    assert (s_last is s0) == in_place
+    _wkv_close(out, want)
+    _wkv_close(s_last, s_want)
+
+
+def test_wkv_chunked_kernel_matches_unchunked(cuda):
+    xs = _wkv_inputs(2, 256, 3, 64, cuda, seed=4)
+    before = rwkv6_wkv_fwd.launches
+    got, s_got = rwkv6_wkv(*xs, chunk=64)
+    assert rwkv6_wkv_fwd.launches == before + 4
+    want, s_want = rwkv6_wkv(*xs)
+    torch.cuda.synchronize()
+    _wkv_close(got, want)
+    _wkv_close(s_got, s_want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "granite-3-8b",
+                                  "rwkv6-3b"])
 def test_model_on_the_card_matches_the_cpu(cuda, arch):
     """The smoke model in float32: prefill and six decode steps on the card
     (kernels) against the same weights on the CPU (plain versions)."""

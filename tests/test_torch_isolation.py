@@ -20,6 +20,7 @@ from repro_torch.registry import make_policy  # noqa: E402
 from repro_torch.serving import SharedModel  # noqa: E402
 
 LLM = configs.get("qwen3-8b", smoke=True)
+RWKV = configs.get("rwkv6-3b", smoke=True)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "repro")
@@ -67,11 +68,15 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: init_params(LLM),
     lambda: init_decode_state(LLM, 1, 4),
     lambda: params_from_numpy({}, LLM),
+    lambda: make_prefill_step(RWKV),
+    lambda: SharedModel(RWKV),
+    lambda: init_decode_state(RWKV, 1, 4),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
         "make_serve_step", "SharedModel", "init_params",
-        "init_decode_state", "params_from_numpy"))
+        "init_decode_state", "params_from_numpy", "rwkv-make_prefill_step",
+        "rwkv-SharedModel", "rwkv-init_decode_state"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):

@@ -37,6 +37,9 @@ from repro_torch.models.base import torch_dtype  # noqa: E402
 from repro_torch.models.transformer import param_shapes  # noqa: E402
 
 ARCHS = ("qwen3-8b", "olmo-1b", "granite-3-8b")
+#: archs whose layers are not [attention + MLP]; the family-agnostic
+#: tests take them too (``tests/test_torch_rwkv.py`` holds the rest)
+OTHER_ARCHS = ("rwkv6-3b",)
 #: compute dtype, parameter dtype
 DTYPES = {"f32": ("float32", "float32"), "bf16": ("bfloat16", "float32"),
           "bf16-params": ("bfloat16", "bfloat16")}
@@ -83,7 +86,7 @@ def activations(cfg, shape, seed=0):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + OTHER_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_reference_field_for_field(arch, smoke):
     want = jconfigs.get(arch, smoke=smoke)
@@ -94,14 +97,14 @@ def test_configs_equal_reference_field_for_field(arch, smoke):
 
 def test_arch_list_and_unported_archs():
     assert tconfigs.list_archs() == jconfigs.list_archs()
-    for arch in set(jconfigs.list_archs()) - set(ARCHS):
+    for arch in set(jconfigs.list_archs()) - set(ARCHS + OTHER_ARCHS):
         with pytest.raises(NotPortedError, match="not yet ported"):
             tconfigs.get(arch)
     with pytest.raises(KeyError):
         tconfigs.get("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + OTHER_ARCHS)
 def test_param_count_and_shapes_match_reference(arch):
     jcfg, tcfg, jp, tp = models(arch)
     assert tconfigs.get(arch).n_params() == jconfigs.get(arch).n_params()
@@ -138,7 +141,8 @@ def test_init_params_draws_truncated_scaled_normals(arch):
 
 @pytest.mark.parametrize("opt", [
     dict(moe=True, n_experts=4, experts_per_token=2),
-    dict(rwkv=True), dict(attn_layer_period=2), dict(encoder_decoder=True),
+    dict(rwkv=True, wkv_impl="kernel_stub"), dict(attn_layer_period=2),
+    dict(encoder_decoder=True),
     dict(input_mode="embeddings"), dict(decode_tail_window=4),
 ], ids=("moe", "rwkv", "hybrid", "encoder_decoder", "embeddings", "tailed"))
 def test_unported_options_raise(opt):
