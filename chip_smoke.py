@@ -8,12 +8,18 @@ Run from a checkout of the repository on a machine with a CUDA card and
 ``nvcc``.  Phases, each of which fails the script if it fails:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. building the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. building the CUDA kernels from ``src/repro_torch/kernels/csrc``; the
+   built library's SASS (``cuobjdump -sass``) must show the bfloat16
+   flash-attention kernel on ``wgmma`` (``HGMMA``) with its K/V loaded by
+   TMA (``UTMALDG``) at every head dim, and the float32 one without
+   ``HGMMA``;
 3. every kernel against its plain PyTorch version on the card
    (integers exact, floats ``rtol = atol = 1e-5``; the attention
    kernels at ``2e-5`` in float32 and ``2e-2`` in bfloat16; the WKV
    kernel within ``1e-4`` of the largest magnitude of its plain result),
-   at stress shapes and at the shapes the paths give it;
+   at stress shapes and at the shapes the paths give it (decode attention
+   also at fills on either side of a split boundary, and captured once in
+   a CUDA graph and replayed at other fills set in place on the card);
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -373,6 +379,83 @@ def check_decode(dev, gen, b, kv, g, s, hd, fills):
     return worst
 
 
+def check_decode_graph(dev, gen, b, kv, g, s, hd, fills):
+    """One decode call at q [b, kv, g, hd] over caches [b, kv, s, hd],
+    captured once in a CUDA graph and replayed after ``cache_len`` is set
+    in place on the card to each fill: equal to the plain version each
+    time, in float32 and bfloat16 (the split plan never reads the host's
+    fill)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        q = _normal(gen, (b, kv, g, hd), dtype, dev)
+        k = _normal(gen, (b, kv, s, hd), dtype, dev)
+        v = _normal(gen, (b, kv, s, hd), dtype, dev)
+        clen = torch.tensor(fills[0], dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            da.decode_attention_fwd(q, k, v, clen)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = da.decode_attention_fwd(q, k, v, clen)
+        for fill in fills:
+            clen.fill_(fill)
+            graph.replay()
+            torch.cuda.synchronize()
+            err = _attn_close(got, da.decode_attention_plain(q, k, v, clen),
+                              dtype, f"decode_attention graph replay at "
+                              f"fill={fill} {dtype}")
+            worst = max(worst, err)
+        del q, k, v, got, graph
+    print(f"check decode_attention q=[{b}, {kv}, {g}, {hd}] S={s}: one call "
+          f"captured in a CUDA graph, replayed at fills {list(fills)} set on "
+          f"the card, float32 and bfloat16: max_abs_err={worst!r}; "
+          f"{da.decode_splits(b, kv, s)} splits a (batch row, kv head)")
+    return worst
+
+
+def check_sass(lib) -> None:
+    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) in every
+    instantiation of the bfloat16 flash kernel, and no ``HGMMA`` in the
+    float32 one, read from the built library's SASS."""
+    import shutil
+
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    counts = {}
+    for name, lines in funcs.items():
+        if "flash_attention_bf16_kernel" in name:
+            body = "\n".join(lines)
+            counts[name] = (body.count("HGMMA"), body.count("UTMALDG"))
+    _require(len(counts) == len(HEAD_DIMS),
+             f"sass: {len(counts)} flash_attention_bf16 kernels in {lib}, "
+             f"want one for each head dim of {HEAD_DIMS}")
+    _require(all(h and t for h, t in counts.values()),
+             f"sass: a flash_attention_bf16 kernel lacks HGMMA or UTMALDG: "
+             f"{counts}")
+    f32 = [n for n in funcs if "flash_attention_kernel" in n]
+    _require(f32 and not any("HGMMA" in "\n".join(funcs[n]) for n in f32),
+             "sass: the float32 flash kernel is missing or runs HGMMA")
+    print(f"check sass: {len(counts)} flash_attention_bf16 kernels, (HGMMA, "
+          f"UTMALDG) instructions each: {sorted(counts.values())}; "
+          f"{len(f32)} float32 flash kernels without HGMMA")
+
+
 #: the serving paths' kernel wrappers: each phase of a serving path
 #: launches its own kernel and none of the others
 SERVING_KERNELS = ("flash_attention_fwd", "decode_attention_fwd",
@@ -651,7 +734,7 @@ def attention_rows(dev, seed, launches, errs):
                        4 * b * h * s * s * hd / 2, BF16_OPS_PER_S)
     rows = [dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
         replaces="src/repro/kernels/flash_attention.py:73",
         launches=launches["D1"],
         max_abs_err=errs["flash_attention_fwd"], ms=graph_ms(kern, 10),
@@ -1039,11 +1122,15 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    _build.build(verbose=True)
+    lib = _build.build(verbose=True)
     _build.library()
     print(f"build_s={time.perf_counter() - t0!r}")
+    check_sass(lib)
 
     gen = torch.Generator(dev).manual_seed(args.seed)
+    # path D2's split count: fills 4 * split - 2 and - 1 put the last
+    # filled position one short of and at a split boundary
+    split = da.decode_splits(D_BATCH, 8, D_PROMPT + D_GEN)
     # stress shapes, then the shapes paths A and B give each kernel
     errs = {
         "lag_update_batch": max(
@@ -1065,8 +1152,11 @@ def main(argv=None) -> int:
             check_flash(dev, gen, 2, 32, 8, 333, 1000, 128, causal=False)),
         "decode_attention_fwd": max(
             check_decode(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN, 128,
-                         (0, 7, D_PROMPT + D_GEN - 1)),        # path D2
-            check_decode(dev, gen, D_BATCH, 8, 4, 32768, 128, (32767,))),
+                         (0, 7, 4 * split - 2, 4 * split - 1,
+                          D_PROMPT + D_GEN - 1)),        # path D2
+            check_decode(dev, gen, D_BATCH, 8, 4, 32768, 128, (32767,)),
+            check_decode_graph(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN,
+                               128, (17, 700, D_PROMPT + D_GEN - 1))),
         "rwkv6_wkv_fwd": _worst(
             check_wkv(dev, gen, D_BATCH, D_PROMPT, 40, 64),       # path E1
             check_wkv(dev, gen, D_BATCH, 1, 40, 64),              # path E2

@@ -53,10 +53,12 @@ SIGNATURES = {
     # q, k, v, out, B, H, KV, Sq, Skv, hd, causal, stream
     "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, k_cache, v_cache, cache_len (device int32), out, B, KV, G, S, hd,
-    # stream
-    "decode_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "decode_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # q, k_cache, v_cache, cache_len (device int32), out, f32 partials, B,
+    # KV, G, S, hd, splits, stream
+    "decode_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P),
+    "decode_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _P),
     # r, k, v, w, u, s0, out, s_last (may alias s0), B, T, H, hd, stream
     "rwkv6_wkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -1,5 +1,5 @@
 // One query token per sequence against a KV cache (flash-decoding), the G
-// query heads of a kv group together.
+// query heads of a kv group together, split over the cache.
 //
 // Replaces the Pallas kernel src/repro/kernels/decode_attention.py
 // (decode_attention_fwd over _decode_kernel).  q (B, KV, G, hd), caches
@@ -7,37 +7,56 @@
 // Pallas scalar prefetch: the caller never syncs the host to pass it).
 // Positions 0..min(cache_len, S - 1) are attended; later ones are neither
 // read nor counted.  Per query row, over cache tiles:
-//   s = (q * hd^-0.5) . k;  m' = max(m, max s);  p = exp(s - m')
+//   s = (q . k) * hd^-0.5;  m' = max(m, max s);  p = exp(s - m')
 //   l = l * exp(m - m') + sum p;  acc = acc * exp(m - m') + p . v
-//   out = acc / max(l, 1e-30)          (written in the input type)
-// Everything is f32 inside, as in the Pallas kernel.
+// Everything is f32 inside, as in the Pallas kernel, in float32 and in
+// bfloat16 alike.
 //
-// Bound on the H100: bytes, the (cache_len + 1) rows of K and V read once.
-// Simple design: one block per (kv head, batch row), 256 threads; each
-// tile of kTS positions is loaded with 16-byte vector loads into shared
-// memory (K padded so that one thread per (row, position) dot product meets
-// no bank conflict), one warp per query row runs the softmax, and the
-// threads own fixed (row, column) entries of the f32 accumulator.  At the
-// decode path's B = 8, KV = 8 the grid is 64 blocks on 132 SMs: a split
-// over the cache (split-K) is later work.
+// Bound on the H100: bytes, the n = cache_len + 1 rows of K and V read
+// once (the decode path's last step: 37.7 MB, 11.3 us at 3.35 TB/s).  A
+// block per (kv head, batch row) gave the decode path 64 blocks on 132
+// SMs, each walking its cache alone.  The design:
+//   * a split of the cache: `splits` blocks per (batch row, kv head, group
+//     of up to 8 query rows), a number the wrapper picks from (B, KV, S)
+//     alone (decode_splits in decode_attention.py).  Each block reads
+//     cache_len itself and takes the ceil(n / splits) positions of its
+//     split, so every split does equal work at every fill, and one launch
+//     replays in a CUDA graph at any fill.  A split past n writes an empty
+//     partial (m = -inf, l = 0, acc = 0);
+//   * tiles of kTS positions copied by cp.async (16 bytes a thread) into a
+//     two-stage ring, the next tile in flight while the current one is
+//     computed; the group's query rows stay in shared memory in f32;
+//   * q . k by kTPP threads a position (K rows padded so that the 16-byte
+//     reads of a quarter warp meet no bank conflict), the softmax a warp a
+//     row, p . v with each thread owning two columns of every row;
+//   * each split writes its f32 partial (m, l, acc[G][hd]) to a workspace
+//     that the wrapper allocates with the output, and a second kernel,
+//     launched from the same entry point, merges the splits with the
+//     log-sum-exp rescaling and writes the output in the input type (zeros
+//     when n = 0).
 #include <cmath>
 #include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTS = 64;        // cache positions per tile
-constexpr int kThreads = 256;
+using hopper::cp_async_16;
+using hopper::smem_u32;
+
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kMaxGroup = 8;        // query rows a block keeps
+constexpr int kMergeThreads = 256;
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000);
 }
 
-// 16 bytes of T -> kN floats
+// 16 bytes of T -> kN floats; two of T -> 2 floats
 template <typename T>
 struct Vec;
 template <>
@@ -46,6 +65,9 @@ struct Vec<float> {
   __device__ static void load(const float* p, float* out) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+  __device__ static float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
   }
 };
 template <>
@@ -61,8 +83,15 @@ struct Vec<__nv_bfloat16> {
       out[2 * i + 1] = f.y;
     }
   }
+  __device__ static float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
 };
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -79,148 +108,325 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int GB>
+struct Plan {
+  static constexpr int kVec = Vec<T>::kN;          // elements a 16-byte copy
+  static constexpr int kChunks = HD / kVec;        // 16-byte chunks a row
+  static constexpr int kTSMax = 16384 / (HD * (int)sizeof(T));
+  static constexpr int kTS = kTSMax < 64 ? kTSMax : 64;   // positions a tile
+  static constexpr int kTPP = kThreads / kTS;      // q . k threads a position
+  // K row stride = kTPP (mod 8) 16-byte units: conflict-free q . k reads
+  static constexpr int kKRow = 16 * (kChunks + ((kTPP - kChunks) % 8 + 8) % 8);
+  static constexpr int kVRow = HD * (int)sizeof(T);
+  static constexpr int kKTile = kTS * kKRow;
+  static constexpr int kVTile = kTS * kVRow;
+  static constexpr int kDT = HD / 2;               // p . v: two columns each
+  static constexpr int kCP = kThreads / kDT;       // position phases
+  static constexpr int kStage = 2 * kKTile + 2 * kVTile;   // both stages
+  static constexpr int kSmem =
+      kStage + 4 * (GB * HD + kTS * GB + 3 * GB);
+  static_assert(kChunks % kTPP == 0, "a position's chunks split evenly");
+  static_assert(kCP * GB * HD * 4 <= kStage, "the phase sums fit the ring");
+};
+
+template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc,
-                        const int* __restrict__ cache_len,
-                        T* __restrict__ o, int KV, int G, int S,
-                        float scale) {
-  constexpr int kN = Vec<T>::kN;
-  constexpr int kChunks = HD / kN;          // vector loads per row
-  extern __shared__ float smem[];
-  float* s_q = smem;                        // [G][HD]
-  float* s_k = s_q + G * HD;                // [kTS][HD + 1]
-  float* s_v = s_k + kTS * (HD + 1);        // [kTS][HD]
-  float* s_p = s_v + kTS * HD;              // [G][kTS]
-  float* s_acc = s_p + G * kTS;             // [G][HD]
-  float* s_m = s_acc + G * HD;              // [G]
-  float* s_l = s_m + G;                     // [G]
-  float* s_alpha = s_l + G;                 // [G]
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc,
+                    const int* __restrict__ cache_len,
+                    float* __restrict__ ws, int KV, int G, int S, int splits,
+                    float scale) {
+  using P = Plan<T, HD, GB>;
+  constexpr int kTS = P::kTS, kTPP = P::kTPP, kVec = P::kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* s_k = smem;                          // [2][kTS][kKRow B]
+  unsigned char* s_v = s_k + 2 * P::kKTile;           // [2][kTS][kVRow B]
+  float* s_q = reinterpret_cast<float*>(smem + P::kStage);   // [GB][HD]
+  float* s_p = s_q + GB * HD;                         // [kTS][GB]
+  float* s_m = s_p + kTS * GB;                        // [GB]
+  float* s_l = s_m + GB;
+  float* s_alpha = s_l + GB;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const long long bk = (long long)b * KV + kvh;
-  const T* qb = q + bk * G * HD;
-  const T* kb = kc + bk * S * HD;
-  const T* vb = vc + bk * S * HD;
-  T* ob = o + bk * G * HD;
-  const int n = max(0, min(*cache_len + 1, S));   // positions attended
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y % KV;
+  const int g0 = blockIdx.y / KV * GB;
+  const long long pr = (long long)blockIdx.z * KV + kvh;
+  const long long rows = (long long)gridDim.z * KV * splits * G;
+  float* ws_m = ws;                                   // [B][KV][splits][G]
+  float* ws_l = ws + rows;
+  float* ws_acc = ws + 2 * rows;                      // [...][G][HD]
+  const long long part = (pr * splits + split) * G;   // row (.., split, 0)
 
-  for (int e = tid; e < G * kChunks; e += kThreads) {
-    float f[kN];
-    Vec<T>::load(qb + e * kN, f);
-#pragma unroll
-    for (int i = 0; i < kN; ++i) s_q[e * kN + i] = f[i] * scale;
+  const int n = max(0, min(*cache_len + 1, S));       // positions attended
+  const int per = (n + splits - 1) / splits;
+  const int lo = split * per;
+  const int hi = min(n, lo + per);
+  if (lo >= hi) {                                     // an empty partial
+    for (int e = tid; e < GB * HD; e += kThreads) {
+      const int g = g0 + e / HD;
+      if (g >= G) continue;
+      ws_acc[(part + g) * HD + e % HD] = 0.0f;
+      if (e % HD == 0) {
+        ws_m[part + g] = neg_inf();
+        ws_l[part + g] = 0.0f;
+      }
+    }
+    return;
   }
-  for (int e = tid; e < G * HD; e += kThreads) s_acc[e] = 0.0f;
-  if (tid < G) {
-    s_m[tid] = -1e30f;
+
+  const T* kb = kc + pr * S * HD;
+  const T* vb = vc + pr * S * HD;
+  auto load_tile = [&](int t) {                       // tile t -> stage t & 1
+    const int p0 = lo + t * kTS;
+    const int cnt = min(kTS, hi - p0);
+    unsigned char* dk = s_k + (t & 1) * P::kKTile;
+    unsigned char* dv = s_v + (t & 1) * P::kVTile;
+    for (int e = tid; e < cnt * P::kChunks; e += kThreads) {
+      const int c = e / P::kChunks;
+      const int ch = e - c * P::kChunks;
+      const long long g = (long long)(p0 + c) * HD + ch * kVec;
+      cp_async_16(smem_u32(dk + c * P::kKRow + ch * 16), kb + g);
+      cp_async_16(smem_u32(dv + c * P::kVRow + ch * 16), vb + g);
+    }
+  };
+  const int n_t = (hi - lo + kTS - 1) / kTS;
+  load_tile(0);
+  hopper::cp_async_commit();
+
+  const T* qb = q + pr * G * HD;
+  for (int e = tid; e < GB * HD; e += kThreads) {
+    const int g = g0 + e / HD;
+    s_q[e] = g < G ? to_f32(qb[(long long)g * HD + e % HD]) : 0.0f;
+  }
+  if (tid < GB) {
+    s_m[tid] = neg_inf();
     s_l[tid] = 0.0f;
   }
 
-  for (int s0 = 0; s0 < n; s0 += kTS) {
-    const int cnt = min(kTS, n - s0);
-    __syncthreads();  // the previous tile is consumed (and s_q is written)
-    for (int e = tid; e < cnt * kChunks; e += kThreads) {
-      const int c = e / kChunks;
-      const int d0 = (e - c * kChunks) * kN;
-      const long long g = (long long)(s0 + c) * HD + d0;
-      float f[kN];
-      Vec<T>::load(kb + g, f);
+  const int c_pos = tid / kTPP;        // q . k: this thread's position
+  const int c_part = tid % kTPP;       //        and its share of the chunks
+  const int dp = tid % P::kDT;         // p . v: columns 2 dp, 2 dp + 1
+  const int cp = tid / P::kDT;         //        of positions cp + kCP i
+  float acc[GB][2];
 #pragma unroll
-      for (int i = 0; i < kN; ++i) s_k[c * (HD + 1) + d0 + i] = f[i];
-      Vec<T>::load(vb + g, f);
-#pragma unroll
-      for (int i = 0; i < kN; ++i) s_v[c * HD + d0 + i] = f[i];
-    }
-    __syncthreads();
+  for (int g = 0; g < GB; ++g) acc[g][0] = acc[g][1] = 0.0f;
 
-    for (int e = tid; e < G * kTS; e += kThreads) {
-      const int r = e / kTS;
-      const int c = e - r * kTS;
-      float dot = neg_inf();
-      if (c < cnt) {
-        const float* qr = s_q + r * HD;
-        const float* kr = s_k + c * (HD + 1);
-        dot = 0.0f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
+  for (int t = 0; t < n_t; ++t) {
+    if (t + 1 < n_t) load_tile(t + 1);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();        // tile t has landed (this thread's)
+    __syncthreads();                   // ... and everyone's; s_q is written
+    const int cnt = min(kTS, hi - lo - t * kTS);
+
+    // scores s_p[c][g]
+    {
+      const unsigned char* kr = s_k + (t & 1) * P::kKTile + c_pos * P::kKRow;
+      float dot[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) dot[g] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < P::kChunks / kTPP; ++i) {
+        const int ch = i * kTPP + c_part;
+        float kf[kVec];
+        Vec<T>::load(reinterpret_cast<const T*>(kr + ch * 16), kf);
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+#pragma unroll
+          for (int v4 = 0; v4 < kVec; v4 += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(
+                s_q + g * HD + ch * kVec + v4);
+            dot[g] = fmaf(qv.x, kf[v4], dot[g]);
+            dot[g] = fmaf(qv.y, kf[v4 + 1], dot[g]);
+            dot[g] = fmaf(qv.z, kf[v4 + 2], dot[g]);
+            dot[g] = fmaf(qv.w, kf[v4 + 3], dot[g]);
+          }
+        }
       }
-      s_p[e] = dot;
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+#pragma unroll
+        for (int o = 1; o < kTPP; o <<= 1)
+          dot[g] += __shfl_xor_sync(~0u, dot[g], o);
+        if (g % kTPP == c_part)
+          s_p[c_pos * GB + g] = c_pos < cnt ? dot[g] * scale : neg_inf();
+      }
     }
     __syncthreads();
 
     // online softmax, one warp per query row
-    for (int r = warp; r < G; r += kWarps) {
-      float* row = s_p + r * kTS;
-      float mx = -1e30f;
-      for (int c = lane; c < kTS; c += 32) mx = fmaxf(mx, row[c]);
-      const float m_prev = s_m[r];
-      mx = fmaxf(m_prev, warp_max(mx));
+    for (int g = warp; g < GB; g += kWarps) {
+      float mx = neg_inf();
+      for (int c = lane; c < kTS; c += 32) mx = fmaxf(mx, s_p[c * GB + g]);
+      const float m_prev = s_m[g];
+      mx = fmaxf(m_prev, warp_max(mx));      // finite: the tile has a key
       float sum = 0.0f;
       for (int c = lane; c < kTS; c += 32) {
-        const float p = expf(row[c] - mx);   // beyond cnt: exp(-inf) = 0
-        row[c] = p;
+        const float p = expf(s_p[c * GB + g] - mx);   // masked: 0
+        s_p[c * GB + g] = p;
         sum += p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
-        const float alpha = expf(m_prev - mx);
-        s_alpha[r] = alpha;
-        s_l[r] = s_l[r] * alpha + sum;
-        s_m[r] = mx;
+        const float alpha = expf(m_prev - mx);          // m = -inf: 0
+        s_alpha[g] = alpha;
+        s_l[g] = s_l[g] * alpha + sum;
+        s_m[g] = mx;
       }
     }
     __syncthreads();
 
-    for (int e = tid; e < G * HD; e += kThreads) {
-      const int r = e / HD;
-      const int d = e - r * HD;
-      const float* pr = s_p + r * kTS;
-      float a = s_acc[e] * s_alpha[r];
-      for (int c = 0; c < cnt; ++c) a = fmaf(pr[c], s_v[c * HD + d], a);
-      s_acc[e] = a;
+    // acc = acc * alpha + p . v
+    const T* vt = reinterpret_cast<const T*>(s_v + (t & 1) * P::kVTile) +
+                  2 * dp;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float alpha = s_alpha[g];
+      acc[g][0] *= alpha;
+      acc[g][1] *= alpha;
     }
+    for (int c = cp; c < cnt; c += P::kCP) {
+      const float2 v = Vec<T>::load2(vt + c * HD);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float p = s_p[c * GB + g];
+        acc[g][0] = fmaf(p, v.x, acc[g][0]);
+        acc[g][1] = fmaf(p, v.y, acc[g][1]);
+      }
+    }
+    __syncthreads();   // the stage and s_p are free for the next tile
+  }
+
+  // sum the kCP position phases (over the ring, now idle) and write the
+  // partial (m, l, acc)
+  float* red = reinterpret_cast<float*>(smem);        // [kCP][GB][HD]
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    red[(cp * GB + g) * HD + 2 * dp] = acc[g][0];
+    red[(cp * GB + g) * HD + 2 * dp + 1] = acc[g][1];
   }
   __syncthreads();
-  for (int e = tid; e < G * HD; e += kThreads)
-    store(&ob[e], s_acc[e] / fmaxf(s_l[e / HD], 1e-30f));
+  for (int e = tid; e < GB * HD; e += kThreads) {
+    const int g = e / HD;
+    const int d = e - g * HD;
+    if (g0 + g >= G) continue;
+    float a = 0.0f;
+#pragma unroll
+    for (int c = 0; c < P::kCP; ++c) a += red[(c * GB + g) * HD + d];
+    ws_acc[(part + g0 + g) * HD + d] = a;
+    if (d == 0) {
+      ws_m[part + g0 + g] = s_m[g];
+      ws_l[part + g0 + g] = s_l[g];
+    }
+  }
+}
+
+// out[b, kv, g, :] = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30) with
+// w_s = exp(m_s - max_s m_s) (0 for an empty split): one block per (batch
+// row, kv head), the weights first (a thread per (split, row), coalesced),
+// then a thread per output element over the splits
+template <typename T, int HD>
+__global__ void __launch_bounds__(kMergeThreads)
+decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int G,
+                    int splits, long long rows) {
+  extern __shared__ float s_w[];                      // [splits][G], [G]
+  float* s_l = s_w + splits * G;
+  const long long base = (long long)blockIdx.x * splits * G;
+  const float* ws_m = ws + base;
+  const float* ws_l = ws + rows + base;
+  const float* ws_acc = ws + 2 * rows + base * HD;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < splits * G; i += kMergeThreads) s_w[i] = ws_m[i];
+  __syncthreads();
+  for (int g = tid; g < G; g += kMergeThreads) {
+    float mx = neg_inf();
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, s_w[s * G + g]);
+    s_l[g] = mx;
+  }
+  __syncthreads();
+  for (int i = tid; i < splits * G; i += kMergeThreads) {
+    const float m = s_w[i];
+    s_w[i] = m == neg_inf() ? 0.0f : expf(m - s_l[i % G]);
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += kMergeThreads) {
+    float l = 0.0f;
+    for (int s = 0; s < splits; ++s)
+      l = fmaf(ws_l[s * G + g], s_w[s * G + g], l);
+    s_l[g] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = tid; e < G * HD; e += kMergeThreads) {
+    const int g = e / HD;
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};     // four chains for the loads
+    int s = 0;
+    for (; s + 4 <= splits; s += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        a[u] = fmaf(ws_acc[(long long)(s + u) * G * HD + e],
+                    s_w[(s + u) * G + g], a[u]);
+    }
+    for (; s < splits; ++s)
+      a[0] = fmaf(ws_acc[(long long)s * G * HD + e], s_w[s * G + g], a[0]);
+    store(&o[(long long)blockIdx.x * G * HD + e],
+          ((a[0] + a[1]) + (a[2] + a[3])) / s_l[g]);
+  }
+}
+
+template <typename T, int HD, int GB>
+int launch(const T* q, const T* k, const T* v, const int* cache_len, T* o,
+           float* ws, int B, int KV, int G, int S, int splits,
+           cudaStream_t stream) {
+  using P = Plan<T, HD, GB>;
+  auto kernel = decode_split_kernel<T, HD, GB>;
+  if (P::kSmem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(splits, KV * ((G + GB - 1) / GB), B);
+  kernel<<<grid, kThreads, P::kSmem, stream>>>(
+      q, k, v, cache_len, ws, KV, G, S, splits,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_merge_kernel<T, HD>
+      <<<B * KV, kMergeThreads, 4 * (splits + 1) * G, stream>>>(
+          ws, o, G, splits, (long long)B * KV * splits * G);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const int* cache_len,
-           void* o, int B, int KV, int G, int S, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * G * HD + kTS * (HD + 1)
-                                       + kTS * HD + G * kTS + 3 * G);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = decode_attention_kernel<T, HD>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(KV, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), cache_len, static_cast<T*>(o), KV, G, S,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
-  return static_cast<int>(cudaGetLastError());
+int by_group(const T* q, const T* k, const T* v, const int* cache_len, T* o,
+             float* ws, int B, int KV, int G, int S, int splits,
+             cudaStream_t stream) {
+  if (G <= 1)
+    return launch<T, HD, 1>(q, k, v, cache_len, o, ws, B, KV, G, S, splits,
+                            stream);
+  if (G <= 2)
+    return launch<T, HD, 2>(q, k, v, cache_len, o, ws, B, KV, G, S, splits,
+                            stream);
+  if (G <= 4)
+    return launch<T, HD, 4>(q, k, v, cache_len, o, ws, B, KV, G, S, splits,
+                            stream);
+  return launch<T, HD, kMaxGroup>(q, k, v, cache_len, o, ws, B, KV, G, S,
+                                  splits, stream);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
-             const int* cache_len, void* o, int B, int KV, int G, int S,
-             int hd, cudaStream_t stream) {
+             const int* cache_len, void* o, void* ws, int B, int KV, int G,
+             int S, int hd, int splits, cudaStream_t stream) {
   if (B <= 0 || KV <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
-  if (S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= 0 || splits <= 0 || splits > S)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto run = [&](auto hd_tag) {
-    return launch<T, decltype(hd_tag)::value>(q, k, v, cache_len, o, B, KV,
-                                               G, S, stream);
+    return by_group<T, decltype(hd_tag)::value>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), cache_len, static_cast<T*>(o),
+        static_cast<float*>(ws), B, KV, G, S, splits, stream);
   };
   switch (hd) {
     case 16: return run(std::integral_constant<int, 16>());
@@ -234,17 +440,21 @@ int dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// ws: 4 * B * KV * splits * G * (hd + 2) bytes of f32 partials
 extern "C" int decode_attention_f32(const void* q, const void* k,
                                     const void* v, const int* cache_len,
-                                    void* o, int B, int KV, int G, int S,
-                                    int hd, cudaStream_t stream) {
-  return dispatch<float>(q, k, v, cache_len, o, B, KV, G, S, hd, stream);
+                                    void* o, void* ws, int B, int KV, int G,
+                                    int S, int hd, int splits,
+                                    cudaStream_t stream) {
+  return dispatch<float>(q, k, v, cache_len, o, ws, B, KV, G, S, hd, splits,
+                         stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      const void* v, const int* cache_len,
-                                     void* o, int B, int KV, int G, int S,
-                                     int hd, cudaStream_t stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, cache_len, o, B, KV, G, S, hd,
-                                 stream);
+                                     void* o, void* ws, int B, int KV, int G,
+                                     int S, int hd, int splits,
+                                     cudaStream_t stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, cache_len, o, ws, B, KV, G, S, hd,
+                                 splits, stream);
 }

@@ -1,7 +1,13 @@
-// Causal or full GQA attention forward with an online softmax over KV tiles.
+// Causal or full GQA attention forward in float32 with an online softmax
+// over KV tiles, on the CUDA cores.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py
-// (flash_attention_fwd over _flash_kernel).  q (B, H, Sq, hd), k/v (B, KV,
+// (flash_attention_fwd over _flash_kernel) for float32 inputs; bfloat16
+// inputs take the tensor-core kernel of flash_attention_bf16.cu.  No
+// tensor-core type computes an f32 product in full f32 (TF32 keeps about
+// three digits), and the float32 agreement checks (logits within 1e-4)
+// need full f32 products, so this kernel stays on the CUDA cores; no timed
+// path runs flash attention in float32.  q (B, H, Sq, hd), k/v (B, KV,
 // Skv, hd), H % KV == 0; q head h reads kv head h / (H / KV) by index, so
 // the grouped K/V are never repeated in memory.  Per query row, over KV
 // tiles:
@@ -9,22 +15,19 @@
 //                                       causal, or k_pos >= Skv)
 //   m'    = max(m, max_j s);  p = exp(s - m');  alpha = exp(m - m')
 //   l     = l * alpha + sum_j p;  acc = acc * alpha + p . v
-//   out   = acc / max(l, 1e-30)        (written in the input type)
-// Everything is f32 inside, as in the Pallas kernel.  Tiles strictly above
-// the diagonal are skipped.  Any Sq and Skv: the ragged tails are masked.
+//   out   = acc / max(l, 1e-30)
+// Everything is f32, as in the Pallas kernel.  Tiles strictly above the
+// diagonal are skipped.  Any Sq and Skv: the ragged tails are masked.
 //
-// Bound on the H100: at the prefill's shapes (Sq = Skv = 1024, hd = 128)
-// operations, 4*B*H*Sq*Skv*hd/2 FLOP against the bf16 tensor-core peak.
-// This first kernel is simple and right, and runs on the CUDA cores: one
-// block per (q tile of kBQ rows, head, batch), 256 threads; the q tile
-// (pre-scaled, f32), a transposed K tile, a V tile and the score tile sit
-// in shared memory, padded so that no warp meets a bank conflict; each
-// thread keeps a 4 x 2 score tile and a 4 x (hd/16) output tile in
-// registers.  wgmma, TMA and a producer warp are later work.
+// Bound on the H100: operations, 4*B*H*Sq*Skv*hd/2 FLOP against the 67
+// TFLOP/s of f32 outside the tensor cores.  One block per (q tile of kBQ
+// rows, head, batch), 256 threads; the q tile (pre-scaled), a transposed
+// K tile, a V tile and the score tile sit in shared memory, padded so that
+// no warp meets a bank conflict; each thread keeps a 4 x 2 score tile and
+// a 4 x (hd/16) output tile in registers.
 #include <cmath>
 #include <type_traits>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,13 +43,7 @@ __device__ __forceinline__ float neg_inf() {
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -238,12 +235,4 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int KV, int Sq, int Skv, int hd,
                                    int causal, cudaStream_t stream) {
   return dispatch<float>(q, k, v, o, B, H, KV, Sq, Skv, hd, causal, stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int KV, int Sq, int Skv, int hd,
-                                    int causal, cudaStream_t stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, hd, causal,
-                                 stream);
 }

@@ -6,13 +6,17 @@ G, hd) -- the G query heads of each kv group together -- and caches (B,
 KV, S, hd), the layer slice of the model's kv-major cache.  Positions
 ``0 .. cache_len`` (inclusive: the new token's K/V is already written at
 ``cache_len``) are attended.  The result is (B, KV, G, hd) in q's dtype,
-computed in float32 throughout, as the Pallas kernel does.
+computed in float32 throughout, as the Pallas kernel does.  The kernel
+splits the cache over several blocks and merges their partial softmaxes
+by log-sum-exp rescaling; ``decode_splits`` picks the split count.
 
 ``decode_attention_plain`` is the plain PyTorch version (the CPU path,
 and the yardstick the kernel is held against on the card): the
 full-softmax ``ref.decode_attention_ref``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,6 +31,21 @@ _ENTRY = {torch.float32: "decode_attention_f32",
 #: the plain version: masked softmax over the whole cache in float32
 decode_attention_plain = decode_attention_ref
 
+#: blocks a decode call aims for: two on each of the H100's 132 SMs
+SPLIT_BLOCKS = 2 * 132
+#: positions a split holds at least, at a full cache
+MIN_SPLIT = 32
+
+
+def decode_splits(b: int, kvh: int, s: int) -> int:
+    """Blocks that share one (batch row, kv head)'s cache: enough for
+    ``SPLIT_BLOCKS`` blocks in all, at most one per ``MIN_SPLIT``
+    positions of the cache (so at least 1 and at most ``s``).  It depends
+    on the shapes alone, never on the fill, so one captured call replays
+    at any ``cache_len``."""
+    return max(1, min(math.ceil(SPLIT_BLOCKS / (b * kvh)),
+                      math.ceil(s / MIN_SPLIT)))
+
 
 @_build.counted
 def decode_attention_fwd(q, k_cache, v_cache, cache_len):
@@ -38,9 +57,13 @@ def decode_attention_fwd(q, k_cache, v_cache, cache_len):
     (``decode_attention_fwd`` over ``_decode_kernel``).  The kernel reads
     ``cache_len`` from device memory, so a decode step never syncs the
     host.  On the H100 it is bound by bytes: the ``cache_len + 1`` K and
-    V rows read once.  The simple design is one block per (kv head, batch
-    row), tiles of 64 positions staged in shared memory; see
-    ``csrc/decode_attention.cu``.
+    V rows read once.  Each (batch row, kv head)'s cache is split over
+    ``decode_splits(B, KV, S)`` blocks, each taking an equal share of the
+    filled positions with the next tile in flight (``cp.async``) while it
+    computes; each writes an f32 partial (m, l, acc), and a second kernel
+    merges them (see ``csrc/decode_attention.cu``).  A call is two
+    launches and counts one.  The partials live in the same allocation as
+    the output.
 
     CPU tensors run ``decode_attention_plain``; CUDA tensors launch the
     kernel or raise.
@@ -61,9 +84,17 @@ def decode_attention_fwd(q, k_cache, v_cache, cache_len):
         raise ValueError(f"decode_attention: cache_len must hold one value; "
                          f"got shape {tuple(clen.shape)}")
     clen = clen.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
+    splits = decode_splits(b, kvh, s)
+    # one allocation: the output, then the f32 partials 16-byte aligned
+    size = q.element_size()
+    ws_at = -(-q.numel() * size // 16) * 16
+    ws_bytes = 4 * b * kvh * splits * g * (hd + 2)
+    buf = torch.empty(-(-(ws_at + ws_bytes) // size), dtype=q.dtype,
+                      device=q.device)
+    out = buf.as_strided(q.shape, q.stride())
     _build.launch(_ENTRY[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-                  v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(), b, kvh,
-                  g, s, hd, _build.stream_ptr(q.device))
+                  v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(),
+                  buf.data_ptr() + ws_at, b, kvh, g, s, hd, splits,
+                  _build.stream_ptr(q.device))
     decode_attention_fwd.launches += 1
     return out

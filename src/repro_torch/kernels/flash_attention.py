@@ -53,10 +53,15 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py``
     (``flash_attention_fwd`` over ``_flash_kernel``), and handles any Sq
     and Skv (the Pallas wrapper asserts that its blocks divide them).  On
-    the H100 the prefill's call is bound by operations.  The simple design
-    is one block per (q tile of 64 rows, head, batch row) on the CUDA
-    cores, KV tiles of 32 keys staged in shared memory; see
-    ``csrc/flash_attention.cu``.
+    the H100 the prefill's call is bound by operations, which only the
+    tensor cores' ``wgmma`` reaches.  bfloat16 runs on them
+    (``csrc/flash_attention_bf16.cu``): one block per 128 query rows, two
+    consumer warpgroups of 64 rows and a producer warp that keeps K/V
+    tiles in flight by TMA in a two-stage ring; both products on
+    ``wgmma`` with f32 sums, the softmax in registers, P rounded to
+    bfloat16 only as the operand of P.V (as the reference's model path
+    does).  float32 stays on the CUDA cores (``csrc/flash_attention.cu``),
+    since no tensor-core type keeps a full f32 product.
 
     CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
     kernel or raise.

@@ -21,8 +21,8 @@ from repro.kernels.decode_attention import \
 from repro.kernels.flash_attention import \
     flash_attention_fwd as j_flash  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.decode_attention import \
-    decode_attention_fwd  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_fwd, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import \
     flash_attention_fwd  # noqa: E402
 
@@ -126,3 +126,58 @@ def test_wrappers_reject_bad_shapes(call):
             flash_attention_fwd(q, k, k)
         else:
             decode_attention_fwd(q, k[:, :, :, :8], k, 0)
+
+
+@pytest.mark.parametrize("b,kvh,s", [
+    (8, 8, 1152), (8, 8, 32768), (1, 1, 1), (1, 1, 31), (1, 1, 33),
+    (2, 2, 256), (64, 64, 4096), (3, 5, 7)])
+def test_decode_splits_depend_only_on_the_shapes(b, kvh, s):
+    """The split count is a function of (B, KV, S) alone -- never of the
+    fill, so a call captured in a CUDA graph replays at any fill -- and
+    lies in [1, S]."""
+    splits = decode_splits(b, kvh, s)
+    assert isinstance(splits, int) and 1 <= splits <= s
+    assert decode_splits(b, kvh, s) == splits
+
+
+def _split_merge(q, k, v, cache_len, splits):
+    """The decode kernel's algebra in plain PyTorch: ``splits`` equal
+    shares of the ``n = min(cache_len + 1, S)`` filled positions, each an
+    f32 partial (m, l, acc) -- empty past n -- merged by log-sum-exp
+    rescaling."""
+    s_len, hd = k.shape[2], q.shape[-1]
+    n = max(0, min(cache_len + 1, s_len))
+    per = -(-n // splits)
+    shape = q.shape[:-1]
+    ms, ls, accs = [], [], []
+    for sp in range(splits):
+        lo, hi = sp * per, min(n, sp * per + per)
+        if lo >= hi:
+            ms.append(torch.full(shape, -torch.inf))
+            ls.append(torch.zeros(shape))
+            accs.append(torch.zeros(q.shape))
+            continue
+        sc = q.float() @ k[:, :, lo:hi].float().transpose(-1, -2)
+        sc = sc * hd ** -0.5
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(p @ v[:, :, lo:hi].float())
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    w = torch.where(m == -torch.inf, 0.0, torch.exp(m - m.amax(0)))
+    return (acc * w[..., None]).sum(0) / (l * w).sum(0).clamp(
+        min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16])
+@pytest.mark.parametrize("fill", [0, 1, 14, 15, 39, 99, 130])
+def test_split_merge_algebra_matches_plain(splits, fill):
+    """Split-then-merge equals the full softmax within 1e-6 in float32,
+    with empty splits (few filled positions over many splits) and with
+    ``cache_len`` past the cache (fill 130 on a 100-long cache)."""
+    _, (q, k, v) = _inputs(7, [(2, 2, 4, 16), (2, 2, 100, 16),
+                               (2, 2, 100, 16)], "float32")
+    want = decode_attention_plain(q, k, v, torch.tensor(fill))
+    torch.testing.assert_close(_split_merge(q, k, v, fill, splits), want,
+                               rtol=1e-6, atol=1e-6)

@@ -8,7 +8,10 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
-odd length, and a small model end to end; tolerances as everywhere for
+odd length, every head dim of the flash kernels, q lengths that do not
+divide their tiles, decode fills on either side of a split boundary and a
+decode call replayed from a CUDA graph at other fills, and a small model
+end to end; tolerances as everywhere for
 the attention kernels: 2e-5 in float32, 2e-2 in bfloat16; the WKV kernel
 (float32 only) within 1e-4 of the largest magnitude of its plain result,
 the reference's own tolerance for its kernel.
@@ -22,9 +25,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_fwd, decode_attention_plain)
+    decode_attention_fwd, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_fwd, flash_attention_plain)
+    HEAD_DIMS, flash_attention_fwd, flash_attention_plain)
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     rwkv6_wkv, rwkv6_wkv_fwd, rwkv6_wkv_plain)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
@@ -53,6 +56,14 @@ def _normal(seed, shapes, dtype, dev):
     (1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 256, 64),
     (1, 4, 1, 256, 256, 128), (1, 2, 2, 64, 192, 32),
     (2, 4, 2, 100, 100, 16),          # odd length, smoke head dim
+    # every head dim the kernels are built for (the bf16 kernel's tile
+    # sizes and swizzle modes differ by head dim: 64-key tiles at 256)
+    *[(2, 4, 2, 300, 300, hd) for hd in HEAD_DIMS],
+    # q lengths that do not divide the 128-row q tile; Skv > Sq (causal
+    # by absolute position); 333 x 1000
+    (2, 8, 2, 1, 1, 128), (2, 8, 2, 65, 65, 128), (2, 8, 2, 129, 129, 128),
+    (2, 8, 2, 1000, 1000, 128), (2, 8, 2, 129, 700, 128),
+    (2, 8, 2, 333, 1000, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -85,6 +96,57 @@ def test_decode_kernel_matches_plain(cuda, b, kv, g, s, hd, dtype, fill):
     torch.testing.assert_close(
         got.float(), decode_attention_plain(q, k, v, clen).float(),
         rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _boundary_fills(b, kv, s):
+    """Fills 0 and S - 1, and the fills whose n = fill + 1 positions end
+    one short of and exactly at a multiple of the split count."""
+    splits = decode_splits(b, kv, s)
+    at = splits * max(1, (s // 2) // splits) - 1
+    return sorted({0, at - 1, at, s - 1})
+
+
+@pytest.mark.parametrize("b,kv,g,s", [(2, 2, 4, 200), (8, 8, 4, 1152),
+                                      (1, 2, 4, 32768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_boundaries(cuda, b, kv, g, s, dtype):
+    q, k, v = _normal(8, [(b, kv, g, 128), (b, kv, s, 128),
+                          (b, kv, s, 128)], dtype, cuda)
+    for fill in _boundary_fills(b, kv, s):
+        clen = torch.tensor(fill, dtype=torch.int32, device=cuda)
+        got = decode_attention_fwd(q, k, v, clen)
+        torch.testing.assert_close(
+            got.float(), decode_attention_plain(q, k, v, clen).float(),
+            rtol=TOL[dtype], atol=TOL[dtype],
+            msg=lambda m: f"fill {fill}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_graph_replays_at_other_fills(cuda, dtype):
+    """One call captured in a CUDA graph, replayed after ``cache_len`` is
+    changed in place: the split plan is fixed by the shapes and each block
+    reads the fill on the device, so every replay equals the plain
+    version at the new fill."""
+    b, kv, g, s = 4, 8, 4, 1152
+    q, k, v = _normal(9, [(b, kv, g, 128), (b, kv, s, 128),
+                          (b, kv, s, 128)], dtype, cuda)
+    clen = torch.tensor(17, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_fwd(q, k, v, clen)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_fwd(q, k, v, clen)
+    for fill in (17, 700, s - 1):
+        clen.fill_(fill)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), decode_attention_plain(q, k, v, clen).float(),
+            rtol=TOL[dtype], atol=TOL[dtype],
+            msg=lambda m: f"fill {fill}: {m}")
 
 
 def _wkv_inputs(b, t, h, hd, dev, seed=3):
