@@ -19,7 +19,10 @@ Run from a checkout of the repository on a machine with a CUDA card and
    kernel within ``1e-4`` of the largest magnitude of its plain result),
    at stress shapes and at the shapes the paths give it (decode attention
    also at fills on either side of a split boundary, and captured once in
-   a CUDA graph and replayed at other fills set in place on the card);
+   a CUDA graph and replayed at other fills set in place on the card; the
+   packing kernel ``pack_rows`` for all 12 packers, masked and unmasked,
+   at n = 7, 32 and 256, with ties, oversized items and out-of-range
+   previous names, exact and ``loads`` bit for bit);
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -29,7 +32,11 @@ Run from a checkout of the repository on a machine with a CUDA card and
    assumption: one consumer can drain any single partition);
 5. path B: ``api.simulate`` with MWF, MBF, MWFP, MBFP, KEDA_LAG,
    RATE_THRESHOLD and BFD through the per-step loop with
-   ``use_kernel=True`` over 1024 groups x 480 steps x 32 partitions;
+   ``use_kernel=True`` over 1024 groups x 480 steps x 32 partitions:
+   exactly one ``pack_rows`` launch a packing policy a step (2400), no
+   ``select_slot_grid`` launch, 3360 ``lag_update`` launches; then the
+   torch ops a step of each policy, with the packing kernel and with the
+   plain packers swapped in;
 6. path C1: ``api.simulate`` with the annealer policies ANNEAL and
    ANNEAL_STICKY (6 chains, 48 anneal steps a decision) over path B's
    traffic, every move evaluation through the ``move_eval`` kernel; the
@@ -37,8 +44,9 @@ Run from a checkout of the repository on a machine with a CUDA card and
    draws injected and must give the same integers;
 7. path C2: ``api.optimize`` on one 256-partition topic (a diurnal step,
    ``prev`` from 32 steps of BFD): the 7-lambda x 4-restart frontier over
-   250 anneal steps, all 12 packers scored against it; the same instance
-   and seed with the plain move evaluation on the card must give the same
+   250 anneal steps, all 12 packers scored against it (exactly 250
+   ``move_eval`` and 12 ``pack_rows`` launches); the same instance and
+   seed with the plain move evaluation on the card must give the same
    frontier;
 8. path D, dense-LLM serving: qwen3-8b at full width and depth (36
    layers) in bfloat16 with bfloat16 weights drawn on the card from
@@ -66,7 +74,8 @@ Run from a checkout of the repository on a machine with a CUDA card and
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; no PyTorch call computes the WKV
-   recurrence); ``loop_fused`` and its plain
+   recurrence; ``pack_rows`` at path B's Modified Any Fit call, MBF over
+   [1024, 32]); ``loop_fused`` and its plain
    version also run path A's whole input once more, and their outputs
    are held against each other.
 
@@ -259,6 +268,67 @@ def check_select_slot(dev, gen, b, n, m):
                               f"masked={masked}")
     print(f"check select_slot_grid B={b} N={n} M={m} first/best/worst "
           f"masked and unmasked: exact")
+    return 0.0
+
+
+PACKERS = HEURISTICS + ("MWF", "MBF", "MWFP", "MBFP")
+
+
+def plain_packer(name):
+    """The registered packer's plain version (the per-insert walk of torch
+    ops, launching nothing)."""
+    from repro_torch.core.pack import modified_any_fit_plain, pack_plain
+    from repro_torch.registry import get_spec
+
+    hyper = get_spec(name).hyperparams
+    if "fit" in hyper:
+        return lambda *a, **k: modified_any_fit_plain(
+            *a, fit=hyper["fit"], sort_key=hyper["sort_key"], **k)
+    return lambda *a, **k: pack_plain(
+        *a, strategy=hyper["strategy"], decreasing=hyper["decreasing"], **k)
+
+
+def _pack_instances(dev, gen, rows, n, masked):
+    """Rows with tied speeds (a coarse grid on even rows), oversized items
+    (w > C), a few large consumers, and ``prev`` holding -1, lower
+    negatives and names past the 2n + 2 of the name range."""
+    import torch
+
+    speeds = torch.rand((rows, n), generator=gen, device=dev)
+    speeds[::2] = torch.round(speeds[::2] * 4) / 4
+    speeds[1::3, 0] = 1.3 * CAPACITY
+    prev = torch.randint(-3, 2 * n + 5, (rows, n), generator=gen, device=dev)
+    prev[3::4] = torch.randint(0, 3, prev[3::4].shape, generator=gen,
+                               device=dev)
+    act = (torch.rand((rows, n), generator=gen, device=dev) > 0.3
+           if masked else None)
+    return speeds, prev, act
+
+
+def check_pack_rows(dev, gen, rows, n):
+    """The packing kernel against the plain packers at ``[rows, n]``: all
+    12 packers, masked and unmasked; ``bin_of``, ``names`` and ``n_bins``
+    equal, ``loads`` bit for bit."""
+    import torch
+
+    from repro_torch.registry import get_spec
+
+    for masked in (False, True):
+        speeds, prev, act = _pack_instances(dev, gen, rows, n, masked)
+        for name in PACKERS:
+            got = get_spec(name).packer(speeds, prev, CAPACITY, active=act)
+            want = plain_packer(name)(speeds, prev, CAPACITY, active=act)
+            torch.cuda.synchronize()
+            what = f"pack_rows {name} [{rows}, {n}] masked={masked}"
+            for f in ("bin_of", "names", "n_bins"):
+                _exact(getattr(got, f), getattr(want, f), f"{what} {f}")
+            _require(torch.equal(got.loads.view(torch.int32),
+                                 want.loads.view(torch.int32)),
+                     f"{what}: loads differ from the plain version's bits "
+                     f"(max abs err {_max_err(got.loads, want.loads)})")
+    print(f"check pack_rows R={rows} N={n} all 12 packers masked and "
+          f"unmasked, ties, oversized items, prev -1 / negative / out of "
+          f"range: exact, loads bit for bit")
     return 0.0
 
 
@@ -1029,15 +1099,17 @@ def run_path_c2(dev, seed):
     out = api.optimize(speeds, prev, capacity=CAPACITY, seed=seed,
                        device=dev)
     wall = time.perf_counter() - t0
-    launches = _build.launch_counts()["move_delta_batch"]
-    _require(launches == 250, f"path C2: move_eval launched {launches} "
-             f"times, want 250")
+    counts = _build.launch_counts()
+    launches = {"move_delta_batch": 250, "pack_rows": 12}  # 12 packers scored
+    for k, want in launches.items():
+        _require(counts[k] == want, f"path C2: {k} launched {counts[k]} "
+                 f"times, want {want}")
     _require(len(out.heuristics) == 12 and out.hypervolume > 0
              and all(b >= 1 for b, _ in out.front),
              "path C2: malformed frontier")
     print(f"path C2: optimize N={speeds.shape[0]} sum(speeds)="
           f"{float(speeds.sum())!r} 7 lambdas x 4 restarts x 250 steps: "
-          f"wall_s={wall!r} launches={{'move_delta_batch': {launches}}}")
+          f"wall_s={wall!r} launches={launches}")
     print(f"  per_lambda={out.per_lambda}")
     print(f"  front={out.front} hypervolume={out.hypervolume!r}")
     print("  hv_ratio " + " ".join(
@@ -1050,10 +1122,22 @@ def run_path_c2(dev, seed):
              "path C2: the plain move evaluation gives another frontier")
     print("path C2 agreement: the plain move evaluation on the card gives "
           "the same per_lambda, front and hypervolume")
+    # the scoring's 12 packing calls once more, timed alone (eager, CUDA
+    # events): their share of the wall above
+    from repro_torch.registry import packer_for
+
+    sp = torch.tensor(speeds[None], dtype=torch.float32, device=dev)
+    pv = torch.tensor(prev[None], dtype=torch.long, device=dev)
+    packers = [packer_for(name) for name in PACKERS]
+    ms, _ = cuda_ms(lambda: [f(sp, pv, CAPACITY) for f in packers], 5)
+    print(f"  the 12 packing calls of the scoring at N={speeds.shape[0]}: "
+          f"{ms!r} ms together")
     return launches
 
 
-def run_path(name, policies, rates, act, kernels, **over):
+def run_path(name, policies, rates, act, kernels, exact=None, **over):
+    """``api.simulate`` over the path's input; every kernel of ``kernels``
+    must launch, each of ``exact`` exactly as many times as it gives."""
     import torch
 
     from repro_torch import api
@@ -1069,12 +1153,47 @@ def run_path(name, policies, rates, act, kernels, **over):
     counts = _build.launch_counts()
     for k in kernels:
         _require(counts[k] > 0, f"path {name}: kernel {k} was not launched")
+    for k, want in (exact or {}).items():
+        _require(counts[k] == want, f"path {name}: {k} launched {counts[k]} "
+                 f"times, want {want}")
     _check_outcome(out, (p, b, t))
+    launches = {k: counts[k] for k in (*kernels, *(exact or {}))}
     print(f"path {name}: {p} policies x B={b} x T={t} x N={n} {over}: "
           f"wall_s={wall!r} policy_stream_steps_per_s={p * b * t / wall!r} "
-          f"launches={ {k: counts[k] for k in kernels} }")
+          f"launches={launches}")
     _print_metrics(out)
-    return out, {k: counts[k] for k in kernels}
+    return out, launches
+
+
+def path_b_ops(rates, act):
+    """Torch ops a path-B step dispatches, per policy (an 8-step run's ops
+    less a 4-step run's, over 4): with the packing kernel, then with the
+    plain packers swapped in on the card (the per-insert walk of torch
+    ops that the kernel replaces).  Returns the two totals."""
+    from repro_torch import api
+    from repro_torch.core import pack as core_pack
+    from repro_torch.registry import builtin
+
+    def per_step(policy):
+        n = []
+        for t in (4, 8):
+            with _op_counter() as ops:
+                api.simulate(rates[:, :t], policies=(policy,),
+                             active=act[:, :t], device=rates.device,
+                             use_kernel=True)
+            n.append(ops.n)
+        return (n[1] - n[0]) // 4
+
+    kern = {p: per_step(p) for p in PATH_B}
+    with _swapped([(builtin, "pack", core_pack.pack_plain),
+                   (builtin, "modified_any_fit",
+                    core_pack.modified_any_fit_plain)]):
+        plain = {p: per_step(p) for p in PATH_B}
+    print(f"path B torch ops a step, packers on pack_rows: {kern} "
+          f"total={sum(kern.values())}")
+    print(f"  with the plain packers on the card (the per-insert walk): "
+          f"{plain} total={sum(plain.values())}")
+    return sum(kern.values()), sum(plain.values())
 
 
 def card_line() -> str:
@@ -1140,6 +1259,10 @@ def main(argv=None) -> int:
             check_select_slot(dev, gen, 1024, 32, 65),
             check_select_slot(dev, gen, 1024, 1, 65),    # Modified Any Fit
             check_select_slot(dev, gen, 1024, 1, 33)),   # BFD's n + 1 slots
+        "pack_rows": max(
+            check_pack_rows(dev, gen, 1024, 7),
+            check_pack_rows(dev, gen, 1024, 32),         # path B
+            check_pack_rows(dev, gen, 16, 256)),         # path C2
         "loop_fused": check_loop_fused(dev, args.seed),
         "move_delta_batch": max(
             check_move_eval(dev, gen, 6144, 32),       # path C1
@@ -1179,29 +1302,30 @@ def main(argv=None) -> int:
     _agree(small, out_a, 32, 480, "path A against the wide fused path")
     del small
 
-    # path B: the per-step loop, drain and packer selects through kernels
+    # path B: the per-step loop; the drain and every packing call (5 of
+    # the 7 policies pack) through kernels, no per-insert selection
     rates_b, act_b = traffic_mix(1024, 480, 32, args.seed + 10, dev)
-    out_b, launches_b = run_path("B", PATH_B, rates_b, act_b,
-                                 ("lag_update_batch", "select_slot_grid"),
-                                 use_kernel=True)
+    steps_b = rates_b.shape[1]
+    out_b, launches_b = run_path(
+        "B", PATH_B, rates_b, act_b, ("lag_update_batch", "pack_rows"),
+        exact={"pack_rows": 5 * steps_b, "select_slot_grid": 0,
+               "lag_update_batch": len(PATH_B) * steps_b}, use_kernel=True)
     small = api.simulate(rates_b[:16, :48].cpu(), policies=PATH_B,
                          active=act_b[:16, :48].cpu(), device="cpu",
                          use_kernel=True)
     _agree(small, out_b, 16, 48, "path B against the CPU plain versions")
     del small, out_a, out_b
+    path_b_ops(rates_b, act_b)
 
     # path C1: the annealer policies, every move evaluation on the kernel
-    out_c1, launches_c1 = run_path("C1", PATH_C1, rates_b, act_b,
-                                   ("move_delta_batch",))
-    want = len(PATH_C1) * rates_b.shape[1] * 48
-    _require(launches_c1["move_delta_batch"] == want,
-             f"path C1: move_eval launched {launches_c1['move_delta_batch']} "
-             f"times, want {want}")
+    out_c1, launches_c1 = run_path(
+        "C1", PATH_C1, rates_b, act_b, ("move_delta_batch",),
+        exact={"move_delta_batch": len(PATH_C1) * rates_b.shape[1] * 48})
     path_c1_agreement(out_c1, rates_b, act_b)
     del out_c1
 
     # path C2: one large topic's frontier through api.optimize
-    run_path_c2(dev, args.seed)
+    launches_c2 = run_path_c2(dev, args.seed)
 
     # path D: qwen3-8b serving, prefill and greedy generation
     launches_d = run_serving_path(dev, args.seed, "D", LLM,
@@ -1295,9 +1419,53 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/csrc/binpack_select.cu",
         replaces="src/repro/kernels/binpack_select.py:76",
         launches=launches_b["select_slot_grid"],
+        launches_note="no path launches the grid kernel: the packers run "
+        "its selection code (select_slot_warp) inside pack_rows",
         max_abs_err=errs["select_slot_grid"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0]))
+
+    # pack_rows at path B's Modified Any Fit call: MBF on step 8's speeds
+    # with the assignment of steps 0-7 as prev
+    from repro_torch.core.pack import modified_any_fit
+
+    prev = torch.full((b, n), -1, dtype=torch.long, device=dev)
+    for t in range(8):
+        prev = modified_any_fit(rates_b[:, t], prev, CAPACITY,
+                                active=act_b[:, t]).bin_of
+    sp8, act8 = rates_b[:, 8].contiguous(), act_b[:, 8].contiguous()
+    kern = lambda: modified_any_fit(  # noqa: E731
+        sp8, prev, CAPACITY, active=act8)
+    ref = lambda: plain_packer("MBF")(  # noqa: E731
+        sp8, prev, CAPACITY, active=act8)
+    got, want = kern(), ref()
+    torch.cuda.synchronize()
+    for f in ("bin_of", "names", "n_bins"):
+        _exact(getattr(got, f), getattr(want, f), f"pack_rows MBF at path "
+                                                  f"B's step 8: {f}")
+    _require(torch.equal(got.loads.view(torch.int32),
+                         want.loads.view(torch.int32)),
+             "pack_rows MBF at path B's step 8: loads differ")
+    # bytes: speeds, prev (int64) and active in; bin_of, loads, names and
+    # n_bins out; operations: one fit compare a slot for each active
+    # item's insert
+    m = 2 * n + 1
+    bnd, by = bound_ms(b * n * (4 + 8 + 1 + 8) + b * m * (4 + 8) + b * 8,
+                       int(act8.sum()) * m)
+    kernels.append(dict(
+        name="pack_rows", route="cuda",
+        source="src/repro_torch/kernels/csrc/binpack_select.cu",
+        replaces="src/repro/kernels/binpack_select.py:76",
+        replaces_note="the selection kernel with the reference's scans "
+        "around it (src/repro/core/jaxpack.py pack_jax and "
+        "modified_any_fit_jax): one launch a packing call",
+        launches=launches_b["pack_rows"] + launches_c2["pack_rows"],
+        launches_by_path={"B": launches_b["pack_rows"],
+                          "C2": launches_c2["pack_rows"]},
+        max_abs_err=errs["pack_rows"], ms=graph_ms(kern, 50),
+        plain_ms=graph_ms(ref, 1), bound_ms=bnd, bound_by=by,
+        library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
+    del prev, got, want
 
     k, n = 6144, 32                # path C1's chains and partitions
     m = 2 * n + 2

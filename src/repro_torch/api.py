@@ -8,16 +8,17 @@ return the reference's ``SimulateOutcome`` / ``OptimizeOutcome`` shapes
 (numpy arrays and plain floats), so the two packages' results compare
 directly.  The reference's fleet layer (bucketing, ragged inputs) waits
 for a later slice: ``simulate`` takes one uniform ``[B, T, N]`` batch and
-calls ``sweep_lag`` directly.
+calls ``sweep_lag`` directly, and refuses ``fleet=``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from repro_torch.lagsim import LagSimConfig, slo_summary, sweep_lag
+from repro_torch.lagsim import (LagSimConfig, NotPortedError, slo_summary,
+                                sweep_lag)
 from repro_torch.registry import PACKER_FAMILIES, list_policies
 
 #: schema version stamped on every result dataclass (the reference's)
@@ -33,12 +34,18 @@ class SimulateOutcome:
     lag_total: np.ndarray             # f32[P, B, T] raw trajectories
     consumers: np.ndarray             # i32[P, B, T]
     migrations: np.ndarray            # i32[P, B, T]
+    #: the reference's in-loop telemetry results (recorder frames,
+    #: streaming-sketch summaries, incidents); ``None`` until the port
+    #: carries in-loop telemetry
+    telemetry: Optional[List[Any]] = None
+    sketches: Optional[List[List[Any]]] = None
+    incidents: Optional[List[List[Any]]] = None
     schema_version: int = API_VERSION
 
 
 def simulate(traces, *, policies: Optional[Sequence[str]] = None,
-             config: Optional[LagSimConfig] = None, active=None, device=None,
-             **cfg_overrides) -> SimulateOutcome:
+             config: Optional[LagSimConfig] = None, active=None, fleet=None,
+             device=None, **cfg_overrides) -> SimulateOutcome:
     """Closed-loop lag twin over ``traces`` f32[B, T, N] (a tensor or an
     array): backlog, shared drain budgets and migration downtime per
     policy, reduced to SLO metrics (violation fraction, peak lag,
@@ -48,7 +55,14 @@ def simulate(traces, *, policies: Optional[Sequence[str]] = None,
     fused_kernel=True`` runs the heuristic packers through the
     ``loop_fused`` kernel; ``use_kernel=True`` drains every per-step loop
     through the ``lag_update`` kernel).  ``policies=None`` runs every
-    registered policy.  ``device=None`` means the CUDA card."""
+    registered policy.  ``fleet`` (the reference's bucketed fleet layer)
+    is not ported: anything but ``None`` raises :class:`NotPortedError`.
+    ``device=None`` means the CUDA card."""
+    if fleet is not None:
+        raise NotPortedError(
+            "simulate(fleet=...) is not yet ported to repro_torch: the fleet "
+            "layer (repro.fleet.FleetRunner) is ROADMAP.md queue 1, item 1; "
+            "leave it None")
     if policies is None:
         policies = list_policies()
     cfg = config if config is not None else LagSimConfig()

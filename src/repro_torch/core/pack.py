@@ -1,37 +1,37 @@
 """The paper's packing algorithms, batched over rows ``[R, N]``.
 
 One row is one packing instance (in the lag twin: one stream under one
-policy).  Items are walked in a static Python loop; every per-row choice
-that the reference makes with ``lax.cond`` or a scalar index becomes a
-masked update over the row axis, so a whole batch packs in one pass with
-no host synchronisation.  Semantics -- tie-breaking, the Sec. IV-C sticky
-naming and the ``active`` mask contract -- follow the reference
-``repro.core.jaxpack`` (``pack_jax``, ``modified_any_fit_jax``) exactly.
+policy).  ``pack`` and ``modified_any_fit`` take a whole batch in one
+call: on a CUDA tensor they launch the ``pack_rows`` kernel once for
+every row of the call (``kernels/binpack_select.py``), on a CPU tensor
+they run the plain versions below.  Semantics -- tie-breaking, the Sec.
+IV-C sticky naming and the ``active`` mask contract -- follow the
+reference ``repro.core.jaxpack`` (``pack_jax``, ``modified_any_fit_jax``)
+exactly.
+
+The plain versions ``pack_plain`` / ``modified_any_fit_plain`` walk the
+items in a static Python loop; every per-row choice that the reference
+makes with ``lax.cond`` or a scalar index becomes a masked update over the
+row axis, so a whole batch packs in one pass with no host
+synchronisation.  They launch nothing, on any device: first/best/worst
+inserts choose their slot with ``select_slot_plain``; next-fit only ever
+looks at the last bin.
 
 Conventions: ``speeds`` f32[R, N]; ``prev`` int[R, N] previous bin name
-(-1 = unassigned); ``active`` optional bool[R, N] (an inactive item packs
-to ``NEG``, adds no load and claims no name).  Bin names lie in
-``[0, 2n+2)``.  First/best/worst inserts choose their slot through the
-``binpack_select`` kernel; next-fit only ever looks at the last bin.
+(-1 = unassigned; a name outside ``[0, 2n+2)`` counts as unassigned);
+``active`` optional bool[R, N] (an inactive item packs to ``NEG``, adds
+no load and claims no name).  Bin names lie in ``[0, 2n+2)``.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.binpack_select import select_slot_grid
+from repro_torch.kernels.binpack_select import (PackedRows, pack_rows,
+                                                select_slot_plain)
 
 NEG = -1
-
-
-@dataclasses.dataclass
-class PackedRows:
-    bin_of: torch.Tensor   # i64[R, N]  bin name per item (NEG if inactive)
-    loads: torch.Tensor    # f32[R, M]  load per creation slot
-    names: torch.Tensor    # i64[R, M]  name per creation slot
-    n_bins: torch.Tensor   # i64[R]     bins created
 
 
 def _take(x, idx):
@@ -70,9 +70,9 @@ def _select_slot(loads, k, w, capw, strategy: str):
         last = torch.clamp(k - 1, min=0)
         found = (k > 0) & (_take(loads, last) + w <= capw)
         return torch.where(found, last, k), found
-    slot = select_slot_grid(loads.unsqueeze(1), w.unsqueeze(1),
-                            k.unsqueeze(1), capw.unsqueeze(1),
-                            strategy=strategy)[:, 0].long()
+    slot = select_slot_plain(loads.unsqueeze(1), w.unsqueeze(1),
+                             k.unsqueeze(1), capw.unsqueeze(1),
+                             strategy=strategy)[:, 0].long()
     found = slot < loads.shape[1]
     return torch.where(found, slot, k), found
 
@@ -109,17 +109,44 @@ def _place_or_create(state, sp: _Space, j, w, prev_name, strategy: str,
     return loads, names, used, k + grow.long(), bin_of
 
 
+def _prev_names(prev, u: int):
+    """``prev`` as int64 with every name outside ``[0, u)`` set to NEG."""
+    prev = prev.long()
+    return torch.where((prev >= 0) & (prev < u), prev, NEG)
+
+
 def pack(speeds, prev, capacity, *, strategy: str = "first",
          decreasing: bool = False, sticky: bool = True,
          active: Optional[torch.Tensor] = None) -> PackedRows:
     """Classical any-fit (NF/FF/BF/WF and their Decreasing variants) over
-    rows; ``reference: repro.core.jaxpack.pack_jax``."""
+    rows; reference: ``repro.core.jaxpack.pack_jax``.  One ``pack_rows``
+    launch on a CUDA tensor, ``pack_plain`` on a CPU tensor."""
+    return pack_rows(speeds, prev, capacity, strategy=strategy,
+                     decreasing=decreasing, sticky=sticky, active=active)
+
+
+def modified_any_fit(speeds, prev, capacity, *, fit: str = "best",
+                     sort_key: str = "cumulative",
+                     active: Optional[torch.Tensor] = None) -> PackedRows:
+    """Algorithm 1 (MWF/MBF/MWFP/MBFP) over rows; reference:
+    ``repro.core.jaxpack.modified_any_fit_jax``.  One ``pack_rows``
+    launch on a CUDA tensor, ``modified_any_fit_plain`` on a CPU
+    tensor."""
+    return pack_rows(speeds, prev, capacity, strategy=fit,
+                     sort_key=sort_key, active=active)
+
+
+def pack_plain(speeds, prev, capacity, *, strategy: str = "first",
+               decreasing: bool = False, sticky: bool = True,
+               active: Optional[torch.Tensor] = None) -> PackedRows:
+    """Plain version of ``pack``: the item walk as a Python loop of
+    masked updates over the rows."""
     rows, n = speeds.shape
     dev = speeds.device
     m = n + 1
     sp = _Space(rows, n, m, 2 * n + 2, capacity, dev)
     speeds = speeds.to(torch.float32)
-    prev = prev.long()
+    prev = _prev_names(prev, sp.u)
     if decreasing:
         # stable non-increasing sort: lexsort((arange(n), -speeds))
         order = torch.sort(-speeds, dim=1, stable=True).indices
@@ -142,11 +169,11 @@ def pack(speeds, prev, capacity, *, strategy: str = "first",
     return PackedRows(bin_of=bin_of, loads=loads, names=names, n_bins=k)
 
 
-def modified_any_fit(speeds, prev, capacity, *, fit: str = "best",
-                     sort_key: str = "cumulative",
-                     active: Optional[torch.Tensor] = None) -> PackedRows:
-    """Algorithm 1 (MWF/MBF/MWFP/MBFP) over rows; reference:
-    ``repro.core.jaxpack.modified_any_fit_jax``.
+def modified_any_fit_plain(speeds, prev, capacity, *, fit: str = "best",
+                           sort_key: str = "cumulative",
+                           active: Optional[torch.Tensor] = None
+                           ) -> PackedRows:
+    """Plain version of ``modified_any_fit``.
 
     Every item appears twice in a ``2n``-entry schedule: in its consumer's
     phase 1 (smallest to biggest, open bins only) and phase 2 (biggest to
@@ -167,7 +194,7 @@ def modified_any_fit(speeds, prev, capacity, *, fit: str = "best",
     s = u                                   # consumer-segment universe
     sp = _Space(rows, n, m, u, capacity, dev)
     speeds = speeds.to(torch.float32)
-    prev = prev.long()
+    prev = _prev_names(prev, u)
     assigned = prev >= 0
     pending0 = ~assigned
     if active is not None:

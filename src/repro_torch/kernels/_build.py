@@ -43,6 +43,10 @@ SIGNATURES = {
     "lag_update_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # loads, w, k, cap, active|NULL, out, B, N, M, strategy, stream
     "select_slot_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # speeds, prev (i64), active (bool)|NULL, bin_of, loads, names, n_bins,
+    # R, N, modified, strategy, decreasing, sticky, cumulative, cap, stream
+    "pack_rows_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _F, _P),
     # rates, active|NULL, lag0|NULL, strat[P], dec[P], tot, mx, cons, migs,
     # unread, asg|NULL, P, B, T, N, capacity, cap_step, dt, mig, stream
     "loop_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

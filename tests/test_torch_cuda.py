@@ -1,4 +1,4 @@
-"""The port's LLM kernels on the card, against their plain versions.
+"""The port's kernels on the card, against their plain versions.
 
 Every test here needs a CUDA card and ``nvcc`` (the kernels are built from
 ``src/repro_torch/kernels/csrc`` on first use); without a card each one
@@ -7,7 +7,11 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
+The packing kernel (``pack_rows``) runs all 12 packers, masked and
+unmasked, at n = 7, 32 and 256 and at its width limit, and must equal the
+plain packers exactly (``loads`` bit for bit); the warp-per-row selection
+kernel equals ``select_slot_plain`` exactly, ties included.  For the LLM
+kernels, shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
 odd length, every head dim of the flash kernels, q lengths that do not
 divide their tiles, decode fills on either side of a split boundary and a
 decode call replayed from a CUDA graph at other fills, and a small model
@@ -24,6 +28,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.core.pack import modified_any_fit_plain, pack_plain  # noqa: E402
+from repro_torch.kernels.binpack_select import (  # noqa: E402
+    PACK_MAX_N, PackWidthError, pack_rows, select_slot_grid,
+    select_slot_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_fwd, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -33,6 +41,7 @@ from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
+from repro_torch.registry import get_spec  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -221,3 +230,99 @@ def test_model_on_the_card_matches_the_cpu(cuda, arch):
             for step, p, st in zip(steps, (params, cpu_params), states))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     assert int(states[0]["cache_len"]) == 6
+
+
+PACKERS = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD",
+           "MWF", "MBF", "MWFP", "MBFP")
+
+
+def _plain_packer(name):
+    """The registered packer's plain version (launches nothing)."""
+    hyper = get_spec(name).hyperparams
+    if "fit" in hyper:
+        return lambda *a, **k: modified_any_fit_plain(
+            *a, fit=hyper["fit"], sort_key=hyper["sort_key"], **k)
+    return lambda *a, **k: pack_plain(
+        *a, strategy=hyper["strategy"], decreasing=hyper["decreasing"], **k)
+
+
+def _pack_instances(seed, rows, n, masked, dev):
+    """Rows with tied speeds, oversized items (w > C), a few large
+    consumers, and ``prev`` holding -1, lower negatives and names past
+    the 2n + 2 of the name range."""
+    rng = np.random.default_rng(seed)
+    speeds = rng.uniform(0, 1.0, (rows, n)).astype(np.float32)
+    speeds[::2] = np.round(speeds[::2] * 4) / 4
+    speeds[1::3, 0] = 1.3
+    prev = rng.integers(-3, 2 * n + 5, (rows, n))
+    prev[3::4] = rng.integers(0, 3, prev[3::4].shape)
+    act = (rng.random((rows, n)) > 0.3) if masked else None
+    return (torch.tensor(speeds, device=dev), torch.tensor(prev, device=dev),
+            None if act is None else torch.tensor(act, device=dev))
+
+
+def _assert_packed_equal(got, want):
+    for f in ("bin_of", "names", "n_bins"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and torch.equal(a, b), f
+    assert got.loads.dtype == want.loads.dtype == torch.float32
+    assert torch.equal(got.loads.view(torch.int32),
+                       want.loads.view(torch.int32)), "loads (bits)"
+
+
+@pytest.mark.parametrize("n,rows", [(7, 64), (32, 64), (256, 6)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", PACKERS)
+def test_pack_kernel_matches_plain(cuda, name, masked, n, rows):
+    speeds, prev, act = _pack_instances(n + masked, rows, n, masked, cuda)
+    before = (pack_rows.launches, select_slot_grid.launches)
+    got = get_spec(name).packer(speeds, prev, 1.0, active=act)
+    torch.cuda.synchronize()
+    assert (pack_rows.launches, select_slot_grid.launches) == (
+        before[0] + 1, before[1])
+    _assert_packed_equal(got, _plain_packer(name)(speeds, prev, 1.0,
+                                                  active=act))
+
+
+@pytest.mark.parametrize("name", ["BFD", "MBF"])
+def test_pack_kernel_at_its_width_limit(cuda, name):
+    """One row of PACK_MAX_N items: one block's whole shared memory."""
+    speeds, prev, act = _pack_instances(11, 1, PACK_MAX_N, True, cuda)
+    got = get_spec(name).packer(speeds, prev, 1.0, active=act)
+    _assert_packed_equal(got, _plain_packer(name)(speeds, prev, 1.0,
+                                                  active=act))
+
+
+def test_pack_kernel_refuses_rows_past_its_width_limit(cuda):
+    n = PACK_MAX_N + 1
+    speeds = torch.zeros((1, n), device=cuda)
+    prev = torch.full((1, n), -1, device=cuda)
+    before = pack_rows.launches
+    for kw in (dict(strategy="best"), dict(strategy="best",
+                                           sort_key="cumulative")):
+        with pytest.raises(PackWidthError, match=f"PACK_MAX_N = {PACK_MAX_N}"):
+            pack_rows(speeds, prev, 1.0, **kw)
+    assert issubclass(PackWidthError, ValueError)
+    assert pack_rows.launches == before
+
+
+@pytest.mark.parametrize("m", [33, 65, 513])
+@pytest.mark.parametrize("strategy", ["first", "best", "worst"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_select_kernel_matches_plain(cuda, m, strategy, masked):
+    rng = np.random.default_rng(m)
+    b, n = 64, 8
+    # a coarse load grid makes ties common (they break to the lowest slot)
+    loads = (rng.integers(0, 9, (b, n, m)) / 8).astype(np.float32)
+    w = (rng.integers(0, 5, (b, n)) / 8).astype(np.float32)
+    k = rng.integers(0, m + 2, (b, n)).astype(np.int32)
+    cap = np.ones((b, n), np.float32)
+    act = (rng.random((b, n)) > 0.2) if masked else None
+    t = [torch.tensor(x, device=cuda) for x in (loads, w, k, cap)]
+    tact = None if act is None else torch.tensor(act, device=cuda)
+    before = select_slot_grid.launches
+    got = select_slot_grid(*t, strategy=strategy, active=tact)
+    torch.cuda.synchronize()
+    assert select_slot_grid.launches == before + 1
+    assert torch.equal(got, select_slot_plain(*t, strategy=strategy,
+                                              active=tact))

@@ -22,7 +22,8 @@ from repro.kernels.loop_fused import loop_fused_batch as j_loop_fused  # noqa: E
 from repro.lagsim import LagSimConfig as JConfig  # noqa: E402
 from repro.lagsim.fused import sweep_fused as j_sweep_fused  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.binpack_select import (select_slot_batch,  # noqa: E402
+from repro_torch.kernels.binpack_select import (pack_rows,  # noqa: E402
+                                                select_slot_batch,
                                                 select_slot_grid)
 from repro_torch.kernels.lag_update import (lag_update_batch,  # noqa: E402
                                             lag_update_single)
@@ -78,8 +79,16 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
     lag_update_batch(x["lag"], x["produced"], x["assign"], x["readable"],
                      x["cap"])
     assert lag_update_batch.launches == before
+    speeds = torch.rand((3, 6), generator=torch.Generator().manual_seed(1))
+    prev = torch.full((3, 6), -1)
+    before = pack_rows.launches
+    for kw in (dict(strategy="best", decreasing=True),
+               dict(strategy="worst", sort_key="cumulative")):
+        pack_rows(speeds, prev, 1.0, **kw)
+    assert pack_rows.launches == before
     assert set(_build.launch_counts()) >= {"lag_update_batch",
-                                           "select_slot_grid", "loop_fused"}
+                                           "select_slot_grid", "pack_rows",
+                                           "loop_fused"}
 
 
 @pytest.mark.parametrize("masked", (False, True))
