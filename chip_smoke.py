@@ -12,7 +12,9 @@ Run from a checkout of the repository on a machine with a CUDA card and
    built library's SASS (``cuobjdump -sass``) must show the bfloat16
    flash-attention kernel on ``wgmma`` (``HGMMA``) with its K/V loaded by
    TMA (``UTMALDG``) at every head dim, and the float32 one without
-   ``HGMMA``;
+   ``HGMMA``; the build's ``-Xptxas -v`` report must show every
+   ``loop_fused`` instantiation (n = 1..14) with a 0-byte stack frame and
+   no spills (its state in registers);
 3. every kernel against its plain PyTorch version on the card
    (integers exact, floats ``rtol = atol = 1e-5``; the attention
    kernels at ``2e-5`` in float32 and ``2e-2`` in bfloat16; the WKV
@@ -22,7 +24,10 @@ Run from a checkout of the repository on a machine with a CUDA card and
    a CUDA graph and replayed at other fills set in place on the card; the
    packing kernel ``pack_rows`` for all 12 packers, masked and unmasked,
    at n = 7, 32 and 256, with ties, oversized items and out-of-range
-   previous names, exact and ``loads`` bit for bit);
+   previous names, exact and ``loads`` bit for bit; the annealer's step
+   ``anneal_step`` against ``anneal_step_reference`` over 48 steps at
+   path C1's and C2's shapes, masked and unmasked, every state tensor bit
+   for bit);
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -39,15 +44,17 @@ Run from a checkout of the repository on a machine with a CUDA card and
    plain packers swapped in;
 6. path C1: ``api.simulate`` with the annealer policies ANNEAL and
    ANNEAL_STICKY (6 chains, 48 anneal steps a decision) over path B's
-   traffic, every move evaluation through the ``move_eval`` kernel; the
-   first 16 groups x 48 steps run once more on the CPU with the card's
-   draws injected and must give the same integers;
+   traffic, every anneal step one ``anneal_step`` launch (exactly 46,080,
+   and no ``move_delta_batch`` launch); the first 16 groups x 48 steps run
+   once more on the CPU with the card's draws injected and must give the
+   same integers; then the torch ops an anneal step, with the kernel
+   (fewer than 10) and with the plain step;
 7. path C2: ``api.optimize`` on one 256-partition topic (a diurnal step,
    ``prev`` from 32 steps of BFD): the 7-lambda x 4-restart frontier over
    250 anneal steps, all 12 packers scored against it (exactly 250
-   ``move_eval`` and 12 ``pack_rows`` launches); the same instance and
-   seed with the plain move evaluation on the card must give the same
-   frontier;
+   ``anneal_step``, 12 ``pack_rows`` and no ``move_delta_batch``
+   launches); the same instance and seed with the plain anneal step on
+   the card must give the same frontier;
 8. path D, dense-LLM serving: qwen3-8b at full width and depth (36
    layers) in bfloat16 with bfloat16 weights drawn on the card from
    ``--seed``; D1 is ``make_prefill_step`` on 8 requests x 1024 prompt
@@ -73,11 +80,13 @@ Run from a checkout of the repository on a machine with a CUDA card and
 12. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
-   a yardstick the port never calls; no PyTorch call computes the WKV
-   recurrence; ``pack_rows`` at path B's Modified Any Fit call, MBF over
-   [1024, 32]); ``loop_fused`` and its plain
-   version also run path A's whole input once more, and their outputs
-   are held against each other.
+   a yardstick the port never calls; the flash row also in float32 at
+   D1's shape; no PyTorch call computes the WKV recurrence; ``pack_rows``
+   at path B's Modified Any Fit call, MBF over [1024, 32]; ``anneal_step``
+   at C1's and C2's shapes; the move plane ``move_eval``, which no path
+   launches any more, at C1's); ``loop_fused`` and its plain version also
+   run path A's whole input once more, assignments recorded, and their
+   outputs must be equal bit for bit.
 
 Kernel times (``ms``) and plain times (``plain_ms``) are device time per
 call: ``loop_fused`` is one long launch timed with CUDA events, and the
@@ -380,6 +389,62 @@ def check_move_eval(dev, gen, k, n):
     return 0.0
 
 
+def _step_inputs(dev, gen, rows, k, n, masked):
+    """An anneal step's inputs over ``rows * k`` chains in random states
+    (``_anneal_state``'s), a cost and best cost of their own, the step's
+    Gumbel draws and a temperature schedule of 48 steps."""
+    import torch
+
+    from repro_torch.kernels import move_eval as me
+
+    c, m = rows * k, 2 * n + 2
+    (loads, counts, assign, speeds, prev, lam, cap), act = _anneal_state(
+        dev, gen, c, n, masked)
+    cost = torch.rand(c, generator=gen, device=dev) * n
+    state = me.ChainState(assign, loads.contiguous(), counts, cost,
+                          cost + 0.5, assign.clone())
+    u = torch.rand((k, n * m + 1), generator=gen, device=dev)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=1e-30)))
+    temps = torch.logspace(0, -2, 48, device=dev)
+    return state, (speeds, prev, lam, cap), act, gumbel, temps
+
+
+def check_anneal_step(dev, gen, rows, k, n, steps=48):
+    """The anneal step's kernel against its plain version over ``steps``
+    steps from the same random states of ``rows * k`` chains, masked and
+    unmasked (the masked run's draws on a coarse grid, so that moves tie
+    in z and the "stay" draw ties the best move): every state tensor bit
+    for bit after each step."""
+    import torch
+
+    from repro_torch.kernels import move_eval as me
+
+    for masked in (False, True):
+        got, args, act, _, temps = _step_inputs(dev, gen, rows, k, n, masked)
+        want = me.ChainState(*(x.clone() for x in got))
+        start = got.assign.clone()
+        for t in range(steps):
+            u = torch.rand((k, n * (2 * n + 2) + 1), generator=gen,
+                           device=dev)
+            g = -torch.log(-torch.log(u.clamp_(min=1e-30)))
+            if masked:
+                g = torch.round(g * 2) / 2
+            me.anneal_step(got, *args, g, temps, t, active=act)
+            me.anneal_step_reference(want, *args, g, temps, t, active=act)
+            for name, a, b in zip(me.ChainState._fields, got, want):
+                _require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                         f"anneal_step rows={rows} K={k} N={n} masked="
+                         f"{masked} step {t}: {name} differs from the plain "
+                         f"version's bits")
+        torch.cuda.synchronize()
+        _require(not torch.equal(got.assign, start),
+                 "anneal_step check made no move")
+    print(f"check anneal_step rows={rows} K={k} N={n} ({rows * k} chains) "
+          f"{steps} steps masked (coarse draws) and unmasked: every state "
+          f"tensor bit for bit")
+    return 0.0
+
+
 def _attn_close(got, want, dtype, what: str) -> float:
     import torch
 
@@ -524,6 +589,34 @@ def check_sass(lib) -> None:
     print(f"check sass: {len(counts)} flash_attention_bf16 kernels, (HGMMA, "
           f"UTMALDG) instructions each: {sorted(counts.values())}; "
           f"{len(f32)} float32 flash kernels without HGMMA")
+
+
+def check_ptxas() -> None:
+    """Every ``loop_fused`` instantiation (n = 1..14) in the build's
+    ``-Xptxas -v`` report with a 0-byte stack frame and no spill: its
+    rows' state lives in registers."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    report = _build.ptxas_report().read_text()
+    found = {}
+    for name, stack, st, ld, regs in re.findall(
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
+            r"(\d+) registers", report):
+        m = re.search(r"loop_fused_kernelILi(\d+)E", name)
+        if m:
+            found[int(m.group(1))] = (int(stack), int(st), int(ld),
+                                      int(regs))
+    _require(sorted(found) == list(range(1, 15)),
+             f"ptxas: loop_fused instantiations {sorted(found)}, want 1..14")
+    bad = {n: v for n, v in found.items() if v[:3] != (0, 0, 0)}
+    _require(not bad, f"ptxas: loop_fused with a stack frame or spills "
+                      f"(n: stack, spill stores, spill loads, registers): "
+                      f"{bad}")
+    print(f"check ptxas: loop_fused n = 1..14, 0-byte stack frame and no "
+          f"spill each; registers {[found[n][3] for n in range(1, 15)]}")
 
 
 #: the serving paths' kernel wrappers: each phase of a serving path
@@ -811,6 +904,21 @@ def attention_rows(dev, seed, launches, errs):
         plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])]
     del q, k, v
+    # the float32 kernel (csrc/flash_attention.cu, on the CUDA cores) at
+    # the same shape, against the float32 peak outside the tensor cores
+    q = _normal(gen, (b, h, s, hd), "float32", dev)
+    k = _normal(gen, (b, kv, s, hd), "float32", dev)
+    v = _normal(gen, (b, kv, s, hd), "float32", dev)
+    _attn_close(kern(), plain(), "float32", "flash_attention float32 at "
+                                            "D1's shape")
+    bnd, by = bound_ms(4 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                       4 * b * h * s * s * hd / 2)
+    rows[0].update(ms_f32=graph_ms(kern, 5), plain_ms_f32=graph_ms(plain, 2),
+                   bound_ms_f32=bnd, bound_by_f32=by,
+                   library_ms_f32=graph_ms(lib, 5),
+                   wrapper_ms_f32=cuda_ms(kern, 5)[0],
+                   source_f32="src/repro_torch/kernels/csrc/flash_attention.cu")
+    del q, k, v
 
     g, smax = h // kv, D_PROMPT + D_GEN
     fill = smax - 1
@@ -950,6 +1058,47 @@ def wkv_row(dev, seed, launches, errs):
     return row
 
 
+def anneal_step_row(dev, gen, launches_c1, launches_c2, errs):
+    """Kernel row of anneal_step: one step of path C1's 1024 rows x 6
+    chains at N = 32 (the warp layout), and of C2's 28 chains at N = 256
+    (the cluster layout), each beside its plain step.  Bound: the state
+    read and written once, the step's inputs and its Gumbel block read
+    once (bytes), against about ten float32 operations a move."""
+    from repro_torch.kernels import move_eval as me
+
+    def timed(rows, k, n):
+        state, args, act, gumbel, temps = _step_inputs(dev, gen, rows, k, n,
+                                                       masked=True)
+        c, m = rows * k, 2 * n + 2
+        kern = lambda: me.anneal_step(  # noqa: E731
+            state, *args, gumbel, temps, 0, active=act)
+        plain = lambda: me.anneal_step_reference(  # noqa: E731
+            state, *args, gumbel, temps, 0, active=act)
+        # the annealer's loop launches through a launcher that checks the
+        # state once: its call is what a step pays on the host
+        step = me.anneal_step_launcher(state, *args, temps, k, active=act)
+        state_bytes = 4 * (2 * c * n + 2 * c * m + 2 * c)
+        inputs = 4 * (3 * c * n + 2 * c + k * (n * m + 1) + 1)
+        bnd, by = bound_ms(2 * state_bytes + inputs, 10 * c * n * m)
+        return dict(ms=graph_ms(kern, 50), plain_ms=graph_ms(plain, 10),
+                    bound_ms=bnd, bound_by=by,
+                    wrapper_ms=cuda_ms(lambda: step(gumbel, 0), 50)[0])
+
+    c1, c2 = timed(1024, 6, 32), timed(1, 28, 256)
+    return dict(
+        name="anneal_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/move_eval.cu",
+        replaces="src/repro/kernels/move_eval.py:135",
+        replaces_note="the move plane with the reference annealer's step "
+        "around it (src/repro/opt/anneal.py:147-186, chain_update and "
+        "body): one launch an anneal step, the plane never written",
+        launches=launches_c1["anneal_step"] + launches_c2["anneal_step"],
+        launches_by_path={"C1": launches_c1["anneal_step"],
+                          "C2": launches_c2["anneal_step"]},
+        max_abs_err=errs["anneal_step"], library_ms=None, **c1,
+        **{f"{key}_c2": val for key, val in c2.items()})
+
+
 def heuristic_kwargs():
     from repro_torch.registry import get_spec
 
@@ -960,13 +1109,16 @@ def heuristic_kwargs():
 
 
 def compare_loop_fused(got, want, tag: str) -> float:
-    """Lag total and max within tolerance, every integer output exact."""
+    """Every output equal bit for bit (lag total and max too)."""
     import torch
 
     torch.cuda.synchronize()
-    worst = max(_close(got[i], want[i], tag) for i in (0, 1))
-    for i in range(2, len(want)):
-        _exact(got[i], want[i], tag)
+    worst = max(_max_err(got[i], want[i]) for i in (0, 1))
+    for i in range(len(want)):
+        _require(torch.equal(got[i].view(torch.int32),
+                             want[i].view(torch.int32)),
+                 f"{tag}: output {i} differs from the plain version's bits "
+                 f"(max abs err {worst})")
     return worst
 
 
@@ -987,8 +1139,7 @@ def check_loop_fused(dev, seed, b=512, t=480, n=14):
         worst = max(worst, compare_loop_fused(
             got, want, f"loop_fused masked={mask is not None}"))
     print(f"check loop_fused 8 heuristics B={b} T={t} N={n} masked and "
-          f"unmasked, with initial lag: max_abs_err={worst!r}, integers "
-          f"exact")
+          f"unmasked, with initial lag: bit for bit")
     return worst
 
 
@@ -1100,7 +1251,8 @@ def run_path_c2(dev, seed):
                        device=dev)
     wall = time.perf_counter() - t0
     counts = _build.launch_counts()
-    launches = {"move_delta_batch": 250, "pack_rows": 12}  # 12 packers scored
+    # one anneal_step a step, 12 packers scored, no move plane written
+    launches = {"anneal_step": 250, "pack_rows": 12, "move_delta_batch": 0}
     for k, want in launches.items():
         _require(counts[k] == want, f"path C2: {k} launched {counts[k]} "
                  f"times, want {want}")
@@ -1119,9 +1271,9 @@ def run_path_c2(dev, seed):
                             use_kernel=False, device=dev)
     _require((plain.per_lambda, plain.front, plain.hypervolume)
              == (out.per_lambda, out.front, out.hypervolume),
-             "path C2: the plain move evaluation gives another frontier")
-    print("path C2 agreement: the plain move evaluation on the card gives "
-          "the same per_lambda, front and hypervolume")
+             "path C2: the plain anneal step gives another frontier")
+    print("path C2 agreement: the plain anneal step on the card gives the "
+          "same per_lambda, front and hypervolume")
     # the scoring's 12 packing calls once more, timed alone (eager, CUDA
     # events): their share of the wall above
     from repro_torch.registry import packer_for
@@ -1196,6 +1348,55 @@ def path_b_ops(rates, act):
     return sum(kern.values()), sum(plain.values())
 
 
+def path_c1_ops(rates, act):
+    """Torch ops an anneal step dispatches at path C1's shape (one
+    decision of ANNEAL over path B's first step: an 8-step anneal's ops
+    less a 4-step one's, over 4), with the kernel and with the plain
+    step.  Returns the two."""
+    import torch
+
+    from repro_torch.opt import anneal_chains
+    from repro_torch.registry import builtin
+
+    speeds, a = rates[:, 0], act[:, 0]
+    prev = torch.full(speeds.shape, -1, dtype=torch.int32, device=rates.device)
+    lam = torch.zeros(builtin.ANNEAL_CHAINS, device=rates.device)
+
+    def per_step(**kw):
+        n = []
+        for steps in (4, 8):
+            with _op_counter() as ops:
+                anneal_chains(speeds, prev, CAPACITY, lam, steps=steps,
+                              active=a, device=rates.device, **kw)
+            n.append(ops.n)
+        return (n[1] - n[0]) / 4
+
+    kern, plain = per_step(), per_step(use_kernel=False)
+    _require(kern < 10, f"path C1: {kern} torch ops an anneal step, want "
+                        f"fewer than 10")
+    print(f"path C1 torch ops an anneal step ({speeds.shape[0]} rows x "
+          f"{builtin.ANNEAL_CHAINS} chains, N={speeds.shape[1]}): "
+          f"{kern!r} with anneal_step, {plain!r} with the plain step")
+    # an anneal step's device time, the Gumbel draw included (CUDA graph
+    # replay, the default generator), with the kernel and the plain step
+    from repro_torch.kernels import move_eval as me
+    from repro_torch.opt.anneal import _gumbel
+
+    gen = torch.Generator(rates.device).manual_seed(0)
+    state, args, act, gumbel, temps = _step_inputs(
+        rates.device, gen, speeds.shape[0], builtin.ANNEAL_CHAINS,
+        speeds.shape[1], masked=True)
+    step = me.anneal_step_launcher(state, *args, temps, gumbel.shape[0],
+                                   active=act)
+    draw = lambda: _gumbel(gumbel.shape, None, rates.device)  # noqa: E731
+    dev_kern = graph_ms(lambda: step(draw(), 0), 50)
+    dev_plain = graph_ms(lambda: me.anneal_step_reference(
+        state, *args, draw(), temps, 0, active=act), 10)
+    print(f"  device ms an anneal step, the draw included (graph replay): "
+          f"{dev_kern!r} with anneal_step, {dev_plain!r} with the plain step")
+    return kern, plain
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -1245,6 +1446,7 @@ def main(argv=None) -> int:
     _build.library()
     print(f"build_s={time.perf_counter() - t0!r}")
     check_sass(lib)
+    check_ptxas()
 
     gen = torch.Generator(dev).manual_seed(args.seed)
     # path D2's split count: fills 4 * split - 2 and - 1 put the last
@@ -1265,9 +1467,12 @@ def main(argv=None) -> int:
             check_pack_rows(dev, gen, 16, 256)),         # path C2
         "loop_fused": check_loop_fused(dev, args.seed),
         "move_delta_batch": max(
-            check_move_eval(dev, gen, 6144, 32),       # path C1
-            check_move_eval(dev, gen, 28, 256),        # path C2
-            check_move_eval(dev, gen, 1024, 301)),     # stress, ragged tile
+            check_move_eval(dev, gen, 6144, 32),       # path C1's shape
+            check_move_eval(dev, gen, 28, 256),        # path C2's
+            check_move_eval(dev, gen, 1024, 301)),     # stress, split chains
+        "anneal_step": max(
+            check_anneal_step(dev, gen, 1024, 6, 32),  # path C1: warp layout
+            check_anneal_step(dev, gen, 1, 28, 256)),  # path C2: clusters
         "flash_attention_fwd": max(
             check_flash(dev, gen, D_BATCH, 32, 8, D_PROMPT, D_PROMPT, 128),
             check_flash(dev, gen, 1, 32, 8, 8192, 8192, 128),   # stress
@@ -1319,10 +1524,12 @@ def main(argv=None) -> int:
 
     # path C1: the annealer policies, every move evaluation on the kernel
     out_c1, launches_c1 = run_path(
-        "C1", PATH_C1, rates_b, act_b, ("move_delta_batch",),
-        exact={"move_delta_batch": len(PATH_C1) * rates_b.shape[1] * 48})
+        "C1", PATH_C1, rates_b, act_b, ("anneal_step",),
+        exact={"anneal_step": len(PATH_C1) * rates_b.shape[1] * 48,
+               "move_delta_batch": 0})
     path_c1_agreement(out_c1, rates_b, act_b)
     del out_c1
+    path_c1_ops(rates_b, act_b)
 
     # path C2: one large topic's frontier through api.optimize
     launches_c2 = run_path_c2(dev, args.seed)
@@ -1359,7 +1566,7 @@ def main(argv=None) -> int:
         1, warmup=0)
     err = compare_loop_fused(got, want, "loop_fused at path A's shape")
     print(f"check loop_fused 8 heuristics B={b} T={t} N={n} masked (path "
-          f"A's input): max_abs_err={err!r}, integers exact")
+          f"A's input), assignments recorded: bit for bit")
     errs["loop_fused"] = max(errs["loop_fused"], err)
     del got, want
     m = n + 1
@@ -1378,6 +1585,10 @@ def main(argv=None) -> int:
         launches=launches_a["loop_fused"], max_abs_err=errs["loop_fused"],
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
         wrapper_ms=ms))
+    print(f"loop_fused at path A's shape: ms={ms!r} against its bound "
+          f"{bnd!r} ms ({by}); the one-thread-a-row kernel this design "
+          f"replaced took 141.3 ms at this shape (PERF.md's kernel table, "
+          f"H100 80GB HBM3, 700 W)")
 
     b, n = 1024, 32
     m = 2 * n + 2
@@ -1478,11 +1689,15 @@ def main(argv=None) -> int:
         name="move_eval", route="cuda",
         source="src/repro_torch/kernels/csrc/move_eval.cu",
         replaces="src/repro/kernels/move_eval.py:135",
-        launches=launches_c1["move_delta_batch"],
+        launches=launches_c1["move_delta_batch"]
+        + launches_c2["move_delta_batch"],
+        launches_note="no path writes the move plane: the annealer runs "
+        "anneal_step, which consumes each delta where it is computed",
         max_abs_err=errs["move_delta_batch"], ms=graph_ms(kern, 50),
         plain_ms=graph_ms(ref, 20), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
     del margs, mact
+    kernels.append(anneal_step_row(dev, g, launches_c1, launches_c2, errs))
 
     # lag_update_single: the same kernel at batch 1 ([1, 32], 66 bins);
     # no path calls it (the per-step loop drains every stream at once),
@@ -1515,6 +1730,20 @@ def main(argv=None) -> int:
               f"({kern['bound_by']}) library_ms={kern['library_ms']!r} "
               f"wrapper_ms={kern['wrapper_ms']!r} "
               f"launches={kern['launches']}")
+        if "ms_c2" in kern:
+            print(f"kernel {kern['name']} at path C2's shape: "
+                  f"ms={kern['ms_c2']!r} plain_ms={kern['plain_ms_c2']!r} "
+                  f"bound_ms={kern['bound_ms_c2']!r} "
+                  f"({kern['bound_by_c2']}) "
+                  f"wrapper_ms={kern['wrapper_ms_c2']!r} "
+                  f"launches={kern['launches_by_path']}")
+        if "ms_f32" in kern:
+            print(f"kernel {kern['name']} in float32 at the same shape: "
+                  f"ms={kern['ms_f32']!r} plain_ms={kern['plain_ms_f32']!r} "
+                  f"bound_ms={kern['bound_ms_f32']!r} "
+                  f"({kern['bound_by_f32']}) "
+                  f"library_ms={kern['library_ms_f32']!r} "
+                  f"wrapper_ms={kern['wrapper_ms_f32']!r}")
         if "ms_decode" in kern:
             print(f"kernel {kern['name']} at one decode step: "
                   f"ms={kern['ms_decode']!r} "

@@ -47,13 +47,19 @@ SIGNATURES = {
     # R, N, modified, strategy, decreasing, sticky, cumulative, cap, stream
     "pack_rows_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       _I, _F, _P),
-    # rates, active|NULL, lag0|NULL, strat[P], dec[P], tot, mx, cons, migs,
-    # unread, asg|NULL, P, B, T, N, capacity, cap_step, dt, mig, stream
+    # rates, active (u8)|NULL, lag0|NULL, strat[P], dec[P], tot, mx, cons,
+    # migs, unread, asg|NULL, P, B, T, N, rates' and active's row strides,
+    # capacity, cap_step, dt, mig, stream
     "loop_fused_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _F, _F, _F, _I, _P),
+                       _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P),
     # loads, counts, assign, speeds, prev, lam, cap, active|NULL, out,
     # K, N, M, stream
     "move_eval_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # assign, loads, counts, cost, best_cost, best_assign (in place),
+    # speeds, prev, lam, cap, active|NULL, gumbel, temps, step, R, K, N, M,
+    # stream
+    "anneal_step_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _P),
     # q, k, v, out, B, H, KV, Sq, Skv, hd, causal, stream
     "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -102,21 +108,33 @@ def _nvcc() -> str:
         "repro_torch CUDA kernels are built from csrc/ on first use")
 
 
-def _check(procs, echo: bool = False) -> None:
+def _check(procs, echo: bool = False) -> str:
+    """Wait for every compiler process; raise on the first failure.
+    Returns their standard error, concatenated."""
+    report = []
     for cmd, proc in procs:
         out, err = proc.communicate()
+        err = err.decode(errors="replace")
+        report.append(err)
         if echo:
-            print(err.decode(errors="replace"), end="")
+            print(err, end="")
         if proc.returncode != 0:
             raise KernelBuildError(
                 f"{' '.join(cmd)} failed with code {proc.returncode}:\n"
-                f"{out.decode(errors='replace')}{err.decode(errors='replace')}")
+                f"{out.decode(errors='replace')}{err}")
+    return "".join(report)
+
+
+def ptxas_report() -> Path:
+    """Where ``build(verbose=True)`` keeps its ``-Xptxas -v`` report."""
+    return BUILD_ROOT / _digest(_sources()) / "ptxas.txt"
 
 
 def build(verbose: bool = False) -> Path:
     """Compile (if not already built) and return the shared library path.
-    ``verbose`` rebuilds with ``-Xptxas -v`` and prints its report
-    (registers, shared memory and spills per kernel)."""
+    ``verbose`` rebuilds with ``-Xptxas -v``, prints its report
+    (registers, shared memory, stack frame and spills per kernel) and
+    keeps it at ``ptxas_report()``."""
     sources = _sources()
     out_dir = BUILD_ROOT / _digest(sources)
     lib = out_dir / "librepro_torch_kernels.so"
@@ -134,7 +152,9 @@ def build(verbose: bool = False) -> Path:
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
             objs.append(str(obj))
-        _check(procs, echo=verbose)
+        report = _check(procs, echo=verbose)
+        if verbose:
+            ptxas_report().write_text(report)
         part = Path(tmp) / lib.name
         cmd = [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(part)]
         _check([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -156,13 +176,24 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+def entry(name: str) -> Callable:
+    """Entry point ``name`` as a callable that raises if the entry point
+    returns a CUDA error; a caller that launches many times keeps it."""
+    fn = getattr(library(), name)
+
+    def call(*args) -> None:
+        code = fn(*args)
+        if code != 0:
+            raise KernelLaunchError(
+                f"{name} returned cudaError_t {code} (launch refused or a "
+                f"previous asynchronous fault surfaced)")
+
+    return call
+
+
 def launch(name: str, *args) -> None:
     """Call entry point ``name``; raise if it returns a CUDA error."""
-    code = getattr(library(), name)(*args)
-    if code != 0:
-        raise KernelLaunchError(
-            f"{name} returned cudaError_t {code} (launch refused or a "
-            f"previous asynchronous fault surfaced)")
+    entry(name)(*args)
 
 
 def stream_ptr(device) -> int:

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks in inline PTX for the port's kernels:
-// mbarriers, TMA tile loads, cp.async copies, wgmma shared-memory
+// mbarriers, TMA tile and bulk loads, cp.async copies, wgmma shared-memory
 // descriptors and the wgmma shapes the attention kernels issue.  Each
 // wgmma wrapper spells out its accumulator registers, as the instruction
 // takes them.
@@ -69,6 +69,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory by the TMA unit; completion is counted in
+// bytes on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
       : "memory");
 }
 

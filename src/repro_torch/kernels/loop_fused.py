@@ -253,6 +253,23 @@ def loop_fused_reference(rates, *, strategies: Sequence[str],
     return _per_policy(out, p, b)
 
 
+def _rows16(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``x [B, T, N]`` as ``B`` rows that the kernel's bulk copies can
+    read: the tensor holding the rows, each starting on a 16-byte
+    boundary, and its row stride in elements.  A contiguous, aligned
+    ``x`` whose rows are a multiple of 16 bytes is used as it is; anything
+    else is copied once into zero-padded rows."""
+    b = x.shape[0]
+    row = x[0].numel()
+    per16 = 16 // x.element_size()
+    if x.is_contiguous() and x.data_ptr() % 16 == 0 and row % per16 == 0:
+        return x, row
+    rs = -(-row // per16) * per16
+    out = x.new_zeros((b, rs))
+    out[:, :row] = x.reshape(b, row)
+    return out, rs
+
+
 @_build.counted
 def loop_fused(rates, *, strategies: Sequence[str],
                decreasing: Sequence[bool], capacity: float = 1.0,
@@ -273,13 +290,16 @@ def loop_fused(rates, *, strategies: Sequence[str],
     all T steps in registers (``LagSimConfig.fused_steps`` is validated in
     ``resolve``).
 
-    Replaces the Pallas megakernel ``src/repro/kernels/loop_fused.py``
+    Replaces the Pallas megakernel ``src/repro/kernels/loop_fused.py:220``
     (``loop_fused_batch`` over ``_loop_fused_kernel`` / ``_one_step``).
     On the H100 it is bound by operations: per row and step, O(N * M)
     slot selection plus O(N^2) rank and naming work against a few
-    hundred bytes.  The simple design is one thread per (policy, stream)
-    row keeping lag, previous assignment and downtime (``n <= 14``) in
-    local arrays across all T steps.
+    hundred bytes.  One lane a (policy, stream) row, its state in
+    registers: the kernel is instantiated for each ``n <= 14`` and reads
+    and writes every per-item and per-slot array at compile-time indices
+    only.  A warp is one policy over 32 consecutive streams, and the
+    block's policies share each rate and mask slab, brought into shared
+    memory once by TMA bulk copies.
 
     CPU tensors run ``loop_fused_reference``; CUDA tensors launch the
     kernel (``csrc/loop_fused.cu``) or raise.
@@ -306,13 +326,14 @@ def loop_fused(rates, *, strategies: Sequence[str],
     dev = rates.device
     p = len(strategies)
     cap, cap_step, dt32 = _consts(capacity, dt)
-    rates = rates.to(torch.float32).contiguous()
-    act = None
+    rates, rs = _rows16(rates.to(torch.float32))
+    act, rsm = None, 0
     if active is not None:
-        act = active.to(device=dev, dtype=torch.int32).contiguous()
-        if act.shape != rates.shape:
-            raise ValueError(f"active must have shape {tuple(rates.shape)}; "
-                             f"got {tuple(act.shape)}")
+        if tuple(active.shape) != (b, t, n):
+            raise ValueError(f"active must have shape {(b, t, n)}; got "
+                             f"{tuple(active.shape)}")
+        act, rsm = _rows16(active.to(device=dev, dtype=torch.bool).view(
+            torch.uint8))
     lag0 = None
     if initial_lag is not None:
         lag0 = initial_lag.to(device=dev, dtype=torch.float32).contiguous()
@@ -329,7 +350,7 @@ def loop_fused(rates, *, strategies: Sequence[str],
     _build.launch("loop_fused_f32", rates.data_ptr(), ptr(act), ptr(lag0),
                   strat.data_ptr(), dec.data_ptr(),
                   *(x.data_ptr() for x in out[:5]), ptr(asg), p, b, t, n,
-                  cap, cap_step, dt32, int(migration_steps),
+                  rs, rsm, cap, cap_step, dt32, int(migration_steps),
                   _build.stream_ptr(dev))
     loop_fused.launches += 1
     return _per_policy(out, p, b)

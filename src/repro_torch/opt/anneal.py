@@ -28,10 +28,13 @@ the draws come one anneal step at a time from an explicit
 shape ``[K, N*M+1]`` and are shared by every row, so a row's result never
 depends on its batch-mates.
 
-Moves are evaluated by ``move_delta_batch`` by default: on a CPU tensor
-that runs the plain version, on a CUDA tensor the kernel.  The JAX
-package's annealer defaults to its jnp oracle instead; both compute the
-same function, bit for bit.
+Each anneal step updates every chain in place through
+``kernels.move_eval.anneal_step_launcher``: on a CUDA tensor one
+``anneal_step`` kernel launch (the delta plane never leaves the chip), on
+a CPU tensor its plain version ``anneal_step_reference``;
+``use_kernel=False`` runs the plain version on the card too.  The JAX
+package's annealer evaluates moves with its jnp oracle by default; both
+compute the same function, bit for bit.
 """
 from __future__ import annotations
 
@@ -42,8 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.kernels.move_eval import (MOVE_BLOCKED, move_delta_batch,
-                                           move_delta_reference)
+from repro_torch.kernels.move_eval import (ChainState, anneal_step_launcher,
+                                           anneal_step_reference)
 
 NEG = -1    # masked-out items report this bin name (the packers' NEG)
 _TINY = float(np.finfo(np.float32).tiny)
@@ -80,18 +83,19 @@ class AnnealNoise:
         """The draws ``anneal_chains`` makes from ``generator`` when given
         no noise, materialized."""
         dev = generator.device if device is None else torch.device(device)
-        g, t = zip(*_default_draws(steps, chains, n * name_universe(n) + 1,
-                                   generator, t0, t1, dev))
-        return cls(gumbel=torch.stack(g), temps=torch.stack(t))
+        g = _default_draws(steps, chains, n * name_universe(n) + 1,
+                           generator, dev)
+        return cls(gumbel=torch.stack(list(g)),
+                   temps=_temperature_schedule(steps, t0, t1, dev))
 
 
-def _default_draws(steps, chains, width, generator, t0, t1, device):
-    """Each anneal step's ``(gumbel f32[chains, width], temperature)``
-    drawn from ``generator``, one step at a time: the one rule behind
-    ``anneal_chains``'s default noise and ``AnnealNoise.draw``."""
-    temps = _temperature_schedule(steps, t0, t1, device)
-    for s in range(steps):
-        yield _gumbel((chains, width), generator, device), temps[s]
+def _default_draws(steps, chains, width, generator, device):
+    """Each anneal step's Gumbel draws ``f32[chains, width]`` from
+    ``generator``, one step at a time: the one rule behind
+    ``anneal_chains``'s default noise and ``AnnealNoise.draw`` (whose
+    temperatures are ``_temperature_schedule``'s)."""
+    for _ in range(steps):
+        yield _gumbel((chains, width), generator, device)
 
 
 def _gumbel(shape, generator, device) -> torch.Tensor:
@@ -153,8 +157,8 @@ def anneal_chains(speeds, prev, capacity, lam, *, steps: int = 200,
     chain moves it, it loads and opens no bin) and comes back ``NEG``.
     ``noise`` injects the draws; else they come from ``generator`` (a
     generator seeded 0 on the run's device when ``None``).
-    ``use_kernel=False`` evaluates moves with the plain version even on
-    the card.  Inputs go to ``device`` (``None`` = the CUDA card).
+    ``use_kernel=False`` runs each step's plain version even on the
+    card.  Inputs go to ``device`` (``None`` = the CUDA card).
     Results carry a leading ``R`` axis iff ``speeds`` has one.
     """
     dev = resolve_device(device)
@@ -186,52 +190,38 @@ def anneal_chains(speeds, prev, capacity, lam, *, steps: int = 200,
     act_i = None if act is None else act_k.to(torch.int32)   # no copy a step
     lam_k = lam.repeat(r_)
     cap_k = torch.full((c,), float(np.float32(capacity)), device=dev)
-    n_iota = torch.arange(n, device=dev)
-    m_iota = torch.arange(m, device=dev)
 
-    assign = n_iota.to(torch.int32).expand(c, n).contiguous()
+    assign = torch.arange(n, dtype=torch.int32, device=dev).expand(
+        c, n).contiguous()
     pad = lambda x: torch.cat([x, x.new_zeros(c, m - n)], 1)  # noqa: E731
-    loads = pad(speeds_k)
-    counts = pad(chain(count0))
     cost, _, _ = assignment_cost(assign, speeds_k, prev_k, cap_k, lam_k, m=m,
                                  active=act_k)
-    best_cost, best_assign = cost, assign
+    state = ChainState(assign=assign, loads=pad(speeds_k),
+                       counts=pad(chain(count0)), cost=cost,
+                       best_cost=cost.clone(), best_assign=assign.clone())
     if noise is None:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        draws = _default_draws(steps, k, nm + 1, generator, t0, t1, dev)
+        draws = _default_draws(steps, k, nm + 1, generator, dev)
+        temps = _temperature_schedule(steps, t0, t1, dev)
     else:
         if noise.gumbel.shape != (steps, k, nm + 1):
             raise ValueError(f"noise.gumbel must have shape [{steps}, {k}, "
                              f"{nm + 1}]; got {list(noise.gumbel.shape)}")
-        temps = noise.temps.to(dev)
-        draws = ((noise.gumbel[s].to(dev), temps[s]) for s in range(steps))
-    evaluate = move_delta_batch if use_kernel else move_delta_reference
-    for g, temp in draws:
-        delta = evaluate(loads, counts, assign, speeds_k, prev_k, lam_k,
-                         cap_k, active=act_i).view(c, nm)
-        # first maximum of [-delta / T, 0] + g; "stay" is the last column
-        z = delta.view(r_, k, nm).neg().div_(temp).add_(g[:, :nm])
-        zmax, zarg = z.view(c, nm).max(1)
-        choice = torch.where(zmax >= g[:, nm].repeat(r_), zarg, nm)
-        do = choice < nm
-        idx = torch.clamp(choice, max=nm - 1)
-        p, b = idx // m, idx % m
-        d = delta.gather(1, idx[:, None])[:, 0]
-        do = do & (d < MOVE_BLOCKED / 2)
-        w = speeds_k.gather(1, p[:, None])
-        a = assign.gather(1, p[:, None]).long()
-        assign = torch.where(do[:, None] & (n_iota == p[:, None]),
-                             b[:, None].to(torch.int32), assign)
-        hit_a = do[:, None] & (m_iota == a)
-        hit_b = do[:, None] & (m_iota == b[:, None])
-        loads = torch.where(hit_a, loads - w, loads)
-        loads = torch.where(hit_b, loads + w, loads)
-        counts = counts - hit_a.to(torch.int32) + hit_b.to(torch.int32)
-        cost = torch.where(do, cost + d, cost)
-        better = cost < best_cost
-        best_cost = torch.where(better, cost, best_cost)
-        best_assign = torch.where(better[:, None], assign, best_assign)
+        gumbel = noise.gumbel.to(device=dev,
+                                 dtype=torch.float32).contiguous()
+        draws = (gumbel[s] for s in range(steps))
+        temps = noise.temps.to(device=dev, dtype=torch.float32).contiguous()
+    if use_kernel:
+        step = anneal_step_launcher(state, speeds_k, prev_k, lam_k, cap_k,
+                                    temps, k, active=act_i)
+    else:
+        def step(g, s):
+            anneal_step_reference(state, speeds_k, prev_k, lam_k, cap_k, g,
+                                  temps, s, active=act_i)
+    for s, g in enumerate(draws):
+        step(g, s)
+    best_assign = state.best_assign
     if act_k is not None:
         best_assign = torch.where(act_k, best_assign, NEG)
     # the loop tracks cost incrementally; re-derive the best state's cost

@@ -7,6 +7,14 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+The annealer's step (``anneal_step``) equals ``anneal_step_reference``
+bit for bit over 48 steps at path C1's widths (n = 32, 6 chains a row,
+64 rows: a warp a chain) and path C2's (n = 256, 28 chains: a cluster of
+8 blocks a chain), masked and unmasked, with draws that tie; the move
+plane (``move_delta_batch``) equals its plain version bit for bit at
+ragged and unaligned shapes; ``loop_fused`` equals its plain version
+bit for bit for every n from 1 to 14, the 8 heuristics, masked and
+unmasked, with an initial lag and recorded assignments.
 The packing kernel (``pack_rows``) runs all 12 packers, masked and
 unmasked, at n = 7, 32 and 256 and at its width limit, and must equal the
 plain packers exactly (``loads`` bit for bit); the warp-per-row selection
@@ -36,6 +44,11 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_fwd, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS, flash_attention_fwd, flash_attention_plain)
+from repro_torch.kernels.loop_fused import (  # noqa: E402
+    loop_fused, loop_fused_reference)
+from repro_torch.kernels.move_eval import (  # noqa: E402
+    ChainState, anneal_step, anneal_step_reference, move_delta_batch,
+    move_delta_reference)
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     rwkv6_wkv, rwkv6_wkv_fwd, rwkv6_wkv_plain)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
@@ -326,3 +339,147 @@ def test_select_kernel_matches_plain(cuda, m, strategy, masked):
     assert select_slot_grid.launches == before + 1
     assert torch.equal(got, select_slot_plain(*t, strategy=strategy,
                                               active=tact))
+
+
+def _chain_states(seed, rows, k, n, masked, dev):
+    """Chains in random states over ``m = 2n + 2`` names (loads and
+    counts from the assignment, inactive items excluded), speeds on a
+    coarse grid so that moves tie, lambda 0 or 4, a cost and a best cost
+    of their own; and the step's read-only inputs."""
+    rng = np.random.default_rng(seed)
+    c, m = rows * k, 2 * n + 2
+    speeds = (np.round(rng.uniform(0, 0.9, (c, n)) * 8) / 8).astype(
+        np.float32)
+    speeds[:, 0] = 1.25                              # oversized items
+    assign = rng.integers(0, m, (c, n)).astype(np.int32)
+    prev = rng.integers(-1, m, (c, n)).astype(np.int32)
+    act = rng.random((c, n)) > 0.2 if masked else np.ones((c, n), bool)
+    w = np.where(act, speeds, 0).astype(np.float32)
+    loads = np.zeros((c, m), np.float32)
+    counts = np.zeros((c, m), np.int32)
+    for i in range(c):
+        np.add.at(loads[i], assign[i], w[i])
+        np.add.at(counts[i], assign[i], act[i].astype(np.int32))
+    cost = rng.uniform(n / 2, n, c).astype(np.float32)
+    lam = np.tile(np.float32([0.0, 4.0]), c)[:c]
+    t = lambda x: torch.tensor(x, device=dev)  # noqa: E731
+    state = ChainState(t(assign), t(loads), t(counts), t(cost),
+                       t(cost + 0.5), t(assign))
+    return state, (t(w), t(prev), t(lam), torch.ones(c, device=dev),
+                   t(act.astype(np.int32)) if masked else None)
+
+
+@pytest.mark.parametrize("rows,k,n", [(64, 6, 32), (1, 28, 256), (3, 4, 5)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("coarse", [False, True])
+def test_anneal_step_kernel_matches_plain(cuda, rows, k, n, masked, coarse):
+    """48 steps of the kernel and of the plain version from the same
+    state: every state tensor equal bit for bit after each step.  Coarse
+    draws make moves tie in z and the "stay" draw tie the best move."""
+    got, (speeds, prev, lam, cap, act) = _chain_states(
+        n + masked, rows, k, n, masked, cuda)
+    want = ChainState(*(x.clone() for x in got))
+    start = got.assign.clone()
+    steps = 48
+    gen = torch.Generator(cuda).manual_seed(n)
+    u = torch.rand((steps, k, n * (2 * n + 2) + 1), generator=gen,
+                   device=cuda).clamp_(min=1e-30)
+    gumbel = -torch.log(-torch.log(u))
+    if coarse:
+        gumbel = torch.round(gumbel * 2) / 2
+    temps = torch.logspace(0, -2, steps, device=cuda)
+    before = anneal_step.launches
+    for t in range(steps):
+        anneal_step(got, speeds, prev, lam, cap, gumbel[t], temps, t,
+                    active=act)
+        anneal_step_reference(want, speeds, prev, lam, cap, gumbel[t], temps,
+                              t, active=act)
+        for name, a, b in zip(ChainState._fields, got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (
+                f"step {t}: {name}")
+    torch.cuda.synchronize()
+    assert anneal_step.launches == before + steps
+    assert not torch.equal(got.assign, start)        # moves were made
+
+
+@pytest.mark.parametrize("k,n,m", [
+    (7, 9, 20), (5, 5, 7), (33, 3, 5), (6144, 32, 66), (13, 130, 262),
+    (2, 1, 1), (3, 301, 604)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_move_delta_kernel_matches_plain(cuda, k, n, m, masked):
+    """Ragged and unaligned planes (N*M not a multiple of 4, chains that
+    start off a 16-byte boundary, chains split over blocks): bit for
+    bit."""
+    rng = np.random.default_rng(k + n + m)
+    speeds = rng.uniform(0, 1.3, (k, n)).astype(np.float32)
+    assign = rng.integers(0, m, (k, n)).astype(np.int32)
+    prev = rng.integers(-1, m, (k, n)).astype(np.int32)
+    act = rng.random((k, n)) > 0.2
+    loads = np.zeros((k, m), np.float32)
+    counts = np.zeros((k, m), np.int32)
+    for i in range(k):
+        np.add.at(loads[i], assign[i], np.where(act[i], speeds[i], 0))
+        np.add.at(counts[i], assign[i], act[i].astype(np.int32))
+    lam = np.tile(np.float32([0.0, 4.0]), k)[:k]
+    args = [torch.tensor(x, device=cuda) for x in (
+        loads, counts, assign, speeds, prev, lam, np.ones(k, np.float32))]
+    tact = torch.tensor(act, device=cuda) if masked else None
+    before = move_delta_batch.launches
+    got = move_delta_batch(*args, active=tact)
+    torch.cuda.synchronize()
+    assert move_delta_batch.launches == before + 1
+    assert torch.equal(got, move_delta_reference(*args, active=tact))
+
+
+LOOP_STRATS = [("next", False), ("next", True), ("first", False),
+               ("first", True), ("best", False), ("best", True),
+               ("worst", False), ("worst", True)]
+
+
+def _loop_case(seed, b, t, n, masked, dev):
+    rng = np.random.default_rng(seed)
+    rates = rng.uniform(0, 1.2, (b, t, n)).astype(np.float32)
+    rates[::2] = np.round(rates[::2] * 4) / 4        # ties
+    act = torch.tensor(rng.random((b, t, n)) > 0.25, device=dev) \
+        if masked else None
+    lag0 = torch.tensor(rng.uniform(0, 2, (b, n)).astype(np.float32),
+                        device=dev)
+    return torch.tensor(rates, device=dev), act, lag0
+
+
+def _assert_loop_equal(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (
+            f"output {i}")
+
+
+@pytest.mark.parametrize("n", range(1, 15))
+@pytest.mark.parametrize("masked", [False, True])
+def test_loop_fused_kernel_matches_plain(cuda, n, masked):
+    """The 8 heuristics over 40 streams (a partial warp) x 37 steps (a
+    partial ring stage; rows of T * N that are not a multiple of 16
+    bytes) with an initial lag, assignments recorded: bit for bit."""
+    rates, act, lag0 = _loop_case(n + 20 * masked, 40, 37, n, masked, cuda)
+    kw = dict(strategies=[s for s, _ in LOOP_STRATS],
+              decreasing=[d for _, d in LOOP_STRATS], capacity=1.0, dt=0.8,
+              migration_steps=2, active=act, initial_lag=lag0,
+              record_assign=True)
+    before = loop_fused.launches
+    got = loop_fused(rates, **kw)
+    torch.cuda.synchronize()
+    assert loop_fused.launches == before + 1
+    _assert_loop_equal(got, loop_fused_reference(rates, **kw))
+
+
+@pytest.mark.parametrize("policies", [3, 12])
+def test_loop_fused_kernel_at_other_policy_counts(cuda, policies):
+    """Fewer policies than a block's 8 warps, and more (two blocks over
+    the same streams), without recording: bit for bit."""
+    rates, act, lag0 = _loop_case(policies, 70, 64, 14, True, cuda)
+    strats = [LOOP_STRATS[i % 8] for i in range(3, 3 + policies)]
+    kw = dict(strategies=[s for s, _ in strats],
+              decreasing=[d for _, d in strats], active=act,
+              initial_lag=lag0)
+    _assert_loop_equal(loop_fused(rates, **kw),
+                       loop_fused_reference(rates, **kw))

@@ -25,12 +25,13 @@ from repro_torch.kernels.move_eval import (MOVE_BLOCKED,  # noqa: E402
                                            move_delta_reference)
 
 
-def _instance(seed, k=7, n=9, cap=1.0):
-    """Chains in random feasible-ish states: assignments over ``m = 2n+2``
-    names, loads and counts derived from them (inactive items excluded),
-    so some bins are empty and some items oversized."""
+def _instance(seed, k=7, n=9, cap=1.0, m=None):
+    """Chains in random feasible-ish states: assignments over ``m`` names
+    (the annealer's ``2n+2`` by default), loads and counts derived from
+    them (inactive items excluded), so some bins are empty and some items
+    oversized."""
     rng = np.random.default_rng(seed)
-    m = 2 * n + 2
+    m = 2 * n + 2 if m is None else m
     speeds = rng.uniform(0, 1.4 * cap, (k, n)).astype(np.float32)
     speeds[:, 0] = 1.2 * cap                       # always one oversized item
     assign = rng.integers(0, n, (k, n)).astype(np.int32)
@@ -98,7 +99,34 @@ def test_batch_on_cpu_matches_interpret_kernel(masked, seed):
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("n,m", ((5, 7), (3, 9), (9, 13)))
+def test_plain_plane_with_moves_not_a_multiple_of_four(n, m, masked):
+    """An ``N*M`` that is not a multiple of 4 (the kernel's chains then
+    start off its 16-byte stores' boundary): the plain version and the
+    CPU path still equal the reference's oracle bit for bit."""
+    assert (n * m) % 4
+    x = _instance(n + m, k=6, n=n, m=m)
+    x["assign"] %= m
+    x["prev"] = np.minimum(x["prev"], m - 1)
+    args, act = _both(x, masked, None)
+    want = np.asarray(j_move_ref(*map(jnp.asarray, args),
+                                 active=None if act is None
+                                 else jnp.asarray(act)))
+    targs = [torch.tensor(a) for a in args]
+    tact = None if act is None else torch.tensor(act)
+    got = move_delta_reference(*targs, active=tact)
+    assert got.shape == (6, n, m)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        move_delta_batch(*targs, active=tact).numpy(), want)
+    blocked = want >= J_BLOCKED / 2
+    assert blocked.any() and (~blocked).any()
+
+
 def test_kernel_source_is_built_and_bound():
     assert "move_eval.cu" in [p.name for p in _build._sources()]
     assert len(_build.SIGNATURES["move_eval_f32"]) == 13
     assert "move_delta_batch" in _build.launch_counts()
+    assert len(_build.SIGNATURES["anneal_step_f32"]) == 19
+    assert "anneal_step" in _build.launch_counts()

@@ -10,6 +10,7 @@ lag within ``atol = 1e-5``.  The pure-Python and numpy pieces (frontier
 reductions, heuristic points, the exact oracle) must match exactly.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -20,11 +21,16 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.opt as jopt  # noqa: E402
+import repro.opt.anneal as janneal  # noqa: E402
 from repro.lagsim import LagSimConfig as JConfig  # noqa: E402
 from repro.lagsim import sweep_lag as j_sweep_lag  # noqa: E402
 from repro.opt.anneal import _temperature_schedule as j_schedule  # noqa: E402
 from repro_torch import api, opt  # noqa: E402
 from repro_torch.convert import anneal_noise_from_numpy  # noqa: E402
+from repro_torch.kernels.move_eval import (ChainState,  # noqa: E402
+                                           anneal_step,
+                                           anneal_step_reference,
+                                           move_delta_reference)
 from repro_torch.lagsim import LagSimConfig, sweep_lag  # noqa: E402
 from repro_torch.registry import builtin, list_policies  # noqa: E402
 
@@ -71,6 +77,124 @@ def test_anneal_pack_matches_reference(masked):
                                **TOL)
     np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), **TOL)
     np.testing.assert_array_equal(got.lam.numpy(), lam)
+
+
+#: the step-by-step cases' Gumbel draws: the reference's own, rounded
+#: to a coarse grid (moves tie in z), or all zero (the "stay" draw ties
+#: the best move whenever no move lowers the cost)
+DRAWS = {"reference": lambda g: g,
+         "coarse": lambda g: jnp.round(g * 2) / 2,
+         "zeros": jnp.zeros_like}
+
+
+def _reference_steps(monkeypatch, speeds, prev, lam, act, steps, draw):
+    """The reference annealer's scan body run one step at a time on its
+    own inputs: its carry before the first step and after each one, its
+    temperatures, and the Gumbel draws each step made (passed through
+    ``draw``, which the step then uses)."""
+    draws, carries = [], []
+    real = jax.random.gumbel
+
+    def gumbel(key, shape, dtype):
+        g = draw(real(key, shape, dtype))
+        draws.append(np.asarray(g))
+        return g
+
+    def scan(body, carry, xs):
+        carries.append(carry)
+        for t in range(xs[0].shape[0]):
+            carry, _ = body(carry, (xs[0][t], xs[1][t]))
+            carries.append(carry)
+        return carry, None
+
+    monkeypatch.setattr(jax.random, "gumbel", gumbel)
+    monkeypatch.setattr(janneal, "lax", types.SimpleNamespace(scan=scan))
+    janneal.anneal_chains(jnp.asarray(speeds), jnp.asarray(prev), 1.0,
+                          jnp.asarray(lam), jax.random.key(5), steps=steps,
+                          active=None if act is None else jnp.asarray(act))
+    return (carries, np.asarray(j_schedule(steps, 1.0, 0.02)),
+            np.stack(draws))
+
+
+@pytest.mark.parametrize("draws", tuple(DRAWS))
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("n", (7, 32))
+def test_anneal_step_matches_reference_step_by_step(monkeypatch, n, masked,
+                                                    draws):
+    """``anneal_step_reference`` from the reference's own state, with its
+    draws and temperatures, equals the reference's scan body after each of
+    48 steps: assignment, loads, counts, cost, best cost and best
+    assignment, bit for bit."""
+    rng = np.random.default_rng(n + masked)
+    speeds = rng.uniform(0, 0.7, n).astype(np.float32)
+    if draws != "reference":
+        speeds = (np.round(speeds * 8) / 8).astype(np.float32)
+    speeds[0] = 1.1                                  # one oversized item
+    prev = rng.integers(-1, n, n).astype(np.int32)
+    act = rng.random(n) > 0.3 if masked else None
+    lam = np.float32([0.0, 0.5, 4.0])
+    steps = 48
+    carries, temps, g = _reference_steps(monkeypatch, speeds, prev, lam, act,
+                                         steps, DRAWS[draws])
+    k, m = len(lam), 2 * n + 2
+    sp = np.where(act, speeds, 0) if masked else speeds
+    pv = np.where(act, prev, -1) if masked else prev
+    rows = lambda x, dt: torch.tensor(np.broadcast_to(x, (k, n)), dtype=dt)  # noqa: E731
+    speeds_k, prev_k = rows(sp, torch.float32), rows(pv, torch.int32)
+    act_k = None if act is None else rows(act, torch.int32)
+    cap = torch.ones(k)
+    state = ChainState(*(torch.tensor(np.array(x)) for x in carries[0]))
+    gt, tt = torch.tensor(g), torch.tensor(temps)
+    ties = stay_ties = 0
+    for t in range(steps):
+        delta = move_delta_reference(state.loads, state.counts, state.assign,
+                                     speeds_k, prev_k, torch.tensor(lam),
+                                     cap, active=act_k).view(k, n * m)
+        z = delta.neg().div_(tt[t]).add_(gt[t][:, :n * m])
+        zmax = z.max(1).values
+        ties += int(((z == zmax[:, None]).sum(1) > 1).sum())
+        stay_ties += int((zmax == gt[t][:, n * m]).sum())
+        anneal_step_reference(state, speeds_k, prev_k, torch.tensor(lam),
+                              cap, gt[t], tt, t, active=act_k)
+        for name, got, want in zip(ChainState._fields, state,
+                                   carries[t + 1]):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          f"step {t}: {name}")
+    if draws == "coarse":
+        assert ties > 0
+    if draws == "zeros":
+        assert ties > 0 and stay_ties > 0
+    assert int(state.best_cost.lt(torch.tensor(np.asarray(
+        carries[0][3]))).sum()) > 0                  # the chains improved
+
+
+def test_anneal_step_on_cpu_tensors_runs_the_plain_version():
+    """``anneal_step`` on CPU tensors is its plain version, uncounted."""
+    n, k = 6, 4
+    m = 2 * n + 2
+    gen = torch.Generator().manual_seed(3)
+    speeds = torch.rand((k, n), generator=gen)
+    prev = torch.randint(-1, m, (k, n), generator=gen, dtype=torch.int32)
+    assign = torch.arange(n, dtype=torch.int32).expand(k, n).contiguous()
+    pad = lambda x: torch.cat([x, x.new_zeros(k, m - n)], 1)  # noqa: E731
+    cost = torch.rand(k, generator=gen) + n
+
+    def fresh():
+        return ChainState(assign.clone(), pad(speeds),
+                          pad(torch.ones((k, n), dtype=torch.int32)),
+                          cost.clone(), cost.clone(), assign.clone())
+
+    args = (speeds, prev, torch.full((k,), 0.5), torch.ones(k),
+            torch.rand((k, n * m + 1), generator=gen), torch.ones(3))
+    got, want = fresh(), fresh()
+    before = anneal_step.launches
+    for step in range(3):
+        anneal_step(got, *args, step)
+        anneal_step_reference(want, *args, step)
+    assert anneal_step.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(got.assign, assign)       # moves were made
 
 
 def test_rows_share_noise_and_each_equals_its_own_reference():
