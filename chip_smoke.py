@@ -14,12 +14,15 @@ Run from a checkout of the repository on a machine with a CUDA card and
    TMA (``UTMALDG``) at every head dim, and the float32 one without
    ``HGMMA``; the build's ``-Xptxas -v`` report must show every
    ``loop_fused`` instantiation (n = 1..14) with a 0-byte stack frame and
-   no spills (its state in registers);
+   no spills (its state in registers), and every ``rwkv6_wkv`` head size
+   (16, 32, 64, 128) with no spills;
 3. every kernel against its plain PyTorch version on the card
    (integers exact, floats ``rtol = atol = 1e-5``; the attention
    kernels at ``2e-5`` in float32 and ``2e-2`` in bfloat16; the WKV
    kernel within ``1e-4`` of the largest magnitude of its plain result),
-   at stress shapes and at the shapes the paths give it (decode attention
+   at stress shapes and at the shapes the paths give it (the drain
+   ``lag_update`` in the lag twin's dtypes -- bool masks, int64 ``assign``
+   -- and in int32, the same bits; decode attention
    also at fills on either side of a split boundary, and captured once in
    a CUDA graph and replayed at other fills set in place on the card; the
    packing kernel ``pack_rows`` for all 12 packers, masked and unmasked,
@@ -41,7 +44,8 @@ Run from a checkout of the repository on a machine with a CUDA card and
    exactly one ``pack_rows`` launch a packing policy a step (2400), no
    ``select_slot_grid`` launch, 3360 ``lag_update`` launches; then the
    torch ops a step of each policy, with the packing kernel and with the
-   plain packers swapped in;
+   plain packers swapped in, and the 7 policies' total beside the
+   ``lag_update`` launches;
 6. path C1: ``api.simulate`` with the annealer policies ANNEAL and
    ANNEAL_STICKY (6 chains, 48 anneal steps a decision) over path B's
    traffic, every anneal step one ``anneal_step`` launch (exactly 46,080,
@@ -225,7 +229,10 @@ def _exact(got, want, what: str) -> None:
 
 def check_lag_update(dev, gen, b, n, m, names):
     """Kernel against plain at ``[b, n]`` partitions and ``m`` bins, with
-    bin names drawn below ``names``."""
+    bin names drawn below ``names``: masked and unmasked, with the lag
+    twin's dtypes (bool masks, ``active`` one step of a [B, 2, N] mask,
+    int64 ``assign``) and with int32 ones; both dtypes give the same
+    bits."""
     import torch
 
     from repro_torch.kernels import lag_update as lu
@@ -237,16 +244,25 @@ def check_lag_update(dev, gen, b, n, m, names):
         assign = torch.randint(-1, names, (b, n), generator=gen, device=dev)
         readable = torch.rand((b, n), generator=gen, device=dev) > 0.2
         cap = torch.rand((b, m), generator=gen, device=dev) * 4
-        act = (torch.rand((b, n), generator=gen, device=dev) > 0.1
+        act = (torch.rand((b, 2, n), generator=gen, device=dev) > 0.1
                if masked else None)
+        i32 = lambda x: x.to(torch.int32)  # noqa: E731
         got = lu.lag_update_batch(lag, produced, assign, readable, cap,
-                                  active=act)
-        want = lu.lag_update_reference(lag, produced, assign, readable, cap,
-                                       m=m, active=act)
+                                  active=None if act is None else act[:, 1])
+        got32 = lu.lag_update_batch(
+            lag, produced, i32(assign), i32(readable), cap,
+            active=None if act is None else i32(act[:, 1]))
+        want = lu.lag_update_reference(
+            lag, produced, assign, readable, cap, m=m,
+            active=None if act is None else act[:, 1])
         torch.cuda.synchronize()
+        _require(torch.equal(got.view(torch.int32), got32.view(torch.int32)),
+                 f"lag_update masked={masked}: bool/int64 and int32 inputs "
+                 f"give different bits")
         worst = max(worst, _close(got, want, f"lag_update masked={masked}"))
     print(f"check lag_update B={b} N={n} M={m} names<{names} masked and "
-          f"unmasked: max_abs_err={worst!r}")
+          f"unmasked, bool/int64 and int32 inputs (the same bits): "
+          f"max_abs_err={worst!r}")
     return worst
 
 
@@ -594,7 +610,8 @@ def check_sass(lib) -> None:
 def check_ptxas() -> None:
     """Every ``loop_fused`` instantiation (n = 1..14) in the build's
     ``-Xptxas -v`` report with a 0-byte stack frame and no spill: its
-    rows' state lives in registers."""
+    rows' state lives in registers; every ``rwkv6_wkv`` head size (16, 32,
+    64, 128) with no spill (32 state registers a thread)."""
     import re
 
     from repro_torch.kernels import _build
@@ -617,6 +634,20 @@ def check_ptxas() -> None:
                       f"{bad}")
     print(f"check ptxas: loop_fused n = 1..14, 0-byte stack frame and no "
           f"spill each; registers {[found[n][3] for n in range(1, 15)]}")
+    wkv = {}
+    for name, stack, st, ld, regs in re.findall(
+            r"Function properties for (\S+rwkv6_wkv_kernelILi(?:\d+)E\S*)\n"
+            r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+            r"bytes spill loads\n.*?Used (\d+) registers", report):
+        hd = int(re.search(r"rwkv6_wkv_kernelILi(\d+)E", name).group(1))
+        wkv[hd] = (int(stack), int(st), int(ld), int(regs))
+    _require(sorted(wkv) == [16, 32, 64, 128],
+             f"ptxas: rwkv6_wkv instantiations {sorted(wkv)}, want 16..128")
+    bad = {hd: v for hd, v in wkv.items() if v[1:3] != (0, 0)}
+    _require(not bad, f"ptxas: rwkv6_wkv spills (hd: stack, spill stores, "
+                      f"spill loads, registers): {bad}")
+    print(f"check ptxas: rwkv6_wkv hd = 16, 32, 64, 128 (hd: stack frame, "
+          f"spill stores, spill loads, registers): {dict(sorted(wkv.items()))}")
 
 
 #: the serving paths' kernel wrappers: each phase of a serving path
@@ -1035,7 +1066,11 @@ def wkv_row(dev, seed, launches, errs):
         launches_by_path=launches, max_abs_err=errs["rwkv6_wkv_fwd"][0],
         max_rel_err=errs["rwkv6_wkv_fwd"][1], ms=graph_ms(kern, 10),
         plain_ms=graph_ms(plain, 1), bound_ms=bnd, bound_by=by,
-        library_ms=None, wrapper_ms=cuda_ms(kern, 10)[0])
+        library_ms=None, wrapper_ms=cuda_ms(kern, 10)[0],
+        design="state split over lanes (8 rows x 4 columns, 32 registers, "
+        "float4 loads and stores) and 4 independent column blocks a head; "
+        "partial outputs reduce-scattered by shuffles; r, k, v, w step "
+        "rows through a 3-stage ring of bulk copies (TMA) on mbarriers")
     del xs
     # E2's call on every layer's state in turn, as a decode step makes it:
     # the 32 states (168 MB) do not fit the 50 MB L2, so each call reads
@@ -1051,7 +1086,16 @@ def wkv_row(dev, seed, launches, errs):
 
     kern, plain = each(ws.rwkv6_wkv_fwd), each(ws.rwkv6_wkv_plain)
     bnd, by = bound(D_BATCH, 1)
+    # a yardstick, used nowhere in the port: copying the same state bytes
+    # (read once, written once) in the same replay
+    spare = [torch.empty_like(xs[5]) for xs in layers]
+
+    def copies():
+        for xs, dst in zip(layers, spare):
+            dst.copy_(xs[5])
+
     row.update(ms_decode=graph_ms(kern, 10) / n_layers,
+               state_copy_ms_decode=graph_ms(copies, 10) / n_layers,
                plain_ms_decode=graph_ms(plain, 5) / n_layers,
                bound_ms_decode=bnd, bound_by_decode=by,
                wrapper_ms_decode=cuda_ms(kern, 10)[0] / n_layers)
@@ -1491,7 +1535,10 @@ def main(argv=None) -> int:
             check_wkv(dev, gen, 1, 16384, 40, 64, chunk=4096),    # long
             check_wkv(dev, gen, 2, 1000, 40, 64),                 # ragged T
             check_wkv(dev, gen, 1, 16, 2, 16),   # the reference's tests
-            check_wkv(dev, gen, 2, 64, 4, 32))}
+            check_wkv(dev, gen, 2, 64, 4, 32),
+            check_wkv(dev, gen, 1, 13, 5, 64),   # T not a multiple of 8
+            check_wkv(dev, gen, 3, 1, 5, 128),   # 4-warp blocks, T = 1
+            check_wkv(dev, gen, 2, 77, 4, 128))}
 
     # path A: the heuristic packers through the loop_fused kernel
     rates_a, act_a = traffic_mix(4096, 2880, 14, args.seed, dev)
@@ -1520,7 +1567,10 @@ def main(argv=None) -> int:
                          use_kernel=True)
     _agree(small, out_b, 16, 48, "path B against the CPU plain versions")
     del small, out_a, out_b
-    path_b_ops(rates_b, act_b)
+    ops_b, _ = path_b_ops(rates_b, act_b)
+    print(f"path B: lag_update launches={launches_b['lag_update_batch']} "
+          f"(one a policy a step, {len(PATH_B)} x {steps_b}); torch ops a "
+          f"step, the {len(PATH_B)} policies together: {ops_b}")
 
     # path C1: the annealer policies, every move evaluation on the kernel
     out_c1, launches_c1 = run_path(
@@ -1593,19 +1643,28 @@ def main(argv=None) -> int:
     b, n = 1024, 32
     m = 2 * n + 2
     g = torch.Generator(dev).manual_seed(args.seed)
-    # inputs in the kernels' own dtypes, so the timed calls convert nothing
     i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    # the drain at path B's shape in the lag twin's own dtypes (f32 lag,
+    # produced and cap, int64 assign, bool readable and active, active one
+    # step of path B's [B, T, N] mask), so the timed calls convert nothing
     lag = torch.rand((b, n), generator=g, device=dev)
     produced = torch.rand((b, n), generator=g, device=dev)
-    assign = i32(torch.randint(-1, n, (b, n), generator=g, device=dev))
-    readable = i32(torch.rand((b, n), generator=g, device=dev) > 0.1)
+    assign = torch.randint(-1, n, (b, n), generator=g, device=dev)
+    readable = torch.rand((b, n), generator=g, device=dev) > 0.1
     cap = torch.ones((b, m), device=dev)
-    act = i32(act_b[:, 0])
+    act = act_b[:, 0]
     kern = lambda: lu.lag_update_batch(  # noqa: E731
         lag, produced, assign, readable, cap, active=act)
     ref = lambda: lu.lag_update_reference(  # noqa: E731
         lag, produced, assign, readable, cap, m=m, active=act)
-    bnd, by = bound_ms(b * n * 4 * 6 + b * m * 4, b * n * 8)
+    # bytes: lag, produced (f32), assign (int64), readable, active (bool)
+    # in and out (f32) a partition, and the cap of each live bin a row
+    # reads (the kernel reads cap only there)
+    live = readable & act & (assign >= 0)
+    live_bins = int(torch.unique(
+        (torch.arange(b, device=dev)[:, None] * m + assign)[live]).numel())
+    bnd, by = bound_ms(b * n * (4 + 4 + 8 + 1 + 1 + 4) + live_bins * 4,
+                       b * n * 8)
     kernels.append(dict(
         name="lag_update", route="cuda",
         source="src/repro_torch/kernels/csrc/lag_update.cu",
@@ -1613,7 +1672,15 @@ def main(argv=None) -> int:
         launches=launches_b["lag_update_batch"],
         max_abs_err=errs["lag_update_batch"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
-        library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0]))
+        library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0],
+        # what a wrapper that cast the engine's tensors to int32 added a
+        # call: three cast launches (host time, eager)
+        casts_ms=cuda_ms(lambda: (assign.to(torch.int32),
+                                  readable.to(torch.int32),
+                                  act.to(torch.int32)), 200)[0],
+        design="a warp a row, 8 rows a block; N <= 32: a lane a partition, "
+        "each bin summed over the lanes __match_any_sync finds, in index "
+        "order; inputs read in their own dtypes and row strides (no casts)"))
 
     m = 2 * n + 1                  # Modified Any Fit's slots, [R, 1, M]
     loads = torch.rand((b, 1, m), generator=g, device=dev)
@@ -1703,13 +1770,14 @@ def main(argv=None) -> int:
     # no path calls it (the per-step loop drains every stream at once),
     # and it has no counter of its own (its launches count under
     # lag_update_batch), so no run measures its launches: null
-    b1 = [x[:1] for x in (lag, produced, assign, readable)]
-    cap1 = cap[0]
     kern = lambda: lu.lag_update_single(  # noqa: E731
-        b1[0][0], b1[1][0], b1[2][0], b1[3][0], cap1, active=act[0])
+        lag[0], produced[0], assign[0], readable[0], cap[0], active=act[0])
     ref = lambda: lu.lag_update_reference(  # noqa: E731
-        b1[0][0], b1[1][0], b1[2][0], b1[3][0], cap1, m=66, active=act[0])
-    bnd, by = bound_ms(32 * 4 * 6 + 66 * 4, 32 * 8)
+        lag[0], produced[0], assign[0], readable[0], cap[0], m=m,
+        active=act[0])
+    bnd, by = bound_ms(n * (4 + 4 + 8 + 1 + 1 + 4)
+                       + int(torch.unique(assign[0][live[0]]).numel()) * 4,
+                       n * 8)
     got, want = kern(), ref()
     kernels.append(dict(
         name="lag_update_single", route="cuda",
@@ -1719,7 +1787,8 @@ def main(argv=None) -> int:
         "lag_update kernel at batch 1, counted under lag_update",
         max_abs_err=_close(got, want, "lag_update_single"),
         ms=graph_ms(kern, 200), plain_ms=graph_ms(ref, 200), bound_ms=bnd,
-        bound_by=by, library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0]))
+        bound_by=by, library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0],
+        design="the lag_update kernel at batch 1: one warp"))
 
     kernels += attention_rows(dev, args.seed, launches_d, errs)
     kernels.append(wkv_row(dev, args.seed, launches_e, errs))
@@ -1727,9 +1796,16 @@ def main(argv=None) -> int:
     for kern in kernels:
         print(f"kernel {kern['name']}: ms={kern['ms']!r} "
               f"plain_ms={kern['plain_ms']!r} bound_ms={kern['bound_ms']!r} "
-              f"({kern['bound_by']}) library_ms={kern['library_ms']!r} "
+              f"({kern['bound_by']}, {kern['bound_ms'] / kern['ms']:.1%} of "
+              f"it) library_ms={kern['library_ms']!r} "
               f"wrapper_ms={kern['wrapper_ms']!r} "
               f"launches={kern['launches']}")
+        if "design" in kern:
+            print(f"kernel {kern['name']} design: {kern['design']}")
+        if "casts_ms" in kern:
+            print(f"kernel {kern['name']}: the engine's int64 assign and "
+                  f"bool masks go in uncast; casting them to int32 would "
+                  f"add {kern['casts_ms']!r} ms a call (eager)")
         if "ms_c2" in kern:
             print(f"kernel {kern['name']} at path C2's shape: "
                   f"ms={kern['ms_c2']!r} plain_ms={kern['plain_ms_c2']!r} "
@@ -1749,10 +1825,15 @@ def main(argv=None) -> int:
                   f"ms={kern['ms_decode']!r} "
                   f"plain_ms={kern['plain_ms_decode']!r} "
                   f"bound_ms={kern['bound_ms_decode']!r} "
-                  f"({kern['bound_by_decode']}) "
+                  f"({kern['bound_by_decode']}, "
+                  f"{kern['bound_ms_decode'] / kern['ms_decode']:.1%} of it) "
                   f"wrapper_ms={kern['wrapper_ms_decode']!r} "
-                  f"launches={kern['launches_by_path']}")
+                  f"launches={kern['launches_by_path']}; a copy_ of the "
+                  f"same state bytes: {kern['state_copy_ms_decode']!r} ms")
 
+    z = torch.zeros(1, device=dev)
+    print(f"floor of one replayed graph node (a one-element add_): "
+          f"{graph_ms(lambda: z.add_(1), 200)!r} ms")
     print(f"total_s={time.perf_counter() - t_start!r}")
     # the card again, so that it stands in the output's tail beside the
     # numbers (the build's register report above is long)

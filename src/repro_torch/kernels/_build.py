@@ -37,10 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signature of every entry point: argtypes, all returning cudaError_t
 SIGNATURES = {
-    # lag, produced, assign, readable, cap, active|NULL, out, B, N, M, stream
-    "lag_update_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # lag, produced, assign, readable, cap, active|NULL, out, B, N, M,
+    # assign_i64, readable_i32, active_i32, row strides of lag, produced,
+    # assign, readable, cap and active, stream
+    "lag_update_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _P),
     # loads, w, k, cap, active|NULL, out, B, N, M, strategy, stream
     "select_slot_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # speeds, prev (i64), active (bool)|NULL, bin_of, loads, names, n_bins,

@@ -55,22 +55,68 @@ def lag_update_reference(lag, produced, assign, readable, cap, *, m: int,
     return out
 
 
+#: the inputs the kernel reads, with the dtypes it takes each in (a bool
+#: mask is one byte); the last is the optional ``active``
+_INPUTS = (("lag", (torch.float32,)), ("produced", (torch.float32,)),
+           ("assign", (torch.int32, torch.int64)),
+           ("readable", (torch.bool, torch.int32)), ("cap", (torch.float32,)),
+           ("active", (torch.bool, torch.int32)))
+
+
+def _launch_args(ins, b, n, m, dev):
+    """The kernel's arguments for ``ins`` (lag, produced, assign,
+    readable, cap, active or None): pointers, the dtype flags, row
+    strides, and the copies made (to be kept alive until the launch).
+    Each input is read as it is held: rows at any stride with each row
+    contiguous (one step of a [B, T, N] mask goes in as it is), bool or
+    int32 masks, int32 or int64 ``assign``; only a row that is not
+    contiguous is copied.  Raises on a shape, dtype or device the kernel
+    does not take."""
+    ptrs, strides, kept = [], [], []
+    where = dev.index if dev.type == "cuda" else -1     # as get_device()
+    for (name, takes), x in zip(_INPUTS, ins):
+        if x is None:
+            ptrs.append(None)
+            strides.append(0)
+            continue
+        shape = (b, m) if name == "cap" else (b, n)
+        if x.shape != shape or x.dtype not in takes or x.get_device() != where:
+            raise ValueError(
+                f"lag_update: {name} must be {list(shape)} of one of "
+                f"{[str(d) for d in takes]} on {dev}; got "
+                f"{list(x.shape)} {x.dtype} on {x.device}")
+        st = x.stride()
+        if st[1] != 1 and shape[1] > 1:
+            x = x.contiguous()
+            kept.append(x)
+            st = x.stride()
+        ptrs.append(x.data_ptr())
+        strides.append(st[0])
+    _, _, assign, readable, _, active = ins
+    flags = (assign.dtype == torch.int64, readable.dtype == torch.int32,
+             active is not None and active.dtype == torch.int32)
+    return ptrs, flags, strides, kept
+
+
 @_build.counted
 def lag_update_batch(lag, produced, assign, readable, cap, *,
                      active: Optional[torch.Tensor] = None):
     """Fused produce + segment-sum + proportional drain over stream rows.
 
-    lag, produced: f32[B, N]; assign: i32[B, N] (-1 = unassigned);
-    readable: int/bool[B, N]; cap: f32[B, M] per-bin drain budget;
-    active: optional int/bool[B, N].  Returns f32[B, N].
+    lag, produced: f32[B, N]; assign: i32/i64[B, N] (-1 = unassigned);
+    readable: bool/i32[B, N]; cap: f32[B, M] per-bin drain budget;
+    active: optional bool/i32[B, N].  Returns f32[B, N].
 
     Replaces the Pallas kernel ``src/repro/kernels/lag_update.py``
     (``lag_update_batch`` and the rank-1 ``lag_update_single``, both over
-    ``_drain_math``).  On the H100 it is bound by bytes: about 24 B per
-    partition and 4 B per bin, read or written once.  The simple design is
-    one block per row with ``avail``/``assign``/``live`` staged in shared
-    memory; each thread sums its own bin's live backlog over the row in
-    index order (O(N^2) a row, no atomics, deterministic).
+    ``_drain_math``).  On the H100 it is bound by bytes: 22 B a partition
+    at the lag twin's dtypes and 4 B a live bin's cap, read or written
+    once.  A warp drains a row, 8 rows a block; for N <= 32 a lane is a
+    partition and each bin's backlog is summed over the lanes that share
+    the bin (``__match_any_sync``), in partition order with plain adds:
+    deterministic, no atomics.  The kernel reads every input in the dtype
+    and row stride the caller holds it in, so the engine's bool masks and
+    int64 ``assign`` go in without a cast.
 
     CPU tensors run ``lag_update_reference``; CUDA tensors launch the
     kernel (``csrc/lag_update.cu``) or raise.
@@ -80,25 +126,12 @@ def lag_update_batch(lag, produced, assign, readable, cap, *,
     if lag.device.type == "cpu":
         return lag_update_reference(lag, produced, assign, readable, cap,
                                     m=m, active=active)
-    if cap.shape != (b, m):
-        raise ValueError(f"cap must be f32[B, M] = [{b}, M]; got "
-                         f"{tuple(cap.shape)}")
     dev = lag.device
-    f32 = lambda x: x.to(device=dev, dtype=torch.float32).contiguous()
-    i32 = lambda x: x.to(device=dev, dtype=torch.int32).contiguous()
-    args = [f32(lag), f32(produced), i32(assign), i32(readable), f32(cap)]
-    for name, x in zip(("produced", "assign", "readable"), args[1:4]):
-        if x.shape != (b, n):
-            raise ValueError(f"{name} must have shape [{b}, {n}]; got "
-                             f"{tuple(x.shape)}")
-    act = None if active is None else i32(active)
-    if act is not None and act.shape != (b, n):
-        raise ValueError(f"active must have shape [{b}, {n}]; got "
-                         f"{tuple(act.shape)}")
+    ptrs, flags, strides, _kept = _launch_args(
+        (lag, produced, assign, readable, cap, active), b, n, m, dev)
     out = torch.empty((b, n), dtype=torch.float32, device=dev)
-    _build.launch("lag_update_f32", *(x.data_ptr() for x in args),
-                  None if act is None else act.data_ptr(), out.data_ptr(),
-                  b, n, m, _build.stream_ptr(dev))
+    _build.launch("lag_update_f32", *ptrs, out.data_ptr(), b, n, m, *flags,
+                  *strides, _build.stream_ptr(dev))
     lag_update_batch.launches += 1
     return out
 

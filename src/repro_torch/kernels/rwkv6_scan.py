@@ -52,6 +52,13 @@ def _check(r, k, v, w, u, s0, s_last) -> None:
                              f"{x.device}")
 
 
+def _aligned(x):
+    """x contiguous and on a 16-byte boundary (the kernel's bulk copies and
+    float4 accesses need both), copied only where it is not."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 @_build.counted
 def rwkv6_wkv_fwd(r, k, v, w, u, s0, s_last: Optional[torch.Tensor] = None):
     """r, k, v, w (B, T, H, hd); u (H, hd); s0 (B, H, hd, hd); all float32.
@@ -63,8 +70,13 @@ def rwkv6_wkv_fwd(r, k, v, w, u, s0, s_last: Optional[torch.Tensor] = None):
     is needed: the state never leaves the SM).  On the H100 both the
     prefill's call and a decode step's are bound by bytes (the streams;
     the state).
-    The simple design is one block per (head, batch row) with one thread
-    per state column; see ``csrc/rwkv6_wkv.cu``.
+    The state's columns are split over one-warp blocks (4 a head at hd =
+    64) and its rows over the lanes of a warp (8 rows and 4 columns a
+    lane, partial outputs summed by shuffles); the step rows of r, k, v,
+    w stream in through a three-stage ring of bulk copies; see
+    ``csrc/rwkv6_wkv.cu``.  Every tensor must start on a 16-byte boundary
+    (an input that does not is copied; an ``s_last`` that does not
+    raises).
 
     CPU tensors run ``rwkv6_wkv_plain``; CUDA tensors launch the kernel or
     raise.
@@ -78,9 +90,10 @@ def rwkv6_wkv_fwd(r, k, v, w, u, s0, s_last: Optional[torch.Tensor] = None):
                          f"{HEAD_DIMS}")
     if s_last is None:
         s_last = torch.empty_like(s0, memory_format=torch.contiguous_format)
-    elif not s_last.is_contiguous():
-        raise ValueError("rwkv6_wkv: s_last must be contiguous")
-    r, k, v, w, u, s0 = (x.contiguous() for x in (r, k, v, w, u, s0))
+    elif not s_last.is_contiguous() or s_last.data_ptr() % 16:
+        raise ValueError("rwkv6_wkv: s_last must be contiguous and start on "
+                         "a 16-byte boundary")
+    r, k, v, w, u, s0 = (_aligned(x) for x in (r, k, v, w, u, s0))
     out = torch.empty_like(r)
     _build.launch("rwkv6_wkv_f32", r.data_ptr(), k.data_ptr(), v.data_ptr(),
                   w.data_ptr(), u.data_ptr(), s0.data_ptr(), out.data_ptr(),

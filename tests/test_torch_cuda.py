@@ -15,6 +15,10 @@ plane (``move_delta_batch``) equals its plain version bit for bit at
 ragged and unaligned shapes; ``loop_fused`` equals its plain version
 bit for bit for every n from 1 to 14, the 8 heuristics, masked and
 unmasked, with an initial lag and recorded assignments.
+The drain (``lag_update``) equals its in-order plain sum bit for bit
+at N = 1, 31, 32, 33 and 256, masked and not, with bool and int32 masks
+and int32 and int64 ``assign``, launching nothing but the output's
+allocation besides its kernel.
 The packing kernel (``pack_rows``) runs all 12 packers, masked and
 unmasked, at n = 7, 32 and 256 and at its width limit, and must equal the
 plain packers exactly (``loads`` bit for bit); the warp-per-row selection
@@ -44,6 +48,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_fwd, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS, flash_attention_fwd, flash_attention_plain)
+from repro_torch.kernels.lag_update import (  # noqa: E402
+    lag_update_batch, lag_update_reference, lag_update_single)
 from repro_torch.kernels.loop_fused import (  # noqa: E402
     loop_fused, loop_fused_reference)
 from repro_torch.kernels.move_eval import (  # noqa: E402
@@ -189,7 +195,12 @@ def _wkv_close(got, want):
 
 @pytest.mark.parametrize("b,t,h,hd", [
     (1, 16, 2, 16), (2, 64, 4, 32), (1, 128, 1, 64),   # the reference's
-    (2, 1000, 3, 64), (3, 1, 5, 128), (1, 77, 2, 128)])
+    (2, 1000, 3, 64), (3, 1, 5, 128), (1, 77, 2, 128),
+    # T not a multiple of the 8-step tile, at every head size (hd = 16
+    # leaves lanes idle; hd = 128 is 16 one-warp column blocks a head);
+    # E2's decode call; a tile count past the 3-stage ring's wrap
+    (2, 25, 3, 16), (2, 19, 3, 32), (1, 13, 5, 64), (1, 9, 2, 128),
+    (8, 1, 40, 64), (1, 61, 1, 64)])
 @pytest.mark.parametrize("in_place", [False, True])
 def test_wkv_kernel_matches_plain(cuda, b, t, h, hd, in_place):
     r, k, v, w, u, s0 = _wkv_inputs(b, t, h, hd, cuda)
@@ -202,6 +213,23 @@ def test_wkv_kernel_matches_plain(cuda, b, t, h, hd, in_place):
     assert (s_last is s0) == in_place
     _wkv_close(out, want)
     _wkv_close(s_last, s_want)
+
+
+def test_wkv_kernel_takes_inputs_off_a_16_byte_boundary(cuda):
+    """The kernel's bulk copies and float4 accesses need 16-byte aligned
+    tensors: the wrapper copies an input that is not, and refuses an
+    ``s_last`` that is not (it must be written in place)."""
+    xs = _wkv_inputs(2, 11, 3, 64, cuda, seed=5)
+    want, s_want = rwkv6_wkv_plain(*xs)
+    off = [torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+           for x in xs]
+    assert all(x.data_ptr() % 16 for x in off)
+    out, s_last = rwkv6_wkv_fwd(*off)
+    torch.cuda.synchronize()
+    _wkv_close(out, want)
+    _wkv_close(s_last, s_want)
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_wkv_fwd(*off[:5], off[5], s_last=off[5])
 
 
 def test_wkv_chunked_kernel_matches_unchunked(cuda):
@@ -243,6 +271,112 @@ def test_model_on_the_card_matches_the_cpu(cuda, arch):
             for step, p, st in zip(steps, (params, cpu_params), states))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     assert int(states[0]["cache_len"]) == 6
+
+
+def _lag_inputs(seed, b, n, masked, mask_dtype, assign_dtype, dev):
+    """A row batch over 2n + 2 bins with bins that several partitions
+    share, unassigned (-1) and out-of-range names; ``active`` is one step
+    of a [B, 3, N] mask, a strided row view as the engine passes it."""
+    rng = np.random.default_rng(seed)
+    m = 2 * n + 2
+    assign = rng.integers(-1, max(2, n // 4), (b, n))
+    assign[::3] = rng.integers(-1, m + 3, assign[::3].shape)
+    t = lambda x, dt=torch.float32: torch.tensor(x).to(  # noqa: E731
+        device=dev, dtype=dt)
+    act = (t(rng.random((b, 3, n)) > 0.2, mask_dtype)[:, 1] if masked
+           else None)
+    return (t(rng.uniform(0, 2, (b, n))), t(rng.uniform(0, 1, (b, n))),
+            t(assign, assign_dtype), t(rng.random((b, n)) > 0.25, mask_dtype),
+            t(rng.uniform(0, 2, (b, m))), act)
+
+
+def _lag_in_order(lag, produced, assign, readable, cap, active):
+    """The drain with each bin's backlog summed over its live partitions
+    in increasing index with float32 adds from 0, on the CPU: the order
+    the kernel sums in, so the two agree bit for bit."""
+    lag, produced, assign, readable, cap = (
+        x.cpu() for x in (lag, produced, assign, readable, cap))
+    b, n = lag.shape
+    m = cap.shape[1]
+    act = (torch.ones((b, n), dtype=torch.bool) if active is None
+           else active.cpu().bool())
+    avail = lag + torch.where(act, produced, torch.zeros(()))
+    live = readable.bool() & act & (assign >= 0) & (assign < m)
+    c = assign.long().clamp(0, m - 1)
+    rows = torch.arange(b)
+    per_bin = torch.zeros((b, m))
+    for j in range(n):
+        cur = per_bin[rows, c[:, j]]
+        per_bin[rows, c[:, j]] = torch.where(live[:, j], cur + avail[:, j],
+                                             cur)
+    ratio = (torch.gather(cap, 1, c)
+             / torch.clamp(torch.gather(per_bin, 1, c), min=1e-30))
+    frac = torch.where(live, torch.clamp(ratio, max=1.0), torch.zeros(()))
+    out = torch.clamp(avail * (1.0 - frac), min=0.0)
+    return torch.where(act, out, torch.zeros(()))
+
+
+def _dispatched(fn):
+    """``(fn(), the names of the torch operators it dispatched)``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Record() as rec:
+        out = fn()
+    return out, rec.ops
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 256])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+@pytest.mark.parametrize("assign_dtype", [torch.int32, torch.int64])
+def test_lag_update_kernel_matches_plain(cuda, n, masked, mask_dtype,
+                                         assign_dtype):
+    """One launch a call, no cast or copy in the wrapper (it allocates the
+    output and nothing else), within 1e-5 of ``lag_update_reference`` and
+    bit for bit the in-order drain; 37 rows leave the last block of 8
+    warps partial."""
+    lag, produced, assign, readable, cap, act = _lag_inputs(
+        n + 7 * masked, 37, n, masked, mask_dtype, assign_dtype, cuda)
+    before = lag_update_batch.launches
+    got, ops = _dispatched(lambda: lag_update_batch(
+        lag, produced, assign, readable, cap, active=act))
+    torch.cuda.synchronize()
+    assert lag_update_batch.launches == before + 1
+    assert ops == ["aten.empty.memory_format"], ops
+    want = lag_update_reference(lag, produced, assign, readable, cap,
+                                m=cap.shape[1], active=act)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.cpu(), _lag_in_order(lag, produced, assign,
+                                                readable, cap, act))
+    one = lag_update_single(lag[3], produced[3], assign[3], readable[3],
+                            cap[3], active=None if act is None else act[3])
+    assert torch.equal(one, got[3])
+
+
+def test_lag_update_kernel_refuses_what_it_does_not_take(cuda):
+    lag, produced, assign, readable, cap, _ = _lag_inputs(
+        1, 4, 8, False, torch.bool, torch.int64, cuda)
+    for bad, match in (
+            (dict(lag=lag.double()), "lag must be"),
+            (dict(assign=assign.to(torch.int16)), "assign must be"),
+            (dict(readable=readable.float()), "readable must be"),
+            (dict(produced=produced.cpu()), "produced must be"),
+            (dict(readable=readable[:, :4]), "readable must be"),
+            (dict(cap=cap[:2]), "cap must be")):
+        args = dict(lag=lag, produced=produced, assign=assign,
+                    readable=readable, cap=cap)
+        args.update(bad)
+        with pytest.raises(ValueError, match=match):
+            lag_update_batch(args.pop("lag"), **args)
 
 
 PACKERS = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD",

@@ -73,6 +73,30 @@ def test_lag_update_matches_reference_and_interpret_kernel(masked):
     np.testing.assert_array_equal(row.numpy(), got[1])
 
 
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("assign_dtype", (torch.int32, torch.int64))
+@pytest.mark.parametrize("mask_dtype", (torch.bool, torch.int32))
+def test_lag_update_takes_the_engines_dtypes(mask_dtype, assign_dtype,
+                                             masked):
+    """Bool or int32 masks and int32 or int64 ``assign`` (the kernel reads
+    each as it is held) give the reference's drain; out-of-range names
+    and -1 included."""
+    x = _lag_inputs(7, b=5, n=12, m=9)
+    x["assign"] = np.random.default_rng(8).integers(-1, 12, (5, 12)).astype(
+        np.int32)
+    act = x["active"] if masked else None
+    want = np.asarray(j_lag_ref(
+        *(jnp.asarray(x[k]) for k in ("lag", "produced", "assign",
+                                      "readable", "cap")),
+        m=9, active=None if act is None else jnp.asarray(act)))
+    t = {k: torch.tensor(v) for k, v in x.items()}
+    got = lag_update_batch(
+        t["lag"], t["produced"], t["assign"].to(assign_dtype),
+        t["readable"].to(mask_dtype), t["cap"],
+        active=t["active"].to(mask_dtype) if masked else None).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_cpu_tensors_run_the_plain_version_without_counting():
     x = {k: torch.tensor(v) for k, v in _lag_inputs(1).items()}
     before = lag_update_batch.launches

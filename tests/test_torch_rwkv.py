@@ -126,6 +126,52 @@ def test_wkv_plain_matches_reference_oracle_and_pallas(b, t, h, hd):
         close(s_last, s_want, "float32", WKV_TOL)
 
 
+def wkv_in_kernel_order(r, k, v, w, u, s0):
+    """The recurrence in float32 in the CUDA kernel's order
+    (``csrc/rwkv6_wkv.cu``): the bonus factored out, ``a_t = sum_i r_i
+    u_i k_i``, ``o = r S + a_t v``, ``S = w S + k v^T``.  Lane p of a
+    column group (hd / 8 lanes, 8 rows each) sums its rows 4p .. 4p + 3
+    and 4P + 4p .. 4P + 4p + 3 in that order, its partial of a_t times v
+    folded in, and the lane partials are summed as a pairwise tree in
+    lane order."""
+    b, t, h, hd = r.shape
+    lanes = hd // 8
+    mine = torch.tensor([[4 * p + e for e in range(4)]
+                         + [4 * lanes + 4 * p + e for e in range(4)]
+                         for p in range(lanes)])          # (lanes, 8)
+    s = s0.clone()
+    uu = u[:, mine]                                       # (h, lanes, 8)
+    outs = []
+    for step in range(t):
+        rt, kt = (x[:, step][:, :, mine] for x in (r, k))  # (b, h, lanes, 8)
+        vt, wt = v[:, step], w[:, step]
+        rows = s[:, :, mine]                              # (b, h, lanes, 8, hd)
+        a = torch.zeros((b, h, lanes))
+        q = torch.zeros((b, h, lanes, hd))
+        for i in range(8):
+            a = a + rt[..., i] * (uu[..., i] * kt[..., i])
+            q = q + rt[..., i, None] * rows[:, :, :, i]
+        q = q + a[..., None] * vt[:, :, None]
+        while q.shape[2] > 1:
+            q = q[:, :, 0::2] + q[:, :, 1::2]
+        outs.append(q[:, :, 0])
+        s = wt[..., None] * s + k[:, step, :, :, None] * vt[:, :, None]
+    return torch.stack(outs, 1), s
+
+
+def test_wkv_kernel_order_matches_reference_oracle():
+    """The factored sum's drift over a prefill-length T at the main path's
+    head size, before any chip time: within the kernel's tolerance on the
+    card, 1e-4 of the reference's largest magnitude."""
+    xs = wkv_inputs(1, 1024, 2, 64, seed=9)
+    out, s_last = wkv_in_kernel_order(*map(torch.tensor, xs))
+    want, s_want = jref.rwkv6_wkv_ref(*map(jnp.asarray, xs))
+    for got, ref in ((out, want), (s_last, s_want)):
+        ref = np.asarray(ref)
+        err = np.abs(got.numpy() - ref).max()
+        assert err <= 1e-4 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
 def test_wkv_fwd_on_the_cpu_runs_the_plain_version_in_place():
     xs = [torch.tensor(x) for x in wkv_inputs(2, 5, 4, 16)]
     want, s_want = rwkv6_wkv_plain(*xs)
