@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (the lag twin, the optimizer, and LLM
-serving of a dense model and of RWKV-6) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the lag twin, the fleet layer, the
+packers' sweep, the optimizer, and LLM serving of a dense model and of
+RWKV-6) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -59,29 +60,51 @@ Run from a checkout of the repository on a machine with a CUDA card and
    ``anneal_step``, 12 ``pack_rows`` and no ``move_delta_batch``
    launches); the same instance and seed with the plain anneal step on
    the card must give the same frontier;
-8. path D, dense-LLM serving: qwen3-8b at full width and depth (36
+8. path F, a ragged fleet through ``FleetRunner.simulate``: 4096
+   consumer groups, 512 of each of the 8 registered scenario families at
+   their default knobs (churn, topic_lifecycle and adversarial masked),
+   drawn on the card at 960 steps x 64 partitions from ``--seed`` and
+   clipped to one consumer's capacity, each cut to its own T_i in {240,
+   480, 720, 960} steps and N_i in 4..64 partitions (numpy, from
+   ``--seed``), bucketed into (480, 960) x (8, 16, 32, 64); BFD, MBF,
+   MWFP and KEDA_LAG through the per-step loop with ``use_kernel=True``
+   and a replica cap of 64: exactly 8 bucket groups, 3 x sum(T_b) =
+   17,280 ``pack_rows`` and 4 x sum(T_b) = 23,040 ``lag_update``
+   launches, no ``select_slot_grid``; the same call after ``reset()``
+   hits all 8 cache entries (no miss, no eviction); 8 groups of each
+   bucket that share a shape, run at that shape through ``sweep_lag``,
+   equal the padded run (integers exact, lag within ``1e-5``);
+9. path G: ``api.sweep`` of the 12 packers over path B's traffic
+   (exactly 12 x 480 ``pack_rows`` launches, none of ``select_slot_grid``),
+   its first 16 streams x 48 steps once more on the CPU (bins and
+   migrations exact, R-scores within ``1e-5``); ``api.evaluate()`` at the
+   paper's defaults (12 x 120 launches) equal to the CPU's (CBS and
+   Pareto lists exact, average R-score within ``1e-5``); ``api.pack`` of
+   one 256-partition instance for each of the 12 packers equal to the
+   CPU's;
+10. path D, dense-LLM serving: qwen3-8b at full width and depth (36
    layers) in bfloat16 with bfloat16 weights drawn on the card from
    ``--seed``; D1 is ``make_prefill_step`` on 8 requests x 1024 prompt
    tokens (36 flash-attention launches), D2 is ``SharedModel.generate``
    on the same requests with a 1152-token cache: 1024 teacher-forced steps
    and 128 greedy ones (36 x 1152 decode-attention launches);
-9. the agreement check of the LLM kernels: qwen3-8b at full width with 4
+11. the agreement check of the LLM kernels: qwen3-8b at full width with 4
    layers in float32, prefill and 48 + 16 decode steps once with the
    kernels and once with their plain versions on the card: logits within
    1e-4, the same tokens; the decode logits at every prompt position
    equal to the full-sequence logits within 2e-2 (the reference's own
    property); the same prefill on the CPU, printed;
-10. path E, RWKV-6 serving: rwkv6-3b at full width and depth (32 layers)
+12. path E, RWKV-6 serving: rwkv6-3b at full width and depth (32 layers)
    in bfloat16 with bfloat16 weights drawn on the card from ``--seed``;
    E1 is ``make_prefill_step`` on 8 requests x 1024 prompt tokens (32
    WKV launches), E2 is ``SharedModel.generate`` on the same requests,
    1024 teacher-forced steps and 128 greedy ones (32 x 1152 WKV
    launches, each writing its layer's state in place);
-11. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
+13. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
    float32 (bonus and decay perturbed from their init constants), prefill
    and 48 + 16 decode steps once with the WKV kernel and once with its
    plain version on the card, with the same checks as phase 9;
-12. each kernel's time at its path's shapes beside its bound, its plain
+14. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; the flash row also in float32 at
@@ -198,11 +221,10 @@ def traffic_mix(batch: int, iters: int, n: int, seed: int, dev):
     rates, masks = [], []
     for i, (fam, b) in enumerate(zip(("diurnal", "bursty", "topic_lifecycle"),
                                      sizes)):
-        sp, act = scenarios.generate(fam, b, iters, n, seed=seed + i,
-                                     device=dev)
+        sp, act = scenarios.generate_masked_scenario(fam, seed + i, b, iters,
+                                                     n, device=dev)
         rates.append(torch.clamp(sp, max=CAPACITY))
-        masks.append(torch.ones_like(sp, dtype=torch.bool) if act is None
-                     else act)
+        masks.append(act)
     return torch.cat(rates), torch.cat(masks)
 
 
@@ -1331,6 +1353,339 @@ def run_path_c2(dev, seed):
     return launches
 
 
+FAMILIES_F = ("random_walk", "diurnal", "ramp", "bursty", "churn",
+              "heavy_tail", "topic_lifecycle", "adversarial")
+PATH_F = ("BFD", "MBF", "MWFP", "KEDA_LAG")      # 3 of the 4 pack
+F_GROUPS, F_T, F_N = 4096, 960, 64
+F_STEPS = (240, 480, 720, 960)                    # 2-8 h at 30 s a step
+F_T_BUCKETS, F_N_BUCKETS = (480, 960), (8, 16, 32, 64)
+
+
+def fleet_traffic(seed, dev):
+    """Path F's fleet: 512 groups of each registered family at its
+    default knobs (churn, topic_lifecycle and adversarial masked), drawn
+    on the card at 960 steps x 64 partitions, rates clipped to one
+    consumer's capacity; group i is then cut to its own T_i steps and N_i
+    partitions (numpy, from ``seed``).  Returns the [4096, 960, 64] rates
+    and masks and the cuts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import scenarios
+
+    per = F_GROUPS // len(FAMILIES_F)
+    rates, masks = [], []
+    for i, fam in enumerate(FAMILIES_F):
+        sp, act = scenarios.generate_masked_scenario(
+            fam, seed + 30 + i, per, F_T, F_N, device=dev)
+        rates.append(torch.clamp(sp, max=CAPACITY))
+        masks.append(act)
+        del sp, act
+    t_i, n_i = fleet_cuts(seed)
+    return torch.cat(rates), torch.cat(masks), t_i, n_i
+
+
+def fleet_cuts(seed):
+    """Path F's cuts, from ``seed`` with numpy: each group's T_i steps
+    and N_i partitions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t_i = rng.choice(F_STEPS, size=F_GROUPS)
+    n_i = rng.integers(4, F_N + 1, size=F_GROUPS)
+    return t_i, n_i
+
+
+def fleet_groups(seed):
+    """Path F's bucket groups as ``{(T_b, N_b): scenarios}``: each group
+    is one batch of that many rows of width N_b for ``pack_rows`` and
+    ``lag_update``."""
+    groups = {}
+    for t, n in zip(*fleet_cuts(seed)):
+        key = (_bucket(int(t), F_T_BUCKETS), _bucket(int(n), F_N_BUCKETS))
+        groups[key] = groups.get(key, 0) + 1
+    return dict(sorted(groups.items()))
+
+
+def _bucket(x, buckets):
+    return next(b for b in buckets if b >= x)
+
+
+def run_path_f(dev, seed):
+    """A ragged fleet through ``FleetRunner.simulate``: 4096 groups of the
+    8 families, each at its own (T_i, N_i), in (480, 960) x (8, 16, 32,
+    64) buckets; the per-step loop with ``use_kernel=True``.  The same
+    call again after ``reset()`` hits every entry; 8 groups of each
+    bucket at their own shapes through ``sweep_lag`` equal the padded
+    run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import FleetConfig, FleetRunner
+    from repro_torch.kernels import _build
+    from repro_torch.lagsim import LagSimConfig, sweep_lag
+    from repro_torch.telemetry import default_tracer
+
+    t0 = time.perf_counter()
+    rates, masks, t_i, n_i = fleet_traffic(seed, dev)
+    torch.cuda.synchronize()
+    print(f"path F data: {len(FAMILIES_F)} families x "
+          f"{F_GROUPS // len(FAMILIES_F)} groups drawn at {F_T} x {F_N} "
+          f"({rates.numel() * 4 / 1e9!r} GB of rates), "
+          f"setup_s={time.perf_counter() - t0!r}")
+    pairs = [(rates[i, :t, :n], masks[i, :t, :n])
+             for i, (t, n) in enumerate(zip(t_i.tolist(), n_i.tolist()))]
+    # a fleet-wide replica cap (KEDA's maxReplicaCount): with the default
+    # (each group's own N) every distinct N would be a group of its own
+    cfg = LagSimConfig(use_kernel=True, max_consumers=F_N)
+    runner = FleetRunner(FleetConfig(t_buckets=F_T_BUCKETS,
+                                     n_buckets=F_N_BUCKETS))
+    tb = np.array([_bucket(t, F_T_BUCKETS) for t in t_i])
+    nb = np.array([_bucket(n, F_N_BUCKETS) for n in n_i])
+    # each bucket group runs T_b steps of its per-step loop
+    sum_tb = sum(t for t, _ in set(zip(tb.tolist(), nb.tolist())))
+    torch.cuda.synchronize()
+    default_tracer().reset()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = runner.simulate(PATH_F, pairs, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    stats = runner.stats()
+    spans = {name: [r.dur_us / 1e3 for r in default_tracer().records(name)]
+             for name in ("fleet.simulate", "fleet.dispatch", "fleet.build")}
+    _require(len(stats["buckets"]) == 8, f"path F: {stats['buckets']}, "
+             f"want 8 bucket groups")
+    launches = {"pack_rows": 3 * sum_tb, "lag_update_batch": 4 * sum_tb,
+                "select_slot_grid": 0}
+    for k, want in launches.items():
+        _require(counts[k] == want, f"path F: {k} launched {counts[k]} "
+                 f"times, want {want}")
+    true_steps = int(t_i.sum())
+    padded = float((tb * nb).sum()) / float((t_i * n_i).sum())
+    print(f"path F: FleetRunner.simulate {PATH_F} over {F_GROUPS} groups "
+          f"(T_i in {F_STEPS}, N_i in 4..{F_N}), buckets {F_T_BUCKETS} x "
+          f"{F_N_BUCKETS}, use_kernel=True: wall_s={wall!r} "
+          f"policy_stream_steps_per_s={len(PATH_F) * true_steps / wall!r} "
+          f"padded_share={padded!r} launches={launches}")
+    print(f"  stats={stats}")
+    # the fleet's own host time: the call less its groups' runs (each
+    # run's dispatch span holds its per-step loop and its D2H copies);
+    # then each group's padding and D2H alone, timed again at its shapes
+    outside = spans["fleet.simulate"][0] - sum(spans["fleet.dispatch"])
+    print(f"  fleet spans (ms): dispatch per group "
+          f"{[round(d, 1) for d in spans['fleet.dispatch']]}, build "
+          f"{sum(spans['fleet.build'])!r} in all; outside the runs "
+          f"(normalise, group, pad, slice) {outside!r} in all, "
+          f"{outside / len(spans['fleet.dispatch'])!r} a group")
+    members = {}
+    for i in range(F_GROUPS):
+        members.setdefault((int(tb[i]), int(nb[i])), []).append(
+            (i, *pairs[i]))
+    pad_ms, d2h_ms = [], []
+    for (bt, bn), group in sorted(members.items()):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runner._pad_and_stack(group, bt, bn, True, (dev,))
+        torch.cuda.synchronize()
+        pad_ms.append((time.perf_counter() - t1) * 1e3)
+        fields = [torch.zeros((len(PATH_F), len(group), bt), device=dev)
+                  for _ in range(5)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        [x.cpu().numpy() for x in fields]
+        d2h_ms.append((time.perf_counter() - t1) * 1e3)
+    print(f"  per group (sorted by bucket): pad+stack ms "
+          f"{[round(x, 2) for x in pad_ms]}, D2H of its 5 trajectory "
+          f"fields ms {[round(x, 2) for x in d2h_ms]}")
+    for name in ("lag_total", "consumers", "migrations"):
+        _require(all(np.isfinite(x).all() and x.shape == (len(PATH_F), t)
+                     for x, t in zip(getattr(res, name), t_i)),
+                 f"path F: {name} malformed")
+    _require(all((c >= 0).all() for c in res.consumers),
+             "path F: negative consumer count")
+
+    # pack_rows at F's widest rows: MBF over the 960x64 bucket's groups
+    # at step 8, with steps 0-7's assignment as prev
+    from repro_torch.core.pack import modified_any_fit
+
+    rows = np.flatnonzero((tb == 960) & (nb == F_N))
+    width = (torch.arange(F_N, device=dev)
+             < torch.as_tensor(n_i[rows], device=dev)[:, None])
+    prev = torch.full((len(rows), F_N), -1, dtype=torch.long, device=dev)
+    for step in range(9):
+        sp8, act8 = rates[rows, step], masks[rows, step] & width
+        if step < 8:
+            prev = modified_any_fit(sp8, prev, CAPACITY, active=act8).bin_of
+    ms = graph_ms(lambda: modified_any_fit(sp8, prev, CAPACITY,
+                                           active=act8), 20)
+    got = modified_any_fit(sp8, prev, CAPACITY, active=act8)
+    want = plain_packer("MBF")(sp8, prev, CAPACITY, active=act8)
+    for f in ("bin_of", "names", "n_bins"):
+        _exact(getattr(got, f), getattr(want, f),
+               f"pack_rows MBF on path F's 960x{F_N} group {f}")
+    _require(torch.equal(got.loads.view(torch.int32),
+                         want.loads.view(torch.int32)),
+             "pack_rows MBF on path F's group: loads differ from the plain "
+             "version's bits")
+    print(f"  pack_rows (MBF) on the 960x{F_N} group at step 8, "
+          f"[{len(rows)}, {F_N}]: ms={ms!r} (the kernel table times it at "
+          f"path B's [1024, 32]); equal to the plain packer, loads bit for "
+          f"bit")
+
+    # the same call once more: every group hits its warm entry
+    runner.reset()
+    t0 = time.perf_counter()
+    again = runner.simulate(PATH_F, pairs, cfg, device=dev)
+    wall2 = time.perf_counter() - t0
+    st = runner.stats()
+    _require((st["cache_hits"], st["cache_misses"], st["cache_evictions"])
+             == (8, 0, 0), f"path F repeat: stats {st}, want 8 hits, 0 "
+             f"misses, 0 evictions")
+    _require(all(np.array_equal(a, b) for f in ("consumers", "migrations")
+                 for a, b in zip(getattr(res, f), getattr(again, f))),
+             "path F repeat: integers differ from the first call")
+    print(f"path F repeat after reset(): wall_s={wall2!r} hits="
+          f"{st['cache_hits']} misses={st['cache_misses']} evictions="
+          f"{st['cache_evictions']}")
+    del again
+
+    # padded equals direct: in each bucket, 8 groups that share one
+    # padded shape, run at that shape (unpadded) through sweep_lag
+    t0 = time.perf_counter()
+    bit_equal, worst, worst_rel, checked = True, 0.0, 0.0, 0
+    for bt in F_T_BUCKETS:
+        for bn in F_N_BUCKETS:
+            shapes = {}
+            for i in np.flatnonzero((tb == bt) & (nb == bn)):
+                if (t_i[i], n_i[i]) != (bt, bn):
+                    shapes.setdefault((int(t_i[i]), int(n_i[i])),
+                                      []).append(int(i))
+            (t, n), idx = max(shapes.items(), key=lambda kv: len(kv[1]))
+            idx = idx[:8]
+            _require(len(idx) == 8, f"path F: only {len(idx)} groups of "
+                     f"shape {(t, n)} in bucket {bt}x{bn}")
+            solo = sweep_lag(PATH_F, rates[idx, :t, :n], cfg,
+                             active=masks[idx, :t, :n], device=dev)
+            for j, i in enumerate(idx):
+                for f in ("consumers", "migrations", "unreadable"):
+                    _require(np.array_equal(
+                        getattr(res, f)[i],
+                        getattr(solo, f)[:, j].cpu().numpy()),
+                        f"path F: {f} of group {i} ({t}x{n} in {bt}x{bn}) "
+                        f"differ from its direct run")
+                for f in ("lag_total", "lag_max"):
+                    want = getattr(solo, f)[:, j].cpu().numpy()
+                    got = getattr(res, f)[i]
+                    _require(np.allclose(got, want, rtol=TOL, atol=TOL),
+                             f"path F: {f} of group {i} differs from its "
+                             f"direct run by {np.abs(got - want).max()!r}")
+                    err = np.abs(got.astype(np.float64) - want)
+                    worst = max(worst, float(err.max()))
+                    worst_rel = max(worst_rel, float(
+                        (err / np.maximum(np.abs(want), 1.0)).max()))
+                    bit_equal &= got.tobytes() == want.tobytes()
+            checked += len(idx)
+    print(f"path F padded equals direct: {checked} groups (8 a bucket, at "
+          f"their own shapes through sweep_lag on the card): integers "
+          f"exact, lag within rtol = atol = {TOL} (max abs err {worst!r}, "
+          f"max err over max(|lag|, 1) {worst_rel!r}), bit for bit: "
+          f"{bit_equal} (direct_s={time.perf_counter() - t0!r})")
+    return launches
+
+
+def run_path_g(dev, seed, rates, act):
+    """``api.sweep`` of the 12 packers over path B's traffic (one
+    ``pack_rows`` launch an algorithm a step), its first 16 streams x 48
+    steps once more on the CPU; ``api.evaluate()`` at the paper's
+    defaults and ``api.pack`` of a 256-partition instance for each packer,
+    on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import _build
+
+    b, t, n = rates.shape
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = api.sweep(rates, CAPACITY, active=act, device=dev)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    launches = {"pack_rows": len(PACKERS) * t, "select_slot_grid": 0}
+    for k, want in launches.items():
+        _require(counts[k] == want, f"path G: {k} launched {counts[k]} "
+                 f"times, want {want}")
+    _require(out.bins.shape == (len(PACKERS), b, t)
+             and out.algorithms == PACKERS, "path G: malformed sweep")
+    print(f"path G: api.sweep of the {len(PACKERS)} packers over B={b} x "
+          f"T={t} x N={n} (path B's traffic): wall_s={wall!r} "
+          f"algorithm_stream_steps_per_s={len(PACKERS) * b * t / wall!r} "
+          f"launches={launches}")
+    print("  mean bins " + " ".join(
+        f"{a}={float(out.bins[i].mean())!r}" for i, a in enumerate(PACKERS)))
+    print("  mean rscore " + " ".join(
+        f"{a}={float(out.rscores[i].mean())!r}"
+        for i, a in enumerate(PACKERS)))
+    small = api.sweep(rates[:16, :48].cpu(), CAPACITY,
+                      active=act[:16, :48].cpu(), device="cpu")
+    for f in ("bins", "migrations"):
+        _require(np.array_equal(getattr(out, f)[:, :16, :48],
+                                getattr(small, f)),
+                 f"path G: sweep {f} differ from the CPU's")
+    err = float(np.abs(out.rscores[:, :16, :48] - small.rscores).max())
+    _require(err <= TOL, f"path G: sweep rscores differ from the CPU's by "
+             f"{err!r}")
+    print(f"path G agreement: 16 streams x 48 steps on the CPU: bins and "
+          f"migrations exact, rscores max abs err {err!r}")
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ev = api.evaluate(device=dev)
+    wall_ev = time.perf_counter() - t0
+    ev_launches = _build.launch_counts()["pack_rows"]
+    _require(ev_launches == len(PACKERS) * 120, f"path G: evaluate "
+             f"launched pack_rows {ev_launches} times, want "
+             f"{len(PACKERS) * 120}")
+    ref = api.evaluate(device="cpu")
+    _require((ev.cbs, ev.pareto) == (ref.cbs, ref.pareto),
+             "path G: evaluate's CBS or Pareto lists differ from the CPU's")
+    err_ev = max(abs(ev.avg_rscore[d][a] - ref.avg_rscore[d][a])
+                 for d in ev.deltas for a in ev.algorithms)
+    _require(err_ev <= TOL, f"path G: evaluate avg_rscore differs by "
+             f"{err_ev!r}")
+    print(f"path G: api.evaluate() (deltas {ev.deltas}, 30 partitions, 120 "
+          f"measurements) on the card: wall_s={wall_ev!r}, pack_rows "
+          f"launches={ev_launches}; CBS and Pareto equal the CPU's, "
+          f"avg_rscore max abs err {err_ev!r}; pareto={ev.pareto}")
+
+    rng = np.random.default_rng(seed)
+    sp0 = rng.uniform(0.01, 0.25, 256)
+    first = api.pack(sp0, CAPACITY, algorithm="BFD", device="cpu")
+    prev = np.array([first.assignment[j] for j in range(256)], np.int32)
+    prev[::17] = -1
+    speeds = np.clip(sp0 + rng.uniform(-0.05, 0.05, 256), 0.001, None)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    on_card = [api.pack(speeds, CAPACITY, algorithm=a, prev=prev,
+                        device=dev) for a in PACKERS]
+    wall_pack = time.perf_counter() - t0
+    pack_launches = _build.launch_counts()["pack_rows"]
+    _require(pack_launches == len(PACKERS), f"path G: api.pack launched "
+             f"pack_rows {pack_launches} times, want {len(PACKERS)}")
+    for a, got in zip(PACKERS, on_card):
+        want = api.pack(speeds, CAPACITY, algorithm=a, prev=prev,
+                        device="cpu")
+        _require(got == want, f"path G: api.pack {a} differs from the CPU")
+    print(f"path G: api.pack of one 256-partition instance for each of the "
+          f"{len(PACKERS)} packers equals the CPU (outcomes equal field for "
+          f"field): wall_s={wall_pack!r} n_bins=" + " ".join(
+              f"{a}:{o.n_bins}" for a, o in zip(PACKERS, on_card)))
+    return {"pack_rows": launches["pack_rows"] + ev_launches + pack_launches,
+            "select_slot_grid": launches["select_slot_grid"]}
+
+
 def run_path(name, policies, rates, act, kernels, exact=None, **over):
     """``api.simulate`` over the path's input; every kernel of ``kernels``
     must launch, each of ``exact`` exactly as many times as it gives."""
@@ -1341,6 +1696,7 @@ def run_path(name, policies, rates, act, kernels, exact=None, **over):
 
     p, (b, t, n) = len(policies), rates.shape
     torch.cuda.synchronize()
+    api.default_fleet().reset()
     _build.reset_launches()
     t0 = time.perf_counter()
     out = api.simulate(rates, policies=policies, active=act,
@@ -1357,6 +1713,8 @@ def run_path(name, policies, rates, act, kernels, exact=None, **over):
     print(f"path {name}: {p} policies x B={b} x T={t} x N={n} {over}: "
           f"wall_s={wall!r} policy_stream_steps_per_s={p * b * t / wall!r} "
           f"launches={launches}")
+    print(f"  through api.default_fleet() (the uniform fast path): "
+          f"{api.default_fleet().stats()}")
     _print_metrics(out)
     return out, launches
 
@@ -1496,19 +1854,30 @@ def main(argv=None) -> int:
     # path D2's split count: fills 4 * split - 2 and - 1 put the last
     # filled position one short of and at a split boundary
     split = da.decode_splits(D_BATCH, 8, D_PROMPT + D_GEN)
-    # stress shapes, then the shapes paths A and B give each kernel
+    # path F's bucket groups: rows x N_b for pack_rows and lag_update
+    f_groups = fleet_groups(args.seed)
+    print(f"path F's bucket groups (T_b, N_b): scenarios {f_groups}")
+    # stress shapes, then the shapes paths A, B, C2, F and G give each
+    # kernel
     errs = {
         "lag_update_batch": max(
             check_lag_update(dev, gen, 4096, 256, 514, names=64),
-            check_lag_update(dev, gen, 1024, 32, 66, names=66)),
+            check_lag_update(dev, gen, 1024, 32, 66, names=66),
+            *(check_lag_update(dev, gen, rows, nb, 2 * nb + 2,     # path F
+                               names=2 * nb + 2)
+              for (_, nb), rows in f_groups.items())),
         "select_slot_grid": max(
             check_select_slot(dev, gen, 1024, 32, 65),
             check_select_slot(dev, gen, 1024, 1, 65),    # Modified Any Fit
             check_select_slot(dev, gen, 1024, 1, 33)),   # BFD's n + 1 slots
         "pack_rows": max(
             check_pack_rows(dev, gen, 1024, 7),
-            check_pack_rows(dev, gen, 1024, 32),         # path B
-            check_pack_rows(dev, gen, 16, 256)),         # path C2
+            check_pack_rows(dev, gen, 1024, 32),         # paths B, G
+            check_pack_rows(dev, gen, 16, 256),          # path C2
+            check_pack_rows(dev, gen, 3, 30),            # G's evaluate
+            check_pack_rows(dev, gen, 1, 256),           # G's pack
+            *(check_pack_rows(dev, gen, rows, nb)        # path F
+              for (_, nb), rows in f_groups.items())),
         "loop_fused": check_loop_fused(dev, args.seed),
         "move_delta_batch": max(
             check_move_eval(dev, gen, 6144, 32),       # path C1's shape
@@ -1583,6 +1952,13 @@ def main(argv=None) -> int:
 
     # path C2: one large topic's frontier through api.optimize
     launches_c2 = run_path_c2(dev, args.seed)
+
+    # path F: a ragged fleet of the 8 families through the fleet layer
+    launches_f = run_path_f(dev, args.seed)
+    torch.cuda.empty_cache()
+
+    # path G: the packers' sweep and the paper's evaluation
+    launches_g = run_path_g(dev, args.seed, rates_b, act_b)
 
     # path D: qwen3-8b serving, prefill and greedy generation
     launches_d = run_serving_path(dev, args.seed, "D", LLM,
@@ -1669,7 +2045,10 @@ def main(argv=None) -> int:
         name="lag_update", route="cuda",
         source="src/repro_torch/kernels/csrc/lag_update.cu",
         replaces="src/repro/kernels/lag_update.py:125",
-        launches=launches_b["lag_update_batch"],
+        launches=launches_b["lag_update_batch"]
+        + launches_f["lag_update_batch"],
+        launches_by_path={"B": launches_b["lag_update_batch"],
+                          "F": launches_f["lag_update_batch"]},
         max_abs_err=errs["lag_update_batch"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0],
@@ -1696,7 +2075,8 @@ def main(argv=None) -> int:
         name="binpack_select", route="cuda",
         source="src/repro_torch/kernels/csrc/binpack_select.cu",
         replaces="src/repro/kernels/binpack_select.py:76",
-        launches=launches_b["select_slot_grid"],
+        launches=launches_b["select_slot_grid"]
+        + launches_f["select_slot_grid"] + launches_g["select_slot_grid"],
         launches_note="no path launches the grid kernel: the packers run "
         "its selection code (select_slot_warp) inside pack_rows",
         max_abs_err=errs["select_slot_grid"], ms=graph_ms(kern, 200),
@@ -1737,9 +2117,12 @@ def main(argv=None) -> int:
         replaces_note="the selection kernel with the reference's scans "
         "around it (src/repro/core/jaxpack.py pack_jax and "
         "modified_any_fit_jax): one launch a packing call",
-        launches=launches_b["pack_rows"] + launches_c2["pack_rows"],
+        launches=launches_b["pack_rows"] + launches_c2["pack_rows"]
+        + launches_f["pack_rows"] + launches_g["pack_rows"],
         launches_by_path={"B": launches_b["pack_rows"],
-                          "C2": launches_c2["pack_rows"]},
+                          "C2": launches_c2["pack_rows"],
+                          "F": launches_f["pack_rows"],
+                          "G": launches_g["pack_rows"]},
         max_abs_err=errs["pack_rows"], ms=graph_ms(kern, 50),
         plain_ms=graph_ms(ref, 1), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))

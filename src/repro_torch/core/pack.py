@@ -21,11 +21,22 @@ Conventions: ``speeds`` f32[R, N]; ``prev`` int[R, N] previous bin name
 (-1 = unassigned; a name outside ``[0, 2n+2)`` counts as unassigned);
 ``active`` optional bool[R, N] (an inactive item packs to ``NEG``, adds
 no load and claims no name).  Bin names lie in ``[0, 2n+2)``.
+
+The stream scans at the end (``stream_scan``, ``sweep_streams``,
+``evaluate_stream``) run a packer over whole streams, each step's
+assignment feeding the next as ``prev``: the counterparts of the
+reference's ``_stream_scan``, ``sweep_streams`` and
+``evaluate_stream_jax``.  All B streams are the rows of one packing call
+a step (one ``pack_rows`` launch on the card), and the moves, R-scores
+and migrations stay on the device: the step loop never reads a device
+value on the host.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.binpack_select import (PackedRows, pack_rows,
@@ -289,3 +300,107 @@ def modified_any_fit_plain(speeds, prev, capacity, *, fit: str = "best",
                                  _take(prev, j), fit, _take(to_u, j))
     loads, names, _, k, bin_of = state
     return PackedRows(bin_of=bin_of, loads=loads, names=names, n_bins=k)
+
+
+# ---------------------------------------------------------------------------
+# whole-stream evaluation: every step's packing feeds the next
+# ---------------------------------------------------------------------------
+
+def stream_scan(speeds, capacity, algorithm: str,
+                active: Optional[torch.Tensor] = None):
+    """One algorithm over B streams ``speeds f32[B, T, N]`` (on any
+    device): the previous step's assignment feeds the next, as in the
+    controller loop.  ``active`` (bool[B, T, N]) masks partitions per
+    step: a dead partition packs to ``NEG``, so a death costs no
+    migration and a rebirth restarts with no sticky memory.  Returns per
+    step ``(bins i32[B, T], rscores f32[B, T], migrations i32[B, T])``;
+    reference: ``repro.core.jaxpack._stream_scan``, vmapped."""
+    from repro_torch.registry import packer_for
+
+    packer = packer_for(algorithm)
+    b, t, n = speeds.shape
+    dev = speeds.device
+    speeds = speeds.to(torch.float32)
+    act = None if active is None else active.bool()
+    # a tensor divisor: division by a Python scalar becomes a multiply by
+    # its reciprocal, which rounds differently from the reference's
+    cap = torch.full((b,), float(np.float32(capacity)), dtype=torch.float32,
+                     device=dev)
+    prev = torch.full((b, n), NEG, dtype=torch.long, device=dev)
+    bins = torch.empty((b, t), dtype=torch.int32, device=dev)
+    rscores = torch.empty((b, t), dtype=torch.float32, device=dev)
+    migrations = torch.empty((b, t), dtype=torch.int32, device=dev)
+    for step in range(t):
+        sp = speeds[:, step]
+        res = packer(sp, prev, capacity,
+                     active=None if act is None else act[:, step])
+        # NEG never counts as a move: a newly dead partition hands off
+        # nothing (its consumer just stops reading)
+        moved = (prev >= 0) & (res.bin_of >= 0) & (res.bin_of != prev)
+        rscores[:, step] = torch.where(moved, sp, 0.0).sum(1) / cap
+        migrations[:, step] = moved.sum(1)
+        bins[:, step] = res.n_bins
+        prev = res.bin_of
+    return bins, rscores, migrations
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """Per-step traces of a batched sweep, indexed [algorithm, stream,
+    iter]; ``algorithms`` records the row order of axis 0."""
+
+    bins: torch.Tensor        # i32[A, B, T]  consumers used per iteration
+    rscores: torch.Tensor     # f32[A, B, T]  Eq. 10 rebalance cost
+    migrations: torch.Tensor  # i32[A, B, T]  partitions moved
+    algorithms: Tuple[str, ...]
+
+    def for_algorithm(self, name: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        a = self.algorithms.index(name.upper())
+        return self.bins[a], self.rscores[a], self.migrations[a]
+
+
+def _streams(speeds, active, rank: int, dev):
+    what = "f32[T, N] (one stream)" if rank == 2 else "f32[B, T, N]"
+    speeds = torch.as_tensor(speeds).to(device=dev, dtype=torch.float32)
+    if speeds.dim() != rank:
+        raise ValueError(f"speeds must be {what}; got shape "
+                         f"{tuple(speeds.shape)}")
+    if active is not None:
+        active = torch.as_tensor(active).to(device=dev, dtype=torch.bool)
+        if active.shape != speeds.shape:
+            raise ValueError(
+                f"active mask has shape {tuple(active.shape)} but the "
+                f"speeds have shape {tuple(speeds.shape)}")
+    return speeds, active
+
+
+def sweep_streams(algorithms, speeds_batch, capacity, active=None, *,
+                  device=None) -> SweepResult:
+    """Every algorithm over a batch of streams ``f32[B, T, N]`` (a tensor
+    or an array), ``active`` optional bool[B, T, N]: one packing call of
+    all B rows an algorithm a step.  With B = 1 the result equals
+    ``evaluate_stream`` on the single stream.  ``device=None`` means the
+    CUDA card."""
+    from repro_torch._device import resolve_device
+
+    dev = resolve_device(device)
+    speeds, act = _streams(speeds_batch, active, 3, dev)
+    algorithms = tuple(a.upper() for a in algorithms)
+    per_algo = [stream_scan(speeds, capacity, a, act) for a in algorithms]
+    return SweepResult(*(torch.stack([p[i] for p in per_algo])
+                         for i in range(3)), algorithms=algorithms)
+
+
+def evaluate_stream(stream, capacity, *, algorithm: str, active=None,
+                    device=None):
+    """One algorithm over one stream ``f32[T, N]`` -> ``(bins i32[T],
+    rscores f32[T])``; ``active`` (bool[T, N]) masks partitions per step.
+    ``device=None`` means the CUDA card."""
+    from repro_torch._device import resolve_device
+
+    dev = resolve_device(device)
+    speeds, act = _streams(stream, active, 2, dev)
+    bins, rscores, _ = stream_scan(speeds[None], capacity, algorithm,
+                                   None if act is None else act[None])
+    return bins[0], rscores[0]

@@ -617,3 +617,56 @@ def test_loop_fused_kernel_at_other_policy_counts(cuda, policies):
               initial_lag=lag0)
     _assert_loop_equal(loop_fused(rates, **kw),
                        loop_fused_reference(rates, **kw))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_sweep_streams_on_the_card_equal_the_cpu(cuda, masked):
+    """The stream scans, every step one ``pack_rows`` launch an
+    algorithm, against the same scans on the CPU (the plain packers):
+    bins and migrations exact, R-scores within 1e-5."""
+    from repro_torch.core.pack import sweep_streams
+
+    rng = np.random.default_rng(31)
+    sp = torch.tensor(rng.uniform(0, 0.6, (16, 40, 32)).astype(np.float32))
+    act = torch.tensor(rng.uniform(size=sp.shape) < 0.85) if masked else None
+    pack_rows.launches = 0
+    got = sweep_streams(PACKERS, sp.to(cuda), 1.0,
+                        None if act is None else act.to(cuda), device=cuda)
+    assert pack_rows.launches == len(PACKERS) * sp.shape[1]
+    want = sweep_streams(PACKERS, sp, 1.0, act, device="cpu")
+    assert torch.equal(got.bins.cpu(), want.bins)
+    assert torch.equal(got.migrations.cpu(), want.migrations)
+    torch.testing.assert_close(got.rscores.cpu(), want.rscores, rtol=0,
+                               atol=1e-5)
+
+
+def test_fleet_padded_equals_direct_on_the_card(cuda):
+    """A ragged fleet cut from one tensor on the card, padded into
+    buckets, against ``sweep_lag`` at each group's own shape on the card:
+    integers exact, lag within 1e-5."""
+    from repro_torch.fleet import FleetConfig, FleetRunner
+    from repro_torch.lagsim import LagSimConfig, sweep_lag
+
+    rng = np.random.default_rng(32)
+    rates = torch.tensor(rng.uniform(0, 0.7, (6, 48, 16)).astype(
+        np.float32)).to(cuda)
+    act = torch.tensor(rng.uniform(size=rates.shape) < 0.9).to(cuda)
+    cut = ((48, 16), (30, 5), (17, 7), (48, 3), (24, 16), (40, 12))
+    pairs = [(rates[i, :t, :n], act[i, :t, :n]) for i, (t, n) in
+             enumerate(cut)]
+    policies = ("BFD", "MBF", "MWFP", "KEDA_LAG")
+    cfg = LagSimConfig(use_kernel=True)
+    runner = FleetRunner(FleetConfig(t_buckets=(24, 48), n_buckets=(8, 16)))
+    res = runner.simulate(policies, pairs, cfg, device=cuda)
+    for i, (sp, ac) in enumerate(pairs):
+        solo = sweep_lag(policies, sp[None], cfg, active=ac[None],
+                         device=cuda)
+        for f in ("consumers", "migrations", "unreadable"):
+            np.testing.assert_array_equal(getattr(res, f)[i],
+                                          getattr(solo, f)[:, 0].cpu().numpy())
+        for f in ("lag_total", "lag_max"):
+            np.testing.assert_allclose(getattr(res, f)[i],
+                                       getattr(solo, f)[:, 0].cpu().numpy(),
+                                       rtol=0, atol=1e-5)
+    assert runner.stats()["buckets"] == {"24x8": 1, "24x16": 1, "48x8": 2,
+                                         "48x16": 2}

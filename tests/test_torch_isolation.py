@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import CudaUnavailableError, api, configs, opt  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import scenarios  # noqa: E402
+from repro_torch.fleet import FleetRunner  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.lagsim import simulate_lag, sweep_lag  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
@@ -54,7 +55,7 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: sweep_lag(("BFD",), np.zeros((1, 3, 2), np.float32)),
     lambda: simulate_lag(np.zeros((3, 2), np.float32), policy="BFD"),
     lambda: make_policy("BFD", 2),
-    lambda: scenarios.generate("bursty", 1, 3, 2),
+    lambda: scenarios.generate_masked_scenario("bursty", 0, 1, 3, 2),
     lambda: api.optimize(np.full(3, 0.4), steps=2),
     lambda: opt.anneal_pack(np.full(3, 0.4), np.zeros(3, np.int32), 1.0,
                             np.zeros(2, np.float32), steps=2),
@@ -71,12 +72,19 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: make_prefill_step(RWKV),
     lambda: SharedModel(RWKV),
     lambda: init_decode_state(RWKV, 1, 4),
+    lambda: api.pack(np.full(3, 0.4), 1.0),
+    lambda: api.sweep(np.zeros((1, 3, 2), np.float32), algorithms=("BFD",)),
+    lambda: api.evaluate(n_partitions=3, n_measurements=4),
+    lambda: FleetRunner().simulate(("BFD",), np.zeros((1, 3, 2), np.float32)),
+    lambda: scenarios.generate_scenario("ramp", 0, 1, 3, 2),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
         "make_serve_step", "SharedModel", "init_params",
         "init_decode_state", "params_from_numpy", "rwkv-make_prefill_step",
-        "rwkv-SharedModel", "rwkv-init_decode_state"))
+        "rwkv-SharedModel", "rwkv-init_decode_state", "api.pack",
+        "api.sweep", "api.evaluate", "FleetRunner.simulate",
+        "scenarios.generate_scenario"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):
