@@ -82,29 +82,51 @@ Run from a checkout of the repository on a machine with a CUDA card and
    Pareto lists exact, average R-score within ``1e-5``); ``api.pack`` of
    one 256-partition instance for each of the 12 packers equal to the
    CPU's;
-10. path D, dense-LLM serving: qwen3-8b at full width and depth (36
+10. path H, the scalers as deployed, observed in the loop: H1 is
+   ``api.simulate`` over path B's traffic with ``use_kernel=True`` and
+   in-loop telemetry (per-step frames, the default sketch, the four
+   default alert rules): (a) KEDA_LAG_REAL and CLOUD_RUN_CPU_LAG at their
+   registry defaults, (b) MBF, BFD and KEDA_LAG behind
+   ``control_plane=ControlPlaneConfig(polling_interval=1,
+   observation_delay=1, actuation_delay=1, cooldown_period=10,
+   max_replicas=16, warmup_steps=2)``: exactly policies x 480
+   ``lag_update`` and packers x 480 ``pack_rows`` launches; the SLO
+   metrics, incidents per policy and rule and a lint-clean Prometheus
+   exposition; the first 16 groups x 48 steps once more on the card and
+   on the CPU (the plain versions): integers, sketch counts and
+   histograms and incident tables exact, floats within ``1e-5``; then
+   the torch ops a policy-step with the telemetry and the control plane
+   on, each alone and both off.  H2 is path A's heuristics at [1024, 960,
+   14] under ``fused_steps=8, fused_kernel=True`` with a sketch and
+   alerts on: no ``loop_fused`` launch (the kernel carries no
+   telemetry), trajectories equal to the kernel's with telemetry off bit
+   for bit.  H3 is a ragged fleet of 256 of path F's groups with BFD, MBF
+   and KEDA_LAG_REAL through ``FleetRunner.simulate``, a sketch and
+   alerts on: exact launch counts, and 16 groups at their own shapes with
+   equal sketches and incident tables;
+11. path D, dense-LLM serving: qwen3-8b at full width and depth (36
    layers) in bfloat16 with bfloat16 weights drawn on the card from
    ``--seed``; D1 is ``make_prefill_step`` on 8 requests x 1024 prompt
    tokens (36 flash-attention launches), D2 is ``SharedModel.generate``
    on the same requests with a 1152-token cache: 1024 teacher-forced steps
    and 128 greedy ones (36 x 1152 decode-attention launches);
-11. the agreement check of the LLM kernels: qwen3-8b at full width with 4
+12. the agreement check of the LLM kernels: qwen3-8b at full width with 4
    layers in float32, prefill and 48 + 16 decode steps once with the
    kernels and once with their plain versions on the card: logits within
    1e-4, the same tokens; the decode logits at every prompt position
    equal to the full-sequence logits within 2e-2 (the reference's own
    property); the same prefill on the CPU, printed;
-12. path E, RWKV-6 serving: rwkv6-3b at full width and depth (32 layers)
+13. path E, RWKV-6 serving: rwkv6-3b at full width and depth (32 layers)
    in bfloat16 with bfloat16 weights drawn on the card from ``--seed``;
    E1 is ``make_prefill_step`` on 8 requests x 1024 prompt tokens (32
    WKV launches), E2 is ``SharedModel.generate`` on the same requests,
    1024 teacher-forced steps and 128 greedy ones (32 x 1152 WKV
    launches, each writing its layer's state in place);
-13. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
+14. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
    float32 (bonus and decay perturbed from their init constants), prefill
    and 48 + 16 decode steps once with the WKV kernel and once with its
-   plain version on the card, with the same checks as phase 9;
-14. each kernel's time at its path's shapes beside its bound, its plain
+   plain version on the card, with the same checks as phase 12;
+15. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; the flash row also in float32 at
@@ -1686,6 +1708,357 @@ def run_path_g(dev, seed, rates, act):
             "select_slot_grid": launches["select_slot_grid"]}
 
 
+PATH_H_REAL = ("KEDA_LAG_REAL", "CLOUD_RUN_CPU_LAG")
+PATH_H_CP = ("MBF", "BFD", "KEDA_LAG")      # 2 of the 3 pack
+# KEDA's documented ScaledObject defaults (pollingInterval 30 s,
+# cooldownPeriod 300 s) at a 30 s step, a replica cap of half of path B's
+# 32 partitions (so that the fold runs), one step of metric delay and of
+# rebalance latency, a two-step warm-up storm
+H_CP = dict(polling_interval=1, observation_delay=1, actuation_delay=1,
+            cooldown_period=10, min_replicas=1, max_replicas=16,
+            warmup_steps=2)
+PATH_H3 = ("BFD", "MBF", "KEDA_LAG_REAL")
+H3_GROUPS = 256
+
+
+def h_telemetry(frames: bool = True, hist_max=None):
+    """Path H's in-loop telemetry: the default sketch (its histogram over
+    ``[0, hist_max]``; ``None``: the engine's default for each group's
+    N) and the four default alert rules, with per-step frames or
+    without."""
+    from repro_torch.telemetry import (AlertConfig, SketchConfig,
+                                       TelemetryConfig, default_rules)
+
+    return TelemetryConfig(record_frames=frames,
+                           sketch=SketchConfig(hist_max=hist_max),
+                           alerts=AlertConfig(rules=default_rules()))
+
+
+def _packers(policies):
+    from repro_torch.registry import PACKER_FAMILIES, get_spec
+
+    return sum(get_spec(p).family in PACKER_FAMILIES for p in policies)
+
+
+def _incident_table(out):
+    """Incidents per policy and rule of an ``api.simulate`` outcome."""
+    table = {p: {} for p in out.policies}
+    for per_stream in out.incidents:
+        for inc in per_stream:
+            row = table[out.policies[inc.index[0]]]
+            row[inc.rule] = row.get(inc.rule, 0) + 1
+    return table
+
+
+def _same_telemetry(got, want, what: str) -> None:
+    """Two ``api.simulate`` outcomes' sketches and incidents: counts,
+    histograms and incident tables exact, floats within ``TOL``."""
+    import numpy as np
+
+    for gs, ws in zip(got.sketches, want.sketches):
+        for g, w in zip(gs, ws):
+            _require(g.count == w.count and np.array_equal(g.hist, w.hist),
+                     f"{what}: sketch counts or histograms differ")
+            for f in ("mean", "m2", "vmin", "vmax"):
+                a, b = getattr(g, f), getattr(w, f)
+                _require(np.allclose(a, b, rtol=TOL, atol=TOL),
+                         f"{what}: sketch {f} differs by "
+                         f"{np.abs(a - b).max()!r}")
+    for gi, wi in zip(got.incidents, want.incidents):
+        _require(len(gi) == len(wi), f"{what}: incident counts differ")
+        for a, b in zip(gi, wi):
+            a, b = a.as_dict(), b.as_dict()
+            pa, pb = a.pop("peak"), b.pop("peak")
+            _require(a == b and abs(pa - pb) <= TOL * max(1.0, abs(pb)),
+                     f"{what}: incident {a} differs from {b}")
+
+
+def run_path_h1(tag, policies, rates, act, **over):
+    """``api.simulate`` of ``policies`` over path B's traffic with the
+    drain kernel and path H's telemetry on: exactly one ``lag_update`` a
+    policy a step and one ``pack_rows`` a packing policy a step.  Prints
+    the SLO metrics, the incidents per policy and rule, and the line count
+    of a lint-clean Prometheus exposition of the merged sketch and every
+    incident; then the first 16 groups x 48 steps on the card and on the
+    CPU (the plain versions) must agree."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    from repro_torch.telemetry import (EventStream, merge_summaries,
+                                       prometheus_exposition,
+                                       validate_exposition)
+
+    p, (b, t, n) = len(policies), rates.shape
+    tele = h_telemetry()
+    torch.cuda.synchronize()
+    api.default_fleet().reset()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = api.simulate(rates, policies=policies, active=act,
+                       device=rates.device, use_kernel=True, telemetry=tele,
+                       **over)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    want = {"lag_update_batch": p * t, "pack_rows": _packers(policies) * t,
+            "select_slot_grid": 0, "loop_fused": 0}
+    for k, v in want.items():
+        _require(counts[k] == v, f"path {tag}: {k} launched {counts[k]} "
+                 f"times, want {v}")
+    _check_outcome(out, (p, b, t))
+    _require(len(out.sketches) == b and len(out.incidents) == b
+             and len(out.telemetry) == b, f"path {tag}: telemetry missing")
+    print(f"path {tag}: {p} policies {policies} x B={b} x T={t} x N={n} "
+          f"use_kernel=True, sketch + 4 alert rules + frames on {over}: "
+          f"wall_s={wall!r} policy_stream_steps_per_s={p * b * t / wall!r} "
+          f"launches={want}")
+    _print_metrics(out)
+    for name, row in _incident_table(out).items():
+        print(f"  {name:>17s} incidents by rule: {row}")
+    applied = int((out.consumers[:, :, 1:] != out.consumers[:, :, :-1]
+                   ).sum())
+    print(f"  consumer-count changes (applied scale decisions) over all "
+          f"groups: {applied}; events of group 0 (policy 0's frame): "
+          f"{EventStream.from_frame(out.telemetry[0]).counts()}")
+    merged = merge_summaries([s for per in out.sketches for s in per])
+    text = prometheus_exposition(
+        sketch=merged, incidents=[i for per in out.incidents for i in per],
+        labels={"path": tag})
+    validate_exposition(text)
+    print(f"  merged sketch: count={merged.count!r} lag_total p50="
+          f"{merged.quantile(0.5)!r} p99={merged.quantile(0.99)!r}; "
+          f"Prometheus exposition lint-clean, "
+          f"{len(text.splitlines())} lines")
+    # agreement: the first 16 groups x 48 steps on the card and on the CPU
+    streams, steps = 16, 48
+    kw = dict(policies=policies, use_kernel=True, telemetry=tele, **over)
+    t0 = time.perf_counter()
+    cpu = api.simulate(rates[:streams, :steps].cpu(),
+                       active=act[:streams, :steps].cpu(), device="cpu", **kw)
+    card = api.simulate(rates[:streams, :steps],
+                        active=act[:streams, :steps], device=rates.device,
+                        **kw)
+    _agree(cpu, out, streams, steps, f"path {tag} against the CPU")
+    _agree(cpu, card, streams, steps, f"path {tag} (slice) against the CPU")
+    _same_telemetry(card, cpu, f"path {tag} (slice) against the CPU")
+    print(f"path {tag} agreement: {streams} groups x {steps} steps on the "
+          f"CPU (plain versions): integers, sketch counts and histograms "
+          f"and incident tables exact, floats within {TOL} "
+          f"(cpu_s={time.perf_counter() - t0!r})")
+    return out, {k: counts[k] for k in ("lag_update_batch", "pack_rows")}
+
+
+def path_h_ops(rates, act):
+    """Torch ops a policy-step of path H's policies (an 8-step run's ops
+    less a 4-step run's, over 4, as ``path_b_ops`` counts them), with the
+    telemetry and the control plane on, each alone, and both off (the
+    REAL scalers carry their own control plane in every run)."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.lagsim import ControlPlaneConfig
+
+    cp = ControlPlaneConfig(**H_CP)
+    tele = h_telemetry()
+
+    def per_step(policy, **kw):
+        n = []
+        for t in (4, 8):
+            with _op_counter() as ops:
+                api.simulate(rates[:, :t], policies=(policy,),
+                             active=act[:, :t], device=rates.device,
+                             use_kernel=True, **kw)
+            n.append(ops.n)
+        return (n[1] - n[0]) // 4
+
+    rows = {}
+    for policy in PATH_H_REAL + PATH_H_CP:
+        own = policy in PATH_H_REAL
+        rows[policy] = {
+            "both": per_step(policy, telemetry=tele,
+                             **({} if own else {"control_plane": cp})),
+            "telemetry": per_step(policy, telemetry=tele),
+            "control_plane": (None if own
+                              else per_step(policy, control_plane=cp)),
+            "off": per_step(policy)}
+    no_frames = per_step("KEDA_LAG", telemetry=dataclasses.replace(
+        tele, record_frames=False))
+    for policy, row in rows.items():
+        print(f"path H torch ops a policy-step, {policy}: {row}")
+    print(f"  KEDA_LAG with the sketch and alerts but no frames: "
+          f"{no_frames}; the REAL scalers' 'off' and 'telemetry' runs "
+          f"carry their registered control plane")
+    return rows
+
+
+def run_path_h2(dev, seed):
+    """Path A's heuristics at [1024, 960, 14] under ``fused_steps=8,
+    fused_kernel=True`` with a sketch and alerts on: the reference's
+    routing sends them to ``_fused_wide`` (``loop_fused`` carries no
+    telemetry), so ``loop_fused`` launches 0 times; the trajectories must
+    equal the kernel's own output with telemetry off, bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import loop_fused as lf
+
+    rates, act = traffic_mix(1024, 960, 14, seed + 20, dev)
+    p, (b, t, n) = len(HEURISTICS), rates.shape
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = api.simulate(rates, policies=HEURISTICS, active=act, device=dev,
+                       fused_steps=8, fused_kernel=True,
+                       telemetry=h_telemetry(frames=False))
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    _require(counts["loop_fused"] == 0, f"path H2: loop_fused launched "
+             f"{counts['loop_fused']} times with a sketch and alerts on")
+    _check_outcome(out, (p, b, t))
+    _require(len(out.sketches) == b and out.telemetry is None,
+             "path H2: sketches missing or frames recorded")
+    kern = lf.loop_fused(rates, active=act, **heuristic_kwargs())
+    for i, f in ((0, "lag_total"), (2, "consumers"), (3, "migrations")):
+        _require(np.asarray(getattr(out, f)).tobytes()
+                 == kern[i].cpu().numpy().tobytes(),
+                 f"path H2: {f} differs from loop_fused's output bits")
+    print(f"path H2: {p} heuristics x B={b} x T={t} x N={n} fused_steps=8 "
+          f"fused_kernel=True, sketch + 4 alert rules on: wall_s={wall!r} "
+          f"policy_stream_steps_per_s={p * b * t / wall!r}; loop_fused "
+          f"launches=0 (the kernel carries no telemetry: with a sketch or "
+          f"alerts on the fused path runs _fused_wide, as the reference "
+          f"routes them); lag_total, consumers and migrations equal "
+          f"loop_fused's output with telemetry off, bit for bit")
+    for name, row in _incident_table(out).items():
+        print(f"  {name:>4s} incidents by rule: {row}")
+    del out, kern, rates, act
+    torch.cuda.empty_cache()
+
+
+def h3_rows(seed):
+    """Path H3's 256 of path F's 4096 groups, and the 16 of them held
+    against their direct runs: 8 of each of the two commonest shapes that
+    a bucket pads (so that two batched direct runs cover them), then the
+    first groups of each family up to 256."""
+    import numpy as np
+
+    t_i, n_i = fleet_cuts(seed)
+    shapes = {}
+    for i, (t, n) in enumerate(zip(t_i.tolist(), n_i.tolist())):
+        if (t, n) != (_bucket(t, F_T_BUCKETS), _bucket(n, F_N_BUCKETS)):
+            shapes.setdefault((t, n), []).append(i)
+    best = sorted(shapes.items(), key=lambda kv: (-len(kv[1]), kv[0]))[:2]
+    checked = [i for _, idx in best for i in idx[:8]]
+    per = F_GROUPS // len(FAMILIES_F)
+    rest = [i for j in range(per) for i in range(j, F_GROUPS, per)
+            if i not in checked]
+    rows = np.array(sorted(checked + rest[:H3_GROUPS - len(checked)]))
+    return rows, [(s, [int(np.flatnonzero(rows == i)[0])
+                       for i in idx[:8]]) for s, idx in best]
+
+
+def run_path_h3(dev, seed):
+    """A ragged fleet of 256 of path F's groups (``h3_rows``, path F's
+    cuts) with BFD, MBF and KEDA_LAG_REAL through ``FleetRunner.simulate``,
+    a sketch and alerts on: exact launch counts; 16 groups (8 of each of
+    two shapes) run at their own shapes through ``sweep_lag`` must have
+    equal sketches (counts and histograms exact, floats within ``TOL``)
+    and incident tables."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import FleetConfig, FleetRunner
+    from repro_torch.kernels import _build
+    from repro_torch.lagsim import LagSimConfig, sweep_lag
+
+    rates, masks, t_i, n_i = fleet_traffic(seed, dev)
+    rows, best = h3_rows(seed)
+    rates, masks = rates[rows], masks[rows]
+    t_i, n_i = t_i[rows], n_i[rows]
+    pairs = [(rates[i, :t, :n], masks[i, :t, :n])
+             for i, (t, n) in enumerate(zip(t_i.tolist(), n_i.tolist()))]
+    # fleet-wide replica cap and histogram range: the config resolves at
+    # each group's true N and is part of its bucket group's key, so a
+    # range that followed N (the default, 8 consumer-steps a partition)
+    # would split the 8 buckets into one group an N; one range also lets
+    # every group's sketch summary merge with the others'
+    cfg = LagSimConfig(use_kernel=True, max_consumers=F_N,
+                       telemetry=h_telemetry(frames=False,
+                                             hist_max=8.0 * CAPACITY * F_N))
+    runner = FleetRunner(FleetConfig(t_buckets=F_T_BUCKETS,
+                                     n_buckets=F_N_BUCKETS))
+    tb = np.array([_bucket(int(t), F_T_BUCKETS) for t in t_i])
+    nb = np.array([_bucket(int(n), F_N_BUCKETS) for n in n_i])
+    sum_tb = sum(t for t, _ in set(zip(tb.tolist(), nb.tolist())))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = runner.simulate(PATH_H3, pairs, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    _require(runner.stats()["cache_misses"] == 8, f"path H3: "
+             f"{runner.stats()['cache_misses']} groups, want 8 (one a "
+             f"bucket)")
+    launches = {"pack_rows": _packers(PATH_H3) * sum_tb,
+                "lag_update_batch": len(PATH_H3) * sum_tb,
+                "select_slot_grid": 0}
+    for k, want in launches.items():
+        _require(counts[k] == want, f"path H3: {k} launched {counts[k]} "
+                 f"times, want {want}")
+    _require(res.sketch is not None and res.incidents is not None
+             and res.telemetry is None, "path H3: telemetry missing")
+    true_steps = int(t_i.sum())
+    print(f"path H3: FleetRunner.simulate {PATH_H3} over {len(pairs)} "
+          f"groups of path F ({len(set(zip(tb, nb)))} bucket groups), "
+          f"sketch + 4 alert rules: wall_s={wall!r} "
+          f"policy_stream_steps_per_s={len(PATH_H3) * true_steps / wall!r} "
+          f"launches={launches}")
+    totals = {}
+    for i in range(len(pairs)):
+        for inc in res.scenario_incidents(i):
+            totals[inc.rule] = totals.get(inc.rule, 0) + 1
+    print(f"  incidents over the fleet by rule: {totals}")
+    # padded equals direct: 8 groups of each of the two commonest padded
+    # shapes, at their own shape through sweep_lag on the card
+    t0 = time.perf_counter()
+    checked = 0
+    for (t, n), idx in best:
+        solo = sweep_lag(PATH_H3, rates[idx, :t, :n], cfg,
+                         active=masks[idx, :t, :n], device=dev)
+        for j, i in enumerate(idx):
+            for f in ("count", "hist"):
+                _require(np.array_equal(
+                    getattr(res.sketch[i], f),
+                    getattr(solo.sketch, f)[:, j].cpu().numpy()),
+                    f"path H3: sketch {f} of group {i} differs from its "
+                    f"direct run")
+            for f in ("mean", "m2", "vmin", "vmax", "ewma", "ewma_w"):
+                a = getattr(res.sketch[i], f)
+                w = getattr(solo.sketch, f)[:, j].cpu().numpy()
+                _require(np.allclose(a, w, rtol=TOL, atol=TOL),
+                         f"path H3: sketch {f} of group {i} differs by "
+                         f"{np.abs(a - w).max()!r}")
+            for f in ("tick", "count", "active", "open_step", "close_step",
+                      "consec", "cur_start"):
+                _require(np.array_equal(
+                    getattr(res.incidents[i], f),
+                    getattr(solo.incidents, f)[:, j].cpu().numpy()),
+                    f"path H3: alert {f} of group {i} differs from its "
+                    f"direct run")
+        checked += len(idx)
+    print(f"path H3 padded equals direct: {checked} groups of shapes "
+          f"{[s for s, _ in best]} at their own shapes: sketch counts and "
+          f"histograms and incident tables exact, floats within {TOL} "
+          f"(direct_s={time.perf_counter() - t0!r})")
+    del res, rates, masks, pairs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run_path(name, policies, rates, act, kernels, exact=None, **over):
     """``api.simulate`` over the path's input; every kernel of ``kernels``
     must launch, each of ``exact`` exactly as many times as it gives."""
@@ -1960,6 +2333,19 @@ def main(argv=None) -> int:
     # path G: the packers' sweep and the paper's evaluation
     launches_g = run_path_g(dev, args.seed, rates_b, act_b)
 
+    # path H: the scalers as deployed, observed in the loop
+    from repro_torch.lagsim import ControlPlaneConfig
+    _, launches_h1a = run_path_h1("H1a", PATH_H_REAL, rates_b, act_b)
+    _, launches_h1b = run_path_h1("H1b", PATH_H_CP, rates_b, act_b,
+                                  control_plane=ControlPlaneConfig(**H_CP))
+    path_h_ops(rates_b, act_b)
+    run_path_h2(dev, args.seed)
+    launches_h3 = run_path_h3(dev, args.seed)
+    launches_h = {k: launches_h1a[k] + launches_h1b[k] + launches_h3[k]
+                  for k in ("lag_update_batch", "pack_rows")}
+    print(f"path H launches: H1a {launches_h1a}, H1b {launches_h1b}, H3 "
+          f"{launches_h3}; in all {launches_h}")
+
     # path D: qwen3-8b serving, prefill and greedy generation
     launches_d = run_serving_path(dev, args.seed, "D", LLM,
                                   "flash_attention_fwd",
@@ -2046,9 +2432,10 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/csrc/lag_update.cu",
         replaces="src/repro/kernels/lag_update.py:125",
         launches=launches_b["lag_update_batch"]
-        + launches_f["lag_update_batch"],
+        + launches_f["lag_update_batch"] + launches_h["lag_update_batch"],
         launches_by_path={"B": launches_b["lag_update_batch"],
-                          "F": launches_f["lag_update_batch"]},
+                          "F": launches_f["lag_update_batch"],
+                          "H": launches_h["lag_update_batch"]},
         max_abs_err=errs["lag_update_batch"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0],
@@ -2118,11 +2505,13 @@ def main(argv=None) -> int:
         "around it (src/repro/core/jaxpack.py pack_jax and "
         "modified_any_fit_jax): one launch a packing call",
         launches=launches_b["pack_rows"] + launches_c2["pack_rows"]
-        + launches_f["pack_rows"] + launches_g["pack_rows"],
+        + launches_f["pack_rows"] + launches_g["pack_rows"]
+        + launches_h["pack_rows"],
         launches_by_path={"B": launches_b["pack_rows"],
                           "C2": launches_c2["pack_rows"],
                           "F": launches_f["pack_rows"],
-                          "G": launches_g["pack_rows"]},
+                          "G": launches_g["pack_rows"],
+                          "H": launches_h["pack_rows"]},
         max_abs_err=errs["pack_rows"], ms=graph_ms(kern, 50),
         plain_ms=graph_ms(ref, 1), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))

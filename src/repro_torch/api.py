@@ -20,9 +20,12 @@ compare directly.  ``sweep`` and ``simulate`` execute through the fleet
 layer (``repro_torch.fleet``): a shared ``default_fleet()`` runner
 buckets scenarios by padded shape under a bounded run cache; both take
 an optional ``active`` bool[B, T, N] mask and an optional ``fleet=``
-runner.  ``FleetRunner`` / ``FleetConfig`` are re-exported lazily.
-``BenchReport`` is the reference's envelope for ``BENCH_*.json`` files.
-Every verb records an ``api.<verb>`` span (``telemetry.spans``).
+runner.  ``FleetRunner`` / ``FleetConfig``, the control plane's
+``ControlPlaneConfig`` and the telemetry names (``TelemetryConfig``,
+``SketchConfig``, ``AlertConfig``, the exporters, ...) are re-exported
+lazily, as the reference's are.  ``BenchReport`` is the reference's
+envelope for ``BENCH_*.json`` files.  Every verb records an
+``api.<verb>`` span (``telemetry.spans``).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.rscore import rscore
-from repro_torch.lagsim import LagSimConfig, NotPortedError
+from repro_torch.lagsim import LagSimConfig
 from repro_torch.registry import PACKER_FAMILIES, list_policies, packer_for
 from repro_torch.telemetry.spans import traced
 
@@ -44,6 +47,14 @@ API_VERSION = 1
 
 #: fleet re-exports resolve lazily, as the reference's do
 _FLEET_EXPORTS = ("FleetRunner", "FleetConfig")
+#: lagsim re-exports, lazily for the same reason
+_LAGSIM_EXPORTS = ("ControlPlaneConfig", "FUSED_MAX_PARTITIONS",
+                   "FusedPathError")
+#: in-loop recorder / sketch / alert / exporter re-exports
+_TELEMETRY_EXPORTS = ("TelemetryConfig", "TelemetryFrame", "EventStream",
+                      "SketchConfig", "SketchSummary", "AlertConfig",
+                      "AlertRule", "Incident", "prometheus_exposition",
+                      "validate_exposition", "otlp_metrics_json")
 
 
 def __getattr__(name: str):
@@ -51,6 +62,14 @@ def __getattr__(name: str):
         from repro_torch import fleet as _fleet
 
         return getattr(_fleet, name)
+    if name in _LAGSIM_EXPORTS:
+        from repro_torch import lagsim as _lagsim
+
+        return getattr(_lagsim, name)
+    if name in _TELEMETRY_EXPORTS:
+        from repro_torch import telemetry as _telemetry
+
+        return getattr(_telemetry, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -107,11 +126,13 @@ class SimulateOutcome:
     lag_total: np.ndarray             # f32[P, B, T] raw trajectories
     consumers: np.ndarray             # i32[P, B, T]
     migrations: np.ndarray            # i32[P, B, T]
-    #: the reference's in-loop telemetry results (recorder frames,
-    #: streaming-sketch summaries, incidents); ``None`` until the port
-    #: carries in-loop telemetry
+    #: per-stream recorder frames ([P, T, K] channels; ``None`` unless
+    #: the telemetry override records frames)
     telemetry: Optional[List[Any]] = None
+    #: per-stream, per-policy finalized sketch summaries (``None`` unless
+    #: ``telemetry.sketch`` is on)
     sketches: Optional[List[List[Any]]] = None
+    #: per-stream decoded incidents (``None`` unless alerts are on)
     incidents: Optional[List[List[Any]]] = None
     schema_version: int = API_VERSION
 
@@ -131,18 +152,29 @@ def simulate(traces, *, policies: Optional[Sequence[str]] = None,
     fused_kernel=True`` runs the heuristic packers through the
     ``loop_fused`` kernel; ``use_kernel=True`` drains every per-step loop
     through the ``lag_update`` kernel).  ``policies=None`` runs every
-    registered policy.  ``control_plane`` (the reference's emulated scaler
-    control plane) is not ported: anything but ``None`` raises
-    :class:`NotPortedError` before anything runs.  ``device=None`` means
-    the CUDA card."""
-    if control_plane is not None:
-        raise NotPortedError(
-            "simulate(control_plane=...) is not yet ported to repro_torch: "
-            "the control plane (repro.lagsim.controlplane) is ROADMAP.md "
-            "queue 1; leave it None")
+    registered policy.
+
+    ``control_plane`` (a ``ControlPlaneConfig`` or a mapping of its knobs)
+    runs every policy behind an emulated scaler control plane: polling,
+    observation/actuation delay, cooldown, replica clamps and the
+    scale-event rebalance storm.  Inconsistent knobs raise a named
+    ``ValueError`` before anything runs.
+
+    ``telemetry=TelemetryConfig(...)`` (a config override) turns on the
+    in-loop observability: ``record_frames`` fills ``.telemetry``,
+    ``sketch=SketchConfig(...)`` fills ``.sketches`` and
+    ``alerts=AlertConfig(rules=...)`` fills ``.incidents``; export them
+    with ``prometheus_exposition`` / ``otlp_metrics_json``.
+    ``device=None`` means the CUDA card."""
     if policies is None:
         policies = list_policies()
     cfg = config if config is not None else LagSimConfig()
+    if control_plane is not None:
+        from repro_torch.lagsim import ControlPlaneConfig
+
+        if isinstance(control_plane, Mapping):
+            control_plane = ControlPlaneConfig(**control_plane)
+        cfg_overrides["control_plane"] = control_plane
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     cfg.resolve(traces.shape[-1] if hasattr(traces, "shape")
@@ -154,11 +186,20 @@ def simulate(traces, *, policies: Optional[Sequence[str]] = None,
     st = res.stacked(("lag_total", "consumers", "migrations"))
     metrics = {k: np.asarray(v)
                for k, v in res.summarize(cfg, stacked=st).items()}
+    sketches = None
+    if res.sketch is not None:
+        sketches = [[s for _, s in res.sketch_summaries(i)]
+                    for i in range(len(res.sketch))]
+    incidents = None
+    if res.incidents is not None:
+        incidents = [res.scenario_incidents(i)
+                     for i in range(len(res.incidents))]
     return SimulateOutcome(policies=res.policies, metrics=metrics,
                            lag_total=st["lag_total"],
                            consumers=st["consumers"],
                            migrations=st["migrations"],
-                           telemetry=res.telemetry)
+                           telemetry=res.telemetry,
+                           sketches=sketches, incidents=incidents)
 
 
 @dataclasses.dataclass
@@ -338,7 +379,34 @@ def evaluate(*, algorithms: Optional[Sequence[str]] = None,
                            avg_rscore=avg_r, pareto=pareto)
 
 
-__all__ = ["API_VERSION", "BenchReport", "default_fleet", "evaluate",
-           "EvaluateOutcome", "FleetConfig", "FleetRunner", "optimize",
-           "OptimizeOutcome", "pack", "PackOutcome", "simulate",
-           "SimulateOutcome", "sweep", "SweepOutcome"]
+__all__ = [
+    "AlertConfig",
+    "AlertRule",
+    "API_VERSION",
+    "BenchReport",
+    "ControlPlaneConfig",
+    "default_fleet",
+    "evaluate",
+    "EvaluateOutcome",
+    "EventStream",
+    "FleetConfig",
+    "FleetRunner",
+    "FUSED_MAX_PARTITIONS",
+    "FusedPathError",
+    "Incident",
+    "optimize",
+    "OptimizeOutcome",
+    "otlp_metrics_json",
+    "pack",
+    "PackOutcome",
+    "prometheus_exposition",
+    "simulate",
+    "SimulateOutcome",
+    "SketchConfig",
+    "SketchSummary",
+    "sweep",
+    "SweepOutcome",
+    "TelemetryConfig",
+    "TelemetryFrame",
+    "validate_exposition",
+]

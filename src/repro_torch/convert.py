@@ -2,12 +2,16 @@
 
 The lag twin has no weights: its counterparts are the configuration and
 the loop's state.  ``config_from_reference`` takes
-``dataclasses.asdict`` of a reference ``LagSimConfig``;
-``state_from_numpy`` takes the loop state as numpy arrays;
-``anneal_noise_from_numpy`` takes an anneal's random draws (the state of
-a stochastic policy).  The LLM's weights come across with
-``params_from_numpy``.  All are plain data in, port objects out, so a
-test can feed one set of inputs to both packages.
+``dataclasses.asdict`` of a reference ``LagSimConfig`` (its control
+plane and telemetry included); ``state_from_numpy`` takes the loop state
+as numpy arrays; ``anneal_noise_from_numpy`` takes an anneal's random
+draws (the state of a stochastic policy); ``controlplane_state_from_numpy``,
+``sketch_state_from_numpy`` and ``alert_state_from_numpy`` take a
+control-plane-wrapped policy's state, a sketch state and an alert state
+with numpy leaves, one stream or a batch of them.  The LLM's weights come
+across with ``params_from_numpy``.  All are plain data in, port objects
+out, so a test can feed one set of inputs to both packages, compare
+their states leaf by leaf, and resume a port run from a reference state.
 """
 from __future__ import annotations
 
@@ -18,26 +22,129 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.lagsim.engine import LagSimConfig, NotPortedError
+from repro_torch.lagsim.controlplane import (ControlPlaneConfig,
+                                             ControlPlaneState)
+from repro_torch.lagsim.engine import LagSimConfig
 from repro_torch.models import ArchConfig
 from repro_torch.models.transformer import param_shapes
 from repro_torch.opt.anneal import AnnealNoise
+from repro_torch.telemetry.alerts import AlertConfig, AlertRule, AlertState
+from repro_torch.telemetry.record import TelemetryConfig
+from repro_torch.telemetry.sketch import SketchConfig, SketchState
 
 
 def config_from_reference(fields: Mapping[str, Any]) -> LagSimConfig:
-    """The port's ``LagSimConfig`` from a reference config's field dict.
-    Unknown fields raise ``ValueError``; a set ``control_plane`` or
-    ``telemetry`` raises :class:`NotPortedError`."""
+    """The port's ``LagSimConfig`` from a reference config's field dict
+    (``dataclasses.asdict``, which turns the nested control plane and
+    telemetry configs into dicts too).  Unknown fields raise
+    ``ValueError``; a control plane or telemetry that is not a mapping is
+    passed on as it is, for ``resolve`` to judge."""
     known = {f.name for f in dataclasses.fields(LagSimConfig)}
     unknown = set(fields) - known
     if unknown:
         raise ValueError(f"fields {sorted(unknown)} are not LagSimConfig "
                          f"fields; have {sorted(known)}")
-    for name in ("control_plane", "telemetry"):
-        if fields.get(name) is not None:
-            raise NotPortedError(
-                f"LagSimConfig.{name} is not yet ported to repro_torch")
-    return LagSimConfig(**dict(fields))
+    fields = dict(fields)
+    if isinstance(fields.get("control_plane"), Mapping):
+        fields["control_plane"] = ControlPlaneConfig(
+            **fields["control_plane"])
+    if isinstance(fields.get("telemetry"), Mapping):
+        fields["telemetry"] = _telemetry_config(fields["telemetry"])
+    return LagSimConfig(**fields)
+
+
+def _telemetry_config(d: Mapping[str, Any]) -> TelemetryConfig:
+    d = dict(d)
+    if isinstance(d.get("sketch"), Mapping):
+        d["sketch"] = SketchConfig(**d["sketch"])
+    if isinstance(d.get("alerts"), Mapping):
+        al = dict(d["alerts"])
+        al["rules"] = tuple(AlertRule(**r) if isinstance(r, Mapping) else r
+                            for r in al["rules"])
+        d["alerts"] = AlertConfig(**al)
+    return TelemetryConfig(**d)
+
+
+def _leaf(state, name):
+    return state[name] if isinstance(state, Mapping) else getattr(state,
+                                                                  name)
+
+
+def _batched(state, names, lead: str):
+    """The numpy leaves ``names`` of ``state``, given a leading batch axis
+    when the state is one stream's (its ``lead`` leaf is a scalar)."""
+    one = np.ndim(_leaf(state, lead)) == 0
+    return {k: (np.asarray(_leaf(state, k))[None] if one
+                else np.asarray(_leaf(state, k))) for k in names}
+
+
+def controlplane_state_from_numpy(state, inner=None,
+                                  device=None) -> ControlPlaneState:
+    """A reference ``ControlPlaneState`` (one stream, or ``B`` streams
+    stacked on a leading axis; numpy leaves, or a mapping of them) -> the
+    port's, over rows ``B`` on ``device`` (``None`` = the CUDA card).
+
+    The rows must share one ``tick`` (the port steps all rows together);
+    the observation ring moves its slot axis in front of the rows.
+    ``inner`` is the wrapped policy's state in the port's form; by
+    default a tuple of integer arrays (the reactive scalers' ``(n_cur,
+    under)``) becomes int64 tensors."""
+    dev = resolve_device(device)
+    names = [f.name for f in dataclasses.fields(ControlPlaneState)
+             if f.name != "inner"]
+    leaves = _batched(state, names, "tick")
+    tick = leaves["tick"]
+    if (tick != tick[0]).any():
+        raise ValueError(f"the rows' ticks differ ({np.unique(tick)}); the "
+                         f"port's rows share one step counter")
+    out = {}
+    for k, v in leaves.items():
+        if k == "tick":
+            v = v[0]
+        elif k.startswith("obs_"):
+            v = np.moveaxis(v, 1, 0)                 # [D+1, B, N]
+        dtype = (torch.float32 if v.dtype.kind == "f" else torch.bool
+                 if v.dtype == bool else torch.long)
+        out[k] = torch.as_tensor(np.ascontiguousarray(v), dtype=dtype,
+                                 device=dev)
+    if inner is None:
+        ref_inner = _leaf(state, "inner")
+        if isinstance(ref_inner, (tuple, list)):
+            inner = tuple(torch.as_tensor(np.asarray(x, np.int64).reshape(
+                tick.shape), device=dev) for x in ref_inner)
+        else:
+            inner = ref_inner
+    return ControlPlaneState(**out, inner=inner)
+
+
+def sketch_state_from_numpy(state, device=None) -> SketchState:
+    """A reference ``SketchState`` (numpy leaves, any leading batch shape,
+    or a mapping of them with ``names`` and ``hist_names``) -> the port's
+    on ``device`` (``None`` = the CUDA card)."""
+    dev = resolve_device(device)
+    leaves = {f.name: torch.as_tensor(
+        np.asarray(_leaf(state, f.name), np.float32), device=dev)
+        for f in dataclasses.fields(SketchState)
+        if f.name not in ("names", "hist_names")}
+    return SketchState(**leaves, names=tuple(_leaf(state, "names")),
+                       hist_names=tuple(_leaf(state, "hist_names")))
+
+
+def alert_state_from_numpy(state, device=None) -> AlertState:
+    """A reference ``AlertState`` (numpy leaves, any leading batch shape,
+    or a mapping of them with ``rule_names``) -> the port's on ``device``
+    (``None`` = the CUDA card)."""
+    dev = resolve_device(device)
+    leaves = {}
+    for f in dataclasses.fields(AlertState):
+        if f.name == "rule_names":
+            continue
+        v = np.asarray(_leaf(state, f.name))
+        dtype = (torch.float32 if v.dtype.kind == "f" else torch.bool
+                 if v.dtype == bool else torch.int32)
+        leaves[f.name] = torch.as_tensor(v, dtype=dtype, device=dev)
+    return AlertState(**leaves, rule_names=tuple(_leaf(state,
+                                                       "rule_names")))
 
 
 class LoopState(NamedTuple):

@@ -36,14 +36,15 @@ device once; scenarios on a device are gathered into the padded batch
 with one indexed read for each storage they are views of (a fleet cut
 from one big tensor on the card is one read).
 
-Padding is exact for every deterministic policy (the 12 packers and both
-reactive baselines): integers equal bit for bit, and lag within the
-rounding of a longer sum.  The annealers draw over ``N``, so padding
-changes their (still valid) trajectories.
-
-``FleetLagResult``'s telemetry fields stay ``None`` until the port carries
-the reference's in-loop telemetry (``LagSimConfig.telemetry`` raises
-``NotPortedError``).
+Padding is exact for every deterministic policy (the 12 packers, the
+reactive baselines and the REAL scalers behind their control plane):
+integers equal bit for bit, and lag within the rounding of a longer sum.
+The annealers draw over ``N``, so padding changes their (still valid)
+trajectories.  With a sketch or alerts on, each scenario's true steps are
+marked ``valid`` and the padded steps leave its sketch and alert state
+as they were, so a padded scenario's state equals its direct run's
+(counts and incident tables exactly, floats within the rounding of a
+longer sum).
 """
 from __future__ import annotations
 
@@ -58,6 +59,13 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.pack import sweep_streams
 from repro_torch.lagsim import LagSimConfig, slo_summary, sweep_lag
+from repro_torch.telemetry.alerts import (AlertConfig, AlertState, Incident,
+                                          decode_incidents, incident_counts,
+                                          incident_matrix)
+from repro_torch.telemetry.record import TelemetryFrame, map_state
+from repro_torch.telemetry.sketch import (SketchConfig, SketchState,
+                                          SketchSummary, merge_summaries,
+                                          summaries_from_state)
 from repro_torch.telemetry.spans import instant as _instant
 from repro_torch.telemetry.spans import span as _span
 
@@ -95,6 +103,19 @@ class FleetConfig:
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _join(parts):
+    """One result item from its per-device chunks: a tensor, or a
+    telemetry state whose leaves all lead with ``[P, rows]``, joined on
+    the host along the rows."""
+    cat = lambda *xs: np.concatenate([_host(x) for x in xs],  # noqa: E731
+                                     axis=1)
+    if parts[0] is None:
+        return None
+    if isinstance(parts[0], (torch.Tensor, np.ndarray)):
+        return cat(*parts)
+    return map_state(cat, *parts)
 
 
 class _BatchRows(Sequence):
@@ -164,29 +185,38 @@ class FleetLagResult:
     consumers: List[np.ndarray]     # i32[P, T_i]
     migrations: List[np.ndarray]    # i32[P, T_i]
     unreadable: List[np.ndarray]    # i32[P, T_i]
-    #: the reference's in-loop telemetry results (recorder frames, sketch
-    #: states and configs, alert states and config); ``None`` until the
-    #: port carries in-loop telemetry
-    telemetry: Optional[List[Any]] = None
-    sketch: Optional[List[Any]] = None
-    sketch_configs: Optional[List[Any]] = None
-    incidents: Optional[List[Any]] = None
-    alert_config: Optional[Any] = None
+    #: per-scenario recorder frames (channels ``[P, T_i, K]``), present
+    #: iff the config's ``TelemetryConfig`` records frames
+    telemetry: Optional[List[TelemetryFrame]] = None
+    #: per-scenario final sketch states (leading ``[P]``, numpy leaves)
+    #: and each scenario's resolved ``SketchConfig`` (``hist_max`` filled
+    #: at its true N)
+    sketch: Optional[List[SketchState]] = None
+    sketch_configs: Optional[List[SketchConfig]] = None
+    #: per-scenario final alert states (leading ``[P]``)
+    incidents: Optional[List[AlertState]] = None
+    alert_config: Optional[AlertConfig] = None
     dt: float = 1.0
 
-    def sketch_summaries(self, scenario: int):
-        """Finalized sketch summaries of one scenario: this fleet run
-        carried no sketches (the port has no in-loop telemetry yet)."""
-        raise ValueError(
-            "this fleet run carried no sketches; enable them via "
-            "TelemetryConfig(sketch=SketchConfig(...))")
+    def sketch_summaries(self, scenario: int
+                         ) -> List[Tuple[Tuple[int, ...], SketchSummary]]:
+        """Finalized ``[(policy_index,), SketchSummary]`` pairs for one
+        scenario (the run's ``SketchConfig`` must have been on)."""
+        if self.sketch is None:
+            raise ValueError(
+                "this fleet run carried no sketches; enable them via "
+                "TelemetryConfig(sketch=SketchConfig(...))")
+        return summaries_from_state(self.sketch[scenario],
+                                    self.sketch_configs[scenario])
 
-    def scenario_incidents(self, scenario: int):
-        """Decoded incidents of one scenario: this fleet run carried no
-        alerting (the port has no in-loop telemetry yet)."""
-        raise ValueError(
-            "this fleet run carried no alerting; enable it via "
-            "TelemetryConfig(alerts=AlertConfig(rules=default_rules()))")
+    def scenario_incidents(self, scenario: int) -> List[Incident]:
+        """Decoded incidents for one scenario (``index`` = policy)."""
+        if self.incidents is None:
+            raise ValueError(
+                "this fleet run carried no alerting; enable it via "
+                "TelemetryConfig(alerts=AlertConfig(rules=default_rules()))")
+        return decode_incidents(self.incidents[scenario], self.alert_config,
+                                dt=self.dt)
 
     def stacked(self, fields: Sequence[str] = _TRAJ_FIELDS
                 ) -> Dict[str, np.ndarray]:
@@ -225,13 +255,15 @@ class FleetFitness:
 class FleetProgress:
     """One live snapshot, handed to the ``progress`` callback of
     :meth:`FleetRunner.simulate` after each bucket group finishes.
-    ``sketch`` stays ``None`` and ``incidents`` empty until the port
-    carries in-loop telemetry."""
+    ``sketch`` is the merge of every finished scenario's summaries
+    (``None`` until sketches exist, or when scenarios use different
+    histogram edges and cannot merge); ``incidents`` the cumulative
+    per-rule incident counts."""
 
     done: int                           # scenarios finished so far
     total: int                          # scenarios in this call
     bucket: str                         # bucket label just finished
-    sketch: Optional[Any] = None
+    sketch: Optional[SketchSummary] = None
     incidents: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
@@ -408,25 +440,25 @@ class FleetRunner:
             _instant("fleet.cache_evict", bucket=gone)
         self._cache[key] = bucket
 
-    def _dispatch(self, key: Any, run: Callable, devices, speeds, act,
-                  bucket: str) -> list:
-        """``run(speeds, active, device)`` under a ``fleet.dispatch`` span
+    def _dispatch(self, key: Any, run: Callable, devices, bucket: str,
+                  *batch) -> list:
+        """``run(*batch_chunk, device)`` under a ``fleet.dispatch`` span
         (``first`` marks the key's first dispatch), one contiguous chunk
-        of the batch a device.  One device: ``run``'s tensors as they
-        are; several: each field's chunks joined on the host in order."""
+        of the batch tensors ``batch`` (``None`` stays ``None``) a device.
+        One device: ``run``'s items as they are; several: each item's
+        chunks joined on the host in order."""
         first = key not in self._dispatched
         self._dispatched.add(key)
         with _span("fleet.dispatch", bucket=bucket, first=first):
-            size = speeds.shape[0] // len(devices)
+            size = batch[0].shape[0] // len(devices)
             outs = []
             for i, dev in enumerate(devices):
                 rows = slice(i * size, (i + 1) * size)
-                outs.append(run(speeds[rows].to(dev),
-                                None if act is None else act[rows].to(dev),
-                                dev))
+                outs.append(run(*(None if x is None else x[rows].to(dev)
+                                  for x in batch), dev))
             if len(outs) == 1:
                 return outs[0]
-            return [np.concatenate([_host(o[f]) for o in outs], axis=1)
+            return [_join([o[f] for o in outs])
                     for f in range(len(outs[0]))]
 
     def _normalize(self, scenarios, active
@@ -548,7 +580,7 @@ class FleetRunner:
             res = sweep_streams(algorithms, sp, capacity, ac, device=dev)
             return [res.bins, res.rscores, res.migrations]
 
-        return self._dispatch(key, run, devices, speeds, act, bucket)
+        return self._dispatch(key, run, devices, bucket, speeds, act)
 
     def sweep(self, algorithms: Sequence[str], scenarios, capacity: float = 1.0,
               *, active=None, device=None) -> FleetSweepResult:
@@ -597,20 +629,51 @@ class FleetRunner:
                                 rscores=out_rs, migrations=out_migs)
 
     def _run_sim(self, policies, speeds, act, rcfg, tb: int, nb: int,
-                 devices) -> Dict[str, Any]:
-        """The trajectory fields ``[P, Bp, tb]`` of one padded batch,
-        where ``_dispatch`` leaves them."""
-        key = ("simulate", policies, tb, nb, act is not None, rcfg,
-               speeds.shape[0], devices)
+                 devices, valid=None):
+        """The trajectory fields ``[P, Bp, tb]`` of one padded batch, where
+        ``_dispatch`` leaves them, and its recorder frame, sketch and alert
+        states (leading ``[P, Bp]``, on the host; ``None`` when off).
+        ``valid`` (bool[Bp, tb]) gates the sketch and alert updates."""
+        # a gated run is its own entry, as in the reference
+        key = ("simulate", policies, tb, nb, act is not None,
+               valid is not None, rcfg, speeds.shape[0], devices)
         bucket = f"{tb}x{nb}"
         self._count(key, bucket)
 
-        def run(sp, ac, dev):
-            res = sweep_lag(policies, sp, rcfg, active=ac, device=dev)
-            return [getattr(res, f) for f in _TRAJ_FIELDS]
+        def run(sp, ac, va, dev):
+            res = sweep_lag(policies, sp, rcfg, active=ac, device=dev,
+                            valid=va)
+            return [*(getattr(res, f) for f in _TRAJ_FIELDS),
+                    res.telemetry, res.sketch, res.incidents]
 
-        arrays = self._dispatch(key, run, devices, speeds, act, bucket)
-        return dict(zip(_TRAJ_FIELDS, arrays))
+        out = self._dispatch(key, run, devices, bucket, speeds, act, valid)
+        tele, sk, inc = (map_state(_host, x) for x in out[-3:])
+        return dict(zip(_TRAJ_FIELDS, out[:-3])), tele, sk, inc
+
+    @staticmethod
+    def _scenario_frame(tele: TelemetryFrame, slot: int,
+                        t: int) -> TelemetryFrame:
+        """One scenario's frame out of a batch frame, its padded steps
+        trimmed (the recorder ran tb steps; the first ``t`` are its
+        history)."""
+        return TelemetryFrame(
+            channels=tele.channels[:, slot, :t],
+            steps=tele.steps[:, slot, :t],
+            count=np.minimum(tele.count[:, slot], t),
+            names=tele.names)
+
+    @staticmethod
+    def _scenario_state(state, slot: int):
+        """One scenario's sketch or alert state (leading ``[P, B]``) out of
+        a batch; no T axis to trim: padded steps never touched it."""
+        return map_state(lambda a: a[:, slot], state)
+
+    @staticmethod
+    def _obs_on(cfg: LagSimConfig) -> bool:
+        """True when the run carries sketches or alerts that bucket padding
+        must gate."""
+        return cfg.telemetry_on and (cfg.telemetry.sketch is not None
+                                     or cfg.telemetry.alerts is not None)
 
     def simulate(self, policies: Sequence[str], scenarios,
                  cfg: LagSimConfig = LagSimConfig(), *,
@@ -628,8 +691,13 @@ class FleetRunner:
         N-padded bucket above ``FUSED_MAX_PARTITIONS`` runs the per-step
         loop, which is equally exact.
 
+        With ``cfg.telemetry`` on, the result carries one recorder frame
+        per scenario, sliced to its true length, and its sketch and alert
+        states; padded steps are gated out of their updates.
+
         ``progress`` (optional, host-side) is called after each bucket
-        group with a :class:`FleetProgress` snapshot.
+        group with a :class:`FleetProgress` snapshot: the merged sketch
+        summary and the incident counts so far.
         """
         with _span("fleet.simulate", policies=len(policies)):
             return self._simulate(policies, scenarios, cfg, active, progress,
@@ -637,25 +705,48 @@ class FleetRunner:
 
     def _simulate(self, policies, scenarios, cfg: LagSimConfig,
                   active, progress=None, device=None) -> FleetLagResult:
+        if cfg.telemetry is not None and cfg.telemetry.ring is not None:
+            raise ValueError(
+                "TelemetryConfig.ring is not supported through FleetRunner: "
+                "a ring holds the *last* ring steps, which for a T-padded "
+                "scenario are padding, not history; use the full-history "
+                "recorder (ring=None) here, or run simulate_lag directly "
+                "for ring capture")
         policies = tuple(p.upper() for p in policies)
+        alert_cfg = cfg.telemetry.alerts if cfg.telemetry_on else None
         devices = self._devices(device)
         fast = self._uniform_batch(scenarios, active, len(devices),
                                    devices[0])
         if fast is not None:
             speeds, act = fast
             b, t, n = speeds.shape
-            arrays = self._run_sim(policies, speeds, act, cfg.resolve(n), t,
-                                   n, devices)
-            result = FleetLagResult(policies=policies, **{
-                f: _BatchRows(arrays[f]) for f in _TRAJ_FIELDS}, dt=cfg.dt)
+            rcfg = cfg.resolve(n)
+            arrays, tele, sk, inc = self._run_sim(policies, speeds, act,
+                                                  rcfg, t, n, devices)
+            sk_cfg = None if rcfg.telemetry is None else rcfg.telemetry.sketch
+            result = FleetLagResult(
+                policies=policies,
+                **{f: _BatchRows(arrays[f]) for f in _TRAJ_FIELDS},
+                telemetry=None if tele is None else [
+                    self._scenario_frame(tele, i, t) for i in range(b)],
+                sketch=None if sk is None else [
+                    self._scenario_state(sk, i) for i in range(b)],
+                sketch_configs=None if sk is None else [sk_cfg] * b,
+                incidents=None if inc is None else [
+                    self._scenario_state(inc, i) for i in range(b)],
+                alert_config=alert_cfg, dt=cfg.dt)
             if progress is not None:
-                progress(FleetProgress(done=b, total=b, bucket=f"{t}x{n}"))
+                progress(self._progress_snapshot(result, b, b, f"{t}x{n}"))
             return result
         items = self._normalize(scenarios, active)
+        obs_on = self._obs_on(cfg)
         outs: Dict[str, List[Optional[np.ndarray]]] = {
             f: [None] * len(items) for f in _TRAJ_FIELDS}
+        obs_out = {f: [None] * len(items) for f in
+                   ("telemetry", "sketch", "sketch_configs", "incidents")}
         done = 0
-        result = FleetLagResult(policies=policies, **outs, dt=cfg.dt)
+        result = FleetLagResult(policies=policies, **outs,
+                                alert_config=alert_cfg, dt=cfg.dt)
         resolved: Dict[int, LagSimConfig] = {}
 
         def at_true_n(sp, ac):
@@ -668,17 +759,72 @@ class FleetRunner:
         for (tb, nb, use_mask, rcfg), members in groups.items():
             speeds, act = self._pad_and_stack(members, tb, nb, use_mask,
                                               devices)
-            arrays = {f: _host(x) for f, x in self._run_sim(
-                policies, speeds, act, rcfg, tb, nb, devices).items()}
+            valid = None
+            if obs_on:
+                # bool[Bp, tb]: each scenario's true steps; False on
+                # T-padding and on the dummy rows of the device split
+                true_t = torch.tensor([sp.shape[0] for _, sp, _ in members]
+                                      + [0] * (speeds.shape[0]
+                                               - len(members)))
+                valid = (torch.arange(tb)[None] < true_t[:, None]).to(
+                    speeds.device)
+            arrays, tele, sk, inc = self._run_sim(
+                policies, speeds, act, rcfg, tb, nb, devices, valid)
+            arrays = {f: _host(x) for f, x in arrays.items()}
+            sk_cfg = None if rcfg.telemetry is None else rcfg.telemetry.sketch
             for slot, (idx, sp, _) in enumerate(members):
                 t = sp.shape[0]
                 for f in _TRAJ_FIELDS:
                     outs[f][idx] = arrays[f][:, slot, :t]
+                if tele is not None:
+                    obs_out["telemetry"][idx] = self._scenario_frame(
+                        tele, slot, t)
+                if sk is not None:
+                    obs_out["sketch"][idx] = self._scenario_state(sk, slot)
+                    obs_out["sketch_configs"][idx] = sk_cfg
+                if inc is not None:
+                    obs_out["incidents"][idx] = self._scenario_state(inc,
+                                                                     slot)
             done += len(members)
+            self._set_obs(result, obs_out)
             if progress is not None:
-                progress(FleetProgress(done=done, total=len(items),
-                                       bucket=f"{tb}x{nb}"))
+                progress(self._progress_snapshot(result, done, len(items),
+                                                 f"{tb}x{nb}"))
         return result
+
+    @staticmethod
+    def _set_obs(result: FleetLagResult, obs_out) -> None:
+        """The finished scenarios' telemetry onto ``result`` (a field stays
+        ``None`` while no scenario carries it)."""
+        for f, vals in obs_out.items():
+            setattr(result, f, vals if any(v is not None for v in vals)
+                    else None)
+
+    @staticmethod
+    def _progress_snapshot(result: FleetLagResult, done: int, total: int,
+                           bucket: str) -> FleetProgress:
+        """Merge whatever has finished into one live snapshot."""
+        merged = None
+        if result.sketch is not None:
+            summaries = []
+            for i, st in enumerate(result.sketch):
+                if st is not None:
+                    summaries.extend(
+                        s for _, s in summaries_from_state(
+                            st, result.sketch_configs[i]))
+            if summaries:
+                try:
+                    merged = merge_summaries(summaries)
+                except ValueError:
+                    merged = None       # heterogeneous edges: unmergeable
+        counts: Dict[str, int] = {}
+        if result.incidents is not None:
+            for st in result.incidents:
+                if st is not None:
+                    for rule, c in incident_counts(st).items():
+                        counts[rule] = counts.get(rule, 0) + c
+        return FleetProgress(done=done, total=total, bucket=bucket,
+                             sketch=merged, incidents=counts)
 
     def fitness(self, policies: Sequence[str], scenarios,
                 cfg: LagSimConfig = LagSimConfig(), *, active=None,
@@ -687,10 +833,12 @@ class FleetRunner:
         per-(policy, scenario) SLO-violation fitness, arrays ``[P, B]``.
         Routes through :meth:`simulate`, so a search that keeps ``(B, T,
         N, cfg)`` constant across generations hits one warm cache entry.
-        ``incident_weight > 0`` needs in-loop alerting, which the port
-        does not carry yet: it raises the reference's ``ValueError``.
+        ``incident_weight > 0`` folds per-stream incident counts into the
+        fitness (``+ incident_weight * incidents / T``) and needs
+        ``cfg.telemetry.alerts`` on.
         """
-        if incident_weight and getattr(cfg.telemetry, "alerts", None) is None:
+        if incident_weight and not (cfg.telemetry_on
+                                    and cfg.telemetry.alerts is not None):
             raise ValueError(
                 "incident_weight > 0 needs alerting in the loop: pass a "
                 "LagSimConfig with telemetry=TelemetryConfig(alerts="
@@ -698,10 +846,17 @@ class FleetRunner:
         with _span("fleet.fitness", policies=len(policies)):
             res = self._simulate(tuple(p.upper() for p in policies),
                                  scenarios, cfg, active, device=device)
-            summ = res.summarize(cfg)
+            stacked = res.stacked(_SLO_FIELDS)
+            summ = res.summarize(cfg, stacked=stacked)
             vf = np.asarray(summ["violation_frac"], np.float32)    # [P, B]
-            # no incidents without in-loop alerting: fitness is the SLO's
+            steps = stacked["lag_total"].shape[-1]
+            if res.incidents is not None:
+                inc = np.stack([incident_matrix(st)
+                                for st in res.incidents], axis=1)  # [P, B]
+            else:
+                inc = np.zeros_like(vf)
+            fit = vf + np.float32(incident_weight) * inc / max(steps, 1)
             return FleetFitness(policies=res.policies, violation_frac=vf,
-                                incidents=np.zeros_like(vf),
-                                fitness=vf.copy(),
+                                incidents=inc,
+                                fitness=fit.astype(np.float32),
                                 incident_weight=float(incident_weight))

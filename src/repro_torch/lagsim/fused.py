@@ -15,16 +15,28 @@ Routing (``LagSimConfig.fused_steps > 0``):
 policy / config        fused path behavior
 =====================  ==========================================
 heuristic family       fused (``fused_kernel=True`` launches the
-                       ``loop_fused`` kernel)
+                       ``loop_fused`` kernel when no sketch or alert
+                       is on; otherwise ``_fused_wide`` runs them)
 sticky family          falls back to the per-step loop (the Modified
                        Any Fit schedule depends on the carry)
 reactive (idealized)   falls back to the per-step loop
+reactive (REAL)        raises :class:`FusedPathError` (control-plane
+                       wrapped)
 optimizer family       raises :class:`FusedPathError`
 control_plane set      raises :class:`FusedPathError`
+telemetry frames/ring  falls back (per-step frames are recorded by
+                       the per-step loop only; sketch and alert
+                       states come from ``_fused_wide``)
 n > 14 partitions      falls back (32-bit name-mask limit)
 use_kernel=True        falls back (the reference routes per-step drain
                        kernel runs to the unfused loop)
 =====================  ==========================================
+
+``_fused_wide`` computes each step's channel vector inside its loop and
+feeds it to the same ``sketch_update`` / ``alert_step`` sequence as the
+per-step loop (the reference replays the vectors after its scan); the
+``loop_fused`` kernel carries no telemetry, as the reference's
+megakernel carries none.
 
 Results do not depend on ``fused_steps`` (K): ``LagSimConfig.resolve``
 validates it (>= 1 with ``fused_kernel``), and otherwise it only names the
@@ -42,6 +54,9 @@ from repro_torch.kernels.loop_fused import (MAX_PARTITIONS, NEG, _consts,
                                             _select_consts, _struct,
                                             loop_fused)
 from repro_torch.registry import get_spec
+from repro_torch.telemetry.alerts import alert_init, alert_step
+from repro_torch.telemetry.record import map_state, record_step
+from repro_torch.telemetry.sketch import sketch_init, sketch_update
 
 FUSED_MAX_PARTITIONS = MAX_PARTITIONS
 
@@ -50,6 +65,14 @@ class FusedPathError(ValueError):
     """``fused_steps`` was combined with a policy or config whose state
     cannot live inside the fused loop (an optimizer, a control plane).
     Drop ``fused_steps`` or the offending piece."""
+
+
+def _controlplane_wrapped(spec) -> bool:
+    """True for self-wrapped REAL scaler families: their hyperparams carry
+    the control-plane knob set (``ControlPlaneConfig.knobs()``)."""
+    from repro_torch.lagsim.controlplane import ControlPlaneConfig
+
+    return bool(set(ControlPlaneConfig().knobs()) & set(spec.hyperparams))
 
 
 def fused_mode(policy: str, cfg, n: int) -> str:
@@ -65,9 +88,20 @@ def fused_mode(policy: str, cfg, n: int) -> str:
     if cfg.control_plane is not None:
         raise FusedPathError(
             "fused_steps is incompatible with control_plane: scaler "
-            "friction wraps every policy in state the fused loop does not "
-            "model; drop fused_steps or control_plane")
+            "friction (polling/delay/cooldown/rebalance storm) wraps every "
+            "policy in state the fused loop does not model; drop "
+            "fused_steps or control_plane")
+    if spec.family == "reactive" and _controlplane_wrapped(spec):
+        raise FusedPathError(
+            f"fused_steps is incompatible with control-plane-wrapped "
+            f"policy {spec.name!r}; drop fused_steps or use the idealized "
+            f"variant of the scaler")
     if spec.family != "heuristic" or n > FUSED_MAX_PARTITIONS:
+        return "unfused"
+    tele = cfg.telemetry
+    if tele is not None and tele.enabled and tele.record_frames:
+        # per-step frame recording (ring mode included) is the per-step
+        # loop's only
         return "unfused"
     if cfg.use_kernel:
         return "unfused"
@@ -99,9 +133,11 @@ def _prep(traces, decreasing: Sequence[bool], active):
 
 
 def _fused_wide(policies: Tuple[str, ...], traces, cfg, active,
-                initial_lag, record_assign: bool):
+                initial_lag, record_assign: bool, tele=None, valid=None):
     """Structure wide over T, then one lean loop over naming + drain.
-    Returns ``loop_fused``'s outputs with a leading ``[P, B]``."""
+    Returns ``loop_fused``'s outputs with a leading ``[P, B]``, then the
+    sketch and alert states of rows ``p * B + b`` (``None`` unless
+    ``tele`` turns them on; ``valid`` bool[B, T] gates their updates)."""
     b, t, n = traces.shape
     p = len(policies)
     dev = traces.device
@@ -119,6 +155,16 @@ def _fused_wide(policies: Tuple[str, ...], traces, cfg, active,
     prev = torch.full((p * b, n), NEG, dtype=torch.long, device=dev)
     down = torch.zeros_like(prev)
     out = _outputs(p * b, t, n, record_assign, dev)
+    sketch_on = tele is not None and tele.sketch is not None
+    alerts_on = tele is not None and tele.alerts is not None
+    sk = al = None
+    if sketch_on:
+        sk = sketch_init(tele.sketch, tele.base_channels, batch=(p * b,),
+                         device=dev)
+    if alerts_on:
+        al = alert_init(tele.alerts, batch=(p * b,), device=dev)
+        no_storm = torch.zeros(p * b, device=dev)
+    ok_r = None if valid is None else valid.bool().repeat(p, 1)
     for step in range(t):
         act = None if act_r is None else act_r[:, step]
         produced = rates[:, step] * dt
@@ -128,19 +174,42 @@ def _fused_wide(policies: Tuple[str, ...], traces, cfg, active,
             lag, prev, down, produced, act, slot_of[step], creator[step],
             kk[step], cap_step=cap_step, mig=int(cfg.migration_steps))
         _record(out, step, lag, kk[step], moved, unread, prev)
-    return _per_policy(out, p, b)
+        ok = None if ok_r is None else ok_r[:, step]
+        if sketch_on:
+            vec, _ = record_step(
+                tele, speeds=rates[:, step], new_lag=lag, moved=moved,
+                blocked=unread, storm=None, n_consumers=kk[step], act_t=act,
+                capacity=cfg.capacity, pstate=None)
+            sk = sketch_update(tele.sketch, sk, vec, valid=ok)
+        if alerts_on:
+            al = alert_step(tele.alerts, al, lag_total=out[0][:, step],
+                            consumers=kk[step], unreadable=out[4][:, step],
+                            storm_parts=no_storm, slo_lag=cfg.slo_lag,
+                            valid=ok)
+    return _per_policy(out, p, b), sk, al
 
 
 def sweep_fused(policies: Tuple[str, ...], traces, cfg,
                 active: Optional[torch.Tensor] = None,
                 initial_lag: Optional[torch.Tensor] = None,
-                record_assign: bool = False) -> Dict[str, dict]:
+                record_assign: bool = False,
+                valid: Optional[torch.Tensor] = None) -> Dict[str, dict]:
     """Family-batched fused sweep of heuristic ``policies`` over ``traces
     f32[B, T, N]``.  Returns ``{policy: LagTrace field dict}`` of ``[B, T]``
-    tensors (plus ``assigns [B, T, N]`` with ``record_assign``)."""
+    tensors (plus ``assigns [B, T, N]`` with ``record_assign``, and the
+    ``[B]``-led ``sketch`` / ``incidents`` states when a sketch or alerts
+    are on).  ``valid`` (bool[B, T]) gates the sketch and alert updates
+    on padded steps."""
     traces = traces.to(torch.float32)
+    b = traces.shape[0]
     cfg = cfg.resolve(traces.shape[2])
-    if cfg.fused_kernel:
+    tele = cfg.telemetry if cfg.telemetry_on else None
+    obs_on = tele is not None and (tele.sketch is not None
+                                   or tele.alerts is not None)
+    sk = al = None
+    if cfg.fused_kernel and not obs_on:
+        # the kernel carries no telemetry: with a sketch or alerts on,
+        # _fused_wide runs the loop and emits them
         strategies, decreasing = _heuristics(policies)
         outs = loop_fused(traces, strategies=strategies,
                           decreasing=decreasing, capacity=cfg.capacity,
@@ -149,12 +218,19 @@ def sweep_fused(policies: Tuple[str, ...], traces, cfg,
                           initial_lag=initial_lag,
                           record_assign=record_assign)
     else:
-        outs = _fused_wide(policies, traces, cfg, active, initial_lag,
-                           record_assign)
+        outs, sk, al = _fused_wide(policies, traces, cfg, active,
+                                   initial_lag, record_assign, tele, valid)
     names = ("lag_total", "lag_max", "consumers", "migrations",
              "unreadable", "assigns")
-    return {name: dict(zip(names, (o[pi] for o in outs)))
-            for pi, name in enumerate(policies)}
+    out = {name: dict(zip(names, (o[pi] for o in outs)))
+           for pi, name in enumerate(policies)}
+    if obs_on:
+        for pi, name in enumerate(policies):
+            rows = slice(pi * b, (pi + 1) * b)
+            out[name].update(
+                sketch=map_state(lambda a: a[rows], sk),
+                incidents=map_state(lambda a: a[rows], al))
+    return out
 
 
 def simulate_fused(trace, initial_lag, policy: str, cfg,
@@ -162,7 +238,7 @@ def simulate_fused(trace, initial_lag, policy: str, cfg,
                    record_assign: bool = False):
     """Single-stream fused run: ``trace f32[T, N]`` -> ``LagTrace`` of
     ``[T]`` tensors, or ``(LagTrace, assigns [T, N])``."""
-    from repro_torch.lagsim.engine import LagTrace
+    from repro_torch.lagsim.engine import LagTrace, _first
 
     fields = sweep_fused(
         (policy,), trace[None], cfg,
@@ -170,5 +246,5 @@ def simulate_fused(trace, initial_lag, policy: str, cfg,
         initial_lag=None if initial_lag is None else initial_lag[None],
         record_assign=record_assign)[policy]
     assigns = fields.pop("assigns", None)
-    out = LagTrace(**{k: v[0] for k, v in fields.items()})
+    out = _first(LagTrace(**fields))
     return (out, assigns[0]) if record_assign else out

@@ -17,6 +17,14 @@ hyperparameters equal the reference's for every policy ported so far
   the partitions that exist: an inactive one comes back ``-1``, adds no
   load and never raises the consumer count.  State may start as 0-dim
   tensors and broadcast to ``[R]`` on the first step.
+
+  A policy may publish custom per-step counters to the in-loop flight
+  recorder by wrapping its state as
+  ``repro_torch.telemetry.CounterState(counters=f32[R, K], inner=state,
+  names=(...))``: when ``LagSimConfig.telemetry`` is on, the engine
+  appends those named counters to every recorded step's channel vector
+  (see ``repro_torch.telemetry.record``).  Policies that do not care
+  return their plain state, and the recorder records its base channels.
 * ``register`` / ``make_policy`` / ``get_spec`` / ``list_policies`` /
   ``packer_for`` -- publication and discovery, in registration order.
 """

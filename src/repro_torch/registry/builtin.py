@@ -3,10 +3,8 @@
   NF NFD FF FFD BF BFD WF WFD        (Sec. II-B classical, heuristic)
   MWF MBF MWFP MBFP                  (Sec. IV-B Algorithm 1, sticky)
   KEDA_LAG RATE_THRESHOLD            (idealized reactive baselines)
+  KEDA_LAG_REAL CLOUD_RUN_CPU_LAG    (reactive scalers behind a control plane)
   ANNEAL ANNEAL_STICKY               (2024 follow-up optimizers)
-
-The reference's control-plane scalers (registered between the reactive
-baselines and the optimizers there) wait for a later slice of the port.
 """
 from __future__ import annotations
 
@@ -102,7 +100,8 @@ def _f32(x) -> float:
 def _reactive_policy(kind: str, n: int, capacity, device, *, lag_threshold,
                      target_utilization, max_consumers, scale_down_patience):
     """KEDA-style reactive scaler: desired consumer count from a lag or
-    rate threshold, eager round-robin assignment (``partition % n``),
+    rate threshold (``cpu_lag``: the larger of the two, KEDA's maximum over
+    triggers), eager round-robin assignment (``partition % n``),
     immediate scale-up, patience-gated scale-down.  With an ``active``
     mask, dead partitions add no signal and take no round-robin seat
     (live partitions are ranked among the live set)."""
@@ -127,12 +126,18 @@ def _reactive_policy(kind: str, n: int, capacity, device, *, lag_threshold,
             act = active.bool()
             speeds = torch.where(act, speeds, 0.0)
             lag = torch.where(act, lag, 0.0)
-        total = lag.sum(-1) if kind == "lag" else speeds.sum(-1)
-        # a tensor divisor: PyTorch turns division by a Python scalar into
-        # a multiply by its reciprocal, which rounds differently
-        div = torch.full_like(total, lag_threshold if kind == "lag"
-                              else rate_div)
-        want = torch.ceil(total / div)
+        # a tensor divisor: PyTorch on the card turns division by a Python
+        # scalar into a multiply by its reciprocal, which rounds differently
+        wants = []
+        if kind in ("lag", "cpu_lag"):
+            total = lag.sum(-1)
+            wants.append(torch.ceil(total / torch.full_like(total,
+                                                            lag_threshold)))
+        if kind in ("rate", "cpu_lag"):
+            total = speeds.sum(-1)
+            wants.append(torch.ceil(total / torch.full_like(total,
+                                                            rate_div)))
+        want = wants[0] if len(wants) == 1 else torch.maximum(*wants)
         want = torch.clamp(want.long(), 1, max_c)
         under = torch.where(want < n_cur, under + 1, 0)
         go_down = under >= patience
@@ -167,6 +172,59 @@ def _build_keda_lag(n, capacity, device, **hyper):
                   "ceil(total_rate / (target_utilization * C))")
 def _build_rate_threshold(n, capacity, device, **hyper):
     return _reactive_policy("rate", n, capacity, device, **hyper)
+
+
+#: control-plane knobs every REAL scaler family declares (step units);
+#: the lag twin overrides them from ``LagSimConfig.control_plane``
+_KEDA_REAL_CP = {"polling_interval": 3, "observation_delay": 1,
+                 "actuation_delay": 1, "cooldown_period": 20,
+                 "min_replicas": 1, "max_replicas": None, "warmup_steps": 2}
+_CLOUD_RUN_CP = {"polling_interval": 5, "observation_delay": 2,
+                 "actuation_delay": 2, "cooldown_period": 10,
+                 "min_replicas": 1, "max_replicas": None, "warmup_steps": 3}
+
+
+def _real_reactive(kind, n, capacity, device, *, lag_threshold,
+                   target_utilization, max_consumers, scale_down_patience,
+                   **cp_knobs):
+    """An idealized reactive scaler behind a control plane of ``cp_knobs``
+    (imported here: the lag twin imports the registry)."""
+    from repro_torch.lagsim.controlplane import (ControlPlaneConfig,
+                                                 wrap_policy)
+
+    inner = _reactive_policy(
+        kind, n, capacity, device, lag_threshold=lag_threshold,
+        target_utilization=target_utilization, max_consumers=max_consumers,
+        scale_down_patience=scale_down_patience)
+    return wrap_policy(*inner, ControlPlaneConfig(**cp_knobs), device=device)
+
+
+@register("KEDA_LAG_REAL", family="reactive",
+          hyperparams={**_REACTIVE_HYPER, **_KEDA_REAL_CP},
+          paper_section="reactive baseline",
+          summary="KEDA lagThreshold rule behind a faithful control plane "
+                  "(pollingInterval/cooldownPeriod/warm-up storm)")
+def _build_keda_lag_real(n, capacity, device, *, lag_threshold,
+                         target_utilization, max_consumers,
+                         scale_down_patience, **cp_knobs):
+    return _real_reactive(
+        "lag", n, capacity, device, lag_threshold=lag_threshold,
+        target_utilization=target_utilization, max_consumers=max_consumers,
+        scale_down_patience=scale_down_patience, **cp_knobs)
+
+
+@register("CLOUD_RUN_CPU_LAG", family="reactive",
+          hyperparams={**_REACTIVE_HYPER, **_CLOUD_RUN_CP},
+          paper_section="reactive baseline",
+          summary="Cloud Run style CPU+lag dual trigger (max of both) "
+                  "behind a slow-polling control plane")
+def _build_cloud_run_cpu_lag(n, capacity, device, *, lag_threshold,
+                             target_utilization, max_consumers,
+                             scale_down_patience, **cp_knobs):
+    return _real_reactive(
+        "cpu_lag", n, capacity, device, lag_threshold=lag_threshold,
+        target_utilization=target_utilization, max_consumers=max_consumers,
+        scale_down_patience=scale_down_patience, **cp_knobs)
 
 
 def _anneal_policy(capacity, device, *, lam, chains, steps, noise=None):

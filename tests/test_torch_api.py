@@ -1,8 +1,9 @@
 """The port's facade against the reference's: the same outcome fields,
 the verbs' results on the same numpy inputs (integers exact, floats
 within ``1e-5``; ``pack``'s R-score, a Python float sum, within
-``1e-12``), and what the port does not carry yet refused by name before
-anything runs."""
+``1e-12``), bad control-plane knobs refused by name before anything
+runs, and the reference's lazily exported control-plane and telemetry
+names resolving to the port's own classes."""
 import dataclasses
 
 import numpy as np
@@ -12,7 +13,6 @@ torch = pytest.importorskip("torch")
 
 from repro import api as japi  # noqa: E402
 from repro_torch import api  # noqa: E402
-from repro_torch.lagsim import NotPortedError  # noqa: E402
 
 
 @pytest.mark.parametrize("outcome", (
@@ -27,20 +27,72 @@ def test_outcome_fields_equal_the_reference(outcome):
 
 
 def test_simulate_outcome_telemetry_fields_stay_none():
-    out = api.simulate(np.full((1, 3, 2), 0.3, np.float32),
-                       policies=("BFD",), device="cpu")
+    """Without a telemetry override the outcome carries none, in both
+    packages; with one it carries the reference's frames, sketches and
+    incidents (``test_torch_telemetry.py`` holds their values)."""
+    tr = np.full((1, 3, 2), 0.3, np.float32)
+    out = api.simulate(tr, policies=("BFD",), device="cpu")
+    ref = japi.simulate(tr, policies=("BFD",))
     assert (out.telemetry, out.sketches, out.incidents) == (None, None, None)
+    assert (ref.telemetry, ref.sketches, ref.incidents) == (None, None, None)
     assert out.lag_total.shape == (1, 1, 3)
+    on = api.simulate(tr, policies=("BFD",), device="cpu",
+                      telemetry=api.TelemetryConfig(
+                          sketch=api.SketchConfig(),
+                          alerts=api.AlertConfig(
+                              rules=(api.AlertRule.slo_burn(),))))
+    assert len(on.telemetry) == len(on.sketches) == len(on.incidents) == 1
+    assert on.telemetry[0].channels.shape[:2] == (1, 3)
 
 
-def test_simulate_refuses_control_plane_before_anything_runs(monkeypatch):
+@pytest.mark.parametrize("knobs", (
+    {"poll_steps": 2}, {"polling_interval": 4, "cooldown_period": 2},
+    {"warmup_steps": -1}, 3))
+def test_simulate_refuses_control_plane_before_anything_runs(monkeypatch,
+                                                             knobs):
+    """Bad control-plane knobs raise the reference's error, by name,
+    before the fleet runs anything."""
     def boom(*a, **k):
         raise AssertionError("simulate ran before refusing control_plane=")
 
+    tr = np.zeros((1, 3, 2), np.float32)
+    with pytest.raises((TypeError, ValueError)) as want:
+        japi.simulate(tr, policies=("BFD",), control_plane=knobs)
     monkeypatch.setattr(api, "default_fleet", boom)
-    with pytest.raises(NotPortedError, match="control_plane"):
-        api.simulate(np.zeros((1, 3, 2), np.float32), policies=("BFD",),
-                     control_plane={"poll_steps": 2}, device="cpu")
+    with pytest.raises(want.type) as got:
+        api.simulate(tr, policies=("BFD",), control_plane=knobs,
+                     device="cpu")
+    assert (str(got.value).split(";")[0].replace("repro_torch", "repro")
+            == str(want.value).split(";")[0])
+
+
+#: the control-plane and telemetry names ``repro.api`` exports lazily
+OBS_NAMES = ("ControlPlaneConfig", "FUSED_MAX_PARTITIONS", "FusedPathError",
+             "TelemetryConfig", "TelemetryFrame", "EventStream",
+             "SketchConfig", "SketchSummary", "AlertConfig", "AlertRule",
+             "Incident", "prometheus_exposition", "validate_exposition",
+             "otlp_metrics_json")
+
+
+@pytest.mark.parametrize("name", OBS_NAMES)
+def test_reference_observability_exports_resolve_to_the_port(name):
+    ours, ref = getattr(api, name), getattr(japi, name)
+    assert name in api.__all__ and name in japi.__all__
+    if isinstance(ref, int):
+        assert ours == ref
+        return
+    assert ours.__name__ == ref.__name__
+    assert ours.__module__.startswith("repro_torch.")
+    assert ours.__module__.split(".", 1)[1] == ref.__module__.split(".", 1)[1]
+
+
+def test_all_follows_the_reference_order():
+    """The port's ``__all__`` is the reference's, less what the port does
+    not export yet, in the reference's order."""
+    ref = [n for n in japi.__all__ if n in api.__all__]
+    assert ref == list(api.__all__)
+    for name in api.__all__:
+        assert getattr(api, name) is not None
 
 
 PACKERS = japi.list_policies(family=japi.PACKER_FAMILIES, backend="jax")

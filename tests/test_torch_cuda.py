@@ -670,3 +670,125 @@ def test_fleet_padded_equals_direct_on_the_card(cuda):
                                        rtol=0, atol=1e-5)
     assert runner.stats()["buckets"] == {"24x8": 1, "24x16": 1, "48x8": 2,
                                          "48x16": 2}
+
+
+def _obs_config(**over):
+    from repro_torch.lagsim import LagSimConfig
+    from repro_torch.telemetry import (AlertConfig, SketchConfig,
+                                       TelemetryConfig, default_rules)
+
+    return LagSimConfig(use_kernel=True, telemetry=TelemetryConfig(
+        sketch=SketchConfig(), alerts=AlertConfig(rules=default_rules())),
+        **over)
+
+
+def _masked(seed, shape):
+    rng = np.random.default_rng(seed)
+    act = rng.uniform(size=shape) < 0.85
+    return (torch.tensor(np.where(act, rng.uniform(0, 0.7, shape), 0).astype(
+        np.float32)), torch.tensor(act))
+
+
+@pytest.mark.parametrize("policy", ("BFD", "MBF", "KEDA_LAG",
+                                    "RATE_THRESHOLD"))
+def test_zero_friction_is_bit_equal_on_the_card(cuda, policy):
+    """Behind the zero-friction control plane a policy equals its bare run
+    on the card bit for bit (drain and packing kernels on)."""
+    import dataclasses
+
+    from repro_torch.lagsim import ControlPlaneConfig, LagSimConfig, sweep_lag
+
+    rates, act = _masked(41, (32, 40, 16))
+    cfg = LagSimConfig(use_kernel=True)
+    bare = sweep_lag((policy,), rates.to(cuda), cfg, active=act.to(cuda),
+                     device=cuda)
+    wrapped = sweep_lag((policy,), rates.to(cuda), dataclasses.replace(
+        cfg, control_plane=ControlPlaneConfig()), active=act.to(cuda),
+        device=cuda)
+    for f in ("lag_total", "lag_max", "consumers", "migrations",
+              "unreadable"):
+        assert torch.equal(getattr(bare, f), getattr(wrapped, f)), f
+
+
+@pytest.mark.parametrize("policies", (("BFD", "KEDA_LAG_REAL"),
+                                      ("MBF", "CLOUD_RUN_CPU_LAG")))
+def test_telemetry_on_equals_off_on_the_card(cuda, policies):
+    """Frames, a sketch and alerts on leave every trajectory as it is with
+    them off, bit for bit, and their states match the CPU's run
+    (integers and incident tables exact, floats within 1e-5)."""
+    import dataclasses
+
+    from repro_torch.lagsim import sweep_lag
+
+    rates, act = _masked(42, (32, 40, 12))
+    on_cfg = _obs_config()
+    off = sweep_lag(policies, rates.to(cuda), dataclasses.replace(
+        on_cfg, telemetry=None), active=act.to(cuda), device=cuda)
+    on = sweep_lag(policies, rates.to(cuda), on_cfg, active=act.to(cuda),
+                   device=cuda)
+    cpu = sweep_lag(policies, rates, on_cfg, active=act, device="cpu")
+    for f in ("lag_total", "lag_max", "consumers", "migrations",
+              "unreadable"):
+        assert torch.equal(getattr(off, f), getattr(on, f)), f
+    for f in ("count", "open_step", "close_step", "active"):
+        assert torch.equal(getattr(on.incidents, f).cpu(),
+                           getattr(cpu.incidents, f)), f
+    for f in ("count", "hist"):
+        assert torch.equal(getattr(on.sketch, f).cpu(),
+                           getattr(cpu.sketch, f)), f
+    for f in ("mean", "vmin", "vmax", "ewma"):
+        torch.testing.assert_close(getattr(on.sketch, f).cpu(),
+                                   getattr(cpu.sketch, f), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_padded_sketches_equal_direct_on_the_card(cuda):
+    """A ragged fleet with a sketch and alerts on, padded into buckets on
+    the card: each scenario's states equal its own run's (counts,
+    histograms and incident tables exact, floats within 1e-5)."""
+    from repro_torch.fleet import FleetConfig, FleetRunner
+    from repro_torch.lagsim import sweep_lag
+
+    rates, act = _masked(43, (5, 48, 16))
+    rates, act = rates.to(cuda), act.to(cuda)
+    cut = ((48, 16), (30, 5), (17, 7), (40, 12), (24, 16))
+    pairs = [(rates[i, :t, :n], act[i, :t, :n])
+             for i, (t, n) in enumerate(cut)]
+    policies = ("BFD", "MBF", "KEDA_LAG_REAL")
+    cfg = _obs_config(max_consumers=16)
+    runner = FleetRunner(FleetConfig(t_buckets=(24, 48), n_buckets=(8, 16)))
+    res = runner.simulate(policies, pairs, cfg, device=cuda)
+    for i, (sp, ac) in enumerate(pairs):
+        solo = sweep_lag(policies, sp[None], cfg, active=ac[None],
+                         device=cuda)
+        for f in ("count", "hist"):
+            np.testing.assert_array_equal(
+                getattr(res.sketch[i], f),
+                getattr(solo.sketch, f)[:, 0].cpu().numpy(), f)
+        for f in ("mean", "m2", "vmin", "vmax", "ewma", "ewma_w"):
+            np.testing.assert_allclose(
+                getattr(res.sketch[i], f),
+                getattr(solo.sketch, f)[:, 0].cpu().numpy(), rtol=1e-5,
+                atol=1e-5)
+        for f in ("tick", "count", "open_step", "close_step", "active",
+                  "consec"):
+            np.testing.assert_array_equal(
+                getattr(res.incidents[i], f),
+                getattr(solo.incidents, f)[:, 0].cpu().numpy(), f)
+
+
+def test_storm_scatter_is_deterministic_on_the_card(cuda):
+    """The warm-up storm's touched-consumer scatter (duplicate ids in a
+    row) gives the same warming countdowns and trajectories in 3 runs."""
+    from repro_torch.lagsim import ControlPlaneConfig, LagSimConfig, sweep_lag
+
+    rates, act = _masked(44, (64, 40, 32))
+    cfg = LagSimConfig(use_kernel=True, control_plane=ControlPlaneConfig(
+        polling_interval=2, observation_delay=1, actuation_delay=1,
+        cooldown_period=2, max_replicas=8, warmup_steps=3))
+    runs = [sweep_lag(("MBF", "KEDA_LAG"), rates.to(cuda), cfg,
+                      active=act.to(cuda), device=cuda) for _ in range(3)]
+    assert int(runs[0].unreadable.sum()) > 0
+    for other in runs[1:]:
+        for f in ("lag_total", "consumers", "migrations", "unreadable"):
+            assert torch.equal(getattr(runs[0], f), getattr(other, f)), f

@@ -69,7 +69,23 @@ def _same_lag(ours, ref):
     for f in ("lag_total", "lag_max"):
         for a, b in zip(getattr(ours, f), getattr(ref, f)):
             np.testing.assert_allclose(a, np.asarray(b), **TOL)
-    assert (ours.telemetry, ours.sketch, ours.incidents) == (None,) * 3
+    for f in ("telemetry", "sketch", "incidents"):
+        assert (getattr(ours, f) is None) == (getattr(ref, f) is None), f
+    if ref.telemetry is not None:
+        for a, b in zip(ours.telemetry, ref.telemetry):
+            assert a.names == b.names
+            np.testing.assert_allclose(a.channels, np.asarray(b.channels),
+                                       atol=1e-5, rtol=1e-5)
+            np.testing.assert_array_equal(a.steps, np.asarray(b.steps))
+    if ref.incidents is not None:
+        for i in range(len(ref.incidents)):
+            got, want = ours.scenario_incidents(i), ref.scenario_incidents(i)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                g, w = g.as_dict(), w.as_dict()
+                assert g.pop("peak") == pytest.approx(w.pop("peak"),
+                                                      rel=1e-5, abs=1e-5)
+                assert g == w
 
 
 def _stats(runner):

@@ -26,8 +26,7 @@ from repro.lagsim import sweep_lag as j_sweep_lag  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.convert import config_from_reference, state_from_numpy  # noqa: E402
 from repro_torch.lagsim import (FusedPathError, LagSimConfig,  # noqa: E402
-                                NotPortedError, fused_mode, simulate_lag,
-                                sweep_lag)
+                                fused_mode, simulate_lag, sweep_lag)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 POLICIES = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD",
@@ -130,15 +129,42 @@ def test_api_simulate_metrics_match_reference(reference, masked):
 
 
 def test_config_conversion_and_refusals():
+    from repro.lagsim import ControlPlaneConfig as JCP
+    from repro.telemetry import AlertConfig as JA
+    from repro.telemetry import SketchConfig as JS
+    from repro.telemetry import TelemetryConfig as JT
+    from repro.telemetry import default_rules
+
     fields = dataclasses.asdict(JConfig(capacity=2.0, dt=0.5, fused_steps=3))
     cfg = config_from_reference(fields)
     assert dataclasses.asdict(cfg) == fields
     assert cfg.resolve(6).lag_threshold == JConfig(
         capacity=2.0, dt=0.5).resolve(6).lag_threshold
-    with pytest.raises(NotPortedError, match="control_plane"):
-        config_from_reference(dict(fields, control_plane=object()))
-    with pytest.raises(NotPortedError, match="telemetry"):
-        LagSimConfig(telemetry=object()).resolve(4)
+    # the control plane and telemetry come across, nested configs too
+    full = JConfig(capacity=2.0, dt=0.5, control_plane=JCP(
+        polling_interval=3, cooldown_period=6, max_replicas=4),
+        telemetry=JT(ring=8, sketch=JS(ewma_halflives=(4.0,)),
+                     alerts=JA(rules=default_rules(), max_incidents=5)))
+    fields = dataclasses.asdict(full)
+    cfg = config_from_reference(fields)
+    assert dataclasses.asdict(cfg) == fields
+    assert (dataclasses.asdict(cfg.resolve(6))
+            == dataclasses.asdict(full.resolve(6)))
+    # a control plane or telemetry of another type: the reference's
+    # named errors, from resolve
+    for ours, ref in ((LagSimConfig(control_plane=object()),
+                       JConfig(control_plane=object())),
+                      (config_from_reference(dict(fields,
+                                                  control_plane=object())),
+                       JConfig(control_plane=object())),
+                      (LagSimConfig(telemetry=object()),
+                       JConfig(telemetry=object()))):
+        with pytest.raises(ValueError) as want:
+            ref.resolve(4)
+        with pytest.raises(ValueError) as got:
+            ours.resolve(4)
+        assert (str(got.value).split(";")[0]
+                == str(want.value).split(";")[0])
     with pytest.raises(ValueError, match="not LagSimConfig fields"):
         config_from_reference(dict(fields, bogus=1))
     with pytest.raises(ValueError, match="fused_kernel=True requires"):

@@ -1,10 +1,11 @@
 """The port's registry against the reference catalogue, and the reactive
 scalers' step parity.
 
-Names (in registration order), families and hyperparameters must equal
-``repro.registry`` for every policy the port has; the reactive scalers
-must give the same assignment, consumer count and state as the
-reference's ``Policy.step`` on the same inputs, step after step.
+Names (in registration order), families, hyperparameters, paper sections
+and summaries must equal ``repro.registry``'s ``jax`` backend, policy for
+policy; the reactive scalers must give the same assignment, consumer
+count and state as the reference's ``Policy.step`` on the same inputs,
+step after step.
 """
 import numpy as np
 import pytest
@@ -19,13 +20,12 @@ from repro_torch.convert import state_from_numpy  # noqa: E402
 
 PORTED = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD",
           "MWF", "MBF", "MWFP", "MBFP", "KEDA_LAG", "RATE_THRESHOLD",
-          "ANNEAL", "ANNEAL_STICKY")
+          "KEDA_LAG_REAL", "CLOUD_RUN_CPU_LAG", "ANNEAL", "ANNEAL_STICKY")
 
 
 def test_names_follow_reference_registration_order():
     assert treg.list_policies() == PORTED
-    ref_order = [n for n in jreg.list_policies() if n in PORTED]
-    assert tuple(ref_order) == PORTED
+    assert treg.list_policies() == jreg.list_policies(backend="jax")
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -34,15 +34,18 @@ def test_family_and_hyperparams_equal_reference(name):
     assert ours.family == ref.family
     assert dict(ours.hyperparams) == dict(ref.hyperparams)
     assert ours.paper_section == ref.paper_section
+    assert ours.summary == ref.summary
 
 
 def test_family_filter_and_errors():
-    assert treg.list_policies(family="reactive") == ("KEDA_LAG",
-                                                     "RATE_THRESHOLD")
+    assert treg.list_policies(family="reactive") == (
+        "KEDA_LAG", "RATE_THRESHOLD", "KEDA_LAG_REAL", "CLOUD_RUN_CPU_LAG")
+    assert treg.list_policies(family="reactive") == jreg.list_policies(
+        family="reactive", backend="jax")
     with pytest.raises(ValueError, match="unknown family"):
         treg.list_policies(family="bogus")
     with pytest.raises(ValueError, match="unknown policy"):
-        treg.get_spec("KEDA_LAG_REAL")
+        treg.get_spec("KEDA_LAG_FAKE")
     with pytest.raises(ValueError, match="does not take hyperparams"):
         treg.make_policy("BFD", 4, device="cpu", gain=2.0)
     with pytest.raises(ValueError, match="already registered"):
