@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the lag twin, the fleet layer, the
-packers' sweep, the optimizer, and LLM serving of a dense model and of
-RWKV-6) on one NVIDIA card.
+packers' sweep, the optimizer, the adversarial search and trace replay,
+and LLM serving of a dense model and of RWKV-6) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -27,11 +27,11 @@ Run from a checkout of the repository on a machine with a CUDA card and
    also at fills on either side of a split boundary, and captured once in
    a CUDA graph and replayed at other fills set in place on the card; the
    packing kernel ``pack_rows`` for all 12 packers, masked and unmasked,
-   at n = 7, 32 and 256, with ties, oversized items and out-of-range
+   at n = 6, 7, 32 and 256, with ties, oversized items and out-of-range
    previous names, exact and ``loads`` bit for bit; the annealer's step
    ``anneal_step`` against ``anneal_step_reference`` over 48 steps at
-   path C1's and C2's shapes, masked and unmasked, every state tensor bit
-   for bit);
+   path C1's, C2's and I1's shapes, masked and unmasked, every state
+   tensor bit for bit);
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -81,7 +81,10 @@ Run from a checkout of the repository on a machine with a CUDA card and
    paper's defaults (12 x 120 launches) equal to the CPU's (CBS and
    Pareto lists exact, average R-score within ``1e-5``); ``api.pack`` of
    one 256-partition instance for each of the 12 packers equal to the
-   CPU's;
+   CPU's; G4: ``api.pack(backend="py")`` (the pure-Python packers, the
+   facade's default) for the 12 packers on that instance, its speeds
+   quantized to k/1024, equal to ``backend="torch"`` on the card
+   (assignment, ``n_bins``, loads);
 10. path H, the scalers as deployed, observed in the loop: H1 is
    ``api.simulate`` over path B's traffic with ``use_kernel=True`` and
    in-loop telemetry (per-step frames, the default sketch, the four
@@ -104,29 +107,54 @@ Run from a checkout of the repository on a machine with a CUDA card and
    and KEDA_LAG_REAL through ``FleetRunner.simulate``, a sketch and
    alerts on: exact launch counts, and 16 groups at their own shapes with
    equal sketches and incident tables;
-11. path D, dense-LLM serving: qwen3-8b at full width and depth (36
+11. path I, adversarial search and trace replay, every fitness step
+   through the drain and packing kernels (``use_kernel=True``): I1 is
+   ``api.attack`` of each registry family's representative (NF, MWF,
+   KEDA_LAG, ANNEAL) at the reference's own search budget
+   (``benchmarks/adversarial_bench.py``: pop 8, 6 generations, 96 steps x
+   6 partitions, ``incident_weight=0.05``, the four default alert rules
+   in the loop), the random baseline on: exactly 96 ``lag_update``
+   launches a generation of the search and of the baseline, as many
+   ``pack_rows`` for NF and MWF, none for KEDA_LAG, 48 ``anneal_step``
+   a step for ANNEAL; NF's search once more, bit for bit; for each
+   policy, one fitness batch of the oracle's rows at I1's shape through
+   the loop on the card against the CPU run of the same rows (plain
+   versions; ANNEAL with the card's draws injected), integers and
+   incident tables exact, lag within ``1e-5``.  I2 is
+   ``api.attack("MBF")`` at a capacity planner's size (pop 32 x 4
+   scenarios of 960 steps x 32 partitions a fitness call, 8
+   generations) through a fresh ``FleetRunner``: exactly 960 x 2 x
+   ``generations_run`` launches of each kernel, one cache miss and
+   ``2 x generations_run - 1`` hits, the oracle's batch at its shape
+   (the kept genome and 31 random ones, [128, 960, 32]) against the CPU
+   transform of the same draws, masks exact; its witness saved as
+   ``.npz`` and ``.json`` (equal once loaded) and replayed through
+   ``api.replay`` (MBF, BFD, KEDA_LAG; as recorded, and resampled to 480
+   steps), each equal to a direct ``api.simulate`` of the same arrays
+   bit for bit;
+12. path D, dense-LLM serving: qwen3-8b at full width and depth (36
    layers) in bfloat16 with bfloat16 weights drawn on the card from
    ``--seed``; D1 is ``make_prefill_step`` on 8 requests x 1024 prompt
    tokens (36 flash-attention launches), D2 is ``SharedModel.generate``
    on the same requests with a 1152-token cache: 1024 teacher-forced steps
    and 128 greedy ones (36 x 1152 decode-attention launches);
-12. the agreement check of the LLM kernels: qwen3-8b at full width with 4
+13. the agreement check of the LLM kernels: qwen3-8b at full width with 4
    layers in float32, prefill and 48 + 16 decode steps once with the
    kernels and once with their plain versions on the card: logits within
    1e-4, the same tokens; the decode logits at every prompt position
    equal to the full-sequence logits within 2e-2 (the reference's own
    property); the same prefill on the CPU, printed;
-13. path E, RWKV-6 serving: rwkv6-3b at full width and depth (32 layers)
+14. path E, RWKV-6 serving: rwkv6-3b at full width and depth (32 layers)
    in bfloat16 with bfloat16 weights drawn on the card from ``--seed``;
    E1 is ``make_prefill_step`` on 8 requests x 1024 prompt tokens (32
    WKV launches), E2 is ``SharedModel.generate`` on the same requests,
    1024 teacher-forced steps and 128 greedy ones (32 x 1152 WKV
    launches, each writing its layer's state in place);
-14. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
+15. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
    float32 (bonus and decay perturbed from their init constants), prefill
    and 48 + 16 decode steps once with the WKV kernel and once with its
-   plain version on the card, with the same checks as phase 12;
-15. each kernel's time at its path's shapes beside its bound, its plain
+   plain version on the card, with the same checks as phase 13;
+16. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; the flash row also in float32 at
@@ -1146,7 +1174,7 @@ def wkv_row(dev, seed, launches, errs):
     return row
 
 
-def anneal_step_row(dev, gen, launches_c1, launches_c2, errs):
+def anneal_step_row(dev, gen, launches_c1, launches_c2, launches_i, errs):
     """Kernel row of anneal_step: one step of path C1's 1024 rows x 6
     chains at N = 32 (the warp layout), and of C2's 28 chains at N = 256
     (the cluster layout), each beside its plain step.  Bound: the state
@@ -1180,9 +1208,11 @@ def anneal_step_row(dev, gen, launches_c1, launches_c2, errs):
         replaces_note="the move plane with the reference annealer's step "
         "around it (src/repro/opt/anneal.py:147-186, chain_update and "
         "body): one launch an anneal step, the plane never written",
-        launches=launches_c1["anneal_step"] + launches_c2["anneal_step"],
+        launches=launches_c1["anneal_step"] + launches_c2["anneal_step"]
+        + launches_i["anneal_step"],
         launches_by_path={"C1": launches_c1["anneal_step"],
-                          "C2": launches_c2["anneal_step"]},
+                          "C2": launches_c2["anneal_step"],
+                          "I": launches_i["anneal_step"]},
         max_abs_err=errs["anneal_step"], library_ms=None, **c1,
         **{f"{key}_c2": val for key, val in c2.items()})
 
@@ -1684,28 +1714,340 @@ def run_path_g(dev, seed, rates, act):
 
     rng = np.random.default_rng(seed)
     sp0 = rng.uniform(0.01, 0.25, 256)
-    first = api.pack(sp0, CAPACITY, algorithm="BFD", device="cpu")
+    first = api.pack(sp0, CAPACITY, algorithm="BFD", backend="torch",
+                     device="cpu")
     prev = np.array([first.assignment[j] for j in range(256)], np.int32)
     prev[::17] = -1
     speeds = np.clip(sp0 + rng.uniform(-0.05, 0.05, 256), 0.001, None)
     _build.reset_launches()
     t0 = time.perf_counter()
     on_card = [api.pack(speeds, CAPACITY, algorithm=a, prev=prev,
-                        device=dev) for a in PACKERS]
+                        backend="torch", device=dev) for a in PACKERS]
     wall_pack = time.perf_counter() - t0
     pack_launches = _build.launch_counts()["pack_rows"]
     _require(pack_launches == len(PACKERS), f"path G: api.pack launched "
              f"pack_rows {pack_launches} times, want {len(PACKERS)}")
     for a, got in zip(PACKERS, on_card):
         want = api.pack(speeds, CAPACITY, algorithm=a, prev=prev,
-                        device="cpu")
+                        backend="torch", device="cpu")
         _require(got == want, f"path G: api.pack {a} differs from the CPU")
     print(f"path G: api.pack of one 256-partition instance for each of the "
           f"{len(PACKERS)} packers equals the CPU (outcomes equal field for "
           f"field): wall_s={wall_pack!r} n_bins=" + " ".join(
               f"{a}:{o.n_bins}" for a, o in zip(PACKERS, on_card)))
-    return {"pack_rows": launches["pack_rows"] + ev_launches + pack_launches,
+
+    # G4: the pure-Python packers (api.pack's default backend) on the same
+    # instance, its speeds quantized to k/1024 so that every load sum is
+    # exact in float32 (the reference's cross-backend property), against
+    # backend="torch" on the card
+    quant = np.round(speeds * 1024) / 1024
+    _build.reset_launches()
+    torch_q = [api.pack(quant, CAPACITY, algorithm=a, prev=prev,
+                        backend="torch", device=dev) for a in PACKERS]
+    q_launches = _build.launch_counts()["pack_rows"]
+    _require(q_launches == len(PACKERS), f"path G4: api.pack(backend="
+             f"'torch') launched pack_rows {q_launches} times")
+    mapping = {j: float(w) for j, w in enumerate(quant)}
+    prev_map = {j: int(c) for j, c in enumerate(prev) if c >= 0}
+    t0 = time.perf_counter()
+    py = [api.pack(mapping, CAPACITY, algorithm=a, prev=prev_map)
+          for a in PACKERS]
+    wall_py = time.perf_counter() - t0
+    for a, got, want in zip(PACKERS, py, torch_q):
+        _require(got.backend == "py" and got.n_bins == want.n_bins
+                 and got.assignment == want.assignment
+                 and {c: float(np.float32(v)) for c, v in got.loads.items()}
+                 == want.loads,
+                 f"path G4: api.pack {a} backend='py' differs from "
+                 f"backend='torch'")
+    print(f"path G4: api.pack(backend='py') of the same instance (speeds "
+          f"quantized to k/1024) for each of the {len(PACKERS)} packers "
+          f"equals backend='torch' on the card (assignment, n_bins, loads): "
+          f"wall_s={wall_py!r} (the torch backend's 12 calls: "
+          f"pack_rows launches={q_launches})")
+    return {"pack_rows": launches["pack_rows"] + ev_launches + pack_launches
+            + q_launches,
             "select_slot_grid": launches["select_slot_grid"]}
+
+
+# path I: the adversarial search's own budget (the reference's
+# benchmarks/adversarial_bench.py:53), and a search a capacity planner runs
+I1_SEARCH = dict(pop_size=8, generations=6, iters=96, n=6,
+                 incident_weight=0.05)
+I2_SEARCH = dict(pop_size=32, scenarios_per_genome=4, generations=8,
+                 iters=960, n=32)
+PATH_I_REPLAY = ("MBF", "BFD", "KEDA_LAG")
+
+
+def _search_launches(tag, counts, family, steps):
+    """A search's exact launches: one ``lag_update`` a policy-step, one
+    ``pack_rows`` a step for a packer, ``ANNEAL_STEPS`` ``anneal_step``
+    launches a step for an annealer, nothing else."""
+    from repro_torch.registry import PACKER_FAMILIES
+    from repro_torch.registry.builtin import ANNEAL_STEPS
+
+    want = {"lag_update_batch": steps,
+            "pack_rows": steps if family in PACKER_FAMILIES else 0,
+            "anneal_step": steps * ANNEAL_STEPS if family == "optimizer"
+            else 0,
+            "select_slot_grid": 0, "move_delta_batch": 0, "loop_fused": 0}
+    for k, n in want.items():
+        _require(counts[k] == n, f"path {tag}: {k} launched {counts[k]} "
+                 f"times, want {n}")
+    return {k: want[k] for k in ("lag_update_batch", "pack_rows",
+                                 "anneal_step")}
+
+
+def path_i1_agreement(dev, seed, pol, cfg, sim):
+    """One fitness batch of ``pol`` at I1's shape (the oracle's rows of a
+    population of ``cfg.pop_size`` genomes) through the loop on the card,
+    against the same rows on the CPU (plain versions; an annealer gets
+    the draws the card's generator made): integers and incident tables
+    exact, lag within ``TOL``."""
+    import torch
+
+    from repro_torch.core.scenarios import family_spec
+    from repro_torch.lagsim import sweep_lag
+    from repro_torch.opt import AnnealNoise
+    from repro_torch.registry import builtin, get_spec
+    from repro_torch.scenarios import random_population
+    from repro_torch.scenarios import search as ts
+    from repro_torch.telemetry.alerts import incident_matrix
+
+    spec = family_spec("adversarial")
+    draws = ts._Draws(None, seed, dev, len(spec.knobs), cfg)
+    rates, act = ts._scenario_oracle(spec, cfg, draws)(
+        random_population(spec, seed, cfg.pop_size, device=dev))
+    opts = None
+    if get_spec(pol).family == "optimizer":
+        gen = torch.Generator(device=dev).manual_seed(builtin.ANNEAL_SEED)
+        noise = []
+        for _ in range(cfg.iters):
+            nz = AnnealNoise.draw(builtin.ANNEAL_STEPS, builtin.ANNEAL_CHAINS,
+                                  cfg.n, generator=gen)
+            noise.append(AnnealNoise(nz.gumbel.cpu(), nz.temps.cpu()))
+        opts = {pol: {"noise": noise}}
+    t0 = time.perf_counter()
+    card = sweep_lag((pol,), rates, sim, active=act, device=dev)
+    host = sweep_lag((pol,), rates.cpu(), sim, active=act.cpu(),
+                     device="cpu", policy_options=opts)
+    rows, steps = rates.shape[:2]
+    _agree(_Host(host), _Host(card), rows, steps,
+           f"path I1: {pol}'s fitness batch against the CPU run")
+    _require(
+        (incident_matrix(card.incidents) == incident_matrix(host.incidents))
+        .all(), f"path I1: {pol}'s incident table differs from the CPU run's")
+    print(f"path I1 agreement: {pol}'s fitness batch ({rows} streams x "
+          f"{steps} steps x {cfg.n}) on the CPU (plain versions"
+          f"{', the card' + chr(39) + 's draws injected' if opts else ''}): "
+          f"integers and incident tables exact, lag within {TOL} "
+          f"(s={time.perf_counter() - t0!r})")
+
+
+def run_path_i1(dev, seed):
+    """``api.attack`` of each family's representative at the reference's
+    own search budget, alerts on, the baseline on; NF's search twice,
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import _build
+    from repro_torch.lagsim import LagSimConfig
+    from repro_torch.registry import get_spec
+    from repro_torch.scenarios import SearchConfig, family_representatives
+    from repro_torch.telemetry import (AlertConfig, TelemetryConfig,
+                                       default_rules)
+
+    cfg = SearchConfig(**I1_SEARCH)
+    sim = LagSimConfig(use_kernel=True, telemetry=TelemetryConfig(
+        record_frames=False, alerts=AlertConfig(rules=default_rules())))
+    total = {"lag_update_batch": 0, "pack_rows": 0, "anneal_step": 0}
+    first = None
+    reps = family_representatives()
+    for fam, pol in [*reps.items(), ("heuristic", reps["heuristic"])]:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = api.attack(pol, config=cfg, sim=sim, seed=seed, device=dev)
+        wall = time.perf_counter() - t0
+        gens = out.generations_run + out.baseline.generations_run
+        _require(out.baseline.evals == out.evals, f"path I1: {pol}'s "
+                 f"baseline spent {out.baseline.evals} evals, want "
+                 f"{out.evals}")
+        _require(get_spec(pol).family == fam and np.isfinite(
+            out.best_fitness) and len(out.history) == out.generations_run,
+            f"path I1: {pol}: malformed outcome")
+        launches = _search_launches(f"I1 {pol}", _build.launch_counts(),
+                                    fam, cfg.iters * gens)
+        evals = out.evals + out.baseline.evals
+        for k in total:
+            total[k] += launches[k]
+        print(f"path I1: api.attack({pol!r}) ({fam}; pop {cfg.pop_size}, "
+              f"{cfg.generations} generations, {cfg.iters} x {cfg.n}, "
+              f"incident_weight {cfg.incident_weight}): best_fitness="
+              f"{out.best_fitness!r} baseline_fitness="
+              f"{out.baseline_fitness!r} beats_baseline="
+              f"{out.beats_baseline} evals={out.evals} generations_run="
+              f"{out.generations_run} history={out.history} wall_s={wall!r} "
+              f"evals_per_s={evals / wall!r} launches={launches}")
+        if pol == reps["heuristic"] and first is not None:
+            _require(out.history == first.history
+                     and out.witness_genome == first.witness_genome
+                     and out.baseline_fitness == first.baseline_fitness,
+                     f"path I1: {pol}'s second search differs from its "
+                     f"first")
+            print(f"path I1: {pol}'s search once more with seed {seed}: "
+                  f"history, witness genome and baseline bit for bit")
+        else:
+            if pol == reps["heuristic"]:
+                first = out
+            path_i1_agreement(dev, seed, pol, cfg, sim)
+    return total
+
+
+def run_path_i2(dev, seed):
+    """``api.attack("MBF")`` at a capacity planner's size through a fresh
+    runner: 32 genomes x 4 scenarios of 960 steps (8 h at 30 s) over 32
+    partitions a fitness call; then the witness saved, loaded and
+    replayed, equal to direct runs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core.scenarios import (adversarial_draws,
+                                            adversarial_masked, family_spec)
+    from repro_torch.kernels import _build
+    from repro_torch.lagsim import LagSimConfig
+    from repro_torch.scenarios import (SearchConfig, genome_knobs,
+                                       load_trace, random_population,
+                                       repair_genome, resample_trace,
+                                       save_trace)
+    from repro_torch.scenarios import search as ts
+
+    cfg = SearchConfig(**I2_SEARCH)
+    runner = api.FleetRunner()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = api.attack("MBF", config=cfg, sim=LagSimConfig(use_kernel=True),
+                     seed=seed, fleet=runner, device=dev)
+    wall = time.perf_counter() - t0
+    g = out.generations_run
+    _require(out.baseline.generations_run == g, "path I2: the baseline ran "
+             f"{out.baseline.generations_run} generations, want {g}")
+    launches = _search_launches("I2", _build.launch_counts(), "sticky",
+                                cfg.iters * 2 * g)
+    st = runner.stats()
+    _require((st["cache_misses"], st["cache_hits"]) == (1, 2 * g - 1),
+             f"path I2: fleet cache {st}, want 1 miss and {2 * g - 1} hits")
+    rows = cfg.pop_size * cfg.scenarios_per_genome
+    print(f"path I2: api.attack('MBF') pop {cfg.pop_size} x "
+          f"{cfg.scenarios_per_genome} scenarios x {cfg.iters} steps x "
+          f"{cfg.n} partitions ({rows} streams a fitness call): "
+          f"best_fitness={out.best_fitness!r} baseline_fitness="
+          f"{out.baseline_fitness!r} beats_baseline={out.beats_baseline} "
+          f"evals={out.evals} generations_run={g} history={out.history} "
+          f"wall_s={wall!r} evals_per_s={2 * out.evals / wall!r} "
+          f"policy_stream_steps_per_s="
+          f"{2 * g * rows * cfg.iters / wall!r} launches={launches} "
+          f"fleet={ {k: st[k] for k in ('cache_hits', 'cache_misses')} }")
+    # the oracle's batch at I2's shape, the kept genome first: each
+    # genome's rows on the card against the CPU transform of the same
+    # draws (the card's generator under the search's scenario seed)
+    spec = family_spec("adversarial")
+    draws = ts._Draws(None, seed, dev, len(spec.knobs), cfg)
+    oracle = ts._scenario_oracle(spec, cfg, draws)
+    pop = random_population(spec, seed, cfg.pop_size, device=dev)
+    pop[0] = torch.tensor(out.search.best_genome, device=dev)
+    t0 = time.perf_counter()
+    sp, ac = oracle(pop)
+    s = cfg.scenarios_per_genome
+    worst = 0.0
+    for i, genome in enumerate(repair_genome(spec, pop).cpu().numpy()):
+        knobs = genome_knobs(spec, genome)
+        gen = torch.Generator(device=dev).manual_seed(draws.scenario_seed)
+        raw = adversarial_draws(gen, s, cfg.iters, cfg.n,
+                                churn_p=knobs.pop("churn_p"))
+        w_sp, w_ac = adversarial_masked({k: v.cpu() for k, v in raw.items()},
+                                        capacity=cfg.capacity, **knobs)
+        rows_i = slice(s * i, s * i + s)
+        _require(torch.equal(ac[rows_i].cpu(), w_ac), f"path I2: genome "
+                 f"{i}'s active rows differ from the CPU transform's")
+        worst = max(worst, _close(sp[rows_i].cpu(), w_sp,
+                                  f"path I2: genome {i}'s oracle rates"))
+    print(f"path I2: the oracle's batch {tuple(sp.shape)} (the kept genome "
+          f"and {cfg.pop_size - 1} random ones) on the card against the "
+          f"CPU transform of the same draws: masks exact, rates "
+          f"max_abs_err={worst!r} (s={time.perf_counter() - t0!r})")
+    # the search's own layer a generation, timed alone: the oracle's
+    # batch (a host copy of the genomes, then 32 generator calls) and one
+    # evolution step, against the generation's share of the wall
+    fit = torch.rand(cfg.pop_size, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        oracle(pop)
+    torch.cuda.synchronize()
+    oracle_ms = (time.perf_counter() - t0) / 3 * 1e3
+    t0 = time.perf_counter()
+    for g_ in range(1, 4):
+        ts._evolve(spec, cfg, pop, fit, *draws.evolve(g_))
+    torch.cuda.synchronize()
+    evolve_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"path I2: a generation's oracle batch ({rows} streams) "
+          f"oracle_ms={oracle_ms!r}, one evolution step evolve_ms="
+          f"{evolve_ms!r}; a generation's share of the search's wall "
+          f"{wall / (2 * g) * 1e3!r} ms")
+
+    # the witness: saved in both formats, loaded, replayed = direct
+    tr = out.search.witness_trace(cfg, seed=seed, batch=4, device=dev)
+    total = {"lag_update_batch": launches["lag_update_batch"],
+             "pack_rows": launches["pack_rows"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [save_trace(tr, str(Path(tmp) / f"witness.{ext}"))
+                 for ext in ("npz", "json")]
+        a, b = (load_trace(p) for p in paths)
+        _require(a.rates.tobytes() == b.rates.tobytes() == tr.rates.tobytes()
+                 and a.active.tobytes() == b.active.tobytes()
+                 and a.meta == b.meta, "path I2: the witness's .npz and "
+                 ".json differ")
+        for path, iters in ((paths[0], None), (paths[1], None),
+                            (paths[0], cfg.iters // 2)):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            rp = api.replay(path, policies=PATH_I_REPLAY, iters=iters,
+                            method="linear", use_kernel=True, device=dev)
+            wall_rp = time.perf_counter() - t0
+            counts = _build.launch_counts()
+            want = tr if iters is None else resample_trace(tr, iters,
+                                                           "linear")
+            direct = api.simulate(want.rates, policies=PATH_I_REPLAY,
+                                  active=want.active,
+                                  capacity=want.capacity, use_kernel=True,
+                                  device=dev)
+            steps = want.iters
+            _require(counts["lag_update_batch"] == 3 * steps
+                     and counts["pack_rows"] == 2 * steps,
+                     f"path I2 replay: launches {counts}, want "
+                     f"{3 * steps} lag_update and {2 * steps} pack_rows")
+            for f in ("lag_total", "consumers", "migrations"):
+                _require(getattr(rp.result, f).tobytes()
+                         == getattr(direct, f).tobytes(),
+                         f"path I2: replay of {Path(path).name} differs "
+                         f"from the direct run in {f}")
+            total["lag_update_batch"] += counts["lag_update_batch"]
+            total["pack_rows"] += counts["pack_rows"]
+            print(f"path I2 replay: {Path(path).name} "
+                  f"{'as recorded' if iters is None else f'resampled to {iters} steps (linear)'}"
+                  f" through {PATH_I_REPLAY}: shape={rp.shape} "
+                  f"wall_s={wall_rp!r} violation_frac="
+                  f"{rp.metrics['violation_frac'].mean(axis=1).tolist()} "
+                  f"equal to a direct api.simulate of the same arrays bit "
+                  f"for bit")
+    return total
 
 
 PATH_H_REAL = ("KEDA_LAG_REAL", "CLOUD_RUN_CPU_LAG")
@@ -2230,7 +2572,7 @@ def main(argv=None) -> int:
     # path F's bucket groups: rows x N_b for pack_rows and lag_update
     f_groups = fleet_groups(args.seed)
     print(f"path F's bucket groups (T_b, N_b): scenarios {f_groups}")
-    # stress shapes, then the shapes paths A, B, C2, F and G give each
+    # stress shapes, then the shapes paths A, B, C2, F, G and I give each
     # kernel
     errs = {
         "lag_update_batch": max(
@@ -2238,7 +2580,10 @@ def main(argv=None) -> int:
             check_lag_update(dev, gen, 1024, 32, 66, names=66),
             *(check_lag_update(dev, gen, rows, nb, 2 * nb + 2,     # path F
                                names=2 * nb + 2)
-              for (_, nb), rows in f_groups.items())),
+              for (_, nb), rows in f_groups.items()),
+            check_lag_update(dev, gen, 8, 6, 14, names=14),      # path I1
+            check_lag_update(dev, gen, 128, 32, 66, names=66),   # path I2
+            check_lag_update(dev, gen, 4, 32, 66, names=66)),    # replays
         "select_slot_grid": max(
             check_select_slot(dev, gen, 1024, 32, 65),
             check_select_slot(dev, gen, 1024, 1, 65),    # Modified Any Fit
@@ -2250,7 +2595,10 @@ def main(argv=None) -> int:
             check_pack_rows(dev, gen, 3, 30),            # G's evaluate
             check_pack_rows(dev, gen, 1, 256),           # G's pack
             *(check_pack_rows(dev, gen, rows, nb)        # path F
-              for (_, nb), rows in f_groups.items())),
+              for (_, nb), rows in f_groups.items()),
+            check_pack_rows(dev, gen, 8, 6),             # path I1
+            check_pack_rows(dev, gen, 128, 32),          # path I2
+            check_pack_rows(dev, gen, 4, 32)),           # I2's replays
         "loop_fused": check_loop_fused(dev, args.seed),
         "move_delta_batch": max(
             check_move_eval(dev, gen, 6144, 32),       # path C1's shape
@@ -2258,7 +2606,8 @@ def main(argv=None) -> int:
             check_move_eval(dev, gen, 1024, 301)),     # stress, split chains
         "anneal_step": max(
             check_anneal_step(dev, gen, 1024, 6, 32),  # path C1: warp layout
-            check_anneal_step(dev, gen, 1, 28, 256)),  # path C2: clusters
+            check_anneal_step(dev, gen, 1, 28, 256),   # path C2: clusters
+            check_anneal_step(dev, gen, 8, 6, 6)),     # path I1: N = 6
         "flash_attention_fwd": max(
             check_flash(dev, gen, D_BATCH, 32, 8, D_PROMPT, D_PROMPT, 128),
             check_flash(dev, gen, 1, 32, 8, 8192, 8192, 128),   # stress
@@ -2346,6 +2695,16 @@ def main(argv=None) -> int:
     print(f"path H launches: H1a {launches_h1a}, H1b {launches_h1b}, H3 "
           f"{launches_h3}; in all {launches_h}")
 
+    # path I: adversarial search and trace replay
+    t0 = time.perf_counter()
+    launches_i1 = run_path_i1(dev, args.seed)
+    launches_i2 = run_path_i2(dev, args.seed)
+    launches_i = {k: launches_i1[k] + launches_i2.get(k, 0)
+                  for k in launches_i1}
+    print(f"path I: wall_s={time.perf_counter() - t0!r} launches: I1 "
+          f"{launches_i1}, I2 with its replays {launches_i2}; in all "
+          f"{launches_i}")
+
     # path D: qwen3-8b serving, prefill and greedy generation
     launches_d = run_serving_path(dev, args.seed, "D", LLM,
                                   "flash_attention_fwd",
@@ -2432,10 +2791,12 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/csrc/lag_update.cu",
         replaces="src/repro/kernels/lag_update.py:125",
         launches=launches_b["lag_update_batch"]
-        + launches_f["lag_update_batch"] + launches_h["lag_update_batch"],
+        + launches_f["lag_update_batch"] + launches_h["lag_update_batch"]
+        + launches_i["lag_update_batch"],
         launches_by_path={"B": launches_b["lag_update_batch"],
                           "F": launches_f["lag_update_batch"],
-                          "H": launches_h["lag_update_batch"]},
+                          "H": launches_h["lag_update_batch"],
+                          "I": launches_i["lag_update_batch"]},
         max_abs_err=errs["lag_update_batch"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0],
@@ -2506,12 +2867,13 @@ def main(argv=None) -> int:
         "modified_any_fit_jax): one launch a packing call",
         launches=launches_b["pack_rows"] + launches_c2["pack_rows"]
         + launches_f["pack_rows"] + launches_g["pack_rows"]
-        + launches_h["pack_rows"],
+        + launches_h["pack_rows"] + launches_i["pack_rows"],
         launches_by_path={"B": launches_b["pack_rows"],
                           "C2": launches_c2["pack_rows"],
                           "F": launches_f["pack_rows"],
                           "G": launches_g["pack_rows"],
-                          "H": launches_h["pack_rows"]},
+                          "H": launches_h["pack_rows"],
+                          "I": launches_i["pack_rows"]},
         max_abs_err=errs["pack_rows"], ms=graph_ms(kern, 50),
         plain_ms=graph_ms(ref, 1), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
@@ -2536,7 +2898,8 @@ def main(argv=None) -> int:
         plain_ms=graph_ms(ref, 20), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
     del margs, mact
-    kernels.append(anneal_step_row(dev, g, launches_c1, launches_c2, errs))
+    kernels.append(anneal_step_row(dev, g, launches_c1, launches_c2,
+                                   launches_i, errs))
 
     # lag_update_single: the same kernel at batch 1 ([1, 32], 66 bins);
     # no path calls it (the per-step loop drains every stream at once),

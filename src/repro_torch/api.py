@@ -1,8 +1,8 @@
 """Public facade of the port: the reference's ``repro.api`` verbs on the
 card.
 
-* ``pack``      -- one packing decision of any registered packer ->
-                   ``PackOutcome``;
+* ``pack``      -- one packing decision of any registered packer, on
+                   either backend -> ``PackOutcome``;
 * ``sweep``     -- every algorithm x a batch of speed streams ->
                    ``SweepOutcome``;
 * ``simulate``  -- closed-loop lag twin: policies x traces with migration
@@ -11,21 +11,38 @@ card.
                    -> ``OptimizeOutcome``;
 * ``evaluate``  -- the paper's Figs. 6-9 tables (CBS / avg R-score /
                    Pareto membership) on Eq. 11 streams ->
-                   ``EvaluateOutcome``.
+                   ``EvaluateOutcome``;
+* ``attack``    -- adversarial scenario search: evolve the workload
+                   genome that maximizes one policy's SLO violation, with
+                   a random-search baseline at equal evals ->
+                   ``AttackOutcome``;
+* ``replay``    -- run a versioned on-disk trace (the reference's format,
+                   or a ``Trace``) through the fleet path ->
+                   ``ReplayOutcome``.
 
 Each verb runs on the CUDA card unless the caller passes
-``device="cpu"``, and returns the reference's outcome dataclass field for
-field (numpy arrays and plain floats), so the two packages' results
-compare directly.  ``sweep`` and ``simulate`` execute through the fleet
-layer (``repro_torch.fleet``): a shared ``default_fleet()`` runner
-buckets scenarios by padded shape under a bounded run cache; both take
-an optional ``active`` bool[B, T, N] mask and an optional ``fleet=``
-runner.  ``FleetRunner`` / ``FleetConfig``, the control plane's
-``ControlPlaneConfig`` and the telemetry names (``TelemetryConfig``,
-``SketchConfig``, ``AlertConfig``, the exporters, ...) are re-exported
-lazily, as the reference's are.  ``BenchReport`` is the reference's
-envelope for ``BENCH_*.json`` files.  Every verb records an
-``api.<verb>`` span (``telemetry.spans``).
+``device="cpu"`` (``pack(backend="py")`` runs on the host), and returns
+the reference's outcome dataclass field for field (numpy arrays and
+plain floats), so the two packages' results compare directly.  ``sweep``
+and ``simulate`` execute through the fleet layer (``repro_torch.fleet``):
+a shared ``default_fleet()`` runner buckets scenarios by padded shape
+under a bounded run cache; both take an optional ``active`` bool[B, T,
+N] mask and an optional ``fleet=`` runner.  ``FleetRunner`` /
+``FleetConfig``, the control plane's ``ControlPlaneConfig``, the
+telemetry names (``TelemetryConfig``, ``SketchConfig``, ``AlertConfig``,
+the exporters, ...) and the scenario engine's names (``Trace``,
+``load_trace``, ``save_trace``, ``seed_trace``, ``SearchConfig``,
+``SearchResult``) are re-exported lazily, as the reference's are.
+
+Policy discovery re-exports the port's registry: ``list_policies``,
+``make_policy``, ``get_spec``, ``packer_for``, ``PolicySpec``,
+``Policy``, ``BACKENDS`` -- the port's backends are ``py`` (the
+reference's pure-Python packers) and ``torch`` (the counterpart of the
+reference's ``jax``: the batched tensor path on the card).  The span
+tracer is re-exported too (``Tracer``, ``default_tracer``, ``span``);
+every verb records an ``api.<verb>`` span.  ``BenchReport`` is the
+reference's envelope for ``BENCH_*.json`` files, and ``selfcheck()``
+the reference's surface check.
 """
 from __future__ import annotations
 
@@ -39,8 +56,18 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.rscore import rscore
 from repro_torch.lagsim import LagSimConfig
-from repro_torch.registry import PACKER_FAMILIES, list_policies, packer_for
-from repro_torch.telemetry.spans import traced
+from repro_torch.registry import (
+    BACKENDS,
+    FAMILIES,
+    PACKER_FAMILIES,
+    Policy,
+    PolicySpec,
+    get_spec,
+    list_policies,
+    make_policy,
+    packer_for,
+)
+from repro_torch.telemetry.spans import Tracer, default_tracer, span, traced
 
 #: schema version stamped on every result dataclass (the reference's)
 API_VERSION = 1
@@ -55,6 +82,9 @@ _TELEMETRY_EXPORTS = ("TelemetryConfig", "TelemetryFrame", "EventStream",
                       "SketchConfig", "SketchSummary", "AlertConfig",
                       "AlertRule", "Incident", "prometheus_exposition",
                       "validate_exposition", "otlp_metrics_json")
+#: scenario-engine re-exports (trace format + adversarial search)
+_SCENARIO_EXPORTS = ("Trace", "SearchConfig", "SearchResult", "load_trace",
+                     "save_trace", "seed_trace")
 
 
 def __getattr__(name: str):
@@ -70,6 +100,10 @@ def __getattr__(name: str):
         from repro_torch import telemetry as _telemetry
 
         return getattr(_telemetry, name)
+    if name in _SCENARIO_EXPORTS:
+        from repro_torch import scenarios as _scenarios
+
+        return getattr(_scenarios, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -297,31 +331,43 @@ class BenchReport:
 
 @traced("api.pack")
 def pack(speeds, capacity: float, *, algorithm: str = "BFD", prev=None,
-         device=None) -> PackOutcome:
-    """One packing decision with any registered packer, in the
-    reference's array form (its ``backend="jax"``): ``speeds`` f32[n],
-    ``prev`` i32[n] (-1 = unassigned); pids are array indices.  One
-    ``pack_rows`` launch on the card.  The R-score against ``prev`` runs
-    in Python floats over dicts, as the reference's does.  ``device=None``
-    means the CUDA card."""
-    fn = packer_for(algorithm)
-    dev = resolve_device(device)
-    sp = np.asarray(speeds, np.float64)
-    pv = (np.full(sp.shape[0], -1, np.int32) if prev is None
-          else np.asarray(prev, np.int32))
-    res = fn(torch.tensor(sp[None], dtype=torch.float32, device=dev),
-             torch.tensor(pv[None], device=dev), capacity)
-    n_bins = int(res.n_bins[0])
-    bin_of = res.bin_of[0].cpu().numpy()
-    assignment = {int(j): int(c) for j, c in enumerate(bin_of)}
-    names = res.names[0, :n_bins].cpu().numpy()
-    lds = res.loads[0, :n_bins].cpu().numpy()
-    loads = {int(c): float(l) for c, l in zip(names, lds)}
-    speeds_of = {int(j): float(w) for j, w in enumerate(sp)}
-    prev_of = {int(j): int(c) for j, c in enumerate(pv) if c >= 0}
+         backend: str = "py", device=None) -> PackOutcome:
+    """One packing decision with any registered packer.
+
+    ``backend="py"`` (the reference's default): ``speeds`` is a mapping
+    pid -> write speed (or a sequence of (pid, speed)), ``prev`` maps pid
+    -> previous consumer; the pure-Python packers run on the host.
+    ``backend="torch"`` (the reference's ``"jax"``): ``speeds`` is f32[n],
+    ``prev`` i32[n] (-1 = unassigned), pids are array indices; one
+    ``pack_rows`` launch on ``device`` (``None`` = the CUDA card).  The
+    R-score against ``prev`` runs in Python floats over dicts, as the
+    reference's does."""
+    fn = packer_for(algorithm, backend=backend)
+    if backend == "py":
+        speeds_of = dict(speeds)
+        prev_of = dict(prev) if prev else None
+        res = fn(speeds_of, capacity, prev=prev_of)
+        assignment = dict(res.pid_to_bin)
+        loads = {int(c): float(l) for c, l in res.loads.items()}
+        n_bins = res.n_bins
+    else:
+        dev = resolve_device(device)
+        sp = np.asarray(speeds, np.float64)
+        pv = (np.full(sp.shape[0], -1, np.int32) if prev is None
+              else np.asarray(prev, np.int32))
+        res = fn(torch.tensor(sp[None], dtype=torch.float32, device=dev),
+                 torch.tensor(pv[None], device=dev), capacity)
+        n_bins = int(res.n_bins[0])
+        bin_of = res.bin_of[0].cpu().numpy()
+        assignment = {int(j): int(c) for j, c in enumerate(bin_of)}
+        names = res.names[0, :n_bins].cpu().numpy()
+        lds = res.loads[0, :n_bins].cpu().numpy()
+        loads = {int(c): float(l) for c, l in zip(names, lds)}
+        speeds_of = {int(j): float(w) for j, w in enumerate(sp)}
+        prev_of = {int(j): int(c) for j, c in enumerate(pv) if c >= 0}
     r = rscore(prev_of, assignment, speeds_of, capacity) if prev_of else None
-    return PackOutcome(algorithm=algorithm.upper(), backend="torch",
-                       capacity=float(capacity), n_bins=n_bins,
+    return PackOutcome(algorithm=algorithm.upper(), backend=backend,
+                       capacity=float(capacity), n_bins=int(n_bins),
                        assignment=assignment, loads=loads, rscore=r)
 
 
@@ -379,34 +425,228 @@ def evaluate(*, algorithms: Optional[Sequence[str]] = None,
                            avg_rscore=avg_r, pareto=pareto)
 
 
+@dataclasses.dataclass
+class AttackOutcome:
+    """Adversarial search result: the worst workload found for one
+    policy, plus the random-search baseline at equal oracle evals
+    (``baseline_fitness`` / ``beats_baseline`` are ``None`` when the
+    baseline was skipped)."""
+
+    policy: str
+    family: str
+    best_fitness: float
+    best_violation_frac: float
+    best_incidents: float
+    witness_genome: List[float]
+    witness_knobs: Dict[str, float]
+    history: List[float]              # best-so-far fitness per generation
+    evals: int
+    generations_run: int
+    seed: int
+    baseline_fitness: Optional[float] = None
+    beats_baseline: Optional[bool] = None
+    #: the full ``repro_torch.scenarios.SearchResult`` pair (search,
+    #: baseline)
+    search: Any = None
+    baseline: Any = None
+    schema_version: int = API_VERSION
+
+
+@dataclasses.dataclass
+class ReplayOutcome:
+    """One on-disk trace replayed through the fleet path."""
+
+    trace_name: str
+    source: str
+    shape: Tuple[int, int, int]       # (B, T, N) as simulated
+    resampled: bool
+    policies: Tuple[str, ...]
+    metrics: Dict[str, np.ndarray]    # metric -> [P, B]
+    #: full per-policy trajectories (the ``simulate`` result the replay
+    #: reduces to metrics)
+    result: Optional[SimulateOutcome] = None
+    schema_version: int = API_VERSION
+
+
+@traced("api.attack")
+def attack(policy: str, *, family: str = "adversarial", config=None,
+           sim=None, seed: int = 0, baseline: bool = True, fleet=None,
+           device=None) -> AttackOutcome:
+    """Evolve the scenario genome that maximizes ``policy``'s SLO
+    violation (``repro_torch.scenarios.search``), then -- with
+    ``baseline=True`` -- run uniform random search at the *same*
+    fitness-oracle eval budget and report whether the evolution strictly
+    beat it.
+
+    ``config`` is a ``SearchConfig`` (population, generations, trace
+    shape, incident weight); ``sim`` a ``LagSimConfig`` for the fitness
+    oracle.  A fixed ``seed`` gives a bit-identical search on one device
+    type.  The witness genome replays via
+    ``SearchResult.witness_trace`` + :func:`replay`.  ``device=None``
+    means the CUDA card.
+    """
+    from repro_torch.scenarios import search as _search
+
+    cfg = config if config is not None else _search.SearchConfig()
+    sim_cfg = sim if sim is not None else LagSimConfig()
+    runner = fleet if fleet is not None else default_fleet()
+    kw = dict(family=family, config=cfg, sim=sim_cfg, seed=seed,
+              runner=runner, device=device)
+    res = _search.attack(policy, **kw)
+    base = None
+    if baseline:
+        base = _search.random_search(policy, evals=res.evals, **kw)
+    return AttackOutcome(
+        policy=res.policy, family=res.family,
+        best_fitness=res.best_fitness,
+        best_violation_frac=res.best_violation_frac,
+        best_incidents=res.best_incidents,
+        witness_genome=[float(g) for g in res.best_genome],
+        witness_knobs=dict(res.best_knobs),
+        history=list(res.history), evals=res.evals,
+        generations_run=res.generations_run, seed=int(seed),
+        baseline_fitness=None if base is None else base.best_fitness,
+        beats_baseline=(None if base is None
+                        else res.best_fitness > base.best_fitness),
+        search=res, baseline=base)
+
+
+@traced("api.replay")
+def replay(trace, *, policies: Optional[Sequence[str]] = None,
+           config=None, iters: Optional[int] = None,
+           method: str = "hold", fleet=None, device=None,
+           **cfg_overrides) -> ReplayOutcome:
+    """Replay an on-disk trace (a path to a ``.json``/``.npz`` written by
+    ``save_trace`` of either package, or a ``Trace``) through the fleet
+    path -- load, validate, optionally resample to ``iters`` steps, and
+    run :func:`simulate` on the trace's rates + mask on ``device``
+    (``None`` = the CUDA card).
+
+    The trace's recorded ``capacity`` drives the sim unless the caller
+    overrides it (``config=`` or ``capacity=``).  Replay is
+    padding-exact: the metrics equal a direct run of the same arrays.
+    """
+    from repro_torch.scenarios import load_trace as _load
+    from repro_torch.scenarios import resample_trace as _resample
+
+    tr = _load(trace) if isinstance(trace, str) else trace
+    resampled = False
+    if iters is not None and int(iters) != tr.iters:
+        tr = _resample(tr, int(iters), method=method)
+        resampled = True
+    if config is None and "capacity" not in cfg_overrides:
+        cfg_overrides["capacity"] = float(tr.capacity)
+    out = simulate(tr.rates, policies=policies, config=config,
+                   active=tr.active, fleet=fleet, device=device,
+                   **cfg_overrides)
+    return ReplayOutcome(
+        trace_name=tr.name, source=tr.source,
+        shape=(tr.batch, tr.iters, tr.n), resampled=resampled,
+        policies=out.policies, metrics=out.metrics, result=out)
+
+
+# ---------------------------------------------------------------------------
+# surface checks
+# ---------------------------------------------------------------------------
+
+def selfcheck() -> None:
+    """The reference's surface check: the exported surface is intact,
+    matches the documented surface (README "Public API", when the repo
+    checkout is present), and the registry is populated for every family
+    on its expected backends.  Touches no device."""
+    import os
+    import re
+    import sys
+
+    mod = sys.modules[__name__]
+    # hasattr, not a globals() lookup: the re-exports resolve through the
+    # module-level __getattr__ to stay lazy
+    missing = [name for name in __all__ if not hasattr(mod, name)]
+    assert not missing, f"__all__ exports missing objects: {missing}"
+    assert __all__ == sorted(__all__, key=str.lower), (
+        "__all__ must stay sorted (case-insensitive) so the documented "
+        "surface is diffable")
+    readme = os.path.join(os.path.dirname(__file__), "..", "..", "README.md")
+    if os.path.exists(readme):            # repo checkout (not an install)
+        with open(readme) as f:
+            text = f.read()
+        m = re.search(r"## Public API\n(.*?)(?:\n## |\Z)", text, re.S)
+        assert m, "README.md must keep a '## Public API' section"
+        documented = set(re.findall(r"`([A-Za-z_][A-Za-z0-9_]*)`",
+                                    m.group(1)))
+        undocumented = set(__all__) - documented
+        assert not undocumented, (
+            f"exports missing from README Public API: {sorted(undocumented)}")
+    for family in FAMILIES:
+        names = list_policies(family=family)
+        assert names, f"no policies registered for family {family!r}"
+    packers_py = list_policies(family=PACKER_FAMILIES, backend="py")
+    packers_torch = list_policies(family=PACKER_FAMILIES, backend="torch")
+    assert packers_py == packers_torch, (
+        "every packer must be registered on both backends: "
+        f"{packers_py} != {packers_torch}")
+    assert len(packers_torch) == 12, packers_torch
+
+
 __all__ = [
     "AlertConfig",
     "AlertRule",
     "API_VERSION",
+    "attack",
+    "AttackOutcome",
+    "BACKENDS",
     "BenchReport",
     "ControlPlaneConfig",
     "default_fleet",
+    "default_tracer",
     "evaluate",
     "EvaluateOutcome",
     "EventStream",
+    "FAMILIES",
     "FleetConfig",
     "FleetRunner",
     "FUSED_MAX_PARTITIONS",
     "FusedPathError",
+    "get_spec",
     "Incident",
+    "list_policies",
+    "load_trace",
+    "make_policy",
     "optimize",
     "OptimizeOutcome",
     "otlp_metrics_json",
     "pack",
+    "PACKER_FAMILIES",
+    "packer_for",
     "PackOutcome",
+    "Policy",
+    "PolicySpec",
     "prometheus_exposition",
+    "replay",
+    "ReplayOutcome",
+    "save_trace",
+    "SearchConfig",
+    "SearchResult",
+    "seed_trace",
+    "selfcheck",
     "simulate",
     "SimulateOutcome",
     "SketchConfig",
     "SketchSummary",
+    "span",
     "sweep",
     "SweepOutcome",
     "TelemetryConfig",
     "TelemetryFrame",
+    "Trace",
+    "Tracer",
     "validate_exposition",
 ]
+
+
+if __name__ == "__main__":
+    selfcheck()
+    for fam in FAMILIES:
+        print(f"{fam:<10} {', '.join(list_policies(family=fam))}")
+    print("repro_torch.api selfcheck OK "
+          f"(API_VERSION={API_VERSION}, {len(__all__)} exports)")

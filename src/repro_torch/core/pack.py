@@ -302,6 +302,20 @@ def modified_any_fit_plain(speeds, prev, capacity, *, fit: str = "best",
     return PackedRows(bin_of=bin_of, loads=loads, names=names, n_bins=k)
 
 
+def __getattr__(name: str):
+    # deprecation shim, as the reference's ``jaxpack`` keeps it: the name
+    # table is the registry's torch-backend packer listing
+    if name == "ALL_ALGORITHM_NAMES":
+        from repro_torch.registry import PACKER_FAMILIES, list_policies
+        from repro_torch.registry.compat import warn_deprecated
+
+        warn_deprecated(__name__, "ALL_ALGORITHM_NAMES",
+                        "repro_torch.registry.list_policies(family=("
+                        "'heuristic', 'sticky'), backend='torch')")
+        return list_policies(family=PACKER_FAMILIES, backend="torch")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 # ---------------------------------------------------------------------------
 # whole-stream evaluation: every step's packing feeds the next
 # ---------------------------------------------------------------------------

@@ -5,12 +5,20 @@
   KEDA_LAG RATE_THRESHOLD            (idealized reactive baselines)
   KEDA_LAG_REAL CLOUD_RUN_CPU_LAG    (reactive scalers behind a control plane)
   ANNEAL ANNEAL_STICKY               (2024 follow-up optimizers)
+
+Every packer name is registered twice, as in the reference: backend
+``py`` is the pure-Python packer (``core/binpack.py`` /
+``core/modified.py``, copies of the reference's), backend ``torch`` the
+batched tensor packer (``core/pack.py``, one ``pack_rows`` launch a call
+on the card).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import binpack, modified
+from repro_torch.core.assignment import group_view
 from repro_torch.core.pack import modified_any_fit, pack
 from repro_torch.opt.anneal import anneal_assign
 
@@ -49,17 +57,53 @@ def _packing_policy(packer, capacity, device):
     return init, step
 
 
+def _py_packing_policy(packer, capacity):
+    """The ``py`` backend's Policy on one stream's numpy arrays, over the
+    dict-based packer (the reference's ``_py_packing_policy``): a masked
+    partition is dropped from the speed map."""
+
+    def init(n_partitions: int):
+        return None
+
+    def step(speeds, lag, prev_assign, state, active=None):
+        speeds = np.asarray(speeds)
+        prev = np.asarray(prev_assign)
+        act = (np.ones(speeds.shape[0], bool) if active is None
+               else np.asarray(active, bool))
+        sp = {j: float(w) for j, w in enumerate(speeds) if act[j]}
+        prev_map = {j: int(c) for j, c in enumerate(prev)
+                    if int(c) >= 0 and act[j]}
+        res = packer(sp, float(capacity), prev=prev_map)
+        assign = np.full(speeds.shape[0], -1, np.int32)
+        for pid, cid in res.pid_to_bin.items():
+            assign[pid] = cid
+        return assign, np.int32(res.n_bins), state
+
+    return init, step
+
+
 def _register_classical(name: str, strategy: str, decreasing: bool) -> None:
     hyper = {"strategy": strategy, "decreasing": decreasing, "sticky": True}
+    summary = (f"{'offline decreasing ' if decreasing else 'online '}"
+               f"{strategy}-fit any-fit heuristic")
 
     def one_shot(speeds, prev, capacity, active=None):
         return pack(speeds, prev, capacity, strategy=strategy,
                     decreasing=decreasing, active=active)
 
+    @register(name, family="heuristic", backend="py", hyperparams=hyper,
+              packer=binpack.CLASSICAL[name], paper_section="II-B",
+              summary=summary)
+    def _build_py(n, capacity, device, *, strategy=strategy,
+                  decreasing=decreasing, sticky=True):
+        def packer(speeds, cap, prev=None):
+            return binpack.pack(speeds, cap, strategy=strategy,
+                                decreasing=decreasing, prev=prev,
+                                sticky=sticky)
+        return _py_packing_policy(packer, capacity)
+
     @register(name, family="heuristic", hyperparams=hyper, packer=one_shot,
-              paper_section="II-B",
-              summary=f"{'offline decreasing ' if decreasing else 'online '}"
-                      f"{strategy}-fit any-fit heuristic")
+              paper_section="II-B", summary=summary)
     def _build(n, capacity, device, *, strategy=strategy,
                decreasing=decreasing, sticky=True):
         def packer(speeds, prev, cap, active=None):
@@ -70,15 +114,25 @@ def _register_classical(name: str, strategy: str, decreasing: bool) -> None:
 
 def _register_modified(name: str, fit: str, sort_key: str) -> None:
     hyper = {"fit": fit, "sort_key": sort_key}
+    summary = (f"Modified Any Fit: {fit}-fit insert, consumers sorted by "
+               f"{sort_key.replace('_', ' ')}")
 
     def one_shot(speeds, prev, capacity, active=None):
         return modified_any_fit(speeds, prev, capacity, fit=fit,
                                 sort_key=sort_key, active=active)
 
+    @register(name, family="sticky", backend="py", hyperparams=hyper,
+              packer=modified.MODIFIED[name], paper_section="IV-B/IV-C",
+              summary=summary)
+    def _build_py(n, capacity, device, *, fit=fit, sort_key=sort_key):
+        def packer(speeds, cap, prev=None):
+            group = group_view(prev) if prev is not None else None
+            return modified.modified_any_fit(speeds, cap, group, fit=fit,
+                                             sort_key=sort_key)
+        return _py_packing_policy(packer, capacity)
+
     @register(name, family="sticky", hyperparams=hyper, packer=one_shot,
-              paper_section="IV-B/IV-C",
-              summary=f"Modified Any Fit: {fit}-fit insert, consumers "
-                      f"sorted by {sort_key.replace('_', ' ')}")
+              paper_section="IV-B/IV-C", summary=summary)
     def _build(n, capacity, device, *, fit=fit, sort_key=sort_key):
         def packer(speeds, prev, cap, active=None):
             return modified_any_fit(speeds, prev, cap, fit=fit,

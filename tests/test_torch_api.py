@@ -1,9 +1,10 @@
-"""The port's facade against the reference's: the same outcome fields,
-the verbs' results on the same numpy inputs (integers exact, floats
-within ``1e-5``; ``pack``'s R-score, a Python float sum, within
-``1e-12``), bad control-plane knobs refused by name before anything
-runs, and the reference's lazily exported control-plane and telemetry
-names resolving to the port's own classes."""
+"""The port's facade against the reference's: the same 52 exported
+names, the same outcome fields, the verbs' results on the same numpy
+inputs (integers exact, floats within ``1e-5``; ``pack``'s R-score, a
+Python float sum, within ``1e-12``; ``pack(backend="py")`` exact), bad
+control-plane knobs refused by name before anything runs, the
+reference's lazily exported names resolving to the port's own classes,
+``selfcheck()``, and ``attack`` / ``replay`` through the facade."""
 import dataclasses
 
 import numpy as np
@@ -17,7 +18,7 @@ from repro_torch import api  # noqa: E402
 
 @pytest.mark.parametrize("outcome", (
     "SimulateOutcome", "OptimizeOutcome", "PackOutcome", "SweepOutcome",
-    "EvaluateOutcome", "BenchReport"))
+    "EvaluateOutcome", "BenchReport", "AttackOutcome", "ReplayOutcome"))
 def test_outcome_fields_equal_the_reference(outcome):
     ours = [(f.name, f.default) for f in
             dataclasses.fields(getattr(api, outcome))]
@@ -108,7 +109,7 @@ def test_pack_equals_the_reference(algorithm, with_prev):
     if with_prev:
         prev = rng.integers(-1, 6, n).astype(np.int32)
     ours = api.pack(speeds, 1.0, algorithm=algorithm.lower(), prev=prev,
-                    device="cpu")
+                    backend="torch", device="cpu")
     ref = japi.pack(speeds, 1.0, algorithm=algorithm.lower(), prev=prev,
                     backend="jax")
     assert (ours.algorithm, ours.capacity, ours.n_bins, ours.assignment) == (
@@ -249,3 +250,93 @@ def test_default_fleet_is_shared():
         "repro_torch.fleet", fromlist=["FleetConfig"]).FleetConfig
     with pytest.raises(AttributeError):
         api.NoSuchThing
+
+
+def test_all_equals_the_reference():
+    """All 52 names, sorted case-insensitively as the reference sorts
+    them."""
+    assert api.__all__ == japi.__all__
+    assert len(api.__all__) == 52
+    assert api.__all__ == sorted(api.__all__, key=str.lower)
+
+
+def test_selfcheck_passes():
+    api.selfcheck()
+
+
+#: the registry, tracer and scenario names the facade re-exports
+REEXPORTS = ("BACKENDS", "FAMILIES", "PACKER_FAMILIES", "Policy",
+             "PolicySpec", "get_spec", "list_policies", "make_policy",
+             "packer_for", "default_tracer", "span", "Tracer", "Trace",
+             "load_trace", "save_trace", "seed_trace", "SearchConfig",
+             "SearchResult")
+
+
+@pytest.mark.parametrize("name", REEXPORTS)
+def test_reexports_resolve_to_the_port(name):
+    ours, ref = getattr(api, name), getattr(japi, name)
+    if name == "BACKENDS":
+        assert (ours, ref) == (("py", "torch"), ("py", "jax"))
+        return
+    if isinstance(ref, tuple):
+        assert ours == ref
+        return
+    assert ours.__name__ == ref.__name__
+    assert ours.__module__.startswith("repro_torch.")
+    assert ours.__module__.split(".", 1)[1] == ref.__module__.split(".", 1)[1]
+
+
+@pytest.mark.parametrize("with_prev", (False, True))
+@pytest.mark.parametrize("form", ("mapping", "pairs"))
+@pytest.mark.parametrize("algorithm", PACKERS)
+def test_pack_py_equals_the_reference(algorithm, form, with_prev):
+    rng = np.random.default_rng(40 + PACKERS.index(algorithm))
+    speeds = {f"p{j}": float(w) for j, w in
+              enumerate(rng.uniform(0.02, 0.7, 11))}
+    prev = ({f"p{j}": int(c) for j, c in enumerate(rng.integers(0, 5, 11))
+             if j % 3} if with_prev else None)
+    items = speeds if form == "mapping" else list(speeds.items())
+    ours = api.pack(items, 1.0, algorithm=algorithm, prev=prev)
+    ref = japi.pack(items, 1.0, algorithm=algorithm, prev=prev)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.backend == "py"
+
+
+def test_pack_backend_jax_raises_by_name():
+    with pytest.raises(ValueError, match=r"unknown backend 'jax'; have "
+                                         r"\('py', 'torch'\)"):
+        api.pack(np.full(3, 0.4), 1.0, backend="jax", device="cpu")
+
+
+def test_attack_and_replay_through_the_facade(tmp_path):
+    """``api.attack`` returns the reference's outcome (baseline at the
+    evolution's evals), its witness replays through ``api.replay`` bit
+    for bit against a direct run, and a fixed seed repeats."""
+    cfg = api.SearchConfig(pop_size=4, generations=2, iters=16, n=4)
+    out = api.attack("NF", config=cfg, seed=1, device="cpu")
+    again = api.attack("NF", config=cfg, seed=1, device="cpu")
+    assert (out.history, out.witness_genome) == (again.history,
+                                                  again.witness_genome)
+    assert out.baseline.evals == out.evals == out.search.evals
+    assert out.baseline_fitness == out.baseline.best_fitness
+    assert out.beats_baseline == (out.best_fitness > out.baseline_fitness)
+    assert out.witness_knobs == out.search.best_knobs
+    assert out.policy == "NF" and out.family == "adversarial"
+    assert api.attack("NF", config=cfg, seed=1, baseline=False,
+                      device="cpu").baseline is None
+    tr = out.search.witness_trace(cfg, seed=0, batch=2, device="cpu")
+    assert tr.source == "adversarial:NF"
+    assert tr.meta["genome"] == out.witness_genome
+    path = str(tmp_path / "w.npz")
+    api.save_trace(tr, path)
+    rp = api.replay(path, policies=("NF",), device="cpu")
+    direct = api.simulate(tr.rates, policies=("NF",), active=tr.active,
+                          capacity=tr.capacity, device="cpu")
+    assert rp.result.lag_total.tobytes() == direct.lag_total.tobytes()
+    assert rp.metrics["violation_frac"].tobytes() == \
+        direct.metrics["violation_frac"].tobytes()
+    assert api.load_trace(path).meta == tr.meta
+    seed = api.seed_trace("kafka_insert_plateau", batch=1, iters=8, n=4,
+                          device="cpu")
+    assert api.replay(seed, policies=("BFD",), device="cpu").shape == (
+        1, 8, 4)

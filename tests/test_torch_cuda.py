@@ -27,7 +27,11 @@ kernels, shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
 odd length, every head dim of the flash kernels, q lengths that do not
 divide their tiles, decode fills on either side of a split boundary and a
 decode call replayed from a CUDA graph at other fills, and a small model
-end to end; tolerances as everywhere for
+end to end; the adversarial search's oracle rows on the card against
+the CPU transform of the same draws, a search run twice with one seed
+(bit-equal), a trace replayed equal to a direct run, and the ``py``
+packers equal to the ``torch`` packers on the card; tolerances as
+everywhere for
 the attention kernels: 2e-5 in float32, 2e-2 in bfloat16; the WKV kernel
 (float32 only) within 1e-4 of the largest magnitude of its plain result,
 the reference's own tolerance for its kernel.
@@ -792,3 +796,91 @@ def test_storm_scatter_is_deterministic_on_the_card(cuda):
     for other in runs[1:]:
         for f in ("lag_total", "consumers", "migrations", "unreadable"):
             assert torch.equal(getattr(runs[0], f), getattr(other, f)), f
+
+
+def test_oracle_rows_on_the_card_equal_the_cpu_transform(cuda):
+    """Each genome's rows drawn on the card under the search's scenario
+    seed, against the CPU transform of the same draws copied to the
+    host: masks exact, rates within 1e-5."""
+    from repro_torch.core import scenarios as tsc
+    from repro_torch.scenarios import genome as tg
+    from repro_torch.scenarios import search as ts
+
+    cfg = ts.SearchConfig(pop_size=4, scenarios_per_genome=2, iters=96,
+                          n=6)
+    spec = tsc.family_spec("adversarial")
+    draws = ts._Draws(None, 7, cuda, len(spec.knobs), cfg)
+    pop = tg.random_population(spec, 3, 4, device=cuda)
+    pop[1, spec.knob_names.index("churn_p")] = 0.15
+    sp, ac = ts._scenario_oracle(spec, cfg, draws)(pop)
+    assert sp.device.type == cuda.type and sp.shape == (8, 96, 6)
+    for i, g in enumerate(tg.repair_genome(spec, pop).cpu().numpy()):
+        knobs = tg.genome_knobs(spec, g)
+        gen = torch.Generator(device=cuda).manual_seed(draws.scenario_seed)
+        raw = tsc.adversarial_draws(gen, 2, 96, 6, churn_p=knobs.pop(
+            "churn_p"))
+        want_sp, want_ac = tsc.adversarial_masked(
+            {k: v.cpu() for k, v in raw.items()}, **knobs)
+        assert torch.equal(ac[2 * i:2 * i + 2].cpu(), want_ac)
+        torch.testing.assert_close(sp[2 * i:2 * i + 2].cpu(), want_sp,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_attack_on_the_card_is_bit_identical(cuda):
+    """One seed, two searches on the card (drain and packing kernels
+    on): the same history, witness genome and evals."""
+    from repro_torch import api
+    from repro_torch.fleet import FleetRunner
+    from repro_torch.lagsim import LagSimConfig
+
+    cfg = api.SearchConfig(pop_size=6, generations=3, iters=48, n=6)
+    sim = LagSimConfig(use_kernel=True)
+    runs = [api.attack("MBF", config=cfg, sim=sim, seed=5,
+                       fleet=FleetRunner(), device=cuda) for _ in range(2)]
+    a, b = runs
+    assert a.history == b.history
+    assert a.witness_genome == b.witness_genome
+    assert (a.evals, a.generations_run, a.baseline_fitness) == (
+        b.evals, b.generations_run, b.baseline_fitness)
+
+
+@pytest.mark.parametrize("ext", ("npz", "json"))
+def test_replay_equals_direct_on_the_card(cuda, tmp_path, ext):
+    from repro_torch import api
+    from repro_torch.scenarios import resample_trace, save_trace, seed_trace
+
+    tr = seed_trace("kafka_lifecycle_churn", batch=3, iters=64, n=8,
+                    device=cuda)
+    path = str(tmp_path / f"t.{ext}")
+    save_trace(tr, path)
+    pols = ("MBF", "BFD", "KEDA_LAG")
+    for iters in (None, 32):
+        out = api.replay(path, policies=pols, iters=iters, method="linear",
+                         use_kernel=True, device=cuda)
+        want = tr if iters is None else resample_trace(tr, iters, "linear")
+        direct = api.simulate(want.rates, policies=pols, active=want.active,
+                              capacity=want.capacity, use_kernel=True,
+                              device=cuda)
+        for f in ("lag_total", "consumers", "migrations"):
+            assert (getattr(out.result, f).tobytes()
+                    == getattr(direct, f).tobytes()), f
+
+
+def test_py_packers_equal_the_torch_packers_on_the_card(cuda):
+    """``api.pack`` on both backends, speeds quantized to k/1024 so that
+    every load sum is exact in float32."""
+    from repro_torch import api
+    from repro_torch.registry import PACKER_FAMILIES, list_policies
+
+    rng = np.random.default_rng(9)
+    speeds = np.round(rng.uniform(0.01, 0.3, 256) * 1024) / 1024
+    prev = rng.integers(-1, 40, 256).astype(np.int32)
+    for name in list_policies(family=PACKER_FAMILIES, backend="py"):
+        card = api.pack(speeds, 1.0, algorithm=name, prev=prev,
+                        backend="torch", device=cuda)
+        py = api.pack({j: float(w) for j, w in enumerate(speeds)}, 1.0,
+                      algorithm=name,
+                      prev={j: int(c) for j, c in enumerate(prev) if c >= 0})
+        assert (card.n_bins, card.assignment) == (py.n_bins, py.assignment)
+        assert card.loads == {c: float(np.float32(v))
+                              for c, v in py.loads.items()}

@@ -18,6 +18,7 @@ from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
 from repro_torch.registry import make_policy  # noqa: E402
+from repro_torch.scenarios import trace_from_scenario  # noqa: E402
 from repro_torch.serving import SharedModel  # noqa: E402
 
 LLM = configs.get("qwen3-8b", smoke=True)
@@ -72,11 +73,19 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: make_prefill_step(RWKV),
     lambda: SharedModel(RWKV),
     lambda: init_decode_state(RWKV, 1, 4),
-    lambda: api.pack(np.full(3, 0.4), 1.0),
+    lambda: api.pack(np.full(3, 0.4), 1.0, backend="torch"),
     lambda: api.sweep(np.zeros((1, 3, 2), np.float32), algorithms=("BFD",)),
     lambda: api.evaluate(n_partitions=3, n_measurements=4),
     lambda: FleetRunner().simulate(("BFD",), np.zeros((1, 3, 2), np.float32)),
     lambda: scenarios.generate_scenario("ramp", 0, 1, 3, 2),
+    lambda: api.attack("NF", config=api.SearchConfig(pop_size=2,
+                                                     generations=1, iters=3,
+                                                     n=2)),
+    lambda: api.replay(api.Trace(rates=np.zeros((1, 3, 2), np.float32),
+                                 active=np.ones((1, 3, 2), bool)),
+                       policies=("BFD",)),
+    lambda: api.seed_trace("kafka_partition_skew", batch=1, iters=3, n=2),
+    lambda: trace_from_scenario("bursty", 0, 1, 3, 2),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
@@ -84,7 +93,8 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
         "init_decode_state", "params_from_numpy", "rwkv-make_prefill_step",
         "rwkv-SharedModel", "rwkv-init_decode_state", "api.pack",
         "api.sweep", "api.evaluate", "FleetRunner.simulate",
-        "scenarios.generate_scenario"))
+        "scenarios.generate_scenario", "api.attack", "api.replay",
+        "seed_trace", "trace_from_scenario"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):
