@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the lag twin, the fleet layer, the
 packers' sweep, the optimizer, the adversarial search and trace replay,
-and LLM serving of a dense model and of RWKV-6) on one NVIDIA card.
+LLM serving of a dense model and of RWKV-6, and the paper's own system
+with an autoscaled fleet of LLM replicas) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -31,7 +32,9 @@ Run from a checkout of the repository on a machine with a CUDA card and
    previous names, exact and ``loads`` bit for bit; the annealer's step
    ``anneal_step`` against ``anneal_step_reference`` over 48 steps at
    path C1's, C2's and I1's shapes, masked and unmasked, every state
-   tensor bit for bit);
+   tensor bit for bit; ``pack_rows`` (BFD, exact) and ``lag_update``
+   (within ``1e-5``) also on path J1's own row of 30 partitions in bytes,
+   and decode attention at path J2's 16-position cache, 1-4 filled);
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -154,7 +157,26 @@ Run from a checkout of the repository on a machine with a CUDA card and
    float32 (bonus and decay perturbed from their init constants), prefill
    and 48 + 16 decode steps once with the WKV kernel and once with its
    plain version on the card, with the same checks as phase 13;
-16. each kernel's time at its path's shapes beside its bound, its plain
+16. path J, the paper's system (broker, monitor, controller, replicas;
+   host code) with the port's kernels behind it: J1 runs the object world
+   ``AutoscaleSimulation`` at the paper's 30 partitions (constant rates
+   of whole 16 KiB records, ``k_i`` in [14, 126] from ``--seed``, BFD, a
+   consumer capacity of 140 records a second, 2,293,760 B/s), synchronized
+   for 8 ticks and then run 600 more on the host, and the lag twin
+   ``simulate_lag(policy="BFD", use_kernel=True)`` from the world's
+   backlog on the card: consumer counts equal at every step, no
+   migration on either side, lag within ``4 x 16384 x 30`` B, exactly
+   600 ``pack_rows`` and 600 ``lag_update`` launches.  J2 is the serving
+   example's world (``repro_torch.examples.autoscale_serve``: 6 request
+   streams, 64 KiB request records, MBFP, a replica capacity of 0.25 MB/s)
+   over 120 ticks with a x4 spike on streams 0-2 at 40-80 s, every
+   replica an ``LLMReplica`` on one ``SharedModel(max_len=16,
+   max_batch=8)`` of qwen3-8b at full width and depth in bfloat16
+   (weights drawn on the card from ``--seed``): exactly 36
+   ``decode_attention`` launches a serve step, the byte-level world equal
+   integer for integer to the same world with byte replicas on the host,
+   and the first generate call once more giving the same tokens;
+17. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; the flash row also in float32 at
@@ -1043,10 +1065,27 @@ def attention_rows(dev, seed, launches, errs):
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:65",
-        launches=launches["D2"],
+        launches=launches["D2"] + launches["J2"],
+        launches_by_path={"D2": launches["D2"], "J2": launches["J2"]},
         max_abs_err=errs["decode_attention_fwd"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0]))
+    del q, kc, vc, q4
+
+    # path J2's call: SharedModel(max_len=16) at its last serve step of a
+    # generate call (cache_len 3: 4 of 16 positions filled)
+    smax, fill = 16, 3
+    q = _normal(gen, (b, kv, g, hd), "bfloat16", dev)
+    kc = _normal(gen, (b, kv, smax, hd), "bfloat16", dev)
+    vc = _normal(gen, (b, kv, smax, hd), "bfloat16", dev)
+    clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+    q4 = q.reshape(b, h, 1, hd)
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
+                       4 * b * h * (fill + 1) * hd, BF16_OPS_PER_S)
+    rows[-1].update(ms_j2=graph_ms(kern, 200), plain_ms_j2=graph_ms(plain, 50),
+                    bound_ms_j2=bnd, bound_by_j2=by,
+                    library_ms_j2=graph_ms(lib, 200),
+                    wrapper_ms_j2=cuda_ms(kern, 200)[0])
     return rows
 
 
@@ -2050,6 +2089,305 @@ def run_path_i2(dev, seed):
     return total
 
 
+# path J: the paper's own system (broker, monitor, controller, replicas)
+J1_N, J1_TICKS, J1_SYNC = 30, 600, 8   # the paper's 30 partitions, 10 min
+J1_REC = 16384                # Kafka's producer batch.size default (bytes)
+# the paper's measured 2.3 MB/s consumer, in whole records: with
+# batch_bytes = C * dt a replica fetches whole records, so at C = 2.3e6 it
+# drains 140 records (2,293,760 B) a tick and a bin packed to 140 records
+# never drains in the world while the twin drains it at 6,240 B/s
+J1_C = 140 * J1_REC
+J2_TICKS, J2_SPIKE, J2_MARKS = 120, (40, 80), (30, 70, 115)
+
+
+def j1_world(n: int, seed: int):
+    """The object world of path J1 after ``J1_SYNC`` ticks: ``n``
+    partitions at constant rates ``k_i * J1_REC`` B/s (``k_i`` numpy
+    integers in [14, 126], 0.1-0.9 C, from ``seed``), BFD, a 1 s monitor
+    interval and ``batch_bytes`` clamped to ``C * dt``.  Returns ``(sim,
+    rates, backlog f32[n])``."""
+    import numpy as np
+
+    from repro_torch.broker import TopicPartition
+    from repro_torch.serving import AutoscaleSimulation
+
+    k = np.random.default_rng(seed).integers(14, 127, n)
+    rates = [float(x) * J1_REC for x in k]
+    sim = AutoscaleSimulation(
+        n_partitions=n, rate_fn=AutoscaleSimulation.constant_rates(rates),
+        capacity=J1_C, algorithm="BFD", record_bytes=J1_REC,
+        monitor_interval=1.0)
+    sim.replica_cfg.batch_bytes = int(J1_C)
+    sim.manager.config.batch_bytes = int(J1_C)
+    sim.run(seconds=J1_SYNC, dt=1.0)
+    lag0 = np.array([sim.broker.lag("autoscaler", TopicPartition(sim.topic, i))
+                     for i in range(n)], np.float32)
+    return sim, rates, lag0
+
+
+def check_j1_kernels(dev, seed):
+    """``pack_rows`` (BFD) and ``lag_update`` on path J1's own inputs, one
+    row of ``J1_N`` partitions in bytes: the rates ``k_i * J1_REC``, ``prev``
+    unassigned and then BFD's own answer, and the world's backlog at the
+    sync drained under that assignment with ``J1_C`` a bin.  Packing
+    exact (``loads`` bit for bit), the drain within ``rtol = atol =
+    1e-5``.  Returns the drain's max abs error."""
+    import torch
+
+    from repro_torch.kernels import lag_update as lu
+    from repro_torch.registry import get_spec
+
+    _, rates, lag0 = j1_world(J1_N, seed)
+    n, m = J1_N, 2 * J1_N + 2
+    speeds = torch.tensor([rates], dtype=torch.float32, device=dev)
+    prev = torch.full((1, n), -1, dtype=torch.long, device=dev)
+    for what in ("unassigned", "BFD's own answer"):
+        got = get_spec("BFD").packer(speeds, prev, J1_C)
+        want = plain_packer("BFD")(speeds, prev, J1_C)
+        torch.cuda.synchronize()
+        for f in ("bin_of", "names", "n_bins"):
+            _exact(getattr(got, f), getattr(want, f),
+                   f"pack_rows BFD at path J1's [1, {n}], prev {what}: {f}")
+        _require(torch.equal(got.loads.view(torch.int32),
+                             want.loads.view(torch.int32)),
+                 f"pack_rows BFD at path J1's [1, {n}], prev {what}: loads "
+                 f"differ")
+        prev, bins = got.bin_of, int(got.n_bins.reshape(-1)[0])
+    lag = torch.tensor(lag0, device=dev)[None]
+    readable = torch.ones((1, n), dtype=torch.bool, device=dev)
+    cap = torch.full((1, m), float(J1_C), device=dev)
+    got = lu.lag_update_batch(lag, speeds, prev, readable, cap)
+    want = lu.lag_update_reference(lag, speeds, prev, readable, cap, m=m)
+    torch.cuda.synchronize()
+    err = _close(got, want, f"lag_update at path J1's [1, {n}] in bytes")
+    print(f"check pack_rows BFD at path J1's [1, {n}] (rates k_i x {J1_REC} "
+          f"B/s, C={J1_C}), prev unassigned and its own answer: exact, "
+          f"{bins} bins; lag_update there on "
+          f"the world's backlog: max_abs_err={err!r} B")
+    return err
+
+def run_path_j1(dev, seed, n: int = J1_N, ticks: int = J1_TICKS):
+    """The lag twin against the paper's system: the object world of
+    ``j1_world`` runs ``ticks`` more ticks on the host, and
+    ``simulate_lag(policy="BFD", use_kernel=True)`` runs the same rates
+    from the world's backlog on ``dev``.  Consumer counts equal at every
+    step, no migration on either side, lag within ``4 * J1_REC * n``; on
+    the card exactly one ``pack_rows`` and one ``lag_update`` launch a
+    step.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.lagsim import LagSimConfig, simulate_lag
+
+    sim, rates, lag0 = j1_world(n, seed)
+    speeds = [sim.controller.speeds[tp] for tp in sorted(sim.controller.speeds)]
+    _require(speeds == rates, "path J1: the monitor's speeds differ from the "
+                              "producer's rates")
+    mig0 = len(sim.controller.migrations)
+    t0 = time.perf_counter()
+    m = sim.run(seconds=ticks, dt=1.0)
+    host_s = time.perf_counter() - t0
+    held = sum(len(p._log) for p in sim.broker.topics[sim.topic].partitions)
+    world_n = np.asarray(m.n_replicas)[J1_SYNC:]
+    world_lag = np.asarray(m.lag_bytes, np.float64)[J1_SYNC:]
+    reassigns = sim.controller.migrations[mig0:]
+    world_moved = sum(len(r.moved) for r in reassigns)
+
+    trace = torch.tensor(rates, dtype=torch.float32, device=dev).repeat(
+        ticks, 1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    r = simulate_lag(trace, policy="BFD",
+                     cfg=LagSimConfig(capacity=J1_C, dt=1.0, use_kernel=True),
+                     initial_lag=lag0, device=dev)
+    twin_n = r.consumers.cpu().numpy()
+    twin_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    launches = {k: counts[k] for k in ("pack_rows", "lag_update_batch",
+                                       "select_slot_grid")}
+    if dev.type == "cuda":
+        want = {"pack_rows": ticks, "lag_update_batch": ticks,
+                "select_slot_grid": 0}
+        _require(launches == want, f"path J1: launches {launches}, want "
+                                   f"{want}")
+    twin_lag = r.lag_total.double().cpu().numpy()
+    twin_moved = int(r.migrations.sum())
+    bad = np.flatnonzero(world_n != twin_n)
+    _require(bad.size == 0, f"path J1: consumer counts differ at "
+                            f"{bad.size} steps, first at step "
+                            f"{bad[:1].tolist()}: world "
+                            f"{world_n[bad[:1]].tolist()} twin "
+                            f"{twin_n[bad[:1]].tolist()}")
+    _require(world_moved == 0 and twin_moved == 0,
+             f"path J1: migrations under constant load: world {world_moved} "
+             f"({len(reassigns)} reassignments), twin {twin_moved}")
+    tol = 4 * J1_REC * n
+    diff = float(np.abs(world_lag - twin_lag).max())
+    _require(diff <= tol, f"path J1: lag differs by {diff} B > {tol} B")
+    print(f"path J1: {n} partitions at k_i x {J1_REC} B/s (k_i in "
+          f"{min(rates) / J1_REC:.0f}..{max(rates) / J1_REC:.0f}, "
+          f"{sum(rates)!r} B/s in all), C={J1_C} B/s, BFD, "
+          f"{ticks} ticks after {J1_SYNC}: consumers "
+          f"{int(world_n[0])}..{int(world_n.max())} equal at every step; "
+          f"migrations world {world_moved} twin {twin_moved}; backlog at "
+          f"sync {float(lag0.sum())!r} B; max lag difference {diff!r} B "
+          f"(tolerance {tol} B)")
+    print(f"path J1: object world on the host {ticks / host_s!r} ticks/s "
+          f"(host_s={host_s!r}), {held} records held; twin on {dev.type} "
+          f"wall_s={twin_s!r} launches={launches}")
+    return launches
+
+
+def _metadata_rows(sim):
+    """Every record of ``consumer.metadata``: (partition, offset,
+    timestamp, message, nbytes).  A heartbeat's stats lose ``tokens``
+    (an LLM replica's) and ``capacity`` (a byte replica's), and its nbytes
+    with them; everything else is kept as sent."""
+    import json
+
+    rows = []
+    topic = sim.broker.topics["consumer.metadata"]
+    for i, part in enumerate(topic.partitions):
+        for rec in part._log:
+            msg, nbytes = json.loads(rec.value), rec.nbytes
+            if msg["type"] == "heartbeat":
+                msg["stats"] = {k: v for k, v in msg["stats"].items()
+                                if k not in ("tokens", "capacity")}
+                nbytes = None
+            rows.append((i, rec.offset, rec.timestamp, msg, nbytes))
+    return rows
+
+
+def _same_byte_world(a, b, what: str) -> None:
+    """World ``a`` equals world ``b`` integer for integer: the metrics
+    (replicas, lag, produced and consumed bytes a tick), every
+    ``MigrationRecord``, the metadata topic (see ``_metadata_rows``), the
+    monitor's measurements, the log sizes of the data and monitor topics,
+    the committed offsets, the final assignment and the replicas created
+    and deleted."""
+    import numpy as np
+
+    ma, mb = a.metrics.as_arrays(), b.metrics.as_arrays()
+    for k in ma:
+        _require(np.array_equal(ma[k], mb[k]), f"{what}: metrics {k} differ")
+    mig = lambda s: [(r.iteration, r.started_at, r.rscore,  # noqa: E731
+                      sorted(r.moved), r.n_bins, r.finished_at)
+                     for r in s.controller.migrations]
+    _require(mig(a) == mig(b), f"{what}: migration records differ")
+    _require(_metadata_rows(a) == _metadata_rows(b),
+             f"{what}: the metadata topic differs")
+    for f in (lambda s: s.broker.describe_log_dirs(
+                  [s.topic, "monitor.writeSpeed"]),
+              lambda s: [(r.offset, r.timestamp, r.value) for r in
+                         s.broker.topics["monitor.writeSpeed"].partitions[0]._log],
+              lambda s: s.broker._offsets,
+              lambda s: s.controller.assignment,
+              lambda s: (s.produced_bytes, s.manager.created_total,
+                         s.manager.deleted_total)):
+        _require(f(a) == f(b), f"{what}: log sizes, measurements, offsets, "
+                               f"assignment or replica counts differ")
+
+
+def run_path_j2(dev, seed, cfg=None, ticks: int = J2_TICKS, spike=J2_SPIKE,
+                marks=J2_MARKS):
+    """An autoscaled fleet of ``LLMReplica``s (``SharedModel(max_len=16,
+    max_batch=8)`` of ``cfg``, default qwen3-8b at full width and depth in
+    bfloat16, weights drawn on ``dev`` from ``seed``) under the serving
+    example's traffic over ``ticks`` ticks, the x4 spike on streams 0-2 at
+    ``spike``.  The same world with byte replicas on the host must be
+    equal integer for integer; on the card every serve step launches
+    ``decode_attention`` once a layer; the first generate call once more
+    gives the same tokens.  Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.examples.autoscale_serve import make_world
+    from repro_torch.kernels import _build
+    from repro_torch.serving import SharedModel
+
+    if cfg is None:
+        cfg = dataclasses.replace(configs.get(LLM), dtype="bfloat16",
+                                  param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = SharedModel(cfg, max_len=16, max_batch=8, seed=seed, device=dev)
+    draw_s = time.perf_counter() - t0
+    generate = model.generate
+    calls = []                # (prompts, gen, tokens) of every call
+    gen_s = [0.0]
+
+    def recorded(prompts, gen):
+        t = time.perf_counter()
+        out = generate(prompts, gen)
+        gen_s[0] += time.perf_counter() - t
+        calls.append((prompts, gen, out))
+        return out
+
+    model.generate = recorded
+    sim = make_world(cfg.vocab_size, model, spike=spike, seed=seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    _build.reset_launches()
+    seen = {}
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        sim.tick(1.0)
+        t = int(sim.clock.now())
+        seen[t] = sim.manager.n_alive()
+        if t in marks:
+            tokens = sum(int(c[2].size) for c in calls)
+            print(f"path J2 t={t:4d}s replicas={seen[t]} lag="
+                  f"{sim.broker.total_lag('autoscaler', sim.topic)} B "
+                  f"tokens_generated={tokens}")
+    wall = time.perf_counter() - t0
+    steps = sum(max(len(p) for p in ps) + g for ps, g, _ in calls)
+    _require(calls and steps > 0, "path J2: no request was generated")
+    launches = {"decode_attention_fwd": (
+        _launched("decode_attention_fwd", cfg.n_layers * steps, "path J2")
+        if dev.type == "cuda" else 0)}
+    served = sum(len(ps) for ps, _, _ in calls)
+    tokens = sum(int(out.size) for _, _, out in calls)
+    for ps, g, out in calls:
+        _require(out.shape == (len(ps), g) and (out >= 0).all()
+                 and (out < cfg.vocab_size).all(),
+                 f"path J2: generated tokens {out.shape} out of range")
+    during = max(seen[t] for t in range(spike[0] + 1, spike[1] + 1))
+    _require(during > seen[marks[0]],
+             f"path J2: the fleet did not grow under the spike "
+             f"({seen[marks[0]]} replicas at t={marks[0]}, at most {during} "
+             f"during it)")
+
+    host = make_world(cfg.vocab_size, None, spike=spike, seed=seed)
+    for _ in range(ticks):
+        host.tick(1.0)
+    _same_byte_world(sim, host, "path J2: LLM replicas against byte "
+                                "replicas")
+    prompts, gen, out = calls[0]
+    again = generate(prompts, gen)
+    _require(np.array_equal(again, out), "path J2: the first chunk generated "
+                                         "again gives other tokens")
+    migs = sim.controller.migrations
+    print(f"path J2: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"{cfg.dtype} on {dev.type} (drawn in {draw_s!r} s), {ticks} "
+          f"ticks, spike x4 on streams 0-2 over {list(spike)}: replicas "
+          f"{min(seen.values())}..{max(seen.values())}; reassignments "
+          f"{len(migs)}, stream migrations {sum(len(r.moved) for r in migs)}, "
+          f"mean Rscore {float(np.mean([r.rscore for r in migs])) if migs else 0.0!r}")
+    print(f"path J2: requests_served={served} generated_tokens={tokens} "
+          f"generate_calls={len(calls)} serve_steps={steps} "
+          f"ms_per_serve_step={gen_s[0] / steps * 1e3!r} "
+          f"generate_s={gen_s[0]!r} wall_s={wall!r} launches={launches}; "
+          f"the byte-level world equals the byte replicas' integer for "
+          f"integer; the first chunk ({len(prompts)} requests) generated "
+          f"again: the same tokens")
+    return launches
+
+
 PATH_H_REAL = ("KEDA_LAG_REAL", "CLOUD_RUN_CPU_LAG")
 PATH_H_CP = ("MBF", "BFD", "KEDA_LAG")      # 2 of the 3 pack
 # KEDA's documented ScaledObject defaults (pollingInterval 30 s,
@@ -2583,7 +2921,9 @@ def main(argv=None) -> int:
               for (_, nb), rows in f_groups.items()),
             check_lag_update(dev, gen, 8, 6, 14, names=14),      # path I1
             check_lag_update(dev, gen, 128, 32, 66, names=66),   # path I2
-            check_lag_update(dev, gen, 4, 32, 66, names=66)),    # replays
+            check_lag_update(dev, gen, 4, 32, 66, names=66),     # replays
+            check_lag_update(dev, gen, 1, J1_N, 2 * J1_N + 2,    # path J1
+                             names=2 * J1_N + 2)),
         "select_slot_grid": max(
             check_select_slot(dev, gen, 1024, 32, 65),
             check_select_slot(dev, gen, 1024, 1, 65),    # Modified Any Fit
@@ -2598,7 +2938,8 @@ def main(argv=None) -> int:
               for (_, nb), rows in f_groups.items()),
             check_pack_rows(dev, gen, 8, 6),             # path I1
             check_pack_rows(dev, gen, 128, 32),          # path I2
-            check_pack_rows(dev, gen, 4, 32)),           # I2's replays
+            check_pack_rows(dev, gen, 4, 32),            # I2's replays
+            check_pack_rows(dev, gen, 1, J1_N)),         # path J1
         "loop_fused": check_loop_fused(dev, args.seed),
         "move_delta_batch": max(
             check_move_eval(dev, gen, 6144, 32),       # path C1's shape
@@ -2619,7 +2960,9 @@ def main(argv=None) -> int:
                           D_PROMPT + D_GEN - 1)),        # path D2
             check_decode(dev, gen, D_BATCH, 8, 4, 32768, 128, (32767,)),
             check_decode_graph(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN,
-                               128, (17, 700, D_PROMPT + D_GEN - 1))),
+                               128, (17, 700, D_PROMPT + D_GEN - 1)),
+            check_decode(dev, gen, 8, 8, 4, 16, 128, (0, 1, 2, 3))),  # J2
+        "lag_update_j1_bytes": check_j1_kernels(dev, args.seed),
         "rwkv6_wkv_fwd": _worst(
             check_wkv(dev, gen, D_BATCH, D_PROMPT, 40, 64),       # path E1
             check_wkv(dev, gen, D_BATCH, 1, 40, 64),              # path E2
@@ -2723,6 +3066,18 @@ def main(argv=None) -> int:
               [(rwkv6, "rwkv6_wkv_fwd", ws.rwkv6_wkv_plain)])
     torch.cuda.empty_cache()
 
+    # path J: the paper's system; J1 the lag twin against the object
+    # world, J2 an autoscaled fleet of LLM replicas
+    t0 = time.perf_counter()
+    launches_j1 = run_path_j1(dev, args.seed)
+    t1 = time.perf_counter()
+    launches_j2 = run_path_j2(dev, args.seed)
+    torch.cuda.empty_cache()
+    print(f"path J: J1 wall_s={t1 - t0!r} J2 wall_s="
+          f"{time.perf_counter() - t1!r} launches: J1 {launches_j1}, J2 "
+          f"{launches_j2}")
+    launches_d["J2"] = launches_j2["decode_attention_fwd"]
+
     # per-kernel times at the paths' shapes
     kernels = []
     kw = dict(heuristic_kwargs(), active=act_a)
@@ -2792,12 +3147,15 @@ def main(argv=None) -> int:
         replaces="src/repro/kernels/lag_update.py:125",
         launches=launches_b["lag_update_batch"]
         + launches_f["lag_update_batch"] + launches_h["lag_update_batch"]
-        + launches_i["lag_update_batch"],
+        + launches_i["lag_update_batch"] + launches_j1["lag_update_batch"],
         launches_by_path={"B": launches_b["lag_update_batch"],
                           "F": launches_f["lag_update_batch"],
                           "H": launches_h["lag_update_batch"],
-                          "I": launches_i["lag_update_batch"]},
-        max_abs_err=errs["lag_update_batch"], ms=graph_ms(kern, 200),
+                          "I": launches_i["lag_update_batch"],
+                          "J1": launches_j1["lag_update_batch"]},
+        max_abs_err=errs["lag_update_batch"],
+        max_abs_err_j1_bytes=errs["lag_update_j1_bytes"],
+        ms=graph_ms(kern, 200),
         plain_ms=graph_ms(ref, 200), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0],
         # what a wrapper that cast the engine's tensors to int32 added a
@@ -2824,7 +3182,8 @@ def main(argv=None) -> int:
         source="src/repro_torch/kernels/csrc/binpack_select.cu",
         replaces="src/repro/kernels/binpack_select.py:76",
         launches=launches_b["select_slot_grid"]
-        + launches_f["select_slot_grid"] + launches_g["select_slot_grid"],
+        + launches_f["select_slot_grid"] + launches_g["select_slot_grid"]
+        + launches_j1["select_slot_grid"],
         launches_note="no path launches the grid kernel: the packers run "
         "its selection code (select_slot_warp) inside pack_rows",
         max_abs_err=errs["select_slot_grid"], ms=graph_ms(kern, 200),
@@ -2867,13 +3226,15 @@ def main(argv=None) -> int:
         "modified_any_fit_jax): one launch a packing call",
         launches=launches_b["pack_rows"] + launches_c2["pack_rows"]
         + launches_f["pack_rows"] + launches_g["pack_rows"]
-        + launches_h["pack_rows"] + launches_i["pack_rows"],
+        + launches_h["pack_rows"] + launches_i["pack_rows"]
+        + launches_j1["pack_rows"],
         launches_by_path={"B": launches_b["pack_rows"],
                           "C2": launches_c2["pack_rows"],
                           "F": launches_f["pack_rows"],
                           "G": launches_g["pack_rows"],
                           "H": launches_h["pack_rows"],
-                          "I": launches_i["pack_rows"]},
+                          "I": launches_i["pack_rows"],
+                          "J1": launches_j1["pack_rows"]},
         max_abs_err=errs["pack_rows"], ms=graph_ms(kern, 50),
         plain_ms=graph_ms(ref, 1), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
@@ -2955,6 +3316,14 @@ def main(argv=None) -> int:
                   f"({kern['bound_by_f32']}) "
                   f"library_ms={kern['library_ms_f32']!r} "
                   f"wrapper_ms={kern['wrapper_ms_f32']!r}")
+        if "ms_j2" in kern:
+            print(f"kernel {kern['name']} at path J2's call (cache 16, "
+                  f"4 filled): ms={kern['ms_j2']!r} "
+                  f"plain_ms={kern['plain_ms_j2']!r} "
+                  f"bound_ms={kern['bound_ms_j2']!r} ({kern['bound_by_j2']}) "
+                  f"library_ms={kern['library_ms_j2']!r} "
+                  f"wrapper_ms={kern['wrapper_ms_j2']!r} "
+                  f"launches={kern['launches_by_path']}")
         if "ms_decode" in kern:
             print(f"kernel {kern['name']} at one decode step: "
                   f"ms={kern['ms_decode']!r} "

@@ -9,8 +9,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import CudaUnavailableError, api, configs, opt  # noqa: E402
+from repro_torch.broker import Broker  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import scenarios  # noqa: E402
+from repro_torch.examples import autoscale_serve  # noqa: E402
 from repro_torch.fleet import FleetRunner  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.lagsim import simulate_lag, sweep_lag  # noqa: E402
@@ -19,7 +21,8 @@ from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
 from repro_torch.registry import make_policy  # noqa: E402
 from repro_torch.scenarios import trace_from_scenario  # noqa: E402
-from repro_torch.serving import SharedModel  # noqa: E402
+from repro_torch.serving import SharedModel, Sink  # noqa: E402
+from repro_torch.serving.llm_replica import LLMReplica  # noqa: E402
 
 LLM = configs.get("qwen3-8b", smoke=True)
 RWKV = configs.get("rwkv6-3b", smoke=True)
@@ -86,6 +89,8 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
                        policies=("BFD",)),
     lambda: api.seed_trace("kafka_partition_skew", batch=1, iters=3, n=2),
     lambda: trace_from_scenario("bursty", 0, 1, 3, 2),
+    lambda: LLMReplica(0, Broker(), Sink(), None, model=SharedModel(LLM)),
+    lambda: autoscale_serve.main([]),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
@@ -94,7 +99,8 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
         "rwkv-SharedModel", "rwkv-init_decode_state", "api.pack",
         "api.sweep", "api.evaluate", "FleetRunner.simulate",
         "scenarios.generate_scenario", "api.attack", "api.replay",
-        "seed_trace", "trace_from_scenario"))
+        "seed_trace", "trace_from_scenario", "LLMReplica",
+        "examples.autoscale_serve"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):
