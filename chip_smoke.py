@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the lag twin, the fleet layer, the
 packers' sweep, the optimizer, the adversarial search and trace replay,
-LLM serving of a dense model and of RWKV-6, and the paper's own system
-with an autoscaled fleet of LLM replicas) on one NVIDIA card.
+LLM serving of a dense model and of RWKV-6, the paper's own system with
+an autoscaled fleet of LLM replicas, and LLM training) on one NVIDIA
+card.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -176,10 +177,36 @@ Run from a checkout of the repository on a machine with a CUDA card and
    ``decode_attention`` launches a serve step, the byte-level world equal
    integer for integer to the same world with byte replicas on the host,
    and the first generate call once more giving the same tokens;
-17. each kernel's time at its path's shapes beside its bound, its plain
+17. path K, training: K0 holds the flash-attention backward kernel
+   (``csrc/flash_attention_bwd.cu``: dq, dk and dv) against its plain
+   version (the explicit formula) at olmo-1b's heads (q [4, 16, 2048,
+   128], path K1's call) and qwen3-8b's grouped heads (q [4, 32, 1024,
+   128] over 8 KV heads, causal and full) in bfloat16, and at q [2, 32,
+   512, 128] in float32 (``2e-2`` and ``2e-5``, the absolute part scaled
+   by the plain result's largest gradient), timed beside its bound, its
+   plain version and the backward of ``scaled_dot_product_attention``;
+   then ``FlashAttention`` on the card against the plain versions'
+   Function, one backward each, every gradient nonzero.  K1 trains
+   olmo-1b at full width and depth (f32 parameters, bf16 compute, remat)
+   for 6 AdamW steps of 4 x 2048 tokens from ``TokenPipeline`` through
+   ``make_train_step``: finite losses, exactly 32 forward (16 of them
+   remat's recomputation) and 16 backward flash launches a step, a
+   nonzero gradient in every layer's wq, wk and wv (the first moment
+   after step 1), each step's wall and the peak memory.  K2 takes one
+   step of a 2-layer full-width olmo-1b (2 x 2048 tokens) with the
+   kernels and with their plain versions swapped in: losses within
+   2e-2, every parameter's update within 5e-2 of its largest (AdamW eps
+   1e-3, so that the first update follows its gradient).  K3 runs
+   ``repro_torch.examples.elastic_train`` at TINY (200 steps, preempted
+   at 100 and resumed from its checkpoint; the loss must fall), then
+   writes a TINY state with the port's store in the reference's layout
+   (layers stacked), reads it back through ``convert`` and resumes on
+   the card: equal state, the same next step;
+18. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
-   a yardstick the port never calls; the flash row also in float32 at
+   a yardstick the port never calls; for the flash backward, the
+   backward of that call at K1's shape; the flash row also in float32 at
    D1's shape; no PyTorch call computes the WKV recurrence; ``pack_rows``
    at path B's Modified Any Fit call, MBF over [1024, 32]; ``anneal_step``
    at C1's and C2's shapes; the move plane ``move_eval``, which no path
@@ -2852,6 +2879,384 @@ def path_c1_ops(rates, act):
     return kern, plain
 
 
+# path K: training (olmo-1b at full width), the flash backward kernel
+TRAIN = "olmo-1b"
+K1_BATCH, K1_SEQ, K1_STEPS = 4, 2048, 6
+K2_LAYERS, K2_BATCH = 2, 2
+#: K2's optimizer: eps = 1e-3 keeps the first AdamW step linear in the
+#: small gradients (|g| << eps), so that an update's error follows its
+#: gradient's; at 1e-8 the first step is lr * sign(g) and a last-bit
+#: difference flips the update of a near-zero gradient
+K2_EPS = 1e-3
+K2_TOL = 5e-2                 # of each parameter's largest update (bf16)
+
+
+def _bwd_close(got, want, dtype, what: str) -> float:
+    """The backward kernel's outputs against its plain version's, within
+    the attention tolerance (``rtol``; ``atol`` scaled by the largest
+    magnitude of the plain result). Returns the largest absolute error."""
+    import torch
+
+    worst = 0.0
+    tol = ATTN_TOL[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = _max_err(g, w)
+        scale = max(float(w.float().abs().max()), 1.0)
+        _require(g.dtype == w.dtype and g.shape == w.shape
+                 and torch.allclose(g.float(), w.float(), rtol=tol,
+                                    atol=tol * scale),
+                 f"{what} {name}: kernel disagrees with its plain version "
+                 f"(max abs err {err}, largest {scale})")
+        worst = max(worst, err)
+    return worst
+
+
+def _causal_pairs(sq, skv, causal) -> int:
+    """(query, key) pairs the mask keeps, one (batch row, head)."""
+    if not causal:
+        return sq * skv
+    return sum(min(q + 1, skv) for q in range(sq))
+
+
+def bwd_case(dev, gen, b, h, kv, s, hd, dtype, causal, reps=5):
+    """K0: the backward kernel against its plain version at q [b, h, s,
+    hd] over k/v [b, kv, s, hd]; returns its error and times: the kernel
+    and the plain version as CUDA-graph replays, the wrapper eager, and
+    the backward of ``scaled_dot_product_attention`` on the same inputs
+    and output gradient (``library_ms``, eager; its forward not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q = _normal(gen, (b, h, s, hd), dtype, dev)
+    k = _normal(gen, (b, kv, s, hd), dtype, dev)
+    v = _normal(gen, (b, kv, s, hd), dtype, dev)
+    do = _normal(gen, (b, h, s, hd), dtype, dev)
+    o = fa.flash_attention_fwd(q, k, v, causal=causal)
+    kern = lambda: fa.flash_attention_bwd(  # noqa: E731
+        q, k, v, o, do, causal=causal)
+    plain = lambda: fa.flash_attention_bwd_plain(  # noqa: E731
+        q, k, v, o, do, causal=causal)
+    what = (f"flash_attention_bwd q=[{b}, {h}, {s}, {hd}] kv_heads={kv} "
+            f"causal={causal} {dtype}")
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = _bwd_close(got, want, dtype, what)
+    del got, want
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=kv != h)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        out, leaves, do, retain_graph=True)
+    esize = 2 if dtype == "bfloat16" else 4
+    n_bytes = esize * (3 * q.numel() + 2 * k.numel()      # q, o, do; k, v
+                       + q.numel() + 2 * k.numel())       # dq; dk, dv
+    n_ops = 5 * 2 * hd * b * h * _causal_pairs(s, s, causal)
+    bnd, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if dtype == "bfloat16"
+                       else FP32_OPS_PER_S)
+    row = dict(max_abs_err=err, ms=graph_ms(kern, reps),
+               plain_ms=graph_ms(plain, 2), bound_ms=bnd, bound_by=by,
+               library_ms=cuda_ms(lib, reps)[0],
+               wrapper_ms=cuda_ms(kern, reps)[0])
+    print(f"check {what}: max_abs_err={err!r} (tolerance "
+          f"{ATTN_TOL[dtype]} of the largest gradient) ms={row['ms']!r} "
+          f"plain_ms={row['plain_ms']!r} bound_ms={bnd!r} ({by}, "
+          f"{bnd / row['ms']:.1%} of it) sdpa_bwd_ms={row['library_ms']!r} "
+          f"wrapper_ms={row['wrapper_ms']!r}")
+    del q, k, v, o, do, leaves, out
+    return row
+
+
+def run_path_k0(dev, seed):
+    """K0: the flash backward kernel against its plain version at olmo-1b's
+    heads (path K1's call), qwen3-8b's grouped heads causal and full, and
+    in float32; then ``FlashAttention`` on the card against the plain
+    versions' Function, one backward each.  Returns the rows of K1's
+    shape in bf16 and the float32 case."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(dev).manual_seed(seed + 23)
+    rows = {"olmo": bwd_case(dev, gen, K1_BATCH, 16, 16, K1_SEQ, 128,
+                             "bfloat16", True),
+            "qwen3_causal": bwd_case(dev, gen, 4, 32, 8, 1024, 128,
+                                     "bfloat16", True),
+            "qwen3_full": bwd_case(dev, gen, 4, 32, 8, 1024, 128,
+                                   "bfloat16", False),
+            "f32": bwd_case(dev, gen, 2, 32, 8, 512, 128, "float32", True)}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = (_normal(gen, shape, dtype, dev) for shape in (
+            (2, 16, 512, 128), (2, 4, 512, 128), (2, 4, 512, 128),
+            (2, 16, 512, 128)))
+        grads = []
+        for fwd, bwd in ((fa.flash_attention_fwd, fa.flash_attention_bwd),
+                         (fa.flash_attention_plain,
+                          fa.flash_attention_bwd_plain)):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            fa.flash_attention(*leaves, causal=True, fwd=fwd,
+                               bwd=bwd).backward(do)
+            grads.append(tuple(x.grad for x in leaves))
+        torch.cuda.synchronize()
+        _require(all(float(g.float().abs().max()) > 0 for g in grads[0]),
+                 f"FlashAttention on the card: a zero gradient ({dtype})")
+        err = _bwd_close(grads[0], grads[1], dtype,
+                         f"FlashAttention autograd {dtype}")
+        print(f"check FlashAttention through autograd on the card, q=[2, 16, "
+              f"512, 128] kv_heads=4 causal {dtype}: kernels against the "
+              f"plain versions' Function, one backward each: "
+              f"max_abs_err={err!r}, every gradient nonzero")
+        rows["f32" if dtype == "float32" else "olmo"]["max_abs_err"] = max(
+            rows["f32" if dtype == "float32" else "olmo"]["max_abs_err"],
+            err)
+    return rows
+
+
+def _olmo_train_cfg(**over):
+    """olmo-1b as published: f32 parameters, bf16 compute, ``remat``."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get(TRAIN)
+    _require(cfg.param_dtype == "float32" and cfg.dtype == "bfloat16"
+             and cfg.remat, f"{TRAIN}: not the published training config")
+    return dataclasses.replace(cfg, **over)
+
+
+def run_path_k1(dev, seed):
+    """K1: olmo-1b at full width and depth, K1_STEPS AdamW steps of
+    K1_BATCH x K1_SEQ tokens from ``TokenPipeline``.  Exactly 32 forward
+    and 16 backward flash launches a step (remat recomputes each layer's
+    forward), finite losses, and a nonzero gradient in every layer's wq,
+    wk and wv (the first moment after step 1 is 0.1 x the clipped
+    gradient).  Returns the launch counts."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, param_bytes
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gc.collect()               # earlier paths' cyclic garbage holds tensors
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = _olmo_train_cfg()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    opt_state = adamw_init(params)
+    torch.cuda.synchronize()
+    print(f"path K1: {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"{_heads(cfg)} d_ff={cfg.d_ff} vocab={cfg.vocab_size} f32 "
+          f"parameters, bf16 compute, remat={cfg.remat}: {cfg.n_params()} "
+          f"parameters, {param_bytes(params)} bytes and "
+          f"{param_bytes(opt_state)} bytes of AdamW state on the card, drawn "
+          f"in {time.perf_counter() - t0!r} s")
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=2,
+                                            total_steps=K1_STEPS), dev)
+    pipe = TokenPipeline(K1_BATCH, K1_SEQ, cfg.vocab_size, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    walls = []
+    for i in range(K1_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, pipe.next_batch())
+        loss = float(m["loss"])            # syncs: the step's wall is whole
+        walls.append(time.perf_counter() - t0)
+        _require(math.isfinite(loss), f"path K1 step {i + 1}: loss {loss}")
+        if i == 0:
+            dead = [f"layers.{j}.attn.{w}"
+                    for j, lp in enumerate(opt_state["mu"]["layers"])
+                    for w in ("wq", "wk", "wv")
+                    if not float(lp["attn"][w].abs().max()) > 0]
+            _require(not dead, f"path K1: zero gradients in {dead}")
+        print(f"path K1 step {i + 1}: loss={loss!r} lr={float(m['lr'])!r} "
+              f"grad_norm={float(m['grad_norm'])!r} wall_s={walls[-1]!r}")
+    peak = torch.cuda.max_memory_allocated()
+    counts = _build.launch_counts()
+    launches = {k: counts[k] for k in ("flash_attention_fwd",
+                                       "flash_attention_bwd")}
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * K1_STEPS,
+            "flash_attention_bwd": cfg.n_layers * K1_STEPS}
+    _require(launches == want, f"path K1: launches {launches}, want {want}")
+    others = {k: n for k, n in counts.items() if n and k not in launches}
+    _require(not others, f"path K1 launched {others}")
+    tokens = K1_BATCH * K1_SEQ
+    steady = walls[1:]
+    print(f"path K1: {K1_STEPS} steps of {K1_BATCH} x {K1_SEQ} tokens: "
+          f"wall_s={sum(walls)!r} first step {walls[0]!r} s, steps 2-"
+          f"{K1_STEPS} mean {sum(steady) / len(steady)!r} s "
+          f"({tokens * len(steady) / sum(steady)!r} tokens/s); "
+          f"peak_mem_bytes={peak} (of which {held} held by earlier paths "
+          f"before K1) launches={launches} (a step: "
+          f"{2 * cfg.n_layers} forward, {cfg.n_layers} of them recomputed by "
+          f"remat, and {cfg.n_layers} backward); every layer's wq, wk, wv "
+          f"gradient nonzero")
+    del params, opt_state
+    return launches
+
+
+def run_path_k2(dev, seed):
+    """K2: olmo-1b at full width with K2_LAYERS layers, one train step of
+    K2_BATCH x K1_SEQ tokens with the flash kernels, then with their plain
+    versions swapped in (forward and backward) from the same state: the
+    loss within 2e-2 and every parameter's update within K2_TOL of its
+    largest update."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention, init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = _olmo_train_cfg(n_layers=K2_LAYERS)
+    params = init_params(cfg, seed=seed + 2, device=dev)
+    state = adamw_init(params)
+    step = make_train_step(cfg, AdamWConfig(eps=K2_EPS), dev)
+    batch = TokenPipeline(K2_BATCH, K1_SEQ, cfg.vocab_size,
+                          seed=seed + 2).next_batch()
+    _build.reset_launches()
+    got_p, _, got_m = step(params, state, batch)
+    torch.cuda.synchronize()
+    _require(_build.launch_counts()["flash_attention_bwd"] == K2_LAYERS,
+             "path K2: the kernel step did not launch the backward kernel")
+    with _swapped([(attention, "flash_attention_fwd", fa.flash_attention_plain),
+                   (attention, "flash_attention_bwd",
+                    fa.flash_attention_bwd_plain)]):
+        _build.reset_launches()
+        want_p, _, want_m = step(params, state, batch)
+        torch.cuda.synchronize()
+        _require(not any(_build.launch_counts().values()),
+                 "path K2: the plain step launched a kernel")
+    dloss = abs(float(got_m["loss"]) - float(want_m["loss"]))
+    _require(dloss <= 2e-2, f"path K2: losses {float(got_m['loss'])} and "
+                            f"{float(want_m['loss'])} differ by {dloss}")
+    worst, where = 0.0, None
+    for (name, old), new, ref in zip(_tree.items(params),
+                                     _tree.leaves(got_p),
+                                     _tree.leaves(want_p)):
+        upd, ref_upd = new.float() - old.float(), ref.float() - old.float()
+        scale = float(ref_upd.abs().max())
+        err = float((upd - ref_upd).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, where = err, name
+    _require(worst <= K2_TOL, f"path K2: {where}'s update differs by "
+                              f"{worst:.3g} of its largest (> {K2_TOL})")
+    print(f"path K2: {cfg.name} d_model={cfg.d_model} {K2_LAYERS} layers "
+          f"bf16, one train step of {K2_BATCH} x {K1_SEQ} tokens (AdamW eps "
+          f"{K2_EPS}), kernels against plain versions on the card: loss "
+          f"{float(got_m['loss'])!r} vs {float(want_m['loss'])!r} "
+          f"(|diff| {dloss!r}, within 2e-2); every parameter's update within "
+          f"{worst!r} of its largest (worst {where}; tolerance {K2_TOL}); "
+          f"grad_norm {float(got_m['grad_norm'])!r} vs "
+          f"{float(want_m['grad_norm'])!r}")
+
+
+def _stacked(tree):
+    """A port tree (``layers`` a list of per-layer dicts) as numpy in the
+    reference's layout: each layer leaf stacked on a leading dim."""
+    import numpy as np
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([lp[k] for lp in layers]) for k in first}
+        return np.stack([t.detach().float().cpu().numpy() for t in layers])
+
+    out = {}
+    for k, v in tree.items():
+        if k == "layers":
+            out[k] = stack(v)
+        elif isinstance(v, dict):
+            out[k] = _stacked(v)
+        else:
+            out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def run_path_k3(dev, seed):
+    """K3: ``repro_torch.examples.elastic_train`` at TINY on the card
+    (preempted half-way, resumed from its checkpoint, the loss must fall);
+    then a TINY run of 5 steps whose state the port's store writes in the
+    reference's layout (layers stacked; the pipeline's cursor in
+    ``extra``), read back as numpy and carried onto the card by
+    ``params_from_numpy`` and ``opt_state_from_numpy``: equal to the state
+    it came from, and one more step from each gives the same loss and
+    parameters."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint import (load_manifest, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.convert import opt_state_from_numpy, params_from_numpy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.examples import elastic_train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    t0 = time.perf_counter()
+    l0, l1 = elastic_train.main(["--device", str(dev)])
+    _require(l1 < l0, f"path K3: loss {l0} -> {l1} did not fall")
+    print(f"path K3: elastic_train TINY (200 steps, preempted at 100, "
+          f"resumed from its checkpoint) on the card: loss {l0!r} -> {l1!r} "
+          f"wall_s={time.perf_counter() - t0!r}")
+
+    cfg = elastic_train.TINY
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=2, total_steps=10),
+                           dev)
+    params = init_params(cfg, seed=seed, device=dev)
+    state = adamw_init(params)
+    pipe = TokenPipeline(8, 64, cfg.vocab_size, seed=seed)
+    for _ in range(5):
+        params, state, _ = step(params, state, pipe.next_batch())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_k3_") as d:
+        save_checkpoint(d, 5, {"params": _stacked(params),
+                               "opt": {"mu": _stacked(state["mu"]),
+                                       "nu": _stacked(state["nu"]),
+                                       "step": state["step"].cpu().numpy()}},
+                        extra={"pipeline": pipe.state()})
+        tree = restore_checkpoint(d, 5)
+        cursor = load_manifest(d, 5)["extra"]["pipeline"]
+        keys = sorted(load_manifest(d, 5)["leaves"])
+    _require("params/layers/attn/wq" in keys and not any(
+        "layers/0" in k for k in keys), f"path K3: not the reference's "
+                                        f"layout: {keys[:6]}")
+    params2 = params_from_numpy(tree["params"], cfg, device=dev)
+    state2 = opt_state_from_numpy(tree["opt"], cfg, device=dev)
+    for (name, a), b in zip(_tree.items({"p": params, "s": state}),
+                            _tree.leaves({"p": params2, "s": state2})):
+        _require(a.dtype == b.dtype and torch.equal(a, b),
+                 f"path K3: {name} differs after the round trip")
+    pipe2 = TokenPipeline(8, 64, cfg.vocab_size, seed=seed)
+    pipe2.load_state(cursor)
+    batch, batch2 = pipe.next_batch(), pipe2.next_batch()
+    _require(all((batch[k] == batch2[k]).all() for k in batch),
+             "path K3: the resumed pipeline gives another batch")
+    a = step(params, state, batch)
+    b = step(params2, state2, batch)
+    dl = abs(float(a[2]["loss"]) - float(b[2]["loss"]))
+    dp = max(float((x - y).abs().max()) for x, y in zip(
+        _tree.leaves(a[0]), _tree.leaves(b[0])))
+    _require(dl <= 1e-6 and dp <= 1e-6, f"path K3: the resumed step differs "
+                                        f"(loss {dl}, parameters {dp})")
+    print(f"path K3: TINY state after 5 steps written by the port's store in "
+          f"the reference's layout ({len(keys)} leaves, layers stacked), read "
+          f"back and carried onto the card: equal leaf for leaf; one more "
+          f"step from each: |loss diff| {dl!r}, parameters within {dp!r}")
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -3078,6 +3483,24 @@ def main(argv=None) -> int:
           f"{launches_j2}")
     launches_d["J2"] = launches_j2["decode_attention_fwd"]
 
+    # path K: training; K0 the backward kernel against its plain version,
+    # K1 olmo-1b at full width, K2 kernels against plain versions, K3 the
+    # elastic restart and a resume from the reference's checkpoint layout
+    t0 = time.perf_counter()
+    k0 = run_path_k0(dev, args.seed)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches_k = run_path_k1(dev, args.seed)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    run_path_k2(dev, args.seed)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    run_path_k3(dev, args.seed)
+    print(f"path K: K0 wall_s={t1 - t0!r} K1 wall_s={t2 - t1!r} K2 wall_s="
+          f"{t3 - t2!r} K3 wall_s={time.perf_counter() - t3!r} launches: K1 "
+          f"{launches_k}")
+
     # per-kernel times at the paths' shapes
     kernels = []
     kw = dict(heuristic_kwargs(), active=act_a)
@@ -3287,6 +3710,31 @@ def main(argv=None) -> int:
         design="the lag_update kernel at batch 1: one warp"))
 
     kernels += attention_rows(dev, args.seed, launches_d, errs)
+    fwd_row = kernels[-2]
+    fwd_row["launches_by_path"] = {"D1": fwd_row["launches"],
+                                   "K1": launches_k["flash_attention_fwd"]}
+    fwd_row["launches"] += launches_k["flash_attention_fwd"]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/ops.py:48",
+        replaces_note="the backward rule of the flash_attention custom_vjp "
+        "(:29-60), which recomputes through the jnp online softmax; the "
+        "reference has no Pallas backward kernel",
+        launches=launches_k["flash_attention_bwd"],
+        launches_by_path={"K1": launches_k["flash_attention_bwd"]},
+        **{k: v for k, v in k0["olmo"].items()},
+        max_abs_err_f32=k0["f32"]["max_abs_err"],
+        cases={"qwen3_gqa_causal_bf16_4x32x1024": k0["qwen3_causal"],
+               "qwen3_gqa_full_bf16_4x32x1024": k0["qwen3_full"],
+               "qwen3_gqa_causal_f32_2x32x512": k0["f32"]},
+        design="two kernels on the CUDA cores, f32 sums: a block per 64 "
+        "query rows recomputes lse and D and sums dQ; a block per 64 keys "
+        "loops over the group's heads and q tiles and sums dK, dV; no "
+        "atomics; tiles the causal mask empties skipped"))
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                     k0["qwen3_causal"]["max_abs_err"],
+                                     k0["qwen3_full"]["max_abs_err"])
     kernels.append(wkv_row(dev, args.seed, launches_e, errs))
 
     for kern in kernels:

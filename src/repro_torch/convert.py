@@ -9,7 +9,8 @@ draws (the state of a stochastic policy); ``controlplane_state_from_numpy``,
 ``sketch_state_from_numpy`` and ``alert_state_from_numpy`` take a
 control-plane-wrapped policy's state, a sketch state and an alert state
 with numpy leaves, one stream or a batch of them.  The LLM's weights come
-across with ``params_from_numpy``.  All are plain data in, port objects
+across with ``params_from_numpy``, its optimizer state with
+``opt_state_from_numpy``.  All are plain data in, port objects
 out, so a test can feed one set of inputs to both packages, compare
 their states leaf by leaf, and resume a port run from a reference state.
 """
@@ -202,7 +203,30 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     shapes are checked against ``cfg``: ``wq`` (d, H, hd), ``wo`` (H, hd,
     d) and so on.
     """
+    return _layers_from_numpy(tree, cfg, resolve_device(device), cfg.pdtype)
+
+
+def opt_state_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
+                         device=None) -> dict:
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` (numpy leaves;
+    the moments stacked over layers like its parameters) -> the port's
+    (``optim.adamw_init``'s form) on ``device`` (``None`` = the CUDA
+    card): float32 moments in the port's parameter tree, an int32
+    ``step``.  With ``params_from_numpy`` it turns a reference checkpoint,
+    read by ``checkpoint.restore_checkpoint`` without a target, into port
+    state."""
     dev = resolve_device(device)
+    return {"mu": _layers_from_numpy(tree["mu"], cfg, dev, torch.float32),
+            "nu": _layers_from_numpy(tree["nu"], cfg, dev, torch.float32),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def _layers_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
+                       dev: torch.device, dtype: torch.dtype) -> dict:
+    """A tree shaped like the reference's parameters (stacked layers) ->
+    the port's (a list of per-layer dicts), each leaf checked against
+    ``cfg``'s shapes and cast to ``dtype``."""
     shapes = param_shapes(cfg)
 
     def leaf(name, arr):
@@ -210,7 +234,7 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
         if name not in shapes or tuple(t.shape) != shapes[name]:
             raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
                              f"want {shapes.get(name, 'no such parameter')}")
-        return t.to(cfg.pdtype)
+        return t.to(dtype)
 
     def walk(prefix, node, layer=None):
         """The subtree's leaves as tensors; ``layer`` picks one layer out
@@ -226,6 +250,13 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     out = {k: walk(f"{k}.", v) for k, v in tree.items() if k != "layers"}
     out["layers"] = [walk(f"layers.{i}.", tree["layers"], i)
                      for i in range(cfg.n_layers)]
+    # subtrees without leaves (a non-parametric norm, a tied head) are not
+    # in a checkpoint; the port's tree keeps them as empty dicts
+    for k in ("final_norm", "lm_head"):
+        out.setdefault(k, {})
+    for lp in out["layers"]:
+        lp.setdefault("ln1", {})
+        lp.setdefault("ln2", {})
     missing = set(shapes) - set(_names(out))
     if missing:
         raise ValueError(f"parameters missing from the tree: "

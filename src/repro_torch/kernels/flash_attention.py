@@ -1,4 +1,5 @@
-"""Flash attention forward (prefill): a CUDA kernel and its plain version.
+"""Flash attention forward (prefill) and backward (training): CUDA kernels,
+their plain versions, and the autograd ``Function`` that joins them.
 
 ``flash_attention_fwd(q, k, v, causal)`` with q (B, H, Sq, hd) and k/v
 (B, KV, Skv, hd), H % KV == 0: q head h attends with kv head
@@ -10,18 +11,27 @@ throughout, as the Pallas kernel does.
 ``flash_attention_plain`` is the plain PyTorch version (the CPU path, and
 the yardstick the kernel is held against on the card): the full-softmax
 ``ref.attention_ref``.
+
+``flash_attention_bwd(q, k, v, o, do, causal)`` returns ``(dq, dk, dv)``
+in the forward's layout; dk/dv are (B, KV, Skv, hd), summed over the H /
+KV query heads of each group.  ``flash_attention_bwd_plain`` is its plain
+version, the explicit formula.  ``FlashAttention`` (a
+``torch.autograd.Function``) runs the forward and saves q, k, v and the
+output for the backward; ``flash_attention`` applies it.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .ref import attention_ref
+from .ref import NEG_INF, attention_ref
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_ENTRY_BWD = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 #: the plain version: softmax over the whole row in float32
@@ -45,6 +55,17 @@ def check_attention_inputs(q, *rest, what: str) -> None:
         raise ValueError(f"{what}: inputs must be 16-byte aligned")
 
 
+def _check_shapes(q, k, v) -> None:
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if (k.shape != (b, kvh, skv, hd) or v.shape != k.shape or kvh == 0
+            or h % kvh):
+        raise ValueError(f"flash_attention: want q (B, H, Sq, hd) and k/v "
+                         f"(B, KV, Skv, hd) with H % KV == 0; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+
+
 @_build.counted
 def flash_attention_fwd(q, k, v, *, causal: bool = True):
     """q (B, H, Sq, hd); k/v (B, KV, Skv, hd).  Returns (B, H, Sq, hd) in
@@ -66,14 +87,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     CPU tensors run ``flash_attention_plain``; CUDA tensors launch the
     kernel or raise.
     """
+    _check_shapes(q, k, v)
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
-    if (k.shape != (b, kvh, skv, hd) or v.shape != k.shape or kvh == 0
-            or h % kvh):
-        raise ValueError(f"flash_attention: want q (B, H, Sq, hd) and k/v "
-                         f"(B, KV, Skv, hd) with H % KV == 0; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -84,3 +100,104 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
                   _build.stream_ptr(q.device))
     flash_attention_fwd.launches += 1
     return out
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True):
+    """The backward's plain version, the explicit formula in float32 (not
+    autograd of ``attention_ref``): with s = hd^-0.5, recompute P =
+    softmax(Q K^T s) under the forward's mask, then D = rowsum(dO o O),
+    dV = P^T dO, dS = P o (dO V^T - D), dQ = dS K s, dK = dS^T Q s.  The
+    G = H / KV query heads of a group share one product with their kv
+    head, so dK and dV come out summed over the group.  Returns ``(dq,
+    dk, dv)`` in the inputs' dtypes."""
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qf = q.float().reshape(b, kvh, g * sq, hd)
+    kf, vf = k.float(), v.float()
+    s = (qf @ kf.transpose(-1, -2)) * scale              # (B, KV, G*Sq, Skv)
+    if causal:
+        q_pos = torch.arange(sq, device=q.device).repeat(g)
+        mask = q_pos[:, None] >= torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dof = do.float().reshape(b, kvh, g * sq, hd)
+    d = (dof * o.float().reshape(b, kvh, g * sq, hd)).sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - d)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    return (dq.reshape(b, h, sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@_build.counted
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
+    """q, o, do (B, H, Sq, hd); k/v (B, KV, Skv, hd).  Returns ``(dq (B, H,
+    Sq, hd), dk, dv (B, KV, Skv, hd))`` in the inputs' dtype.
+
+    The backward of the reference's ``kernels/ops.py::flash_attention``
+    (a ``custom_vjp`` that recomputes through its jnp online softmax), as
+    two hand-written kernels (``csrc/flash_attention_bwd.cu``): one block
+    per (64 query rows, head) recomputes each row's logsumexp and D =
+    rowsum(dO o O) and sums dQ; one block per (keys, kv head) loops over
+    the group's heads and q tiles and sums dK and dV.  float32 throughout
+    on the CUDA cores, from float32 or bfloat16 inputs; deterministic (no
+    atomics); tiles the causal mask empties are skipped.
+
+    CPU tensors run ``flash_attention_bwd_plain``; CUDA tensors launch the
+    kernels (one count a call) or raise.
+    """
+    _check_shapes(q, k, v)
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o and do must have q's shape "
+                         f"{tuple(q.shape)}; got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    check_attention_inputs(q, k, v, o, do, what="flash_attention_bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty(2 * b * h * sq, dtype=torch.float32,
+                          device=q.device)
+    _build.launch(_ENTRY_BWD[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, h, kvh,
+                  sq, skv, hd, int(causal), _build.stream_ptr(q.device))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward runs ``fwd`` (the
+    forward kernel by default) and saves q, k, v and the output; the
+    backward runs ``bwd`` (the backward kernel by default) on them.  The
+    pair is an argument so that a caller can hold the kernels against
+    their plain versions through the same graph."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, fwd, bwd):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o = fwd(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.bwd = causal, bwd
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, o, do, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    fwd=flash_attention_fwd, bwd=flash_attention_bwd):
+    """Differentiable flash attention, q (B, H, Sq, hd) over k/v (B, KV,
+    Skv, hd): ``FlashAttention``.  Under ``torch.no_grad()`` it is one
+    call of ``fwd`` and saves nothing."""
+    if not torch.is_grad_enabled():
+        return fwd(q, k, v, causal=causal)
+    return FlashAttention.apply(q, k, v, causal, fwd, bwd)

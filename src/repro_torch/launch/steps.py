@@ -1,10 +1,10 @@
-"""Step-function builders: ``make_prefill_step`` (full-sequence forward,
-last-token logits) and ``make_serve_step`` (one decode step).
+"""Step-function builders: ``make_train_step`` (forward, backward and
+AdamW), ``make_prefill_step`` (full-sequence forward, last-token logits)
+and ``make_serve_step`` (one decode step).
 
 Each builder resolves its device once (``None`` = the CUDA card; a host
 without CUDA raises ``CudaUnavailableError`` unless ``device="cpu"``) and
-the step moves its token ids there.  ``make_train_step`` waits for the
-training slice.
+the step moves its batch there.
 """
 from __future__ import annotations
 
@@ -13,13 +13,51 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.models import ArchConfig, serve_step as model_serve_step
+from repro_torch._tree import items, unflatten
+from repro_torch.models import (ArchConfig, forward,
+                                serve_step as model_serve_step)
 from repro_torch.models.layers import embed_inputs, logits_fn
-from repro_torch.models.transformer import backbone, check_ported
+from repro_torch.models.transformer import (backbone, check_ported,
+                                            check_trainable)
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
 def _ids(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=dev).long()
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
+                    device=None) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradient with respect to every parameter
+    (``models.forward``, one backward pass), then ``adamw_update``.
+    ``batch`` holds ``inputs`` and ``labels`` (B, S) token ids, tensors or
+    arrays (the data pipeline's numpy batches), and optionally
+    ``positions`` and ``mask``; the step moves them to the device.
+    ``metrics`` holds ``loss``, ``ce``, ``aux``, ``lr`` and ``grad_norm``
+    as tensors on the device (the step never syncs the host).  The given
+    parameters and state are left as they were.  On the card every dense
+    layer's attention runs the flash forward kernel (twice with
+    ``cfg.remat``: once more when the backward recomputes the layer) and
+    the flash backward kernel once."""
+    check_trainable(cfg)
+    dev = resolve_device(device)
+
+    def train_step(params: Dict, opt_state: Dict, batch: Dict):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        keyed = dict(items(params))
+        trainable = {k: p.detach().requires_grad_(True)
+                     for k, p in keyed.items()}
+        with torch.enable_grad():
+            loss, metrics = forward(unflatten(params, trainable), cfg, batch)
+            grads = torch.autograd.grad(loss, list(trainable.values()))
+        grads = unflatten(params, dict(zip(trainable, grads)))
+        params, opt_state, opt_metrics = adamw_update(grads, opt_state,
+                                                      params, opt_cfg)
+        return params, opt_state, {
+            "loss": loss.detach(),
+            **{k: v.detach() for k, v in metrics.items()}, **opt_metrics}
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:

@@ -1,8 +1,10 @@
 """Decoder-only LLMs of the port (the reference's ``repro.models`` dense
-and RWKV-6 branches): configs, init, prefill backbone and the serve step,
-with attention and the WKV recurrence on the hand-written CUDA kernels."""
+and RWKV-6 branches): configs, init, prefill backbone, the serve step and
+the training loss, with attention and the WKV recurrence on the
+hand-written CUDA kernels."""
 from .base import ArchConfig, MambaConfig, NotPortedError
-from .transformer import (backbone, init_decode_state, init_params,
+from .layers import cross_entropy
+from .transformer import (backbone, forward, init_decode_state, init_params,
                           param_bytes, serve_step)
 
 __all__ = [
@@ -10,6 +12,8 @@ __all__ = [
     "MambaConfig",
     "NotPortedError",
     "backbone",
+    "cross_entropy",
+    "forward",
     "init_decode_state",
     "init_params",
     "param_bytes",

@@ -1,5 +1,6 @@
-"""GQA attention: full-sequence (prefill) on the flash-attention kernel and
-one-token decode over a KV cache on the decode-attention kernel.
+"""GQA attention: full-sequence (prefill, training) on the flash-attention
+kernels and one-token decode over a KV cache on the decode-attention
+kernel.
 
 The reference's jnp path and its Pallas path compute the same function;
 the port always takes the kernels (``kernels.flash_attention``,
@@ -21,7 +22,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention_fwd
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_fwd)
 
 from .base import ArchConfig, NotPortedError, scaled_normal
 from .layers import Rope, rms_norm_headwise, rope_tables, rotate
@@ -71,11 +74,18 @@ def _out(p: Dict, cfg: ArchConfig, o: torch.Tensor) -> torch.Tensor:
 def attention_block(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                     positions: torch.Tensor, causal: bool = True, *,
                     rope: Optional[Rope] = None) -> torch.Tensor:
-    """Full-sequence attention (prefill) through the flash kernel.  x (B,
-    S, d); positions (B, S).  Returns (B, S, d)."""
+    """Full-sequence attention (prefill and training) through the flash
+    kernels.  x (B, S, d); positions (B, S).  Returns (B, S, d).
+
+    ``flash_attention`` is the differentiable ``FlashAttention``: with
+    gradients on, the backward kernel computes dq, dk and dv; under
+    ``torch.no_grad()`` it is one forward launch, as before.  The forward
+    and backward are read from this module at each call, so a caller can
+    swap their plain versions in."""
     q, k, v = _qkv(p, cfg, x, positions, rope)
-    out = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal,
+                          fwd=flash_attention_fwd, bwd=flash_attention_bwd)
     return _out(p, cfg, out.transpose(1, 2))
 
 

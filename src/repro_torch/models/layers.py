@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, MLPs, embeddings and logits.
+"""Shared building blocks: norms, RoPE, MLPs, embeddings, logits and the
+training loss.
 
 Each function computes what its counterpart in the reference's
 ``models/layers.py`` computes, in the same dtypes: norms and RoPE in
@@ -10,7 +11,7 @@ reference leaves them to XLA.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -171,3 +172,17 @@ def logits_fn(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ params["embedding"]["table"].to(dt).T
     return x @ params["lm_head"]["w"].to(dt)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross-entropy in float32 with a stable logsumexp.
+    logits (..., V); labels (...) int; ``mask`` (...), optional: the mean
+    over masked-in tokens (at least one in the divisor)."""
+    lf = logits.float()
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = torch.logsumexp(lf, dim=-1) - gold
+    if mask is not None:
+        m = mask.to(nll.dtype)
+        return (nll * m).sum() / m.sum().clamp(min=1.0)
+    return nll.mean()

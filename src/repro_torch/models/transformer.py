@@ -7,26 +7,36 @@ eagerly; a list saves indexing every stacked leaf every step).  The dense
 layers are [attention + MLP] on the attention kernels, the RWKV layers
 [time-mix + channel-mix] on the WKV kernel.  The MoE, hybrid (Mamba) and
 encoder-decoder branches raise :class:`NotPortedError`, as do the tailed
-decode and RWKV's ``wkv_impl="kernel_stub"``.  ``forward`` (the training
-loss) waits for the training slice.
+decode and RWKV's ``wkv_impl="kernel_stub"``.
+
+``forward`` is the training loss of a dense model; with ``cfg.remat`` its
+backbone checkpoints each layer (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint(nothing_saveable)`` does over its scan
+body.  RWKV does not train yet: its WKV kernel has no backward
+(:func:`check_trainable`).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 
 from .attention import (attention_block, decode_attention, init_attention,
                         init_kv_cache)
 from .base import ArchConfig, NotPortedError
-from .layers import (apply_mlp, apply_norm, embed_inputs, init_embedding,
-                     init_lm_head, init_mlp, init_norm, logits_fn,
-                     rope_tables)
+from .layers import (apply_mlp, apply_norm, cross_entropy, embed_inputs,
+                     init_embedding, init_lm_head, init_mlp, init_norm,
+                     logits_fn, rope_tables)
 from .rwkv6 import (LORA_RANK, _dims, init_rwkv_channel_mix,
                     init_rwkv_state, init_rwkv_time_mix, rwkv_channel_mix,
                     rwkv_time_mix)
+
+#: the weight of the MoE auxiliary loss in the training loss (0 for the
+#: dense models the port trains)
+AUX_LOSS_COEF = 0.01
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -47,6 +57,17 @@ def check_ported(cfg: ArchConfig) -> None:
         if flag:
             raise NotPortedError(f"{cfg.name}: {what} is not yet ported to "
                                  f"repro_torch")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """:func:`check_ported`, and raise :class:`NotPortedError` for what
+    the port serves but cannot train: RWKV-6, whose WKV kernel writes its
+    state in place and has no backward."""
+    check_ported(cfg)
+    if cfg.rwkv:
+        raise NotPortedError(
+            f"{cfg.name}: training RWKV-6 needs a backward of the WKV kernel "
+            f"(rwkv6_wkv), which is not yet ported to repro_torch")
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -147,16 +168,48 @@ def backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
     """Token embeddings (B, S, d) -> final norm output (B, S, d).  The
     reference also returns the MoE auxiliary loss, which neither a dense
-    model nor an RWKV one has.  RWKV reads no positions."""
+    model nor an RWKV one has.  RWKV reads no positions.
+
+    Differentiable for a dense model: with gradients on and ``cfg.remat``,
+    each layer runs under ``torch.utils.checkpoint`` (non-reentrant), so
+    the backward keeps only each layer's input and recomputes the layer,
+    its attention forward included."""
     check_ported(cfg)
     if cfg.rwkv:
         for lp in params["layers"]:
             x = _rwkv_block(lp, cfg, x)
     else:
         rope = rope_tables(positions, cfg)
+        remat = cfg.remat and torch.is_grad_enabled()
         for lp in params["layers"]:
-            x = _dense_block(lp, cfg, x, positions, rope)
+            if remat:
+                x = checkpoint(_dense_block, lp, cfg, x, positions, rope,
+                               use_reentrant=False)
+            else:
+                x = _dense_block(lp, cfg, x, positions, rope)
     return apply_norm(params["final_norm"], cfg, x)
+
+
+def forward(params: Dict, cfg: ArchConfig, batch: Dict
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training loss of a dense model: ``batch["inputs"]`` token ids (B,
+    S), ``batch["labels"]`` (B, S), optional ``batch["positions"]`` (B, S)
+    and ``batch["mask"]`` (B, S), all tensors on the parameters' device.
+    Returns ``(loss, {"ce", "aux"})``: the token-mean cross-entropy plus
+    ``AUX_LOSS_COEF`` times the MoE auxiliary loss, which is 0 for a
+    dense model."""
+    check_trainable(cfg)
+    inputs = batch["inputs"]
+    b, s = inputs.shape[0], inputs.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=inputs.device).expand(b, s)
+    x = embed_inputs(params["embedding"], cfg, inputs)
+    h = backbone(params, cfg, x, positions)
+    logits = logits_fn(params, cfg, h)
+    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -219,5 +272,6 @@ def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
     return logits, dict(state, cache_len=clen + 1)
 
 
-__all__ = ["backbone", "check_ported", "init_decode_state", "init_params",
-           "param_bytes", "param_shapes", "serve_step"]
+__all__ = ["AUX_LOSS_COEF", "backbone", "check_ported", "check_trainable",
+           "forward", "init_decode_state", "init_params", "param_bytes",
+           "param_shapes", "serve_step"]

@@ -1,0 +1,89 @@
+"""AdamW (decoupled weight decay) with float32 moments over the port's
+parameter tree (nested dicts and lists of tensors).
+
+The reference's ``optim/adamw.py`` in plain tensor ops, as the reference
+leaves it to XLA.  The state mirrors the parameter tree; parameters are
+updated in float32 and cast back to their own dtype.  Every function
+returns new tensors and leaves its inputs as they were.  The reference's
+``opt_state_specs`` (logical sharding specs) waits for the port's mesh
+rules.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch._tree import leaves, tree_map, unzip
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def warmup_cosine(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``step`` (an integer tensor), float32: linear
+    warmup to ``cfg.lr`` over ``warmup_steps``, then a cosine down to
+    ``min_lr_ratio * lr`` at ``total_steps``."""
+    s = step.float()
+    warm = s / max(1.0, cfg.warmup_steps)
+    prog = ((s - cfg.warmup_steps)
+            / max(1.0, cfg.total_steps - cfg.warmup_steps)).clamp(0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
+
+
+def adamw_init(params) -> Dict[str, Any]:
+    """``{"mu", "nu"}`` float32 zeros shaped like ``params``, and ``"step"``
+    an int32 zero, on the parameters' device."""
+    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                  device=p.device)
+    dev = leaves(params)[0].device
+    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``(grads in float32 scaled to a global norm of at most max_norm,
+    the global norm before scaling)``."""
+    gn = torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), gn
+
+
+@torch.no_grad()
+def adamw_update(grads, state, params, cfg: AdamWConfig
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step: clip ``grads`` by their global norm, then update
+    the moments and the parameters.  Returns ``(new params, new state,
+    {"lr", "grad_norm"})``."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    step = state["step"] + 1
+    lr = warmup_cosine(cfg, step)
+    b1c = 1.0 - torch.pow(cfg.b1, step.float())
+    b2c = 1.0 - torch.pow(cfg.b2, step.float())
+
+    def upd(p, g, mu, nu):
+        mu = cfg.b1 * mu + (1 - cfg.b1) * g
+        nu = cfg.b2 * nu + (1 - cfg.b2) * g.square()
+        pf = p.float()
+        delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps) \
+            + cfg.weight_decay * pf
+        return (pf - lr * delta).to(p.dtype), mu, nu
+
+    new_p, mu, nu = unzip(tree_map(upd, params, grads, state["mu"],
+                                   state["nu"]), 3)
+    return new_p, {"mu": mu, "nu": nu, "step": step}, \
+        {"lr": lr, "grad_norm": gnorm}

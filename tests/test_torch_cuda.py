@@ -24,15 +24,18 @@ unmasked, at n = 7, 32 and 256 and at its width limit, and must equal the
 plain packers exactly (``loads`` bit for bit); the warp-per-row selection
 kernel equals ``select_slot_plain`` exactly, ties included.  For the LLM
 kernels, shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
-odd length, every head dim of the flash kernels, q lengths that do not
-divide their tiles, decode fills on either side of a split boundary and a
+odd length, every head dim of the flash kernels (forward and backward),
+q lengths that do not divide their tiles, decode fills on either side of a split boundary and a
 decode call replayed from a CUDA graph at other fills, and a small model
 end to end; the adversarial search's oracle rows on the card against
 the CPU transform of the same draws, a search run twice with one seed
 (bit-equal), a trace replayed equal to a direct run, and the ``py``
 packers equal to the ``torch`` packers on the card; tolerances as
 everywhere for
-the attention kernels: 2e-5 in float32, 2e-2 in bfloat16; the WKV kernel
+the attention kernels: 2e-5 in float32, 2e-2 in bfloat16 (the backward's
+absolute part scaled by the largest gradient of the plain result); a
+train step of a smoke model on the card against the CPU within 1e-4 of
+each leaf's largest magnitude (loss, parameters, moments); the WKV kernel
 (float32 only) within 1e-4 of the largest magnitude of its plain result,
 the reference's own tolerance for its kernel.
 """
@@ -51,7 +54,8 @@ from repro_torch.kernels.binpack_select import (  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_fwd, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    HEAD_DIMS, flash_attention_fwd, flash_attention_plain)
+    HEAD_DIMS, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
 from repro_torch.kernels.lag_update import (  # noqa: E402
     lag_update_batch, lag_update_reference, lag_update_single)
 from repro_torch.kernels.loop_fused import (  # noqa: E402
@@ -62,7 +66,7 @@ from repro_torch.kernels.move_eval import (  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     rwkv6_wkv, rwkv6_wkv_fwd, rwkv6_wkv_plain)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
-                                      make_serve_step)
+                                      make_serve_step, make_train_step)
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
 from repro_torch.registry import get_spec  # noqa: E402
 
@@ -111,6 +115,96 @@ def test_flash_kernel_matches_plain(cuda, b, h, kv, sq, skv, hd, dtype,
     torch.testing.assert_close(
         got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
         rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,hd", [
+    (1, 4, 4, 128, 128, 64), (2, 8, 2, 128, 256, 64),
+    (1, 4, 1, 256, 256, 128), (1, 2, 2, 64, 192, 32),
+    (2, 4, 2, 100, 100, 16),          # odd length, smoke head dim
+    *[(2, 4, 2, 300, 300, hd) for hd in HEAD_DIMS],
+    # q tiles of 64 (dq) and 32 (dkv) rows and key blocks of 64 (32 at hd
+    # 256) that do not divide the lengths; Skv > Sq and Sq > Skv
+    (2, 8, 2, 1, 1, 128), (2, 8, 2, 65, 65, 128), (2, 8, 2, 129, 700, 128),
+    (2, 8, 2, 333, 100, 64), (1, 16, 16, 1024, 1024, 128),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernel_matches_plain(cuda, b, h, kv, sq, skv, hd, dtype,
+                                        causal):
+    q, k, v, do = _normal(5, [(b, h, sq, hd), (b, kv, skv, hd),
+                              (b, kv, skv, hd), (b, h, sq, hd)], dtype, cuda)
+    o = flash_attention_plain(q, k, v, causal=causal)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1.0)
+        torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_gradient_on_the_card(cuda, dtype):
+    """``flash_attention`` through autograd on the card: one launch of each
+    kernel, gradients nonzero and equal to the plain versions' Function
+    on the card."""
+    q, k, v, do = _normal(6, [(2, 8, 200, 64), (2, 2, 200, 64),
+                              (2, 2, 200, 64), (2, 8, 200, 64)], dtype, cuda)
+    grads = []
+    for fwd, bwd in ((flash_attention_fwd, flash_attention_bwd),
+                     (flash_attention_plain, flash_attention_bwd_plain)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        flash_attention(*leaves, causal=True, fwd=fwd, bwd=bwd).backward(do)
+        torch.cuda.synchronize()
+        after = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        kernel = fwd is flash_attention_fwd
+        assert after == tuple(n + kernel for n in before)
+        grads.append([x.grad for x in leaves])
+    for g, w in zip(*grads):
+        assert float(g.float().abs().max()) > 0
+        scale = max(float(w.float().abs().max()), 1.0)
+        torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "granite-3-8b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """Two AdamW steps of the float32 smoke model (remat on) on the card
+    (both flash kernels) against the CPU (plain versions)."""
+    from repro_torch import _tree
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(configs.get(arch, smoke=True),
+                              dtype="float32", remat=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4, eps=1e-6)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = _tree.tree_map(lambda t: t.to(cuda), cpu)
+    states = [adamw_init(card), adamw_init(cpu)]
+    params = [card, cpu]
+    steps = [make_train_step(cfg, opt, d) for d in (cuda, "cpu")]
+    pipe = TokenPipeline(2, 32, cfg.vocab_size, seed=2)
+    for _ in range(2):
+        batch = pipe.next_batch()
+        before = flash_attention_bwd.launches
+        out = [step(p, st, batch)
+               for step, p, st in zip(steps, params, states)]
+        assert flash_attention_bwd.launches == before + cfg.n_layers
+        params = [o[0] for o in out]
+        states = [o[1] for o in out]
+        torch.testing.assert_close(out[0][2]["loss"].cpu(), out[1][2]["loss"],
+                                   rtol=1e-4, atol=1e-4)
+        for tree_card, tree_cpu in ((params[0], params[1]),
+                                    (states[0]["mu"], states[1]["mu"]),
+                                    (states[0]["nu"], states[1]["nu"])):
+            for (name, g), w in zip(_tree.items(tree_card),
+                                    _tree.leaves(tree_cpu)):
+                scale = max(float(w.abs().max()), 1.0)
+                assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, name
 
 
 @pytest.mark.parametrize("b,kv,g,s,hd", [

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports nothing of JAX or the reference, and
-it never drifts onto the CPU unasked."""
+"""The port stands alone: it imports nothing of JAX or the reference (every
+subpackage, training's ``optim``, ``data`` and ``checkpoint`` included),
+and it never drifts onto the CPU unasked."""
 import ast
 from pathlib import Path
 
@@ -12,12 +13,16 @@ from repro_torch import CudaUnavailableError, api, configs, opt  # noqa: E402
 from repro_torch.broker import Broker  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import scenarios  # noqa: E402
+from repro_torch.convert import opt_state_from_numpy  # noqa: E402
 from repro_torch.examples import autoscale_serve  # noqa: E402
+from repro_torch.examples import elastic_train  # noqa: E402
 from repro_torch.fleet import FleetRunner  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.lagsim import simulate_lag, sweep_lag  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
-                                      make_serve_step)
+                                      make_serve_step, make_train_step)
+from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
 from repro_torch.registry import make_policy  # noqa: E402
 from repro_torch.scenarios import trace_from_scenario  # noqa: E402
@@ -91,6 +96,10 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: trace_from_scenario("bursty", 0, 1, 3, 2),
     lambda: LLMReplica(0, Broker(), Sink(), None, model=SharedModel(LLM)),
     lambda: autoscale_serve.main([]),
+    lambda: make_train_step(LLM, AdamWConfig()),
+    lambda: train(LLM, steps=1, batch=1, seq=4, ckpt_dir=None),
+    lambda: elastic_train.main([]),
+    lambda: opt_state_from_numpy({}, LLM),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
@@ -100,7 +109,8 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
         "api.sweep", "api.evaluate", "FleetRunner.simulate",
         "scenarios.generate_scenario", "api.attack", "api.replay",
         "seed_trace", "trace_from_scenario", "LLMReplica",
-        "examples.autoscale_serve"))
+        "examples.autoscale_serve", "make_train_step", "launch.train",
+        "examples.elastic_train", "opt_state_from_numpy"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):
@@ -113,3 +123,22 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build, "BUILD_ROOT", Path("/nonexistent-build-root"))
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build()
+
+
+#: the subpackages of the port: each must be present, import nothing of
+#: JAX or the reference, and import without a card
+SUBPACKAGES = ("broker", "checkpoint", "configs", "core", "data", "examples",
+               "fleet", "kernels", "lagsim", "launch", "models", "opt",
+               "optim", "registry", "scenarios", "serving", "telemetry")
+
+
+def test_every_subpackage_is_covered_and_imports_without_a_card():
+    import importlib
+
+    pkg = ROOT / "src" / "repro_torch"
+    found = sorted(p.parent.name for p in pkg.glob("*/__init__.py"))
+    assert found == sorted(SUBPACKAGES)
+    for name in SUBPACKAGES:
+        importlib.import_module(f"repro_torch.{name}")
+    files = {p.relative_to(pkg).parts[0] for p in _port_files()[:-1]}
+    assert set(SUBPACKAGES) <= files
