@@ -15,10 +15,13 @@ Run from a checkout of the repository on a machine with a CUDA card and
    built library's SASS (``cuobjdump -sass``) must show the bfloat16
    flash-attention kernel on ``wgmma`` (``HGMMA``) with its K/V loaded by
    TMA (``UTMALDG``) at every head dim, and the float32 one without
-   ``HGMMA``; the build's ``-Xptxas -v`` report must show every
-   ``loop_fused`` instantiation (n = 1..14) with a 0-byte stack frame and
-   no spills (its state in registers), and every ``rwkv6_wkv`` head size
-   (16, 32, 64, 128) with no spills;
+   ``HGMMA``; the same for the bfloat16 flash backward's two kernels
+   (``csrc/flash_attention_bwd_bf16.cu``, head dims 64 and 128) and the
+   float32 backward (``csrc/flash_attention_bwd.cu``); the build's
+   ``-Xptxas -v`` report must show every ``loop_fused`` instantiation (n
+   = 1..14) with a 0-byte stack frame and no spills (its state in
+   registers), and every ``rwkv6_wkv`` head size (16, 32, 64, 128) and
+   every instantiation of the bfloat16 backward's kernels with no spills;
 3. every kernel against its plain PyTorch version on the card
    (integers exact, floats ``rtol = atol = 1e-5``; the attention
    kernels at ``2e-5`` in float32 and ``2e-2`` in bfloat16; the WKV
@@ -177,14 +180,24 @@ Run from a checkout of the repository on a machine with a CUDA card and
    ``decode_attention`` launches a serve step, the byte-level world equal
    integer for integer to the same world with byte replicas on the host,
    and the first generate call once more giving the same tokens;
-17. path K, training: K0 holds the flash-attention backward kernel
-   (``csrc/flash_attention_bwd.cu``: dq, dk and dv) against its plain
-   version (the explicit formula) at olmo-1b's heads (q [4, 16, 2048,
-   128], path K1's call) and qwen3-8b's grouped heads (q [4, 32, 1024,
-   128] over 8 KV heads, causal and full) in bfloat16, and at q [2, 32,
-   512, 128] in float32 (``2e-2`` and ``2e-5``, the absolute part scaled
-   by the plain result's largest gradient), timed beside its bound, its
-   plain version and the backward of ``scaled_dot_product_attention``;
+17. path K, training: K0 holds the flash-attention backward (dq, dk and
+   dv: ``csrc/flash_attention_bwd_bf16.cu`` on ``wgmma`` for bfloat16 at
+   head dims 64 and 128, ``csrc/flash_attention_bwd.cu`` on the CUDA
+   cores for float32) against its plain version (the explicit formula,
+   fed the forward kernel's lse, which must agree with the plain lse
+   within 1e-5) at olmo-1b's heads (q [4, 16, 2048, 128], path K1's
+   call), qwen3-8b's grouped heads (q [4, 32, 1024, 128] over 8 KV
+   heads, causal and full), grouped heads at hd 64 and a ragged causal
+   case (q [2, 16, 1000, 128] over k/v [2, 4, 777, 128]) in bfloat16,
+   at q [2, 32, 512, 128] in float32, and over a single key (bfloat16 at
+   hd 128, float32 at hd 256), under two checks: ``2e-2`` and
+   ``2e-5`` with the absolute part scaled by the plain result's largest
+   gradient, and the relative norm of the error, whole and in every
+   block of 64 rows of one head (``BWD_REL_TOL``), which each of three
+   controls (the last key block zeroed, D dropped, a head left out) must
+   fail; two calls bit-equal in every case; timed beside its bound, its
+   plain version and the backward of ``scaled_dot_product_attention``
+   (its forward run before), both as CUDA-graph replays and eager;
    then ``FlashAttention`` on the card against the plain versions'
    Function, one backward each, every gradient nonzero.  K1 trains
    olmo-1b at full width and depth (f32 parameters, bf16 compute, remat)
@@ -206,9 +219,12 @@ Run from a checkout of the repository on a machine with a CUDA card and
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
-   backward of that call at K1's shape; the flash row also in float32 at
-   D1's shape; no PyTorch call computes the WKV recurrence; ``pack_rows``
-   at path B's Modified Any Fit call, MBF over [1024, 32]; ``anneal_step``
+   backward of that call at K1's shape, replayed from a CUDA graph like
+   the kernel, and eager as ``library_eager_ms`` beside ``wrapper_ms``;
+   the flash row also in float32 at
+   D1's shape, and in bfloat16 with its lse stored (training's call); no
+   PyTorch call computes the WKV recurrence; ``pack_rows`` at path B's
+   Modified Any Fit call, MBF over [1024, 32]; ``anneal_step``
    at C1's and C2's shapes; the move plane ``move_eval``, which no path
    launches any more, at C1's); ``loop_fused`` and its plain version also
    run path A's whole input once more, assignments recorded, and their
@@ -280,19 +296,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     return start.elapsed_time(end) / reps, out
 
 
-def graph_ms(fn, calls: int) -> float:
+def graph_ms(fn, calls: int, prepare=None) -> float:
     """Device milliseconds per call of ``fn``: ``calls`` back-to-back calls
     captured in one CUDA graph, replayed and timed with CUDA events, so
-    that the host's per-call work is not counted."""
+    that the host's per-call work is not counted.  ``prepare``, if given,
+    runs once before, uncaptured, on the stream that then captures (an
+    autograd forward, whose backward runs on its forward's stream)."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):          # warm up off the default stream
+        if prepare is not None:
+            prepare()
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=None if prepare is None else side):
         for _ in range(calls):
             fn()
     graph.replay()                         # first replay uploads the graph
@@ -693,10 +713,12 @@ def check_decode_graph(dev, gen, b, kv, g, s, hd, fills):
 
 def check_sass(lib) -> None:
     """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) in every
-    instantiation of the bfloat16 flash kernel, and no ``HGMMA`` in the
-    float32 one, read from the built library's SASS."""
+    instantiation of the bfloat16 flash kernel and of the bfloat16
+    backward's two kernels, and no ``HGMMA`` in the float32 forward or
+    backward, read from the built library's SASS."""
     import shutil
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -726,13 +748,32 @@ def check_sass(lib) -> None:
     print(f"check sass: {len(counts)} flash_attention_bf16 kernels, (HGMMA, "
           f"UTMALDG) instructions each: {sorted(counts.values())}; "
           f"{len(f32)} float32 flash kernels without HGMMA")
+    # the backward: both bf16 kernels at every head dim they are built
+    # for on wgmma and TMA; the float32 CUDA-core kernels without HGMMA
+    bwd = {n: ("\n".join(funcs[n]).count("HGMMA"),
+               "\n".join(funcs[n]).count("UTMALDG"))
+           for n in funcs if "_wgmma_kernel" in n and "flash_bwd_" in n}
+    want = 2 * len(fa.WGMMA_BWD_HEAD_DIMS)
+    _require(len(bwd) == want and all(h and t for h, t in bwd.values()),
+             f"sass: want {want} bf16 flash backward kernels with HGMMA and "
+             f"UTMALDG; got {bwd}")
+    f32_bwd = [n for n in funcs if "flash_bwd_dq_kernelIf" in n
+               or "flash_bwd_dkv_kernelIf" in n]
+    _require(len(f32_bwd) == 2 * len(HEAD_DIMS)
+             and not any("HGMMA" in "\n".join(funcs[n]) for n in f32_bwd),
+             f"sass: want {2 * len(HEAD_DIMS)} float32 flash backward "
+             f"kernels without HGMMA; got {len(f32_bwd)}")
+    print(f"check sass: {len(bwd)} bf16 flash backward kernels, (HGMMA, "
+          f"UTMALDG) each: {sorted(bwd.values())}; {len(f32_bwd)} float32 "
+          f"flash backward kernels without HGMMA")
 
 
 def check_ptxas() -> None:
     """Every ``loop_fused`` instantiation (n = 1..14) in the build's
     ``-Xptxas -v`` report with a 0-byte stack frame and no spill: its
     rows' state lives in registers; every ``rwkv6_wkv`` head size (16, 32,
-    64, 128) with no spill (32 state registers a thread)."""
+    64, 128) with no spill (32 state registers a thread); the bfloat16
+    flash backward's dq and dkv kernels at hd 64 and 128 with no spill."""
     import re
 
     from repro_torch.kernels import _build
@@ -769,6 +810,22 @@ def check_ptxas() -> None:
                       f"spill loads, registers): {bad}")
     print(f"check ptxas: rwkv6_wkv hd = 16, 32, 64, 128 (hd: stack frame, "
           f"spill stores, spill loads, registers): {dict(sorted(wkv.items()))}")
+    bwd = {}
+    for name, stack, st, ld, regs in re.findall(
+            r"Function properties for (\S+flash_bwd_d(?:q|kv)_wgmma_kernel"
+            r"ILi(?:\d+)E\S*)\n\s*(\d+) bytes stack frame, (\d+) bytes spill "
+            r"stores, (\d+) bytes spill loads\n.*?Used (\d+) registers",
+            report):
+        m = re.search(r"flash_bwd_(d(?:q|kv))_wgmma_kernelILi(\d+)E", name)
+        bwd[f"{m.group(1)} hd {m.group(2)}"] = (int(stack), int(st), int(ld),
+                                                int(regs))
+    _require(len(bwd) == 4, f"ptxas: flash backward wgmma kernels {bwd}, "
+                            f"want dq and dkv at hd 64 and 128")
+    bad = {k: v for k, v in bwd.items() if v[1:3] != (0, 0)}
+    _require(not bad, f"ptxas: the bf16 flash backward spills (stack, spill "
+                      f"stores, spill loads, registers): {bad}")
+    print(f"check ptxas: bf16 flash backward (stack frame, spill stores, "
+          f"spill loads, registers): {dict(sorted(bwd.items()))}")
 
 
 #: the serving paths' kernel wrappers: each phase of a serving path
@@ -1055,6 +1112,14 @@ def attention_rows(dev, seed, launches, errs):
         max_abs_err=errs["flash_attention_fwd"], ms=graph_ms(kern, 10),
         plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])]
+    # the same call with its lse stored (training's forward): the same
+    # output bits, its time beside the serving call's
+    with_lse = lambda: fa.flash_attention_fwd(  # noqa: E731
+        q, k, v, causal=True, return_lse=True)
+    _require(torch.equal(with_lse()[0], kern()),
+             "flash_attention: the output with lse stored differs")
+    rows[0].update(ms_lse=graph_ms(with_lse, 10),
+                   wrapper_ms_lse=cuda_ms(with_lse, 10)[0])
     del q, k, v
     # the float32 kernel (csrc/flash_attention.cu, on the CUDA cores) at
     # the same shape, against the float32 peak outside the tensor cores
@@ -2891,24 +2956,117 @@ K2_EPS = 1e-3
 K2_TOL = 5e-2                 # of each parameter's largest update (bf16)
 
 
-def _bwd_close(got, want, dtype, what: str) -> float:
-    """The backward kernel's outputs against its plain version's, within
-    the attention tolerance (``rtol``; ``atol`` scaled by the largest
-    magnitude of the plain result). Returns the largest absolute error."""
+#: the backward's second check: ||g - w|| / ||w|| of each gradient whole,
+#: and of every block of BWD_BLOCK rows of one (batch row, head) -- dq's
+#: query rows, dk's and dv's keys -- so that a fault confined to a block
+#: or a head whose gradients are small against the largest one (causal
+#: dK and dV fall as 1/sqrt(key position)) shows.  Limits from the
+#: readings of sound runs and of the controls in ``bwd_case`` (PERF.md)
+BWD_BLOCK = 64
+BWD_REL_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+#: whatever a block's size, its error may reach BWD_ABS a element (rms):
+#: a gradient that cancels to rounding noise (one key: dS = P (dP - D)
+#: with D = dP; K0's single-key cases) is not held to relative bits.
+#: Inputs are unit normal, and K1's smallest blocks (the last keys' dK)
+#: are about 1e-3 a element
+BWD_ABS = 1e-5
+
+
+def bwd_rel_errs(got, want, dtype) -> dict:
+    """``{"dq"|"dk"|"dv": (whole, worst block)}``: the norm of ``got -
+    want`` over the norm of ``want`` for each gradient whole and the
+    largest over its blocks of ``BWD_BLOCK`` rows of one (batch row,
+    head), each norm of ``want`` taken as at least ``BWD_ABS /
+    BWD_REL_TOL[dtype]`` a element."""
+    import torch
+    import torch.nn.functional as F
+
+    least = BWD_ABS / BWD_REL_TOL[dtype]
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e, w = g.float() - w.float(), w.float()
+        b, h, s, hd = w.shape
+        pad = -s % BWD_BLOCK
+        rows = torch.full(((s + pad) // BWD_BLOCK,), float(BWD_BLOCK),
+                          device=w.device)
+        rows[-1] -= pad
+        en, wn = (F.pad(x, (0, 0, 0, pad)).reshape(b, h, -1, BWD_BLOCK * hd)
+                  .norm(dim=-1) for x in (e, w))
+        whole = float(e.norm() / max(float(w.norm()),
+                                     least * w.numel() ** 0.5))
+        out[name] = (whole, float(
+            (en / torch.maximum(wn, least * (rows * hd).sqrt())).max()))
+    return out
+
+
+def bwd_verdict(got, want, dtype) -> dict:
+    """Both checks of a backward against its plain version, without
+    raising: for each gradient its largest absolute error, its scale (the
+    plain result's largest magnitude, at least 1), whether it is within
+    the attention tolerance (``rtol``; ``atol`` x scale), and its relative
+    norms (``bwd_rel_errs``) and whether they are within
+    ``BWD_REL_TOL``."""
     import torch
 
-    worst = 0.0
-    tol = ATTN_TOL[dtype]
+    tol, rel_tol = ATTN_TOL[dtype], BWD_REL_TOL[dtype]
+    rels = bwd_rel_errs(got, want, dtype)
+    out = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        err = _max_err(g, w)
         scale = max(float(w.float().abs().max()), 1.0)
-        _require(g.dtype == w.dtype and g.shape == w.shape
-                 and torch.allclose(g.float(), w.float(), rtol=tol,
-                                    atol=tol * scale),
+        out[name] = dict(
+            err=_max_err(g, w), scale=scale, rel=rels[name][0],
+            rel_block=rels[name][1],
+            close=bool(g.dtype == w.dtype and g.shape == w.shape
+                       and torch.allclose(g.float(), w.float(), rtol=tol,
+                                          atol=tol * scale)),
+            rel_ok=max(rels[name]) <= rel_tol)
+    return out
+
+
+def _bwd_close(got, want, dtype, what: str):
+    """The backward kernel's outputs against its plain version's: both
+    checks of ``bwd_verdict`` must hold.  Returns the largest absolute
+    error and the verdict."""
+    verdict = bwd_verdict(got, want, dtype)
+    for name, v in verdict.items():
+        _require(v["close"] and v["rel_ok"],
                  f"{what} {name}: kernel disagrees with its plain version "
-                 f"(max abs err {err}, largest {scale})")
-        worst = max(worst, err)
-    return worst
+                 f"(max abs err {v['err']}, largest {v['scale']}; relative "
+                 f"norm {v['rel']}, worst {BWD_BLOCK}-row block "
+                 f"{v['rel_block']}, limit {BWD_REL_TOL[dtype]})")
+    return max(v["err"] for v in verdict.values()), verdict
+
+
+def _fmt_verdict(verdict) -> str:
+    return " ".join(
+        f"{n}: err={v['err']!r} scale={v['scale']!r} rel={v['rel']:.3e} "
+        f"block={v['rel_block']:.3e}" for n, v in verdict.items())
+
+
+def bwd_controls(q, k, v, o, do, lse, got, causal):
+    """Faults the backward's checks must see, made from the kernel's
+    output ``got`` or from the plain version: dK and dV's last block of
+    keys zeroed (the ragged tail where Skv is not a multiple of
+    ``BWD_BLOCK``); D dropped (the plain version fed O = 0); the last
+    query head left out of its group's dK and dV (its dO zeroed, dQ
+    kept)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    skv = k.shape[2]
+    tail = skv - (skv - 1) // BWD_BLOCK * BWD_BLOCK
+    dk, dv = got[1].clone(), got[2].clone()
+    dk[:, :, skv - tail:] = 0
+    dv[:, :, skv - tail:] = 0
+    do_cut = do.clone()
+    do_cut[:, -1] = 0
+    left = fa.flash_attention_bwd_plain(q, k, v, o, do_cut, lse,
+                                        causal=causal)
+    return {"last key block zeroed": (got[0], dk, dv),
+            "D dropped": fa.flash_attention_bwd_plain(
+                q, k, v, torch.zeros_like(o), do, lse, causal=causal),
+            "last head left out": (got[0], left[1], left[2])}
 
 
 def _causal_pairs(sq, skv, causal) -> int:
@@ -2918,62 +3076,116 @@ def _causal_pairs(sq, skv, causal) -> int:
     return sum(min(q + 1, skv) for q in range(sq))
 
 
-def bwd_case(dev, gen, b, h, kv, s, hd, dtype, causal, reps=5):
+def bwd_case(dev, gen, b, h, kv, s, hd, dtype, causal, reps=5, skv=None):
     """K0: the backward kernel against its plain version at q [b, h, s,
-    hd] over k/v [b, kv, s, hd]; returns its error and times: the kernel
-    and the plain version as CUDA-graph replays, the wrapper eager, and
-    the backward of ``scaled_dot_product_attention`` on the same inputs
-    and output gradient (``library_ms``, eager; its forward not timed)."""
+    hd] over k/v [b, kv, skv (default s), hd], both fed the forward
+    kernel's output and lse (held against the plain lse within 1e-5):
+    both checks of ``bwd_verdict``, two calls bit-equal, and each of
+    ``bwd_controls`` failing the relative check.  Returns its error and
+    times: the kernel and the plain version as CUDA-graph replays, the
+    wrapper eager, and the backward of ``scaled_dot_product_attention``
+    on the same inputs and output gradient, its forward run before
+    (``library_ms`` a CUDA-graph replay, ``library_eager_ms`` eager, the
+    like of ``wrapper_ms``)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
+    skv = s if skv is None else skv
     q = _normal(gen, (b, h, s, hd), dtype, dev)
-    k = _normal(gen, (b, kv, s, hd), dtype, dev)
-    v = _normal(gen, (b, kv, s, hd), dtype, dev)
+    k = _normal(gen, (b, kv, skv, hd), dtype, dev)
+    v = _normal(gen, (b, kv, skv, hd), dtype, dev)
     do = _normal(gen, (b, h, s, hd), dtype, dev)
-    o = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    _, lse_plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+    what = (f"flash_attention_bwd q=[{b}, {h}, {s}, {hd}] kv=[{b}, {kv}, "
+            f"{skv}, {hd}] causal={causal} {dtype}")
+    lse_err = _max_err(lse, lse_plain)
+    _require(torch.allclose(lse, lse_plain, rtol=1e-5, atol=1e-5),
+             f"{what}: the forward kernel's lse disagrees with the plain "
+             f"lse (max abs err {lse_err})")
+    del lse_plain
     kern = lambda: fa.flash_attention_bwd(  # noqa: E731
-        q, k, v, o, do, causal=causal)
+        q, k, v, o, do, lse, causal=causal)
     plain = lambda: fa.flash_attention_bwd_plain(  # noqa: E731
-        q, k, v, o, do, causal=causal)
-    what = (f"flash_attention_bwd q=[{b}, {h}, {s}, {hd}] kv_heads={kv} "
-            f"causal={causal} {dtype}")
+        q, k, v, o, do, lse, causal=causal)
     got, want = kern(), plain()
+    again = kern()
     torch.cuda.synchronize()
-    err = _bwd_close(got, want, dtype, what)
-    del got, want
+    err, verdict = _bwd_close(got, want, dtype, what)
+    _require(all(torch.equal(x, y) for x, y in zip(got, again)),
+             f"{what}: two calls on the same inputs differ")
+    controls = {}
+    for name, bad in bwd_controls(q, k, v, o, do, lse, got, causal).items():
+        cv = bwd_verdict(bad, want, dtype)
+        controls[name] = dict(
+            old_tolerance_passes=all(c["close"] for c in cv.values()),
+            rel=max(max(c["rel"], c["rel_block"]) for c in cv.values()))
+        _require(not all(c["rel_ok"] for c in cv.values()),
+                 f"{what}: the control '{name}' passes the relative check "
+                 f"({_fmt_verdict(cv)})")
+    row = dict(entry=fa.bwd_entry(q.dtype, hd), lse_max_abs_err=lse_err,
+               scale=max(c["scale"] for c in verdict.values()),
+               rel={n: [c["rel"], c["rel_block"]]
+                    for n, c in verdict.items()},
+               controls=controls)
+    del got, want, again
+    # SDPA eager, then as a graph: fresh leaves for each, since a leaf's
+    # gradient accumulator keeps the stream of its first forward
+    sdpa = lambda leaves: F.scaled_dot_product_attention(  # noqa: E731
+        *leaves, is_causal=causal, enable_gqa=kv != h)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                         enable_gqa=kv != h)
+    out = sdpa(leaves)
+    library_eager_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), reps)[0]
+    del out
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    held = {}
+
+    def sdpa_fwd():
+        held["out"] = sdpa(leaves)
+
     lib = lambda: torch.autograd.grad(  # noqa: E731
-        out, leaves, do, retain_graph=True)
+        held["out"], leaves, do, retain_graph=True)
     esize = 2 if dtype == "bfloat16" else 4
-    n_bytes = esize * (3 * q.numel() + 2 * k.numel()      # q, o, do; k, v
-                       + q.numel() + 2 * k.numel())       # dq; dk, dv
-    n_ops = 5 * 2 * hd * b * h * _causal_pairs(s, s, causal)
+    n_bytes = (esize * (3 * q.numel() + 2 * k.numel()     # q, o, do; k, v
+                        + q.numel() + 2 * k.numel())      # dq; dk, dv
+               + 4 * lse.numel())                         # lse
+    n_ops = 5 * 2 * hd * b * h * _causal_pairs(s, skv, causal)
     bnd, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if dtype == "bfloat16"
                        else FP32_OPS_PER_S)
-    row = dict(max_abs_err=err, ms=graph_ms(kern, reps),
+    row.update(max_abs_err=err, ms=graph_ms(kern, reps),
                plain_ms=graph_ms(plain, 2), bound_ms=bnd, bound_by=by,
-               library_ms=cuda_ms(lib, reps)[0],
+               library_ms=graph_ms(lib, reps, prepare=sdpa_fwd),
+               library_eager_ms=library_eager_ms,
                wrapper_ms=cuda_ms(kern, reps)[0])
-    print(f"check {what}: max_abs_err={err!r} (tolerance "
-          f"{ATTN_TOL[dtype]} of the largest gradient) ms={row['ms']!r} "
-          f"plain_ms={row['plain_ms']!r} bound_ms={bnd!r} ({by}, "
-          f"{bnd / row['ms']:.1%} of it) sdpa_bwd_ms={row['library_ms']!r} "
-          f"wrapper_ms={row['wrapper_ms']!r}")
-    del q, k, v, o, do, leaves, out
+    print(f"check {what} ({row['entry']}): max_abs_err={err!r} (tolerance "
+          f"{ATTN_TOL[dtype]} of the largest gradient) "
+          f"{_fmt_verdict(verdict)} (relative limit {BWD_REL_TOL[dtype]}); "
+          f"two calls bit-equal; lse_max_abs_err={lse_err!r}")
+    for name, c in controls.items():
+        print(f"check {what} control '{name}': relative "
+              f"{c['rel']:.3e} fails the relative check; the old tolerance "
+              f"alone {'PASSES' if c['old_tolerance_passes'] else 'fails'}")
+    print(f"time {what}: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
+          f"bound_ms={bnd!r} ({by}, {bnd / row['ms']:.1%} of it) "
+          f"sdpa_bwd_graph_ms={row['library_ms']!r} "
+          f"wrapper_ms={row['wrapper_ms']!r} "
+          f"sdpa_bwd_eager_ms={row['library_eager_ms']!r}")
+    del q, k, v, o, do, lse, leaves, held
     return row
 
 
 def run_path_k0(dev, seed):
-    """K0: the flash backward kernel against its plain version at olmo-1b's
-    heads (path K1's call), qwen3-8b's grouped heads causal and full, and
-    in float32; then ``FlashAttention`` on the card against the plain
-    versions' Function, one backward each.  Returns the rows of K1's
-    shape in bf16 and the float32 case."""
+    """K0: the flash backward kernels against their plain version at
+    olmo-1b's heads (path K1's call), qwen3-8b's grouped heads causal and
+    full, grouped heads at hd 64, a ragged causal case (Sq != Skv, neither
+    a multiple of 64), in float32, and over a single key (bf16 at hd 128,
+    f32 at hd 256); then ``FlashAttention`` on the card
+    against the plain versions' Function, one backward each.  Returns the
+    rows of each case."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -2985,7 +3197,16 @@ def run_path_k0(dev, seed):
                                      "bfloat16", True),
             "qwen3_full": bwd_case(dev, gen, 4, 32, 8, 1024, 128,
                                    "bfloat16", False),
-            "f32": bwd_case(dev, gen, 2, 32, 8, 512, 128, "float32", True)}
+            "hd64_gqa": bwd_case(dev, gen, 4, 32, 8, 1024, 64, "bfloat16",
+                                 True),
+            "ragged": bwd_case(dev, gen, 2, 16, 4, 1000, 128, "bfloat16",
+                               True, skv=777),
+            "f32": bwd_case(dev, gen, 2, 32, 8, 512, 128, "float32", True),
+            # one key: dQ and dK cancel to rounding noise (BWD_ABS)
+            "single_key": bwd_case(dev, gen, 2, 8, 2, 1, 128, "bfloat16",
+                                   True),
+            "single_key_f32": bwd_case(dev, gen, 2, 8, 2, 1, 256, "float32",
+                                       True)}
     for dtype in ("bfloat16", "float32"):
         q, k, v, do = (_normal(gen, shape, dtype, dev) for shape in (
             (2, 16, 512, 128), (2, 4, 512, 128), (2, 4, 512, 128),
@@ -3001,8 +3222,8 @@ def run_path_k0(dev, seed):
         torch.cuda.synchronize()
         _require(all(float(g.float().abs().max()) > 0 for g in grads[0]),
                  f"FlashAttention on the card: a zero gradient ({dtype})")
-        err = _bwd_close(grads[0], grads[1], dtype,
-                         f"FlashAttention autograd {dtype}")
+        err, _ = _bwd_close(grads[0], grads[1], dtype,
+                            f"FlashAttention autograd {dtype}")
         print(f"check FlashAttention through autograd on the card, q=[2, 16, "
               f"512, 128] kv_heads=4 causal {dtype}: kernels against the "
               f"plain versions' Function, one backward each: "
@@ -3716,7 +3937,13 @@ def main(argv=None) -> int:
     fwd_row["launches"] += launches_k["flash_attention_fwd"]
     kernels.append(dict(
         name="flash_attention_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+        source_cuda_cores=(
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"),
+        routes="bfloat16 at hd 64 and 128 (K1, every served model): "
+        "flash_attention_bwd_bf16.cu on wgmma; float32 at every head dim "
+        "and bfloat16 at hd 16, 32 and 256: flash_attention_bwd.cu on the "
+        "CUDA cores",
         replaces="src/repro/kernels/ops.py:48",
         replaces_note="the backward rule of the flash_attention custom_vjp "
         "(:29-60), which recomputes through the jnp online softmax; the "
@@ -3724,17 +3951,28 @@ def main(argv=None) -> int:
         launches=launches_k["flash_attention_bwd"],
         launches_by_path={"K1": launches_k["flash_attention_bwd"]},
         **{k: v for k, v in k0["olmo"].items()},
-        max_abs_err_f32=k0["f32"]["max_abs_err"],
+        max_abs_err_f32=max(k0[c]["max_abs_err"]
+                            for c in ("f32", "single_key_f32")),
         cases={"qwen3_gqa_causal_bf16_4x32x1024": k0["qwen3_causal"],
                "qwen3_gqa_full_bf16_4x32x1024": k0["qwen3_full"],
-               "qwen3_gqa_causal_f32_2x32x512": k0["f32"]},
-        design="two kernels on the CUDA cores, f32 sums: a block per 64 "
-        "query rows recomputes lse and D and sums dQ; a block per 64 keys "
-        "loops over the group's heads and q tiles and sums dK, dV; no "
-        "atomics; tiles the causal mask empties skipped"))
-    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
-                                     k0["qwen3_causal"]["max_abs_err"],
-                                     k0["qwen3_full"]["max_abs_err"])
+               "gqa_causal_bf16_hd64_4x32x1024": k0["hd64_gqa"],
+               "ragged_causal_bf16_2x16x1000_over_777": k0["ragged"],
+               "qwen3_gqa_causal_f32_2x32x512": k0["f32"],
+               "single_key_bf16_2x8x1": k0["single_key"],
+               "single_key_f32_hd256_2x8x1": k0["single_key_f32"]},
+        design="bf16 at hd 64/128: two wgmma kernels fed by TMA, f32 sums, "
+        "the forward's lse; a block per 128 query rows computes D, writes "
+        "D and lse to scratch and sums dQ = dS K (dS in registers); a block "
+        "per 128 keys loops over the group's heads and q tiles of 64 and "
+        "sums dV = P^T dO and dK = dS^T Q (P^T, dS^T in registers); 7 "
+        "products a tile pair, no atomics, causal tiles skipped. f32 and "
+        "the other bf16 head dims: the two CUDA-core kernels of "
+        "flash_attention_bwd.cu"))
+    kernels[-1]["max_abs_err"] = max(
+        kernels[-1]["max_abs_err"],
+        *(k0[c]["max_abs_err"] for c in ("qwen3_causal", "qwen3_full",
+                                         "hd64_gqa", "ragged",
+                                         "single_key")))
     kernels.append(wkv_row(dev, args.seed, launches_e, errs))
 
     for kern in kernels:
@@ -3757,6 +3995,12 @@ def main(argv=None) -> int:
                   f"({kern['bound_by_c2']}) "
                   f"wrapper_ms={kern['wrapper_ms_c2']!r} "
                   f"launches={kern['launches_by_path']}")
+        if "ms_lse" in kern:
+            print(f"kernel {kern['name']} with its lse stored (training's "
+                  f"call), same shape: ms={kern['ms_lse']!r} "
+                  f"wrapper_ms={kern['wrapper_ms_lse']!r}")
+        if "routes" in kern:
+            print(f"kernel {kern['name']} routes: {kern['routes']}")
         if "ms_f32" in kern:
             print(f"kernel {kern['name']} in float32 at the same shape: "
                   f"ms={kern['ms_f32']!r} plain_ms={kern['plain_ms_f32']!r} "

@@ -64,15 +64,22 @@ SIGNATURES = {
     # stream
     "anneal_step_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _P),
-    # q, k, v, out, B, H, KV, Sq, Skv, hd, causal, stream
-    "flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, lse (f32 B*H*Sq)|NULL, B, H, KV, Sq, Skv, hd, causal,
+    # stream
+    "flash_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P),
+    "flash_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
     # q, k, v, o, do, dq, dk, dv, f32 scratch (lse and D, 2 x B*H*Sq), B,
     # H, KV, Sq, Skv, hd, causal, stream
     "flash_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _P),
     "flash_attention_bwd_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, do, lse, dq, dk, dv, f32 scratch (lse * log2 e and D, 2
+    # x B*H*round_up(Sq, 64)), B, H, KV, Sq, Skv, hd, causal, stream
+    "flash_attention_bwd_bf16_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k_cache, v_cache, cache_len (device int32), out, f32 partials, B,
     # KV, G, S, hd, splits, stream
     "decode_attention_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -18,6 +18,8 @@
 //   out   = acc / max(l, 1e-30)
 // Everything is f32, as in the Pallas kernel.  Tiles strictly above the
 // diagonal are skipped.  Any Sq and Skv: the ragged tails are masked.
+// When `lse` is not NULL (f32, B x H x Sq), each row also stores its
+// logsumexp m + log l (natural log) for the backward.
 //
 // Bound on the H100: operations, 4*B*H*Sq*Skv*hd/2 FLOP against the 67
 // TFLOP/s of f32 outside the tensor cores.  One block per (q tile of kBQ
@@ -48,8 +50,9 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int KV, int Sq, int Skv, int causal, float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int KV, int Sq,
+                       int Skv, int causal, float scale) {
   extern __shared__ float smem[];
   float* s_q = smem;                          // [kBQ][HD + 1]
   float* s_kt = s_q + kBQ * (HD + 1);         // [HD][kBK + 1]
@@ -176,6 +179,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
+  if (lse != nullptr && tid < kBQ && q0 + tid < Sq)
+    lse[((long long)b * H + h) * Sq + q0 + tid] =
+        s_m[tid] + logf(fmaxf(s_l[tid], 1e-30f));
 #pragma unroll
   for (int i = 0; i < kRowsPer; ++i) {
     const int r = ty + 16 * i;
@@ -188,8 +194,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Skv, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int Sq, int Skv, int causal,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kBQ * (HD + 1) + HD * (kBK + 1)
                                        + kBK * HD + kBQ * (kBK + 1) + 3 * kBQ);
   auto kernel = flash_attention_kernel<T, HD>;
@@ -202,21 +209,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KV, Sq, Skv, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, KV, Sq, Skv,
+      causal,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int KV, int Sq, int Skv, int hd, int causal,
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int H, int KV, int Sq, int Skv, int hd, int causal,
              cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0 || Skv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto run = [&](auto hd_tag) {
-    return launch<T, decltype(hd_tag)::value>(q, k, v, o, B, H, KV, Sq, Skv,
-                                               causal, stream);
+    return launch<T, decltype(hd_tag)::value>(q, k, v, o, lse, B, H, KV, Sq,
+                                               Skv, causal, stream);
   };
   switch (hd) {
     case 16: return run(std::integral_constant<int, 16>());
@@ -231,8 +239,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
-                                   int KV, int Sq, int Skv, int hd,
+                                   const void* v, void* o, float* lse, int B,
+                                   int H, int KV, int Sq, int Skv, int hd,
                                    int causal, cudaStream_t stream) {
-  return dispatch<float>(q, k, v, o, B, H, KV, Sq, Skv, hd, causal, stream);
+  return dispatch<float>(q, k, v, o, lse, B, H, KV, Sq, Skv, hd, causal,
+                         stream);
 }

@@ -17,6 +17,11 @@
 //   out   = acc / max(l, 1e-30)        (f32 division, written in bf16)
 // p is rounded to bf16 only as the operand of p . v, as the reference
 // model's attention does (p_.astype(q.dtype)); every sum stays f32.
+// When the caller passes `lse` (f32, B x H x Sq; NULL under no_grad and
+// in serving, which then store nothing more), each row also stores its
+// logsumexp of s in natural-log units, (m * scale_log2 + log2 l) * ln 2,
+// for the backward (flash_attention_bwd_bf16.cu), which multiplies it
+// back by log2 e and takes its exponentials with exp2 as this kernel does.
 //
 // Bound on the H100: operations.  At the prefill's shapes (q [8, 32, 1024,
 // 128] over 8 KV heads, causal) the two products are 4*B*H*Sq*Skv*hd/2
@@ -50,11 +55,11 @@
 #include <cmath>
 #include <type_traits>
 
-#include <cuda.h>  // CUtensorMap; its encoder is looked up in libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
@@ -113,8 +118,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
-                            __nv_bfloat16* __restrict__ o, int H, int KV,
-                            int Sq, int Skv, int causal, float scale_log2) {
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int H, int KV, int Sq,
+                            int Skv, int causal, float scale_log2) {
   using T = Tiles<HD>;
   constexpr int kBK = T::kBK;
   extern __shared__ unsigned char smem_raw[];
@@ -285,6 +291,15 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   l1 += __shfl_xor_sync(~0u, l1, 2);
   l0 = fmaxf(l0, 1e-30f);
   l1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {
+    // the row's logsumexp of s * hd^-0.5, natural log: (m * scale_log2 +
+    // log2 l) * ln 2, with m * scale_log2 the subtrahend the exponentials
+    // above were taken against
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lb = lse + (long long)bh * Sq;
+    if (r0 < Sq) lb[r0] = (m0 * scale_log2 + log2f(l0)) * kLn2;
+    if (r1 < Sq) lb[r1] = (m1 * scale_log2 + log2f(l1)) * kLn2;
+  }
   __nv_bfloat16* ob = o + (long long)bh * Sq * HD + cq;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
@@ -297,66 +312,15 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda the runtime already loaded, so
-// that the library needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (hd, rows, heads) bf16 map with boxes of (kCB, box_rows, 1)
 template <int HD>
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
-              int box_rows) {
-  using T = Tiles<HD>;
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(T::kRow),
-      static_cast<cuuint64_t>(T::kRow) * static_cast<cuuint64_t>(rows)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::kCB),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz =
-      T::kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : T::kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KV, int Sq, int Skv, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KV, int Sq, int Skv, int causal,
+           cudaStream_t stream) {
   using T = Tiles<HD>;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!make_map<HD>(&tm_q, q, Sq, B * H, kBQ)
-      || !make_map<HD>(&tm_k, k, Skv, B * KV, T::kBK)
-      || !make_map<HD>(&tm_v, v, Skv, B * KV, T::kBK))
+  if (!tensor_map::make_bf16(&tm_q, q, HD, Sq, B * H, T::kW, kBQ)
+      || !tensor_map::make_bf16(&tm_k, k, HD, Skv, B * KV, T::kW, T::kBK)
+      || !tensor_map::make_bf16(&tm_v, v, HD, Skv, B * KV, T::kW, T::kBK))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_attention_bf16_kernel<HD>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -366,7 +330,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   const float scale_log2 = static_cast<float>(
       1.4426950408889634 / std::sqrt(static_cast<double>(HD)));
   kernel<<<grid, kThreads, T::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), H, KV, Sq, Skv,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, H, KV, Sq, Skv,
       causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
@@ -374,20 +338,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int KV, int Sq, int Skv, int hd,
-                                    int causal, cudaStream_t stream) {
+                                    const void* v, void* o, float* lse,
+                                    int B, int H, int KV, int Sq, int Skv,
+                                    int hd, int causal, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return static_cast<int>(cudaGetLastError());
   if (KV <= 0 || H % KV != 0 || Skv <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, H, KV, Sq, Skv, causal, stream);
-    case 32: return launch<32>(q, k, v, o, B, H, KV, Sq, Skv, causal, stream);
-    case 64: return launch<64>(q, k, v, o, B, H, KV, Sq, Skv, causal, stream);
+    case 16:
+      return launch<16>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal, stream);
+    case 32:
+      return launch<32>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal, stream);
+    case 64:
+      return launch<64>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, H, KV, Sq, Skv, causal, stream);
+      return launch<128>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal, stream);
     case 256:
-      return launch<256>(q, k, v, o, B, H, KV, Sq, Skv, causal, stream);
+      return launch<256>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

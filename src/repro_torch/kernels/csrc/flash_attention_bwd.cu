@@ -34,8 +34,11 @@
 // (S, dP, dV, dQ, dK; 2 x B x H x Sq x Skv x hd FLOP each when full, about
 // half when causal); the kernels do eight, recomputing S twice and dP
 // twice, on the CUDA cores (67 TFLOP/s f32) rather than the tensor cores
-// (989 bf16).  A later design puts the products on wgmma and has the
-// forward write lse.
+// (989 bf16).  bfloat16 at head dims 64 and 128 -- every model the port
+// trains -- takes the redesign in flash_attention_bwd_bf16.cu instead
+// (wgmma on TMA-fed tiles, lse written by the forward kernel); these
+// kernels stay for float32, where no tensor-core type keeps a full f32
+// product, and for bfloat16 at head dims 16, 32 and 256.
 #include <cmath>
 #include <type_traits>
 

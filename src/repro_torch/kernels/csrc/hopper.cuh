@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX for the port's kernels:
-// mbarriers, TMA tile and bulk loads, cp.async copies, wgmma shared-memory
-// descriptors and the wgmma shapes the attention kernels issue.  Each
-// wgmma wrapper spells out its accumulator registers, as the instruction
-// takes them.
+// mbarriers, TMA tile and bulk loads, cp.async copies, named barriers,
+// register reallocation (setmaxnreg), wgmma shared-memory descriptors and the wgmma shapes the attention
+// kernels issue.  Each wgmma wrapper spells out its accumulator
+// registers, as the instruction takes them.
 //
 // Accumulator layout of every m64nNk16 f32 wgmma (thread t of the
 // warpgroup, warp w = t / 32, lane l): d[4 j + e] holds row
@@ -105,6 +105,29 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---- named barriers ---------------------------------------------------------
+
+// a barrier among the `threads` threads (a multiple of 32) that name `id`
+// (1-15; 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// ---- register reallocation ----------------------------------------------------
+
+// every warp of the calling warpgroup gives up registers down to N / takes
+// them up to N a thread (N a multiple of 8 in 24..256); the kernel's launch
+// bounds fix the count it starts from
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+template <uint32_t N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
 }
 
 // ---- wgmma ------------------------------------------------------------------

@@ -32,22 +32,36 @@ def select_slot_ref(loads, w, k, capacity, *, strategy: str = "best"):
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal: bool = True):
-    """Full-softmax attention in float32.  q: (B, H, Sq, hd); k/v: (B, KV,
-    Skv, hd) with H % KV == 0, q head h reading kv head h // (H / KV) (the
-    G query heads of a group share one matrix product: nothing is
-    repeated).  ``causal`` masks ``k_pos > q_pos`` by absolute position.
-    Returns (B, H, Sq, hd) in q.dtype."""
+def attention_scores(q, k, *, causal: bool = True):
+    """Scaled, masked scores in float32: (B, KV, G*Sq, Skv), the G = H /
+    KV query heads of a group stacked over one kv head, ``NEG_INF`` where
+    ``causal`` masks ``k_pos > q_pos`` (absolute positions)."""
     b, h, sq, hd = q.shape
     kvh, skv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, kvh, (h // kvh) * sq, hd)
-    s = (qg @ k.float().transpose(-1, -2)) * hd ** -0.5   # (B, KV, G*Sq, Skv)
+    s = (qg @ k.float().transpose(-1, -2)) * hd ** -0.5
     if causal:
         q_pos = torch.arange(sq, device=q.device).repeat(h // kvh)
         mask = q_pos[:, None] >= torch.arange(skv, device=q.device)[None, :]
         s = torch.where(mask, s, NEG_INF)
-    o = torch.softmax(s, dim=-1) @ v.float()
-    return o.reshape(b, h, sq, hd).to(q.dtype)
+    return s
+
+
+def attention_ref(q, k, v, *, causal: bool = True, return_lse: bool = False):
+    """Full-softmax attention in float32.  q: (B, H, Sq, hd); k/v: (B, KV,
+    Skv, hd) with H % KV == 0, q head h reading kv head h // (H / KV) (the
+    G query heads of a group share one matrix product: nothing is
+    repeated).  ``causal`` masks ``k_pos > q_pos`` by absolute position.
+    Returns (B, H, Sq, hd) in q.dtype; with ``return_lse`` also each
+    row's logsumexp of the scaled, masked scores, (B, H, Sq) float32
+    (natural log)."""
+    b, h, sq, hd = q.shape
+    s = attention_scores(q, k, causal=causal)          # (B, KV, G*Sq, Skv)
+    o = (torch.softmax(s, dim=-1) @ v.float()).reshape(b, h, sq, hd).to(
+        q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
 
 
 def decode_attention_ref(q, k_cache, v_cache, cache_len):

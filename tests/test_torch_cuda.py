@@ -25,21 +25,30 @@ plain packers exactly (``loads`` bit for bit); the warp-per-row selection
 kernel equals ``select_slot_plain`` exactly, ties included.  For the LLM
 kernels, shapes are the reference tests' sweeps (``tests/test_kernels.py``), an
 odd length, every head dim of the flash kernels (forward and backward),
-q lengths that do not divide their tiles, decode fills on either side of a split boundary and a
-decode call replayed from a CUDA graph at other fills, and a small model
+q lengths that do not divide their tiles, the bfloat16 backward's
+tensor-core kernels at hd 64 and 128 with G = 1 and 4 and ragged Sq !=
+Skv (two calls bit-equal, and the routes that stay on the CUDA-core
+kernels), the forward kernel's lse within 1e-5 of the plain lse (its
+output bit-equal with and without it), decode fills on either side of a
+split boundary and a decode call replayed from a CUDA graph at other
+fills, and a small model
 end to end; the adversarial search's oracle rows on the card against
 the CPU transform of the same draws, a search run twice with one seed
 (bit-equal), a trace replayed equal to a direct run, and the ``py``
 packers equal to the ``torch`` packers on the card; tolerances as
 everywhere for
 the attention kernels: 2e-5 in float32, 2e-2 in bfloat16 (the backward's
-absolute part scaled by the largest gradient of the plain result); a
+absolute part scaled by the largest gradient of the plain result, and
+beside it ``chip_smoke.bwd_rel_errs``'s relative norms, whole and by
+blocks of 64 rows of one head, within ``chip_smoke.BWD_REL_TOL``); a
 train step of a smoke model on the card against the CPU within 1e-4 of
 each leaf's largest magnitude (loss, parameters, moments); the WKV kernel
 (float32 only) within 1e-4 of the largest magnitude of its plain result,
 the reference's own tolerance for its kernel.
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -133,17 +142,126 @@ def test_flash_bwd_kernel_matches_plain(cuda, b, h, kv, sq, skv, hd, dtype,
                                         causal):
     q, k, v, do = _normal(5, [(b, h, sq, hd), (b, kv, skv, hd),
                               (b, kv, skv, hd), (b, h, sq, hd)], dtype, cuda)
-    o = flash_attention_plain(q, k, v, causal=causal)
+    o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
     before = flash_attention_bwd.launches
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 1
-    want = flash_attention_bwd_plain(q, k, v, o, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    _assert_grads_close(got, want, dtype)
+
+
+def _assert_grads_close(got, want, dtype):
+    """The backward's tolerance: ``rtol``, and ``atol`` scaled by the
+    plain result's largest gradient; and ``chip_smoke.bwd_rel_errs``'s
+    relative norms, whole and by blocks of 64 rows of one head, within
+    ``chip_smoke.BWD_REL_TOL``."""
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         scale = max(float(w.float().abs().max()), 1.0)
         torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
                                    atol=TOL[dtype] * scale)
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    name = str(dtype).removeprefix("torch.")
+    rel = chip_smoke.bwd_rel_errs(got, want, name)
+    assert max(max(r) for r in rel.values()) <= chip_smoke.BWD_REL_TOL[
+        name], rel
+
+
+@pytest.fixture
+def entries(monkeypatch):
+    """The C entry points launched, in order (a spy on ``_build.launch``
+    that still launches)."""
+    from repro_torch.kernels import _build
+
+    seen, launch = [], _build.launch
+
+    def spy(name, *args):
+        seen.append(name)
+        return launch(name, *args)
+
+    monkeypatch.setattr(_build, "launch", spy)
+    return seen
+
+
+# the tensor-core backward: G = 1 and 4, lengths that divide none of its
+# tiles (64-row q tiles, 128-row blocks), Sq < Skv and Sq > Skv
+WGMMA_BWD_SHAPES = [
+    (2, 4, 4, 200, 200), (2, 8, 2, 333, 333), (1, 8, 2, 100, 250),
+    (1, 4, 4, 250, 100), (1, 4, 1, 1, 70), (2, 8, 2, 129, 129),
+    (1, 16, 4, 1024, 1024),
+]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv", WGMMA_BWD_SHAPES)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_wgmma_matches_plain(cuda, entries, b, h, kv, sq, skv, hd,
+                                       causal):
+    """bfloat16 at hd 64 and 128 on the tensor-core kernels, fed the
+    forward kernel's output and lse, against the plain version on the
+    same inputs; a second call gives the same bits."""
+    dtype = torch.bfloat16
+    q, k, v, do = _normal(9, [(b, h, sq, hd), (b, kv, skv, hd),
+                              (b, kv, skv, hd), (b, h, sq, hd)], dtype, cuda)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    assert entries[-1] == "flash_attention_bwd_bf16_wgmma"
+    _assert_grads_close(
+        got, flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal),
+        dtype)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.bfloat16, 16),
+                                      (torch.bfloat16, 256)])
+def test_flash_bwd_cuda_core_routes(cuda, entries, dtype, hd):
+    """float32, and bfloat16 at head dims the tensor-core kernels do not
+    take, stay on the CUDA-core kernels: one launch of their entry
+    point, within tolerance of the plain version."""
+    q, k, v, do = _normal(10, [(2, 8, 150, hd), (2, 2, 150, hd),
+                               (2, 2, 150, hd), (2, 8, 150, hd)], dtype, cuda)
+    o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want_entry = ("flash_attention_bwd_f32" if dtype == torch.float32
+                  else "flash_attention_bwd_bf16")
+    assert entries[-1] == want_entry
+    _assert_grads_close(
+        got, flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True),
+        dtype)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,hd", [
+    (2, 8, 2, 333, 1000, 128), (2, 4, 4, 1000, 333, 64),
+    (1, 4, 1, 1, 1, 128), *[(2, 4, 2, 300, 300, hd) for hd in HEAD_DIMS]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_kernel_lse(cuda, b, h, kv, sq, skv, hd, dtype, causal):
+    """The forward kernel's lse within 1e-5 of the plain lse; its output
+    with lse stored is bit-equal to its output without."""
+    q, k, v = _normal(11, [(b, h, sq, hd), (b, kv, skv, hd),
+                           (b, kv, skv, hd)], dtype, cuda)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    plain = flash_attention_fwd(q, k, v, causal=causal)
+    _, want = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, plain)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -164,11 +282,8 @@ def test_flash_attention_gradient_on_the_card(cuda, dtype):
         kernel = fwd is flash_attention_fwd
         assert after == tuple(n + kernel for n in before)
         grads.append([x.grad for x in leaves])
-    for g, w in zip(*grads):
-        assert float(g.float().abs().max()) > 0
-        scale = max(float(w.float().abs().max()), 1.0)
-        torch.testing.assert_close(g.float(), w.float(), rtol=TOL[dtype],
-                                   atol=TOL[dtype] * scale)
+    assert all(float(g.float().abs().max()) > 0 for g in grads[0])
+    _assert_grads_close(*grads, dtype)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "granite-3-8b"])

@@ -28,6 +28,9 @@ and metrics 1e-5 relative to each leaf's largest magnitude in float32
 """
 import dataclasses
 import functools
+import inspect
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,6 +41,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.ops import _flash_bwd_rule  # noqa: E402
 from repro.launch.steps import make_train_step as j_train_step  # noqa: E402
 from repro.models import forward as j_forward  # noqa: E402
@@ -50,9 +54,10 @@ from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.data import TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    FlashAttention, flash_attention, flash_attention_bwd,
+    FlashAttention, bwd_entry, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
-from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
+                                    attention_scores)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import (NotPortedError, cross_entropy,  # noqa: E402
@@ -111,6 +116,9 @@ BWD_SHAPES = [
     (1, 4, 1, 256, 256, 128),      # MQA, bigger head
     (1, 2, 2, 64, 192, 32),        # uneven kv blocks
     (2, 4, 2, 24, 24, 16),         # the smoke configs' heads
+    # lengths no tile of the kernels divides, Skv > Sq and Sq > Skv
+    (1, 4, 2, 100, 150, 64),
+    (2, 8, 2, 77, 45, 128),
 ]
 
 
@@ -120,8 +128,8 @@ BWD_SHAPES = [
 def test_flash_bwd_plain_matches_reference(b, h, kv, sq, skv, hd, dtype,
                                            causal):
     js, (q, k, v, do) = _attn_inputs(1, b, h, kv, sq, skv, hd, dtype)
-    o = flash_attention_fwd(q, k, v, causal=causal)
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
     want = _reference_bwd(js, causal)
     tol = ATTN[dtype][2]
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
@@ -134,9 +142,8 @@ def test_flash_bwd_plain_matches_reference(b, h, kv, sq, skv, hd, dtype,
 def test_flash_bwd_plain_matches_autograd_of_the_plain_forward(
         b, h, kv, sq, skv, hd, causal):
     _, (q, k, v, do) = _attn_inputs(2, b, h, kv, sq, skv, hd, "float32")
-    got = flash_attention_bwd_plain(q, k, v, attention_ref(q, k, v,
-                                                           causal=causal),
-                                    do, causal=causal)
+    o, lse = attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     attention_ref(*leaves, causal=causal).backward(do)
     for g, x in zip(got, leaves):
@@ -160,8 +167,8 @@ def test_flash_attention_function_gradients():
     assert out.grad_fn is not None and out.grad_fn.name().startswith(
         "FlashAttention")
     out.backward(do)
-    want = flash_attention_bwd_plain(q, k, v, flash_attention_plain(q, k, v),
-                                     do, causal=True)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True)
     for x, w in zip(leaves, want):
         assert torch.equal(x.grad, w)
     assert calls == [1]
@@ -176,10 +183,169 @@ def test_flash_attention_function_gradients():
 
 def test_flash_bwd_rejects_bad_shapes():
     _, (q, k, v, do) = _attn_inputs(4, 1, 4, 2, 8, 8, 16, "float32")
+    lse = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError, match="q's shape"):
-        flash_attention_bwd(q, k, v, q[:, :, :4], do)
+        flash_attention_bwd(q, k, v, q[:, :, :4], do, lse)
     with pytest.raises(ValueError, match="H % KV"):
-        flash_attention_bwd(q, k[:, :, :4], v, q, do)
+        flash_attention_bwd(q, k[:, :, :4], v, q, do, lse)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        flash_attention_bwd(q, k, v, q, do, lse[:, :, :4])
+    with pytest.raises(ValueError, match="lse must be float32"):
+        flash_attention_bwd(q, k, v, q, do, lse.double())
+
+
+def _reference_lse(js, causal):
+    """``jax.nn.logsumexp`` of the reference's scaled, masked scores (the
+    first lines of ``repro.kernels.ref.attention_ref``: K expanded over
+    each group, float32 products, ``NEG_INF`` where causal masks)."""
+    q, k = js[0], js[1]
+    b, h, sq, hd = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    k = jnp.repeat(k, h // kv, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", q.astype(jnp.float32),
+                   k.astype(jnp.float32)) * hd ** -0.5
+    if causal:
+        mask = jnp.arange(sq)[:, None] >= jnp.arange(skv)[None, :]
+        s = jnp.where(mask[None, None], s, jref.NEG_INF)
+    return np.asarray(jax.nn.logsumexp(s, axis=-1), np.float32)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,hd", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(ATTN))
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_forward_lse_matches_reference_logsumexp(b, h, kv, sq, skv, hd,
+                                                       dtype, causal):
+    """The forward's lse (B, H, Sq), float32, natural log, within 1e-5 of
+    the reference's; asking for it leaves the output's bits alone."""
+    js, (q, k, v, _) = _attn_inputs(7, b, h, kv, sq, skv, hd, dtype)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    np.testing.assert_allclose(lse.numpy(), _reference_lse(js, causal),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(o, flash_attention_fwd(q, k, v, causal=causal))
+
+
+def test_flash_attention_saves_lse_and_asks_for_none_under_no_grad():
+    """Under grad ``FlashAttention`` asks ``fwd`` for lse, saves it beside
+    q, k, v and the output, and hands it to ``bwd``; under ``no_grad``
+    ``fwd`` is called once without asking for it."""
+    _, (q, k, v, do) = _attn_inputs(8, 1, 4, 2, 33, 33, 16, "float32")
+    asked, handed = [], []
+
+    def fwd(*a, **kw):
+        asked.append(kw.get("return_lse", False))
+        return flash_attention_fwd(*a, **kw)
+
+    def bwd(*a, **kw):
+        handed.append(a[5])
+        return flash_attention_bwd(*a, **kw)
+
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=True, fwd=fwd, bwd=bwd)
+    assert asked == [True]
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5 and torch.equal(saved[3], o)
+    assert torch.equal(saved[4], lse)
+    out.backward(do)
+    assert len(handed) == 1 and torch.equal(handed[0], lse)
+    with torch.no_grad():
+        plain = flash_attention(*leaves, causal=True, fwd=fwd, bwd=bwd)
+    assert asked == [True, False] and torch.equal(plain, o)
+
+
+def test_kernel_and_plain_pairs_share_one_signature():
+    """K2 and the serving agreement swap the plain pair in for the
+    kernels: both pairs take the same arguments."""
+    assert (inspect.signature(flash_attention_fwd)
+            == inspect.signature(flash_attention_plain))
+    assert (inspect.signature(flash_attention_bwd)
+            == inspect.signature(flash_attention_bwd_plain))
+    assert list(inspect.signature(flash_attention_bwd).parameters) == [
+        "q", "k", "v", "o", "do", "lse", "causal"]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_flash_bwd_routes(hd):
+    """bfloat16 at hd 64 and 128 takes the tensor-core kernels; float32
+    and the other bfloat16 head dims the CUDA-core ones."""
+    want = ("flash_attention_bwd_bf16_wgmma" if hd in (64, 128)
+            else "flash_attention_bwd_bf16")
+    assert bwd_entry(torch.bfloat16, hd) == want
+    assert bwd_entry(torch.float32, hd) == "flash_attention_bwd_f32"
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def _operand_rounded_bwd(q, k, v, o, do, lse, causal):
+    """The plain backward with P and dS rounded to bf16 as the operands
+    of dV, dQ and dK, as the tensor-core kernels round them."""
+    b, h, sq, hd = q.shape
+    kvh = k.shape[1]
+    rows = (b, kvh, h // kvh * sq)
+    bf = lambda x: x.bfloat16().float()  # noqa: E731
+    p = torch.exp(attention_scores(q, k, causal=causal)
+                  - lse.reshape(*rows, 1))
+    dof = do.float().reshape(*rows, hd)
+    d = (dof * o.float().reshape(*rows, hd)).sum(-1, keepdim=True)
+    ds = bf(p * (dof @ v.float().transpose(-1, -2) - d))
+    return ((ds @ k.float() * hd ** -0.5).reshape(q.shape).to(q.dtype),
+            (ds.transpose(-1, -2) @ q.float().reshape(*rows, hd)
+             * hd ** -0.5).to(k.dtype),
+            (bf(p).transpose(-1, -2) @ dof).to(v.dtype))
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,hd", BWD_SHAPES + [
+    (1, 4, 1, 1, 70, 64), (1, 4, 4, 1, 1, 128), (2, 8, 2, 300, 250, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_relative_check_takes_rounding_and_sees_the_controls(
+        chip_smoke, b, h, kv, sq, skv, hd, causal):
+    """The backward's relative check (``chip_smoke.bwd_verdict``) takes
+    the kernels' bf16 rounding of P and dS, single-key rows whose
+    gradient cancels to noise included, and rejects each of
+    ``chip_smoke.bwd_controls`` that changes a gradient."""
+    _, (q, k, v, do) = _attn_inputs(12, b, h, kv, sq, skv, hd, "bfloat16")
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    got = _operand_rounded_bwd(q, k, v, o, do, lse, causal)
+    verdict = chip_smoke.bwd_verdict(got, want, "bfloat16")
+    assert all(c["close"] and c["rel_ok"] for c in verdict.values()), verdict
+    controls = chip_smoke.bwd_controls(q, k, v, o, do, lse, got, causal)
+    assert len(controls) == 3
+    for name, bad in controls.items():
+        if all(torch.equal(x, y) for x, y in zip(bad, got)):
+            continue          # the last keys no query sees: no fault
+        verdict = chip_smoke.bwd_verdict(bad, want, "bfloat16")
+        assert not all(c["rel_ok"] for c in verdict.values()), (name,
+                                                                verdict)
+
+
+@pytest.mark.parametrize("shape,causal,control", [
+    # causal: the last keys' dK and dV are small against the largest
+    ((1, 2, 1, 1024, 1024, 128), True, "last key block zeroed"),
+    # one query over 200 keys: D is small against dP
+    ((1, 4, 4, 1, 200, 128), False, "D dropped")])
+def test_bwd_relative_check_sees_what_the_scaled_tolerance_misses(
+        chip_smoke, shape, causal, control):
+    """Faults that pass the attention tolerance alone (its absolute part
+    scaled by the largest gradient) and fail the relative check."""
+    _, (q, k, v, do) = _attn_inputs(12, *shape, "bfloat16")
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal)
+    bad = chip_smoke.bwd_controls(q, k, v, o, do, lse, want,
+                                  causal)[control]
+    verdict = chip_smoke.bwd_verdict(bad, want, "bfloat16")
+    assert all(c["close"] for c in verdict.values()), verdict
+    assert not all(c["rel_ok"] for c in verdict.values()), verdict
 
 
 # ---------------------------------------------------------------------------
