@@ -88,6 +88,10 @@ SIGNATURES = {
                               _I, _P),
     # r, k, v, w, u, s0, out, s_last (may alias s0), B, T, H, hd, stream
     "rwkv6_wkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # r, k, v, w, u, s0, do, ds_last, dr, dk, dv, dw, du, ds0, f32 scratch,
+    # its length in floats, B, T, H, hd, stream
+    "rwkv6_wkv_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _L, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,15 +1,27 @@
-"""The RWKV-6 WKV recurrence: a CUDA kernel, its plain version and the
-chunked entry point.
+"""The RWKV-6 WKV recurrence: CUDA kernels for its forward and its
+backward, their plain versions, the autograd ``Function`` that joins them
+and the chunked entry point.
 
 ``rwkv6_wkv_fwd(r, k, v, w, u, s0)`` with r, k, v, w (B, T, H, hd), u
 (H, hd) and s0 (B, H, hd, hd), all float32; w is the per-step decay in
-(0, 1) (already ``exp(-exp(.))``).  Per step, with kv = k_tᵀ v_t:
+[0, 1) (already ``exp(-exp(.))``).  Per step, with kv = k_tᵀ v_t:
 ``o_t = r_t (S + u ⊙ kv)`` and ``S <- w_t ⊙_rows S + kv``.  Returns
 ``(out (B, T, H, hd), s_last (B, H, hd, hd))``.
 
-``rwkv6_wkv_plain`` is the plain PyTorch version (the CPU path, and the
-yardstick the kernel is held against on the card): the sequential loop
-``ref.rwkv6_wkv_ref``.  ``rwkv6_wkv`` is the counterpart of the
+``rwkv6_wkv_bwd(r, k, v, w, u, s0, do, ds_last)`` is its backward: the
+gradients ``(dr, dk, dv, dw, du, ds0)`` of a loss whose gradients with
+respect to ``out`` and ``s_last`` are ``do`` and ``ds_last``.  The
+reference has no Pallas backward: it differentiates its ``lax.scan``
+(``repro.models.rwkv6._wkv_scan``) by autodiff.
+
+``rwkv6_wkv_plain`` and ``rwkv6_wkv_bwd_plain`` are the plain PyTorch
+versions (the CPU path, and the yardsticks the kernels are held against
+on the card).  The pairs ``(rwkv6_wkv_fwd, rwkv6_wkv_bwd)`` and
+``(rwkv6_wkv_plain, rwkv6_wkv_bwd_plain)`` share one signature, so
+either can stand in for the other.  ``WKV`` (a
+``torch.autograd.Function``) runs the forward and saves its inputs for
+the backward; ``wkv`` applies it where autograd records, and is one
+forward call elsewhere.  ``rwkv6_wkv`` is the counterpart of the
 reference's chunked wrapper (``repro.kernels.ops.rwkv6_wkv``).
 """
 from __future__ import annotations
@@ -25,6 +37,15 @@ from .ref import rwkv6_wkv_ref
 HEAD_DIMS = (16, 32, 64, 128)
 #: the reference wrapper's default chunk (its VMEM budget)
 CHUNK = 4096
+#: steps between the states the plain backward keeps (it recomputes the
+#: states inside each such chunk from the one before it)
+PLAIN_BWD_CHUNK = 64
+#: steps between the states the backward kernel keeps, by head size
+#: (``kChunk`` in ``csrc/rwkv6_wkv_bwd.cu``: a chunk's states are held in
+#: registers, 64 a thread)
+BWD_CHUNK = {16: 32, 32: 32, 64: 16, 128: 8}
+#: rows of the state a block of the backward kernel holds (``kRows``)
+BWD_ROWS = 16
 
 
 def rwkv6_wkv_plain(r, k, v, w, u, s0, s_last=None):
@@ -32,6 +53,56 @@ def rwkv6_wkv_plain(r, k, v, w, u, s0, s_last=None):
     (it may be ``s0``) and is returned."""
     out, s = rwkv6_wkv_ref(r, k, v, w, u, s0)
     return out, (s if s_last is None else s_last.copy_(s))
+
+
+def rwkv6_wkv_bwd_plain(r, k, v, w, u, s0, do, ds_last,
+                        chunk: int = PLAIN_BWD_CHUNK):
+    """The backward of ``rwkv6_wkv_plain`` as an explicit reverse sweep.
+    With G_t = dL/dS_t (the state after step t), G_T = ``ds_last``, and
+    a_t = sum_i r_t[i] u[i] k_t[i], going back over t::
+
+        dr_t = S_{t-1} do_t + u ⊙ k_t (do_t · v_t)
+        dk_t = G_t v_t + u ⊙ r_t (do_t · v_t)
+        dv_t = G_tᵀ k_t + a_t do_t
+        dw_t = sum_j G_t[:, j] ⊙ S_{t-1}[:, j]
+        du  += r_t ⊙ k_t (do_t · v_t)          (summed over batch rows)
+        G_{t-1} = w_t ⊙_rows G_t + r_tᵀ do_t
+
+    and ds0 = G_0.  The sweep needs S_{t-1} going back: a forward pass
+    keeps the state before every ``chunk``-th step, and each chunk's
+    states are recomputed forward from it.  They are never rebuilt by
+    dividing by w_t, which is exactly 0 in float32 once wlog passes
+    ~4.65 (``exp(-exp(4.65))`` underflows) while the gradient there is
+    finite.  Returns ``(dr, dk,
+    dv, dw, du, ds0)``, float32."""
+    t_len = r.shape[1]
+    step = lambda s, t: (w[:, t, :, :, None] * s  # noqa: E731
+                         + k[:, t, :, :, None] * v[:, t, :, None, :])
+    saved, s = [], s0.float()
+    for t in range(t_len):
+        if t % chunk == 0:
+            saved.append(s)
+        if t + 1 < t_len:
+            s = step(s, t)
+    dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
+    g = ds_last.float()
+    for c in reversed(range(len(saved))):
+        t0 = c * chunk
+        states = [saved[c]]
+        for t in range(t0, min(t0 + chunk, t_len) - 1):
+            states.append(step(states[-1], t))
+        for t in reversed(range(t0, t0 + len(states))):
+            sp = states[t - t0]
+            dr[:, t] = (sp @ do[:, t, :, :, None])[..., 0]
+            dk[:, t] = (g @ v[:, t, :, :, None])[..., 0]
+            dv[:, t] = (k[:, t, :, None, :] @ g)[..., 0, :]
+            dw[:, t] = (g * sp).sum(-1)
+            g = (w[:, t, :, :, None] * g
+                 + r[:, t, :, :, None] * do[:, t, :, None, :])
+    dot = (do * v).sum(-1, keepdim=True)                  # (B, T, H, 1)
+    a = (r * u * k).sum(-1, keepdim=True)
+    return (dr + u * k * dot, dk + u * r * dot, dv + a * do, dw,
+            (r * k * dot).sum((0, 1)), g)
 
 
 def _check(r, k, v, w, u, s0, s_last) -> None:
@@ -103,21 +174,130 @@ def rwkv6_wkv_fwd(r, k, v, w, u, s0, s_last: Optional[torch.Tensor] = None):
     return out, s_last
 
 
+def _check_bwd(r, k, v, w, u, s0, do, ds_last) -> None:
+    _check(r, k, v, w, u, s0, None)
+    if do.shape != r.shape or ds_last.shape != s0.shape:
+        raise ValueError(f"rwkv6_wkv_bwd: do must have r's shape "
+                         f"{tuple(r.shape)} and ds_last s0's "
+                         f"{tuple(s0.shape)}; got {tuple(do.shape)}, "
+                         f"{tuple(ds_last.shape)}")
+    for x in (do, ds_last):
+        if x.dtype != torch.float32 or x.device != r.device:
+            raise ValueError(f"rwkv6_wkv_bwd: do and ds_last must be "
+                             f"float32 on r's device ({r.device}); got "
+                             f"{x.dtype}, {x.device}")
+
+
+def bwd_scratch_floats(b: int, t: int, h: int, hd: int) -> int:
+    """Float32 scratch of one ``rwkv6_wkv_bwd`` launch: the state before
+    every ``BWD_CHUNK[hd]``-th step, dv's partial sums of each block of
+    ``BWD_ROWS`` state rows (where a head has more than one), and du's
+    partial sums of each batch row."""
+    n_chunks = -(-t // BWD_CHUNK[hd])
+    row_blocks = hd // BWD_ROWS
+    return (b * h * n_chunks * hd * hd
+            + (row_blocks if row_blocks > 1 else 0) * b * t * h * hd
+            + b * h * hd)
+
+
+@_build.counted
+def rwkv6_wkv_bwd(r, k, v, w, u, s0, do, ds_last):
+    """The backward of ``rwkv6_wkv_fwd``: r, k, v, w, do (B, T, H, hd), u
+    (H, hd), s0 and ds_last (B, H, hd, hd), all float32.  Returns ``(dr,
+    dk, dv, dw, du, ds0)``: the gradients with respect to r, k, v, w (B,
+    T, H, hd), u (H, hd) and s0 (B, H, hd, hd) of a loss whose gradients
+    with respect to the forward's ``out`` and ``s_last`` are ``do`` and
+    ``ds_last`` (``rwkv6_wkv_bwd_plain`` gives the formulas).
+
+    Replaces no Pallas kernel: the reference differentiates its
+    ``lax.scan`` (``src/repro/models/rwkv6.py:88``).  On the H100 it is
+    bound by operations (recomputing the states, the state gradient and
+    four products with it, ~14 hd² a step and head, on the CUDA cores in
+    float32).  The rows of each head's state are split over blocks of
+    ``BWD_ROWS`` (rows are independent in S and in its gradient), each
+    block keeps its rows of S and G in registers, saves the state every
+    ``BWD_CHUNK[hd]`` steps and sweeps each chunk in reverse from its
+    recomputed states; dv's partial sums over the row blocks and du's
+    over the batch rows are summed in a fixed order by a second kernel,
+    so that two calls give the same bits (no atomics); see
+    ``csrc/rwkv6_wkv_bwd.cu``.
+
+    CPU tensors run ``rwkv6_wkv_bwd_plain``; CUDA tensors launch the
+    kernels (one count a call) or raise.
+    """
+    _check_bwd(r, k, v, w, u, s0, do, ds_last)
+    if r.device.type == "cpu":
+        return rwkv6_wkv_bwd_plain(r, k, v, w, u, s0, do, ds_last)
+    b, t, h, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_wkv_bwd: head size {hd} is not one of "
+                         f"{HEAD_DIMS}")
+    r, k, v, w, u, s0, do, ds_last = (_aligned(x) for x in (
+        r, k, v, w, u, s0, do, ds_last))
+    dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
+    du, ds0 = torch.empty_like(u), torch.empty_like(s0)
+    n_scratch = bwd_scratch_floats(b, t, h, hd)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=r.device)
+    _build.launch("rwkv6_wkv_bwd_f32", *(x.data_ptr() for x in (
+        r, k, v, w, u, s0, do, ds_last, dr, dk, dv, dw, du, ds0, scratch)),
+        n_scratch, b, t, h, hd, _build.stream_ptr(r.device))
+    rwkv6_wkv_bwd.launches += 1
+    return dr, dk, dv, dw, du, ds0
+
+
+class WKV(torch.autograd.Function):
+    """The WKV recurrence with a gradient: the forward runs ``fwd`` (the
+    forward kernel by default) into a new last state and saves its
+    inputs; the backward runs ``bwd`` (the backward kernel by default) on
+    them.  It never writes into a tensor it saved (no ``s_last`` aliased
+    to ``s0``).  The pair is an argument so that a caller can hold the
+    kernels against their plain versions through the same graph."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0, fwd, bwd):
+        r, k, v, w = (x.contiguous() for x in (r, k, v, w))
+        out, s_last = fwd(r, k, v, w, u, s0)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.bwd = bwd
+        return out, s_last
+
+    @staticmethod
+    def backward(ctx, dout, ds_last):
+        grads = ctx.bwd(*ctx.saved_tensors, dout.contiguous(),
+                        ds_last.contiguous())
+        return (*grads, None, None)
+
+
+def records(*xs) -> bool:
+    """Whether autograd records an operation on ``xs``: grad mode is on
+    and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
+def wkv(r, k, v, w, u, s0, *, fwd=rwkv6_wkv_fwd, bwd=rwkv6_wkv_bwd):
+    """The differentiable recurrence: ``WKV`` where autograd records
+    (:func:`records`), else one call of ``fwd`` that saves nothing.
+    Returns ``(out, s_last)``, s_last a new tensor."""
+    if not records(r, k, v, w, u, s0):
+        return fwd(r, k, v, w, u, s0)
+    return WKV.apply(r, k, v, w, u, s0, fwd, bwd)
+
+
 def rwkv6_wkv(r, k, v, w, u, s0, chunk: Optional[int] = None):
     """The reference wrapper's contract (``repro.kernels.ops.rwkv6_wkv``):
     ``chunk`` defaults to ``min(T, 4096)``; a longer T must be a multiple
     of it and runs one ``rwkv6_wkv_fwd`` launch a chunk, the state carried
-    from one to the next."""
+    from one to the next.  Differentiable: each chunk is one :func:`wkv`
+    (under autograd one ``WKV``)."""
     t = r.shape[1]
     chunk = min(t, CHUNK) if chunk is None else chunk
     if t <= chunk:
-        return rwkv6_wkv_fwd(r, k, v, w, u, s0)
+        return wkv(r, k, v, w, u, s0)
     if t % chunk:
         raise ValueError(f"rwkv6_wkv: T = {t} is not a multiple of the chunk "
                          f"{chunk}")
     outs, s = [], s0
     for c in range(0, t, chunk):
-        out, s = rwkv6_wkv_fwd(*(x[:, c:c + chunk] for x in (r, k, v, w)),
-                               u, s)
+        out, s = wkv(*(x[:, c:c + chunk] for x in (r, k, v, w)), u, s)
         outs.append(out)
     return torch.cat(outs, 1), s

@@ -27,7 +27,7 @@ def _ids(x, dev: torch.device) -> torch.Tensor:
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
-                    device=None) -> Callable:
+                    device=None, *, donate: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient with respect to every parameter
     (``models.forward``, one backward pass), then ``adamw_update``.
@@ -36,10 +36,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     ``positions`` and ``mask``; the step moves them to the device.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``lr`` and ``grad_norm``
     as tensors on the device (the step never syncs the host).  The given
-    parameters and state are left as they were.  On the card every dense
-    layer's attention runs the flash forward kernel (twice with
-    ``cfg.remat``: once more when the backward recomputes the layer) and
-    the flash backward kernel once."""
+    parameters and state are left as they were, unless ``donate``: then,
+    like the reference driver's ``donate_argnums=(0, 1)``, they are
+    updated in place and returned (the same bits), so that the step holds
+    no second copy of them.  On the card every dense layer's attention
+    runs the flash forward kernel (twice with ``cfg.remat``: once more
+    when the backward recomputes the layer) and the flash backward kernel
+    once; every RWKV layer's recurrence the WKV forward kernel (twice
+    with ``cfg.remat``) and the WKV backward kernel once."""
     check_trainable(cfg)
     dev = resolve_device(device)
 
@@ -52,8 +56,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
             loss, metrics = forward(unflatten(params, trainable), cfg, batch)
             grads = torch.autograd.grad(loss, list(trainable.values()))
         grads = unflatten(params, dict(zip(trainable, grads)))
-        params, opt_state, opt_metrics = adamw_update(grads, opt_state,
-                                                      params, opt_cfg)
+        params, opt_state, opt_metrics = adamw_update(
+            grads, opt_state, params, opt_cfg, in_place=donate)
         return params, opt_state, {
             "loss": loss.detach(),
             **{k: v.detach() for k, v in metrics.items()}, **opt_metrics}

@@ -2,7 +2,7 @@
 
 The reference's ``launch/train.py`` on the port: ``TokenPipeline``
 batches (numpy, moved to the device by the step), ``make_train_step``
-(forward, one backward through the flash kernels, AdamW), and a
+(forward, one backward through the flash or WKV kernels, AdamW), and a
 ``CheckpointManager`` that keeps the parameters, the optimizer state and
 the pipeline's cursor (in the manifest's ``extra``).  Restart-safe: a run
 resumes from the latest checkpoint in ``ckpt_dir``, and ``die_at_step``
@@ -38,7 +38,9 @@ def train(cfg, *, steps: int, batch: int, seq: int, ckpt_dir: Optional[str],
     dev = resolve_device(device)
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5 or 1),
                           total_steps=steps)
-    step_fn = make_train_step(cfg, opt_cfg, dev)      # refuses RWKV
+    # the parameters and state are donated, as the reference driver's
+    # jax.jit(..., donate_argnums=(0, 1)) does: updated in place
+    step_fn = make_train_step(cfg, opt_cfg, dev, donate=True)
     pipeline = TokenPipeline(batch, seq, cfg.vocab_size, seed=seed)
     params = init_params(cfg, seed=seed, device=dev)
     opt_state = adamw_init(params)

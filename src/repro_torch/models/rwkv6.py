@@ -8,7 +8,10 @@ Per head (size ``rwkv_head_size``), the WKV state S (hd x hd) evolves as
 
 The recurrence runs on the ``rwkv6_wkv`` CUDA kernel at every T (a whole
 prompt is one launch a layer, a decode step too); the reference's model
-runs the same function as a ``lax.scan`` (``wkv_impl="scan"``).  Its
+runs the same function as a ``lax.scan`` (``wkv_impl="scan"``).  Where
+autograd records (training), the recurrence is the ``WKV`` autograd
+function: the forward kernel, and the ``rwkv6_wkv_bwd`` kernel for its
+gradient, where the reference differentiates its scan.  Its
 traffic stand-in ``wkv_impl="kernel_stub"`` computes another function and
 serves only the reference's roofline dry runs: it is not ported.
 
@@ -20,7 +23,9 @@ normalises each token over the whole ``d_model``, as the reference does
 
 A given state is updated in place and returned: the WKV kernel writes
 the last state over the incoming one, and the shift rows are copied into
-theirs, so a decode step allocates no state.
+theirs, so a decode step allocates no state.  Where autograd records,
+nothing is written in place (the recurrence's inputs are saved for the
+backward) and a new state is returned.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6_scan import rwkv6_wkv_fwd
+from repro_torch.kernels.rwkv6_scan import (WKV, records, rwkv6_wkv_bwd,
+                                            rwkv6_wkv_fwd)
 
 from .base import ArchConfig, scaled_normal
 
@@ -90,7 +96,7 @@ def rwkv_time_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, T, d).  ``state``: ``{"shift": (B, d), "wkv": (B, H, hd, hd)
     float32}`` or ``None`` (zeros).  Returns ``(y, state)`` with the state
-    written in place."""
+    written in place, or, where autograd records, a new state."""
     b, t, d = x.shape
     h, hd = _dims(cfg)
     f32, dt = torch.float32, cfg.adtype
@@ -110,17 +116,24 @@ def rwkv_time_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     w = torch.exp(-torch.exp(wlog))
 
     shp = (b, t, h, hd)
-    out, _ = rwkv6_wkv_fwd(*(z.to(f32).reshape(shp) for z in (r, k, v, w)),
-                           p["bonus_u"].float(), state["wkv"],
-                           s_last=state["wkv"])
+    ins = [z.to(f32).reshape(shp) for z in (r, k, v, w)]
+    ins += [p["bonus_u"].float(), state["wkv"]]
+    grad = records(*ins)
+    if grad:
+        out, s_last = WKV.apply(*ins, rwkv6_wkv_fwd, rwkv6_wkv_bwd)
+    else:
+        out, _ = rwkv6_wkv_fwd(*ins, s_last=state["wkv"])
     out = out.reshape(b, t, d)
     # ln_x over the whole d_model, then the gate
     mean = out.mean(-1, keepdim=True)
     var = (out - mean).square().mean(-1, keepdim=True)
     out = (out - mean) * torch.rsqrt(var + 1e-5) * p["ln_x"].float()
     out = out.to(dt) * F.silu(g.float()).to(dt)
+    y = out @ p["w_o"].to(dt)
+    if grad:
+        return y, {"shift": x[:, -1, :], "wkv": s_last}
     state["shift"].copy_(x[:, -1, :])
-    return out @ p["w_o"].to(dt), state
+    return y, state
 
 
 def rwkv_channel_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,

@@ -9,11 +9,12 @@ layers are [attention + MLP] on the attention kernels, the RWKV layers
 encoder-decoder branches raise :class:`NotPortedError`, as do the tailed
 decode and RWKV's ``wkv_impl="kernel_stub"``.
 
-``forward`` is the training loss of a dense model; with ``cfg.remat`` its
-backbone checkpoints each layer (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint(nothing_saveable)`` does over its scan
-body.  RWKV does not train yet: its WKV kernel has no backward
-(:func:`check_trainable`).
+``forward`` is the training loss of a dense or an RWKV model; with
+``cfg.remat`` its backbone checkpoints each layer
+(``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint(nothing_saveable)`` does over its scan body.  An RWKV
+layer's recurrence takes its gradient from the WKV backward kernel
+(``kernels.rwkv6_scan.WKV``).
 """
 from __future__ import annotations
 
@@ -60,14 +61,10 @@ def check_ported(cfg: ArchConfig) -> None:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """:func:`check_ported`, and raise :class:`NotPortedError` for what
-    the port serves but cannot train: RWKV-6, whose WKV kernel writes its
-    state in place and has no backward."""
+    """Raise :class:`NotPortedError` for what the port cannot train: what
+    it does not carry at all (:func:`check_ported`).  Everything it
+    serves, dense and RWKV-6, it trains."""
     check_ported(cfg)
-    if cfg.rwkv:
-        raise NotPortedError(
-            f"{cfg.name}: training RWKV-6 needs a backward of the WKV kernel "
-            f"(rwkv6_wkv), which is not yet ported to repro_torch")
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -170,34 +167,32 @@ def backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
     reference also returns the MoE auxiliary loss, which neither a dense
     model nor an RWKV one has.  RWKV reads no positions.
 
-    Differentiable for a dense model: with gradients on and ``cfg.remat``,
-    each layer runs under ``torch.utils.checkpoint`` (non-reentrant), so
-    the backward keeps only each layer's input and recomputes the layer,
-    its attention forward included."""
+    Differentiable: with gradients on and ``cfg.remat``, each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant), so the backward
+    keeps only each layer's input and recomputes the layer, its attention
+    or WKV forward included."""
     check_ported(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     if cfg.rwkv:
-        for lp in params["layers"]:
-            x = _rwkv_block(lp, cfg, x)
+        block, args = _rwkv_block, ()
     else:
-        rope = rope_tables(positions, cfg)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for lp in params["layers"]:
-            if remat:
-                x = checkpoint(_dense_block, lp, cfg, x, positions, rope,
-                               use_reentrant=False)
-            else:
-                x = _dense_block(lp, cfg, x, positions, rope)
+        block, args = _dense_block, (positions, rope_tables(positions, cfg))
+    for lp in params["layers"]:
+        if remat:
+            x = checkpoint(block, lp, cfg, x, *args, use_reentrant=False)
+        else:
+            x = block(lp, cfg, x, *args)
     return apply_norm(params["final_norm"], cfg, x)
 
 
 def forward(params: Dict, cfg: ArchConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Training loss of a dense model: ``batch["inputs"]`` token ids (B,
-    S), ``batch["labels"]`` (B, S), optional ``batch["positions"]`` (B, S)
-    and ``batch["mask"]`` (B, S), all tensors on the parameters' device.
-    Returns ``(loss, {"ce", "aux"})``: the token-mean cross-entropy plus
-    ``AUX_LOSS_COEF`` times the MoE auxiliary loss, which is 0 for a
-    dense model."""
+    """Training loss of a dense or an RWKV model: ``batch["inputs"]``
+    token ids (B, S), ``batch["labels"]`` (B, S), optional
+    ``batch["positions"]`` (B, S; RWKV reads none) and ``batch["mask"]``
+    (B, S), all tensors on the parameters' device.  Returns ``(loss,
+    {"ce", "aux"})``: the token-mean cross-entropy plus ``AUX_LOSS_COEF``
+    times the MoE auxiliary loss, which is 0 for both."""
     check_trainable(cfg)
     inputs = batch["inputs"]
     b, s = inputs.shape[0], inputs.shape[1]

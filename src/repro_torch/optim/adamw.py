@@ -4,9 +4,13 @@ parameter tree (nested dicts and lists of tensors).
 The reference's ``optim/adamw.py`` in plain tensor ops, as the reference
 leaves it to XLA.  The state mirrors the parameter tree; parameters are
 updated in float32 and cast back to their own dtype.  Every function
-returns new tensors and leaves its inputs as they were.  The reference's
-``opt_state_specs`` (logical sharding specs) waits for the port's mesh
-rules.
+returns new tensors and leaves its inputs as they were, except
+``adamw_update(..., in_place=True)``: the counterpart of the reference's
+donated buffers (``jax.jit(..., donate_argnums=(0, 1))`` in its training
+driver), which overwrites the parameters, the state and the gradients
+with the same bits and so never holds a second copy of them.  The
+reference's ``opt_state_specs`` (logical sharding specs) waits for the
+port's mesh rules.
 """
 from __future__ import annotations
 
@@ -55,35 +59,60 @@ def adamw_init(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _clip_scale(grads, max_norm: float):
+    """``(the factor that scales grads to a global norm of at most
+    max_norm, the global norm)``."""
+    gn = torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0), gn
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """``(grads in float32 scaled to a global norm of at most max_norm,
     the global norm before scaling)``."""
-    gn = torch.sqrt(sum(g.float().square().sum() for g in leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    scale, gn = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g.float() * scale, grads), gn
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, cfg: AdamWConfig
+def adamw_update(grads, state, params, cfg: AdamWConfig, *,
+                 in_place: bool = False
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step: clip ``grads`` by their global norm, then update
     the moments and the parameters.  Returns ``(new params, new state,
-    {"lr", "grad_norm"})``."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state["step"] + 1
+    {"lr", "grad_norm"})``.  With ``in_place`` the given parameters,
+    moments, step and float32 gradients are overwritten and returned,
+    leaf by leaf, with the same bits as the new tensors would hold."""
+    if in_place:
+        scale, gnorm = _clip_scale(grads, cfg.clip_norm)
+        step = state["step"].add_(1)
+    else:
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        step = state["step"] + 1
     lr = warmup_cosine(cfg, step)
     b1c = 1.0 - torch.pow(cfg.b1, step.float())
     b2c = 1.0 - torch.pow(cfg.b2, step.float())
+
+    def delta(pf, mu, nu):
+        return (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps) \
+            + cfg.weight_decay * pf
+
+    metrics = {"lr": lr, "grad_norm": gnorm}
+    if in_place:
+        for p, g, mu, nu in zip(leaves(params), leaves(grads),
+                                leaves(state["mu"]), leaves(state["nu"])):
+            g = g.float().mul_(scale)
+            mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            nu.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
+            pf = p.float()
+            p.copy_(pf - lr * delta(pf, mu, nu))
+        return params, state, metrics
 
     def upd(p, g, mu, nu):
         mu = cfg.b1 * mu + (1 - cfg.b1) * g
         nu = cfg.b2 * nu + (1 - cfg.b2) * g.square()
         pf = p.float()
-        delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps) \
-            + cfg.weight_decay * pf
-        return (pf - lr * delta).to(p.dtype), mu, nu
+        return (pf - lr * delta(pf, mu, nu)).to(p.dtype), mu, nu
 
     new_p, mu, nu = unzip(tree_map(upd, params, grads, state["mu"],
                                    state["nu"]), 3)
-    return new_p, {"mu": mu, "nu": nu, "step": step}, \
-        {"lr": lr, "grad_norm": gnorm}
+    return new_p, {"mu": mu, "nu": nu, "step": step}, metrics

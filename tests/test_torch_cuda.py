@@ -44,7 +44,13 @@ blocks of 64 rows of one head, within ``chip_smoke.BWD_REL_TOL``); a
 train step of a smoke model on the card against the CPU within 1e-4 of
 each leaf's largest magnitude (loss, parameters, moments); the WKV kernel
 (float32 only) within 1e-4 of the largest magnitude of its plain result,
-the reference's own tolerance for its kernel.
+the reference's own tolerance for its kernel; its backward
+(``rwkv6_wkv_bwd``) at every head size, T not a multiple of its
+checkpoint stride and T = 1, decays that are exactly 0 and near 1, within
+1e-4 of each plain gradient's largest magnitude and
+``chip_smoke.WKV_BWD_REL_TOL`` in relative norm (whole and by 64-step
+blocks), two calls bit-equal; and an RWKV smoke model's train steps on
+the card against the CPU.
 """
 import dataclasses
 import sys
@@ -73,7 +79,8 @@ from repro_torch.kernels.move_eval import (  # noqa: E402
     ChainState, anneal_step, anneal_step_reference, move_delta_batch,
     move_delta_reference)
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
-    rwkv6_wkv, rwkv6_wkv_fwd, rwkv6_wkv_plain)
+    WKV, rwkv6_wkv, rwkv6_wkv_bwd, rwkv6_wkv_bwd_plain, rwkv6_wkv_fwd,
+    rwkv6_wkv_plain)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step, make_train_step)
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
@@ -454,6 +461,98 @@ def test_wkv_chunked_kernel_matches_unchunked(cuda):
     torch.cuda.synchronize()
     _wkv_close(got, want)
     _wkv_close(s_got, s_want)
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+def _wkv_bwd_inputs(b, t, h, hd, dev, seed=7):
+    """r, k, v, w, u, s0, do, ds_last; w = exp(-exp(wlog)), wlog uniform
+    on [-8, 6]: exact zeros and values near 1."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s, dtype=np.float32)  # noqa: E731
+    w = np.exp(-np.exp(rng.uniform(-8.0, 6.0, (b, t, h, hd))))
+    xs = [n(b, t, h, hd), n(b, t, h, hd) * 0.5, n(b, t, h, hd), w,
+          n(h, hd) * 0.5, n(b, h, hd, hd) * 0.3, n(b, t, h, hd),
+          n(b, h, hd, hd)]
+    return [torch.tensor(x, dtype=torch.float32, device=dev) for x in xs]
+
+
+@pytest.mark.parametrize("b,t,h,hd", [
+    (2, 37, 3, 16), (2, 37, 3, 32), (1, 70, 2, 64), (2, 37, 3, 128),
+    (2, 1000, 3, 64), (3, 1, 5, 64), (1, 1, 2, 16), (2, 16, 2, 64),
+    (1, 9, 2, 128), (2, 65, 40, 64)])
+def test_wkv_bwd_kernel_matches_plain(cuda, chip_smoke, b, t, h, hd):
+    xs = _wkv_bwd_inputs(b, t, h, hd, cuda)
+    assert int((xs[3] == 0).sum()) > 0 or t * h * hd < 64
+    want = rwkv6_wkv_bwd_plain(*xs)
+    before = rwkv6_wkv_bwd.launches
+    got, again = rwkv6_wkv_bwd(*xs), rwkv6_wkv_bwd(*xs)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv_bwd.launches == before + 2
+    verdict = chip_smoke.wkv_bwd_verdict(got, want)
+    assert all(c["close"] and c["rel_ok"] for c in verdict.values()), \
+        verdict
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_wkv_function_on_the_card_matches_the_plain_pair(cuda, chip_smoke):
+    xs = _wkv_bwd_inputs(2, 300, 4, 64, cuda, seed=8)
+    grads = []
+    for fwd, bwd in ((rwkv6_wkv_fwd, rwkv6_wkv_bwd),
+                     (rwkv6_wkv_plain, rwkv6_wkv_bwd_plain)):
+        leaves = [x.clone().requires_grad_(True) for x in xs[:6]]
+        out, s_last = WKV.apply(*leaves, fwd, bwd)
+        ((out * xs[6]).sum() + (s_last * xs[7]).sum()).backward()
+        grads.append(tuple(x.grad for x in leaves))
+    verdict = chip_smoke.wkv_bwd_verdict(*grads)
+    assert all(c["close"] and c["rel_ok"] for c in verdict.values()), \
+        verdict
+
+
+def test_rwkv_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two AdamW steps of the float32 rwkv6-smoke (remat on) on the card
+    (both WKV kernels, two forward launches a layer) against the CPU
+    (plain versions)."""
+    from repro_torch import _tree
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(configs.get("rwkv6-3b", smoke=True),
+                              dtype="float32", remat=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4, eps=1e-6)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = _tree.tree_map(lambda t: t.to(cuda), cpu)
+    states = [adamw_init(card), adamw_init(cpu)]
+    params = [card, cpu]
+    steps = [make_train_step(cfg, opt, d) for d in (cuda, "cpu")]
+    pipe = TokenPipeline(2, 48, cfg.vocab_size, seed=2)
+    for _ in range(2):
+        batch = pipe.next_batch()
+        fwd, bwd = rwkv6_wkv_fwd.launches, rwkv6_wkv_bwd.launches
+        out = [step(p, st, batch)
+               for step, p, st in zip(steps, params, states)]
+        assert rwkv6_wkv_fwd.launches == fwd + 2 * cfg.n_layers
+        assert rwkv6_wkv_bwd.launches == bwd + cfg.n_layers
+        params = [o[0] for o in out]
+        states = [o[1] for o in out]
+        torch.testing.assert_close(out[0][2]["loss"].cpu(), out[1][2]["loss"],
+                                   rtol=1e-4, atol=1e-4)
+        for tree_card, tree_cpu in ((params[0], params[1]),
+                                    (states[0]["mu"], states[1]["mu"]),
+                                    (states[0]["nu"], states[1]["nu"])):
+            for (name, g), w in zip(_tree.items(tree_card),
+                                    _tree.leaves(tree_cpu)):
+                scale = max(float(w.abs().max()), 1.0)
+                assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, name
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "granite-3-8b",

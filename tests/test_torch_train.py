@@ -59,9 +59,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
                                     attention_scores)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
-from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import (NotPortedError, cross_entropy,  # noqa: E402
-                                forward, init_params)
+                                forward)
 from repro_torch.models.transformer import check_trainable  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
@@ -540,15 +539,30 @@ def test_train_step_leaves_its_inputs_as_they_were():
     assert all(not t.requires_grad for t in _tree.leaves(p2))
 
 
-def test_rwkv_training_is_not_ported():
-    cfg = tconfigs.get("rwkv6-3b", smoke=True)
-    with pytest.raises(NotPortedError, match="WKV"):
-        check_trainable(cfg)
-    with pytest.raises(NotPortedError, match="WKV"):
-        make_train_step(cfg, AdamWConfig(), device="cpu")
-    params = init_params(cfg, seed=0, device="cpu")
-    batch = {k: torch.tensor(v) for k, v in batch_of(cfg, 0).items()}
-    with pytest.raises(NotPortedError, match="WKV"):
-        forward(params, cfg, batch)
-    with pytest.raises(NotPortedError, match="WKV"):
-        train(cfg, steps=1, batch=1, seq=4, ckpt_dir=None, device="cpu")
+def test_rwkv_training_is_ported(monkeypatch):
+    """RWKV-6 trains (its recurrence's gradient is the WKV backward
+    kernel); its roofline stand-in ``wkv_impl="kernel_stub"`` is still
+    refused; and a WKV call on tensors off the CPU (the meta device stands
+    for the card on a host without one) goes to the kernels, which raise
+    without ``nvcc``, rather than running the plain pair."""
+    from repro_torch.kernels import rwkv6_scan as ws
+
+    for smoke in (False, True):
+        check_trainable(tconfigs.get("rwkv6-3b", smoke=smoke))
+    stub = dataclasses.replace(tconfigs.get("rwkv6-3b", smoke=True),
+                               wkv_impl="kernel_stub")
+    with pytest.raises(NotPortedError, match="kernel_stub"):
+        check_trainable(stub)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "NVCC_FALLBACKS", ())
+    monkeypatch.setattr(_build, "BUILD_ROOT",
+                        _build.BUILD_ROOT / "nonexistent-for-this-test")
+    monkeypatch.setattr(_build, "_LIB", None)
+    ran = []
+    plain = lambda *a, **kw: ran.append(1)  # noqa: E731
+    xs = [torch.zeros(s, device="meta", requires_grad=True) for s in (
+        (1, 4, 2, 64),) * 4 + ((2, 64), (1, 2, 64, 64))]
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        ws.wkv(*xs, bwd=plain)
+    assert not ran
