@@ -5,7 +5,7 @@ LLM serving of a dense model and of RWKV-6, the paper's own system with
 an autoscaled fleet of LLM replicas, and training of a dense LLM and of
 RWKV-6) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--paths L0,L1]
 
 Run from a checkout of the repository on a machine with a CUDA card and
 ``nvcc``.  Phases, each of which fails the script if it fails:
@@ -216,8 +216,12 @@ Run from a checkout of the repository on a machine with a CUDA card and
    writes a TINY state with the port's store in the reference's layout
    (layers stacked), reads it back through ``convert`` and resumes on
    the card: equal state, the same next step;
-18. path L, RWKV-6 training: L0 holds the WKV recurrence's backward
-   (dr, dk, dv, dw, du and ds0: ``csrc/rwkv6_wkv_bwd.cu``) against its
+18. path L, RWKV-6 training: L0 holds the training forward (the forward
+   kernel's checkpoint variant: out and the last state bit-equal to the
+   forward without checkpoints, its checkpoints within ``1e-4`` of the
+   plain forward's) and the WKV recurrence's backward
+   (dr, dk, dv, dw, du and ds0: ``csrc/rwkv6_wkv_bwd.cu``, fed the plain
+   forward's checkpoints) against its
    plain version (the explicit reverse sweep) at path L1's call (r [4,
    2048, 40, 64]), at hd 16, 32 and 128, at a T no checkpoint stride
    divides (r [2, 1000, 8, 64]) and at T = 1, every case with nonzero s0
@@ -229,7 +233,9 @@ Run from a checkout of the repository on a machine with a CUDA card and
    gradient zeroed at each chunk boundary, dw zeroed at each chunk's
    first step, a head left out) must fail; two calls bit-equal in every
    case; timed at L1's call beside its bound and its plain version (CUDA
-   graph replays); then ``WKV`` on the card against the plain pair's
+   graph replays), with the forward with and without checkpoints, the
+   launch's blocks, shared memory and waves, and one cluster alone;
+   then ``WKV`` on the card against the plain pair's
    Function, one backward each.  L1 trains rwkv6-3b at full width and
    depth (f32 parameters, bf16 compute, remat) for 6 AdamW steps of 4 x
    2048 tokens from ``TokenPipeline`` through ``make_train_step``
@@ -241,9 +247,10 @@ Run from a checkout of the repository on a machine with a CUDA card and
    time by kernel).  L2 takes a 2-layer full-width rwkv6-3b (2 x 2048
    tokens) with the WKV kernels and with their plain versions swapped
    in, in float32 and in bfloat16 compute: losses within 2e-2, every
-   gradient within 5e-2 of its largest, and in float32 every update of
-   one AdamW step (lr 1e-3, eps 1e-3) within 5e-2 of its largest (in
-   bfloat16 the update gap is printed: see ``run_path_l2``);
+   gradient within 5e-2 of its largest, every update of one AdamW step
+   (lr 1e-3, eps 1e-3) within ``L2_UPDATE_REL_TOL`` by its relative norm
+   by leaf, and in float32 within 5e-2 of its largest (see
+   ``run_path_l2``);
 19. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
@@ -265,6 +272,10 @@ small per-step kernels are timed as a CUDA graph of back-to-back calls,
 so that no host work is counted.  ``wrapper_ms`` is the time per eager
 call of the kernel's Python wrapper, which is what the per-step loop
 pays.
+
+``--paths`` runs phases 1-2 and then only the named paths (a letter
+takes all its parts), and prints the kernel rows they make whole (the
+WKV backward's, after L0) and the last line.
 
 Kernel launch counts are zeroed just before each path and read just
 after it; a path that launched none of its kernels fails.  The line
@@ -801,10 +812,11 @@ def check_ptxas() -> None:
     """Every ``loop_fused`` instantiation (n = 1..14) in the build's
     ``-Xptxas -v`` report with a 0-byte stack frame and no spill: its
     rows' state lives in registers; every ``rwkv6_wkv`` head size (16, 32,
-    64, 128) with no spill (32 state registers a thread); the bfloat16
-    flash backward's dq and dkv kernels at hd 64 and 128 with no spill;
-    every ``rwkv6_wkv_bwd`` head size with no spill (a chunk's states, 64
-    registers a thread)."""
+    64, 128), serving's kernel and training's checkpoint variant, with no
+    spill (32 state registers a thread); the bfloat16 flash backward's dq
+    and dkv kernels at hd 64 and 128 with no spill; every
+    ``rwkv6_wkv_bwd`` head size with no spill (its rows of G and S in
+    registers)."""
     import re
 
     from repro_torch.kernels import _build
@@ -832,15 +844,19 @@ def check_ptxas() -> None:
             r"Function properties for (\S+rwkv6_wkv_kernelILi(?:\d+)E\S*)\n"
             r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
             r"bytes spill loads\n.*?Used (\d+) registers", report):
-        hd = int(re.search(r"rwkv6_wkv_kernelILi(\d+)E", name).group(1))
-        wkv[hd] = (int(stack), int(st), int(ld), int(regs))
-    _require(sorted(wkv) == [16, 32, 64, 128],
-             f"ptxas: rwkv6_wkv instantiations {sorted(wkv)}, want 16..128")
-    bad = {hd: v for hd, v in wkv.items() if v[1:3] != (0, 0)}
-    _require(not bad, f"ptxas: rwkv6_wkv spills (hd: stack, spill stores, "
+        m = re.search(r"rwkv6_wkv_kernelILi(\d+)ELb([01])E", name)
+        key = f"hd {m.group(1)}" + (" ckpt" if m.group(2) == "1" else "")
+        wkv[key] = (int(stack), int(st), int(ld), int(regs))
+    want = sorted(f"hd {hd}{c}" for hd in (16, 32, 64, 128)
+                  for c in ("", " ckpt"))
+    _require(sorted(wkv) == want,
+             f"ptxas: rwkv6_wkv instantiations {sorted(wkv)}, want {want}")
+    bad = {k: v for k, v in wkv.items() if v[1:3] != (0, 0)}
+    _require(not bad, f"ptxas: rwkv6_wkv spills (stack, spill stores, "
                       f"spill loads, registers): {bad}")
-    print(f"check ptxas: rwkv6_wkv hd = 16, 32, 64, 128 (hd: stack frame, "
-          f"spill stores, spill loads, registers): {dict(sorted(wkv.items()))}")
+    print(f"check ptxas: rwkv6_wkv hd = 16, 32, 64, 128, serving's kernel "
+          f"and the checkpoint variant (stack frame, spill stores, spill "
+          f"loads, registers): {dict(sorted(wkv.items()))}")
     bwd = {}
     for name, stack, st, ld, regs in re.findall(
             r"Function properties for (\S+flash_bwd_d(?:q|kv)_wgmma_kernel"
@@ -868,7 +884,7 @@ def check_ptxas() -> None:
              f"ptxas: rwkv6_wkv_bwd instantiations {sorted(wkv_bwd)}, want "
              f"16..128")
     bad = {hd: v for hd, v in wkv_bwd.items() if v[1:3] != (0, 0)}
-    _require(not bad, f"ptxas: rwkv6_wkv_bwd spills (its chunk's states "
+    _require(not bad, f"ptxas: rwkv6_wkv_bwd spills (its rows of G and S "
                       f"live in registers; hd: stack, spill stores, spill "
                       f"loads, registers): {bad}")
     print(f"check ptxas: rwkv6_wkv_bwd hd = 16, 32, 64, 128 (hd: stack "
@@ -2468,7 +2484,7 @@ def run_path_j2(dev, seed, cfg=None, ticks: int = J2_TICKS, spike=J2_SPIKE,
         calls.append((prompts, gen, out))
         return out
 
-    model.generate = recorded
+    model.generate = recorded   # taken back below: it would hold a cycle
     sim = make_world(cfg.vocab_size, model, spike=spike, seed=seed)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2507,6 +2523,7 @@ def run_path_j2(dev, seed, cfg=None, ticks: int = J2_TICKS, spike=J2_SPIKE,
         host.tick(1.0)
     _same_byte_world(sim, host, "path J2: LLM replicas against byte "
                                 "replicas")
+    del model.generate        # the recorder's closure refers to the model
     prompts, gen, out = calls[0]
     again = generate(prompts, gen)
     _require(np.array_equal(again, out), "path J2: the first chunk generated "
@@ -2918,7 +2935,7 @@ def path_b_ops(rates, act):
     plain packers swapped in on the card (the per-insert walk of torch
     ops that the kernel replaces).  Returns the two totals."""
     from repro_torch import api
-    from repro_torch.core import pack as core_pack
+    from repro_torch.core.pack import modified_any_fit_plain, pack_plain
     from repro_torch.registry import builtin
 
     def per_step(policy):
@@ -2932,9 +2949,8 @@ def path_b_ops(rates, act):
         return (n[1] - n[0]) // 4
 
     kern = {p: per_step(p) for p in PATH_B}
-    with _swapped([(builtin, "pack", core_pack.pack_plain),
-                   (builtin, "modified_any_fit",
-                    core_pack.modified_any_fit_plain)]):
+    with _swapped([(builtin, "pack", pack_plain),
+                   (builtin, "modified_any_fit", modified_any_fit_plain)]):
         plain = {p: per_step(p) for p in PATH_B}
     print(f"path B torch ops a step, packers on pack_rows: {kern} "
           f"total={sum(kern.values())}")
@@ -3312,7 +3328,7 @@ def run_path_k1(dev, seed):
     from repro_torch.models import init_params, param_bytes
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    gc.collect()               # earlier paths' cyclic garbage holds tensors
+    gc.collect()               # a guard: J2's world frees its model when dropped
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     cfg = _olmo_train_cfg()
@@ -3535,6 +3551,44 @@ L2_LAYERS, L2_BATCH = 2, 2
 #: rounding is a quarter of its update and the check would read the
 #: parameter's rounding, not the gradient
 L2_LR = 1e-3
+#: L2's check of the bf16 updates, as ``bwd_rel_errs`` makes one for the
+#: flash backward: ||u_kernel - u_plain|| / ||u_plain|| of each leaf's
+#: update, ||u_plain|| taken as at least L2_UPDATE_ABS a element.  The
+#: largest-magnitude measure reads 0.149-0.197 at ``bonus_u`` in bf16 on
+#: an H100 80GB HBM3 at 700 W (PERF.md §6): single elements whose
+#: gradient is near 0, where AdamW at eps 1e-3 turns a bf16 rounding flip
+#: into a large part of the update; a norm over the leaf weighs them by
+#: their size
+L2_UPDATE_REL_TOL = 5e-2
+L2_UPDATE_ABS = 1e-6
+
+
+def update_rel_errs(leaves) -> dict:
+    """``{leaf: ||got - want|| / ||want||}`` over ``leaves``, an iterable
+    of ``(name, got update, want update)``, each ||want|| taken as at
+    least L2_UPDATE_ABS a element."""
+    out = {}
+    for name, g, w in leaves:
+        g, w = g.float(), w.float()
+        floor = L2_UPDATE_ABS * w.numel() ** 0.5
+        out[name] = float((g - w).norm()) / max(float(w.norm()), floor)
+    return out
+
+
+def update_verdict(leaves) -> dict:
+    """L2's update checks, without raising: the largest of max |got -
+    want| / max |want| over the leaves and its leaf (printed; held to
+    K2_TOL in float32), and the largest relative norm of
+    :func:`update_rel_errs` and its leaf, held to L2_UPDATE_REL_TOL in
+    both dtypes."""
+    leaves = list(leaves)
+    worst, at = _worst_leaf(leaves)
+    rels = update_rel_errs(leaves)
+    rel_at = max(rels, key=rels.get)
+    return dict(max_rel=worst, max_rel_at=at, rel_norm=rels[rel_at],
+                rel_norm_at=rel_at, rel_ok=rels[rel_at] <= L2_UPDATE_REL_TOL)
+
+
 #: the WKV backward's second check, as ``bwd_rel_errs`` makes it for the
 #: flash backward: ||g - w|| / ||w|| of each gradient whole and of every
 #: block of WKV_BWD_BLOCK steps of one (batch row, head) (ds0: of each
@@ -3543,6 +3597,9 @@ L2_LR = 1e-3
 WKV_BWD_BLOCK = 64
 WKV_BWD_REL_TOL = 1e-4
 WKV_BWD_ABS = 1e-6
+#: clusters a launch of the WKV backward is timed at beside L1's call
+#: (``wkv_bwd_occupancy``): one alone, a quarter and a half of the SMs
+WKV_BWD_LADDER = (1, 33, 66)
 WKV_GRADS = ("dr", "dk", "dv", "dw", "du", "ds0")
 
 
@@ -3614,6 +3671,55 @@ def wkv_bwd_verdict(got, want) -> dict:
     return out
 
 
+def wkv_ckpt_rel_err(got, want) -> float:
+    """The worst ||g - w|| / ||w|| of a forward's checkpoints (B, H, C,
+    hd, hd) against the plain forward's, by (batch row, head, checkpoint),
+    each norm of ``want`` taken as at least WKV_BWD_ABS / WKV_BWD_REL_TOL
+    an element (as ``wkv_bwd_rel_errs`` takes the gradients'): a fault in
+    one small state fails it where the largest-magnitude check passes."""
+    import torch
+
+    e = (got.float() - want.float()).flatten(3).norm(dim=-1)
+    w = want.float().flatten(3).norm(dim=-1)
+    floor = WKV_BWD_ABS / WKV_BWD_REL_TOL * want.shape[-1]
+    return float((e / torch.clamp(w, min=floor)).max())
+
+
+def wkv_bwd_row(l0, launches):
+    """The WKV backward's kernel row from L0's cases (timed at L1's call)
+    and L1's launches (None where L1 did not run)."""
+    return dict(
+        name="rwkv6_wkv_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
+        replaces="src/repro/models/rwkv6.py:88",
+        replaces_note="autodiff of the reference's lax.scan _wkv_scan "
+        "(called at :146); its Pallas WKV kernel has no backward",
+        launches=launches, launches_by_path={"L1": launches},
+        **{**l0["l1"],
+           "max_abs_err": max(c["max_abs_err"] for c in l0.values())},
+        cases={k: v for k, v in l0.items() if k != "l1"},
+        design="one reverse sweep from the training forward's checkpoints "
+        "(every 8 steps at hd 64); a head's rows over a cluster of hd / 16 "
+        "blocks of 16 rows; a producer warp feeds a two-stage ring by bulk "
+        "copies; row warps (4 lanes a row, hd / 4 columns of S and G in "
+        "registers) recompute a chunk's states into shared memory and form "
+        "dr, dk, dw and dot by one reduce-scatter of 2 shuffle levels; "
+        "column warps run G again to form dv's block partial in-thread; "
+        "one cluster barrier a chunk, then dv summed over the cluster's "
+        "partials in rank order through distributed shared memory; du's "
+        "batch partials summed in order by a second kernel (no atomics)")
+
+
+def wkv_plain_grads(xs):
+    """The plain pair on xs (r, k, v, w, u, s0, do, ds_last): the forward
+    with checkpoints every ``BWD_CHUNK[hd]`` steps, then the backward that
+    reads them."""
+    from repro_torch.kernels import rwkv6_scan as ws
+
+    *_, ckpt = ws.rwkv6_wkv_plain(*xs[:6], checkpoints=True)
+    return ws.rwkv6_wkv_bwd_plain(*xs[:5], ckpt, *xs[6:])
+
+
 def wkv_bwd_controls(xs, got, chunk):
     """Faults the WKV backward's checks must see: the carried state
     gradient zeroed at each chunk boundary (the plain backward run a
@@ -3630,9 +3736,9 @@ def wkv_bwd_controls(xs, got, chunk):
     for t0 in range(0, t, chunk):
         cut = [x[:, t0:t0 + chunk].contiguous() for x in (r, k, v, w, do)]
         last = t0 + chunk >= t
-        parts.append(ws.rwkv6_wkv_bwd_plain(
-            *cut[:4], u, s, cut[4],
-            ds_last if last else torch.zeros_like(ds_last)))
+        parts.append(wkv_plain_grads(
+            [*cut[:4], u, s, cut[4],
+             ds_last if last else torch.zeros_like(ds_last)]))
         if not last:
             _, s = ws.rwkv6_wkv_plain(*cut[:4], u, s)
     cut = tuple(torch.cat([p[i] for p in parts], 1) for i in range(4)) + (
@@ -3657,24 +3763,53 @@ def _fmt_wkv_verdict(verdict) -> str:
 
 
 def wkv_bwd_case(dev, gen, b, t, h, hd, controls=False, timed=False):
-    """L0: the WKV backward kernel against its plain version on r [b, t,
-    h, hd]: both checks of ``wkv_bwd_verdict``, two calls bit-equal and,
-    with ``controls``, each of ``wkv_bwd_controls`` failing the relative
-    check.  With ``timed``, the kernel and its plain version as CUDA-graph
-    replays and the wrapper eager, beside the bound.  Returns the case's
-    row."""
+    """L0 on r [b, t, h, hd]: the training forward (the forward kernel's
+    checkpoint variant) gives out and the last state bit-equal to the
+    forward without checkpoints, and checkpoints within ``WKV_TOL`` of
+    the plain forward's; the WKV backward kernel, fed the plain forward's
+    checkpoints, against its plain version: both checks of
+    ``wkv_bwd_verdict``, two calls bit-equal and, with ``controls``, each
+    of ``wkv_bwd_controls`` failing the relative check.  With ``timed``,
+    the backward kernel and its plain version as CUDA-graph replays and
+    the wrapper eager, beside the bound, and the forward kernel with and
+    without checkpoints.  Returns the case's row."""
     import torch
 
     from repro_torch.kernels import rwkv6_scan as ws
 
     xs = wkv_bwd_inputs(gen, b, t, h, hd, dev)
-    kern = lambda: ws.rwkv6_wkv_bwd(*xs)  # noqa: E731
-    plain = lambda: ws.rwkv6_wkv_bwd_plain(*xs)  # noqa: E731
-    got, again, want = kern(), kern(), plain()
-    torch.cuda.synchronize()
+    fin = xs[:6]
     what = (f"rwkv6_wkv_bwd r=[{b}, {t}, {h}, {hd}] (checkpoint every "
             f"{ws.BWD_CHUNK[hd]} steps, {int((xs[3] == 0).sum())} exact "
             f"zeros in w)")
+    out, s_last = ws.rwkv6_wkv_fwd(*fin)
+    out_c, s_c, ckpt_k = ws.rwkv6_wkv_fwd(*fin, checkpoints=True)
+    *_, ckpt = ws.rwkv6_wkv_plain(*fin, checkpoints=True)
+    torch.cuda.synchronize()
+    _require(torch.equal(out_c, out) and torch.equal(s_c, s_last),
+             f"{what}: the forward with checkpoints gives other out or "
+             f"s_last bits than the forward without")
+    _require(ckpt_k.shape == ckpt.shape,
+             f"{what}: checkpoints {tuple(ckpt_k.shape)}, want "
+             f"{tuple(ckpt.shape)}")
+    ck_err, ck_scale = _max_err(ckpt_k, ckpt), float(ckpt.abs().max())
+    ck_rel = wkv_ckpt_rel_err(ckpt_k, ckpt)
+    _require(ck_err <= WKV_TOL * ck_scale and ck_rel <= WKV_BWD_REL_TOL,
+             f"{what}: the forward kernel's checkpoints differ from the "
+             f"plain forward's by {ck_err} (largest {ck_scale}), relative "
+             f"{ck_rel} in the worst (batch row, head, checkpoint)")
+    print(f"check {what}: the forward with checkpoints bit-equal in out "
+          f"and s_last to the forward without; its {ckpt.shape[2]} "
+          f"checkpoints within {ck_err!r} of the plain forward's (largest "
+          f"{ck_scale!r}, tolerance {WKV_TOL} of it) and {ck_rel:.3e} "
+          f"relative in the worst (batch row, head, checkpoint) (limit "
+          f"{WKV_BWD_REL_TOL})")
+    del out, s_last, out_c, s_c, ckpt_k
+    bx = [*xs[:5], ckpt, *xs[6:]]
+    kern = lambda: ws.rwkv6_wkv_bwd(*bx)  # noqa: E731
+    plain = lambda: ws.rwkv6_wkv_bwd_plain(*bx)  # noqa: E731
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
     verdict = wkv_bwd_verdict(got, want)
     for name, c in verdict.items():
         _require(c["close"] and c["rel_ok"],
@@ -3688,7 +3823,8 @@ def wkv_bwd_case(dev, gen, b, t, h, hd, controls=False, timed=False):
                max_rel_err=max(c["err"] / c["scale"]
                                for c in verdict.values()),
                rel={n: [c["rel"], c["rel_block"]]
-                    for n, c in verdict.items()})
+                    for n, c in verdict.items()},
+               ckpt_max_abs_err=ck_err, ckpt_rel_err=ck_rel)
     print(f"check {what}: within {WKV_TOL} of each gradient's largest and "
           f"{WKV_BWD_REL_TOL} relative (whole and by {WKV_BWD_BLOCK}-step "
           f"blocks): {_fmt_wkv_verdict(verdict)}; two calls bit-equal")
@@ -3711,20 +3847,70 @@ def wkv_bwd_case(dev, gen, b, t, h, hd, controls=False, timed=False):
         # operations a (b, t, h): the recomputed state (3 hd^2), the state
         # gradient (3 hd^2), four products with a state (2 hd^2 each), and
         # the per-step vectors (dot, a_t, the bonus terms: 16 hd); bytes:
-        # nine streams, s0, ds_last, ds0, u and du
+        # nine streams, s0, ds_last, ds0, u and du (the function's; the
+        # kernel also reads the checkpoints, counted apart)
         n_bytes = 4 * (9 * b * t * h * hd + 3 * b * h * hd * hd + 2 * h * hd)
         n_ops = b * t * h * (14 * hd * hd + 16 * hd)
         bnd, by = bound_ms(n_bytes, n_ops)
         row.update(ms=graph_ms(kern, 5), plain_ms=graph_ms(plain, 1),
                    bound_ms=bnd, bound_by=by, library_ms=None,
                    wrapper_ms=cuda_ms(kern, 5)[0],
-                   fwd_ms=graph_ms(lambda: ws.rwkv6_wkv_fwd(*xs[:6]), 5))
+                   ckpt_bytes=ckpt.numel() * 4,
+                   fwd_ms=graph_ms(lambda: ws.rwkv6_wkv_fwd(*fin), 5),
+                   fwd_ckpt_ms=graph_ms(
+                       lambda: ws.rwkv6_wkv_fwd(*fin, checkpoints=True), 5),
+                   **wkv_bwd_occupancy(dev, gen, b, t, h, hd))
         print(f"time {what}: ms={row['ms']!r} plain_ms={row['plain_ms']!r} "
               f"bound_ms={bnd!r} ({by}, {bnd / row['ms']:.1%} of it) "
-              f"wrapper_ms={row['wrapper_ms']!r}; the forward kernel on the "
-              f"same inputs {row['fwd_ms']!r} ms")
-    del xs
+              f"wrapper_ms={row['wrapper_ms']!r}; it also reads "
+              f"{row['ckpt_bytes']} bytes of checkpoints "
+              f"({row['ckpt_bytes'] / HBM_BYTES_PER_S * 1e3!r} ms at the "
+              f"memory rate); the forward kernel on the same inputs "
+              f"{row['fwd_ms']!r} ms without checkpoints, "
+              f"{row['fwd_ckpt_ms']!r} ms with them (training's call); "
+              f"{row['blocks']} blocks of {row['threads']} threads and "
+              f"{row['smem_bytes']} bytes of shared memory, "
+              f"{row['resident_blocks']} resident at once "
+              f"({row['resident_clusters']} clusters): {row['waves']!r} "
+              f"waves; one cluster alone (r=[1, {t}, 1, {hd}], a block an "
+              f"SM) {row['ms_one_cluster']!r} ms, one full round "
+              f"(r=[1, {t}, {row['resident_clusters']}, {hd}], no tail) "
+              f"{row['ms_one_round']!r} ms; by clusters (r=[1, {t}, c, "
+              f"{hd}]) {row['ms_by_clusters']}")
+    del xs, bx, ckpt
     return row
+
+
+def wkv_bwd_occupancy(dev, gen, b, t, h, hd) -> dict:
+    """The WKV backward's launch on r [b, t, h, hd]: its blocks, threads
+    and shared memory a block, how many blocks the card holds at once (its
+    clusters, by the occupancy API) and so its waves; and the time of a
+    launch of c clusters (r [1, t, c, hd]) for c in WKV_BWD_LADDER and
+    the clusters the card holds at once: one cluster alone (a block an
+    SM) to one full round with no tail, so that the call's time splits
+    into the slowdown of blocks that share an SM and its tail wave."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6_scan as ws
+
+    n, threads, smem = (ctypes.c_int() for _ in range(3))
+    _build.launch("rwkv6_wkv_bwd_occupancy", hd, *(
+        ctypes.addressof(x) for x in (n, threads, smem)))
+    rb = hd // ws.BWD_ROWS
+    ladder = {}
+    for c in sorted({*WKV_BWD_LADDER, n.value}):
+        xs = wkv_bwd_inputs(gen, 1, t, c, hd, dev)
+        *_, ckpt = ws.rwkv6_wkv_fwd(*xs[:6], checkpoints=True)
+        bx = [*xs[:5], ckpt, *xs[6:]]
+        ladder[c] = graph_ms(lambda: ws.rwkv6_wkv_bwd(*bx), 5)
+        del xs, ckpt, bx
+    return dict(blocks=b * h * rb, threads=threads.value,
+                smem_bytes=smem.value, resident_clusters=n.value,
+                resident_blocks=n.value * rb,
+                waves=b * h * rb / max(n.value * rb, 1),
+                ms_one_cluster=ladder[1], ms_one_round=ladder[n.value],
+                ms_by_clusters=ladder)
 
 
 def run_path_l0(dev, seed):
@@ -3798,7 +3984,7 @@ def run_path_l1(dev, seed):
     from repro_torch.models import init_params, param_bytes
     from repro_torch.optim import AdamWConfig, adamw_init
 
-    gc.collect()               # earlier paths' cyclic garbage holds tensors
+    gc.collect()               # a guard: J2's world frees its model when dropped
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     cfg = _rwkv_train_cfg()
@@ -3950,8 +4136,9 @@ def run_path_l2(dev, seed):
     within K2_TOL of its largest update.  In bfloat16 the f32
     recurrences' last-bit differences flip bf16 roundings downstream and
     the raw gradients part by ~1%, which AdamW at eps 1e-3 turns into up
-    to ~15% of an update where a gradient is near 0: the update gap is
-    printed there, not held."""
+    to ~15% of an update where a gradient is near 0: that largest gap is
+    printed, and every leaf's update is held, in both dtypes, by its
+    relative norm (:func:`update_verdict`, L2_UPDATE_REL_TOL)."""
     import torch
 
     from repro_torch import _tree
@@ -3991,11 +4178,12 @@ def run_path_l2(dev, seed):
         _require(dloss <= 2e-2, f"path L2 {dtype}: losses "
                                 f"{float(got_m['loss'])} and "
                                 f"{float(want_m['loss'])} differ by {dloss}")
-        upd, upd_at = _worst_leaf(
+        uv = update_verdict(
             (name, new.float() - old.float(), ref.float() - old.float())
             for (name, old), new, ref in zip(_tree.items(params),
                                              _tree.leaves(got_p),
                                              _tree.leaves(want_p)))
+        upd, upd_at = uv["max_rel"], uv["max_rel_at"]
         del out, got_p, want_p
         (_, got_g), (_, want_g) = (_l2_grads(params, cfg, batch, pair)
                                    for pair in (kernels, plain))
@@ -4008,17 +4196,223 @@ def run_path_l2(dev, seed):
               f"{float(got_m['loss'])!r} vs {float(want_m['loss'])!r} "
               f"(|diff| {dloss!r}, within 2e-2); one step (AdamW lr "
               f"{L2_LR}, eps {K2_EPS}): updates within {upd!r} of the "
-              f"largest (worst {upd_at}); gradients within {grad!r} of the "
+              f"largest (worst {upd_at}), relative norm by leaf "
+              f"{uv['rel_norm']!r} (worst {uv['rel_norm_at']}, held to "
+              f"{L2_UPDATE_REL_TOL}); gradients within {grad!r} of the "
               f"largest (worst {grad_at}); held to {K2_TOL}: the gradients"
               + (" and the updates" if dtype == "float32" else
                  " (AdamW's eps turns bf16 rounding near g = 0 into update "
-                 "gaps: printed)"))
+                 "gaps of single elements: held by the relative norm)"))
         _require(grad <= K2_TOL, f"path L2 {dtype}: {grad_at}'s gradient "
                                  f"differs by {grad:.3g} of its largest "
                                  f"(> {K2_TOL})")
         _require(dtype != "float32" or upd <= K2_TOL,
                  f"path L2 {dtype}: {upd_at}'s update differs by "
                  f"{upd:.3g} of its largest (> {K2_TOL})")
+        _require(uv["rel_ok"], f"path L2 {dtype}: {uv['rel_norm_at']}'s "
+                               f"update differs by a relative norm of "
+                               f"{uv['rel_norm']:.3g} (> {L2_UPDATE_REL_TOL})")
+
+
+def path_a_traffic(dev, seed):
+    """Path A's traffic: 4096 groups x 2880 steps x 14 partitions."""
+    rates, act = traffic_mix(4096, 2880, 14, seed, dev)
+    print(f"path A data: rates {tuple(rates.shape)} "
+          f"{rates.numel() * 4 / 1e6!r} MB on the card")
+    return rates, act
+
+
+def path_b_traffic(dev, seed):
+    """Paths B, C1, G and H1's traffic: 1024 groups x 480 steps x 32."""
+    return traffic_mix(1024, 480, 32, seed + 10, dev)
+
+
+def run_path_a(rates_a, act_a):
+    """Path A: the heuristic packers through the ``loop_fused`` kernel,
+    then its first 32 groups x 480 steps on the wide fused path.  Returns
+    the launch counts."""
+    from repro_torch import api
+
+    out_a, launches_a = run_path("A", HEURISTICS, rates_a, act_a,
+                                 ("loop_fused",), fused_steps=8,
+                                 fused_kernel=True)
+    small = api.simulate(rates_a[:32, :480], policies=HEURISTICS,
+                         active=act_a[:32, :480], device="cuda",
+                         fused_steps=8)
+    _agree(small, out_a, 32, 480, "path A against the wide fused path")
+    return launches_a
+
+
+def run_path_b(rates_b, act_b):
+    """Path B: the per-step loop, the drain and every packing call through
+    kernels; its first 16 groups x 48 steps on the CPU; the torch ops a
+    step.  Returns the launch counts."""
+    from repro_torch import api
+
+    steps_b = rates_b.shape[1]
+    out_b, launches_b = run_path(
+        "B", PATH_B, rates_b, act_b, ("lag_update_batch", "pack_rows"),
+        exact={"pack_rows": 5 * steps_b, "select_slot_grid": 0,
+               "lag_update_batch": len(PATH_B) * steps_b}, use_kernel=True)
+    small = api.simulate(rates_b[:16, :48].cpu(), policies=PATH_B,
+                         active=act_b[:16, :48].cpu(), device="cpu",
+                         use_kernel=True)
+    _agree(small, out_b, 16, 48, "path B against the CPU plain versions")
+    del small, out_b
+    ops_b, _ = path_b_ops(rates_b, act_b)
+    print(f"path B: lag_update launches={launches_b['lag_update_batch']} "
+          f"(one a policy a step, {len(PATH_B)} x {steps_b}); torch ops a "
+          f"step, the {len(PATH_B)} policies together: {ops_b}")
+    return launches_b
+
+
+def run_path_c1(rates_b, act_b):
+    """Path C1: the annealer policies over path B's traffic, every anneal
+    step one ``anneal_step`` launch.  Returns the launch counts."""
+    out_c1, launches_c1 = run_path(
+        "C1", PATH_C1, rates_b, act_b, ("anneal_step",),
+        exact={"anneal_step": len(PATH_C1) * rates_b.shape[1] * 48,
+               "move_delta_batch": 0})
+    path_c1_agreement(out_c1, rates_b, act_b)
+    del out_c1
+    path_c1_ops(rates_b, act_b)
+    return launches_c1
+
+
+def run_path_h(dev, seed, rates_b, act_b):
+    """Path H: H1a and H1b over path B's traffic, their torch ops, H2 and
+    H3.  Returns the launch counts summed over H1a, H1b and H3."""
+    from repro_torch.lagsim import ControlPlaneConfig
+
+    _, launches_h1a = run_path_h1("H1a", PATH_H_REAL, rates_b, act_b)
+    _, launches_h1b = run_path_h1("H1b", PATH_H_CP, rates_b, act_b,
+                                  control_plane=ControlPlaneConfig(**H_CP))
+    path_h_ops(rates_b, act_b)
+    run_path_h2(dev, seed)
+    launches_h3 = run_path_h3(dev, seed)
+    launches_h = {k: launches_h1a[k] + launches_h1b[k] + launches_h3[k]
+                  for k in ("lag_update_batch", "pack_rows")}
+    print(f"path H launches: H1a {launches_h1a}, H1b {launches_h1b}, H3 "
+          f"{launches_h3}; in all {launches_h}")
+    return launches_h
+
+
+def run_path_i(dev, seed):
+    """Path I: I1 and I2.  Returns the launch counts of both."""
+    t0 = time.perf_counter()
+    launches_i1 = run_path_i1(dev, seed)
+    launches_i2 = run_path_i2(dev, seed)
+    launches_i = {k: launches_i1[k] + launches_i2.get(k, 0)
+                  for k in launches_i1}
+    print(f"path I: wall_s={time.perf_counter() - t0!r} launches: I1 "
+          f"{launches_i1}, I2 with its replays {launches_i2}; in all "
+          f"{launches_i}")
+    return launches_i
+
+
+def run_path_d(dev, seed):
+    """Path D: qwen3-8b serving, then the 4-layer agreement check of the
+    attention kernels.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    launches_d = run_serving_path(dev, seed, "D", LLM,
+                                  "flash_attention_fwd",
+                                  "decode_attention_fwd")
+    torch.cuda.empty_cache()
+    agreement(dev, seed, LLM, [
+        (attention, "flash_attention_fwd", fa.flash_attention_plain),
+        (attention, "decode_attention_fwd", da.decode_attention_plain)])
+    torch.cuda.empty_cache()
+    return launches_d
+
+
+def run_path_e(dev, seed):
+    """Path E: rwkv6-3b serving, then the 4-layer agreement check of the
+    WKV kernel.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import rwkv6_scan as ws
+    from repro_torch.models import rwkv6
+
+    launches_e = run_serving_path(dev, seed, "E", RWKV,
+                                  "rwkv6_wkv_fwd", "rwkv6_wkv_fwd")
+    torch.cuda.empty_cache()
+    agreement(dev, seed, RWKV,
+              [(rwkv6, "rwkv6_wkv_fwd", ws.rwkv6_wkv_plain)])
+    torch.cuda.empty_cache()
+    return launches_e
+
+
+#: ``--paths``' names in the order of the full run: a letter names the
+#: path with all its parts, C1, C2, J1, J2, K0-K3 and L0-L2 one part
+PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "J1", "J2",
+              "K0", "K1", "K2", "K3", "L0", "L1", "L2")
+
+
+def select_paths(spec: str):
+    """The parts of PATH_NAMES that ``spec`` (comma-separated names, e.g.
+    ``L0,L1`` or ``K,L``) names, in the full run's order; raises
+    ValueError on a name that is not a path."""
+    want = [x.strip().upper() for x in spec.split(",") if x.strip()]
+    bad = [x for x in want if x not in PATH_NAMES
+           and not any(p.startswith(x) for p in PATH_NAMES)]
+    if bad or not want:
+        raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
+                         f"{', '.join(PATH_NAMES)} or a letter A-L")
+    return [p for p in PATH_NAMES
+            if any(p == x or (len(x) == 1 and p.startswith(x))
+                   for x in want)]
+
+
+def run_named_paths(dev, seed, names) -> dict:
+    """The paths ``names`` (parts of PATH_NAMES, in its order; all of
+    them in the full run), each with the data the full run gives it and
+    its checks held, launch counts zeroed before and read after each.
+    Returns each path's result by name, with paths A's and B's traffic
+    under ``traffic_a`` and ``traffic_b`` where a path that takes it
+    ran."""
+    import torch
+
+    out = {}
+
+    def traffic(key, make):
+        if key not in out:
+            out[key] = make(dev, seed)
+        return out[key]
+
+    a_traffic = lambda: traffic("traffic_a", path_a_traffic)  # noqa: E731
+    b_traffic = lambda: traffic("traffic_b", path_b_traffic)  # noqa: E731
+    steps = {
+        "A": lambda: run_path_a(*a_traffic()),
+        "B": lambda: run_path_b(*b_traffic()),
+        "C1": lambda: run_path_c1(*b_traffic()),
+        "C2": lambda: run_path_c2(dev, seed),
+        "F": lambda: run_path_f(dev, seed),
+        "G": lambda: run_path_g(dev, seed, *b_traffic()),
+        "H": lambda: run_path_h(dev, seed, *b_traffic()),
+        "I": lambda: run_path_i(dev, seed),
+        "D": lambda: run_path_d(dev, seed),
+        "E": lambda: run_path_e(dev, seed),
+        "J1": lambda: run_path_j1(dev, seed),
+        "J2": lambda: run_path_j2(dev, seed),
+        "K0": lambda: run_path_k0(dev, seed),
+        "K1": lambda: run_path_k1(dev, seed),
+        "K2": lambda: run_path_k2(dev, seed),
+        "K3": lambda: run_path_k3(dev, seed),
+        "L0": lambda: run_path_l0(dev, seed),
+        "L1": lambda: run_path_l1(dev, seed),
+        "L2": lambda: run_path_l2(dev, seed),
+    }
+    for name in names:
+        t0 = time.perf_counter()
+        out[name] = steps[name]()
+        torch.cuda.empty_cache()
+        print(f"path {name}: wall_s={time.perf_counter() - t0!r}")
+    return out
 
 
 def card_line() -> str:
@@ -4029,55 +4423,20 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-
+def check_kernels(dev, seed) -> dict:
+    """Every kernel against its plain version at stress shapes and at the
+    shapes paths A, B, C2, F, G, I, J and D-E give it (the full run
+    only).  Returns the largest error by kernel."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "drives the port on a CUDA card", file=sys.stderr)
-        return 2
-    src = Path(__file__).resolve().parent / "src"
-    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
-              f"checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(src))
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import binpack_select as bs
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import lag_update as lu
-    from repro_torch.kernels import loop_fused as lf
-    from repro_torch.kernels import move_eval as me
-    from repro_torch.kernels import rwkv6_scan as ws
-    from repro_torch.models import attention, rwkv6
 
-    print(card_line())
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}")
-    dev = torch.device("cuda")
-    # full float32 products: the plain versions are the yardsticks
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-
-    t0 = time.perf_counter()
-    lib = _build.build(verbose=True)
-    _build.library()
-    print(f"build_s={time.perf_counter() - t0!r}")
-    check_sass(lib)
-    check_ptxas()
-
-    gen = torch.Generator(dev).manual_seed(args.seed)
+    gen = torch.Generator(dev).manual_seed(seed)
     # path D2's split count: fills 4 * split - 2 and - 1 put the last
     # filled position one short of and at a split boundary
     split = da.decode_splits(D_BATCH, 8, D_PROMPT + D_GEN)
     # path F's bucket groups: rows x N_b for pack_rows and lag_update
-    f_groups = fleet_groups(args.seed)
+    f_groups = fleet_groups(seed)
     print(f"path F's bucket groups (T_b, N_b): scenarios {f_groups}")
     # stress shapes, then the shapes paths A, B, C2, F, G and I give each
     # kernel
@@ -4109,7 +4468,7 @@ def main(argv=None) -> int:
             check_pack_rows(dev, gen, 128, 32),          # path I2
             check_pack_rows(dev, gen, 4, 32),            # I2's replays
             check_pack_rows(dev, gen, 1, J1_N)),         # path J1
-        "loop_fused": check_loop_fused(dev, args.seed),
+        "loop_fused": check_loop_fused(dev, seed),
         "move_delta_batch": max(
             check_move_eval(dev, gen, 6144, 32),       # path C1's shape
             check_move_eval(dev, gen, 28, 256),        # path C2's
@@ -4131,7 +4490,7 @@ def main(argv=None) -> int:
             check_decode_graph(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN,
                                128, (17, 700, D_PROMPT + D_GEN - 1)),
             check_decode(dev, gen, 8, 8, 4, 16, 128, (0, 1, 2, 3))),  # J2
-        "lag_update_j1_bytes": check_j1_kernels(dev, args.seed),
+        "lag_update_j1_bytes": check_j1_kernels(dev, seed),
         "rwkv6_wkv_fwd": _worst(
             check_wkv(dev, gen, D_BATCH, D_PROMPT, 40, 64),       # path E1
             check_wkv(dev, gen, D_BATCH, 1, 40, 64),              # path E2
@@ -4142,146 +4501,31 @@ def main(argv=None) -> int:
             check_wkv(dev, gen, 1, 13, 5, 64),   # T not a multiple of 8
             check_wkv(dev, gen, 3, 1, 5, 128),   # 4-warp blocks, T = 1
             check_wkv(dev, gen, 2, 77, 4, 128))}
+    return errs
 
-    # path A: the heuristic packers through the loop_fused kernel
-    rates_a, act_a = traffic_mix(4096, 2880, 14, args.seed, dev)
-    print(f"path A data: rates {tuple(rates_a.shape)} "
-          f"{rates_a.numel() * 4 / 1e6!r} MB on the card")
-    out_a, launches_a = run_path("A", HEURISTICS, rates_a, act_a,
-                                 ("loop_fused",), fused_steps=8,
-                                 fused_kernel=True)
-    from repro_torch import api
-    small = api.simulate(rates_a[:32, :480], policies=HEURISTICS,
-                         active=act_a[:32, :480], device="cuda",
-                         fused_steps=8)
-    _agree(small, out_a, 32, 480, "path A against the wide fused path")
-    del small
 
-    # path B: the per-step loop; the drain and every packing call (5 of
-    # the 7 policies pack) through kernels, no per-insert selection
-    rates_b, act_b = traffic_mix(1024, 480, 32, args.seed + 10, dev)
-    steps_b = rates_b.shape[1]
-    out_b, launches_b = run_path(
-        "B", PATH_B, rates_b, act_b, ("lag_update_batch", "pack_rows"),
-        exact={"pack_rows": 5 * steps_b, "select_slot_grid": 0,
-               "lag_update_batch": len(PATH_B) * steps_b}, use_kernel=True)
-    small = api.simulate(rates_b[:16, :48].cpu(), policies=PATH_B,
-                         active=act_b[:16, :48].cpu(), device="cpu",
-                         use_kernel=True)
-    _agree(small, out_b, 16, 48, "path B against the CPU plain versions")
-    del small, out_a, out_b
-    ops_b, _ = path_b_ops(rates_b, act_b)
-    print(f"path B: lag_update launches={launches_b['lag_update_batch']} "
-          f"(one a policy a step, {len(PATH_B)} x {steps_b}); torch ops a "
-          f"step, the {len(PATH_B)} policies together: {ops_b}")
+def kernel_rows(dev, seed, out, errs) -> list:
+    """Every kernel's row, from the full run's paths (``out``, by path
+    name, with paths A's and B's traffic) and the errors of
+    :func:`check_kernels`: each kernel timed at its paths' shapes
+    against its plain version and its bound, with its launches."""
+    import torch
 
-    # path C1: the annealer policies, every move evaluation on the kernel
-    out_c1, launches_c1 = run_path(
-        "C1", PATH_C1, rates_b, act_b, ("anneal_step",),
-        exact={"anneal_step": len(PATH_C1) * rates_b.shape[1] * 48,
-               "move_delta_batch": 0})
-    path_c1_agreement(out_c1, rates_b, act_b)
-    del out_c1
-    path_c1_ops(rates_b, act_b)
+    from repro_torch.kernels import binpack_select as bs
+    from repro_torch.kernels import lag_update as lu
+    from repro_torch.kernels import loop_fused as lf
+    from repro_torch.kernels import move_eval as me
 
-    # path C2: one large topic's frontier through api.optimize
-    launches_c2 = run_path_c2(dev, args.seed)
+    rates_a, act_a = out["traffic_a"]
+    rates_b, act_b = out["traffic_b"]
+    (launches_a, launches_b, launches_c1, launches_c2, launches_f,
+     launches_g, launches_h, launches_i, launches_d, launches_e,
+     launches_j1, launches_k, launches_l) = (out[p] for p in (
+        "A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "J1", "K1",
+        "L1"))
+    launches_d["J2"] = out["J2"]["decode_attention_fwd"]
+    k0 = out["K0"]
 
-    # path F: a ragged fleet of the 8 families through the fleet layer
-    launches_f = run_path_f(dev, args.seed)
-    torch.cuda.empty_cache()
-
-    # path G: the packers' sweep and the paper's evaluation
-    launches_g = run_path_g(dev, args.seed, rates_b, act_b)
-
-    # path H: the scalers as deployed, observed in the loop
-    from repro_torch.lagsim import ControlPlaneConfig
-    _, launches_h1a = run_path_h1("H1a", PATH_H_REAL, rates_b, act_b)
-    _, launches_h1b = run_path_h1("H1b", PATH_H_CP, rates_b, act_b,
-                                  control_plane=ControlPlaneConfig(**H_CP))
-    path_h_ops(rates_b, act_b)
-    run_path_h2(dev, args.seed)
-    launches_h3 = run_path_h3(dev, args.seed)
-    launches_h = {k: launches_h1a[k] + launches_h1b[k] + launches_h3[k]
-                  for k in ("lag_update_batch", "pack_rows")}
-    print(f"path H launches: H1a {launches_h1a}, H1b {launches_h1b}, H3 "
-          f"{launches_h3}; in all {launches_h}")
-
-    # path I: adversarial search and trace replay
-    t0 = time.perf_counter()
-    launches_i1 = run_path_i1(dev, args.seed)
-    launches_i2 = run_path_i2(dev, args.seed)
-    launches_i = {k: launches_i1[k] + launches_i2.get(k, 0)
-                  for k in launches_i1}
-    print(f"path I: wall_s={time.perf_counter() - t0!r} launches: I1 "
-          f"{launches_i1}, I2 with its replays {launches_i2}; in all "
-          f"{launches_i}")
-
-    # path D: qwen3-8b serving, prefill and greedy generation
-    launches_d = run_serving_path(dev, args.seed, "D", LLM,
-                                  "flash_attention_fwd",
-                                  "decode_attention_fwd")
-    torch.cuda.empty_cache()
-    agreement(dev, args.seed, LLM, [
-        (attention, "flash_attention_fwd", fa.flash_attention_plain),
-        (attention, "decode_attention_fwd", da.decode_attention_plain)])
-    torch.cuda.empty_cache()
-
-    # path E: rwkv6-3b serving, prefill and greedy generation
-    launches_e = run_serving_path(dev, args.seed, "E", RWKV,
-                                  "rwkv6_wkv_fwd", "rwkv6_wkv_fwd")
-    torch.cuda.empty_cache()
-    agreement(dev, args.seed, RWKV,
-              [(rwkv6, "rwkv6_wkv_fwd", ws.rwkv6_wkv_plain)])
-    torch.cuda.empty_cache()
-
-    # path J: the paper's system; J1 the lag twin against the object
-    # world, J2 an autoscaled fleet of LLM replicas
-    t0 = time.perf_counter()
-    launches_j1 = run_path_j1(dev, args.seed)
-    t1 = time.perf_counter()
-    launches_j2 = run_path_j2(dev, args.seed)
-    torch.cuda.empty_cache()
-    print(f"path J: J1 wall_s={t1 - t0!r} J2 wall_s="
-          f"{time.perf_counter() - t1!r} launches: J1 {launches_j1}, J2 "
-          f"{launches_j2}")
-    launches_d["J2"] = launches_j2["decode_attention_fwd"]
-
-    # path K: training; K0 the backward kernel against its plain version,
-    # K1 olmo-1b at full width, K2 kernels against plain versions, K3 the
-    # elastic restart and a resume from the reference's checkpoint layout
-    t0 = time.perf_counter()
-    k0 = run_path_k0(dev, args.seed)
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    launches_k = run_path_k1(dev, args.seed)
-    torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    run_path_k2(dev, args.seed)
-    torch.cuda.empty_cache()
-    t3 = time.perf_counter()
-    run_path_k3(dev, args.seed)
-    print(f"path K: K0 wall_s={t1 - t0!r} K1 wall_s={t2 - t1!r} K2 wall_s="
-          f"{t3 - t2!r} K3 wall_s={time.perf_counter() - t3!r} launches: K1 "
-          f"{launches_k}")
-    torch.cuda.empty_cache()
-
-    # path L: RWKV-6 training; L0 the WKV backward kernel against its
-    # plain version, L1 rwkv6-3b at full width and depth, L2 kernels
-    # against plain versions
-    t0 = time.perf_counter()
-    l0 = run_path_l0(dev, args.seed)
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    launches_l = run_path_l1(dev, args.seed)
-    torch.cuda.empty_cache()
-    t2 = time.perf_counter()
-    run_path_l2(dev, args.seed)
-    torch.cuda.empty_cache()
-    print(f"path L: L0 wall_s={t1 - t0!r} L1 wall_s={t2 - t1!r} L2 wall_s="
-          f"{time.perf_counter() - t2!r} launches: L1 {launches_l}")
-
-    # per-kernel times at the paths' shapes
     kernels = []
     kw = dict(heuristic_kwargs(), active=act_a)
     b, t, n = rates_a.shape
@@ -4321,7 +4565,7 @@ def main(argv=None) -> int:
 
     b, n = 1024, 32
     m = 2 * n + 2
-    g = torch.Generator(dev).manual_seed(args.seed)
+    g = torch.Generator(dev).manual_seed(seed)
     i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
     # the drain at path B's shape in the lag twin's own dtypes (f32 lag,
     # produced and cap, int64 assign, bool readable and active, active one
@@ -4489,7 +4733,7 @@ def main(argv=None) -> int:
         bound_by=by, library_ms=None, wrapper_ms=cuda_ms(kern, 200)[0],
         design="the lag_update kernel at batch 1: one warp"))
 
-    kernels += attention_rows(dev, args.seed, launches_d, errs)
+    kernels += attention_rows(dev, seed, launches_d, errs)
     fwd_row = kernels[-2]
     fwd_row["launches_by_path"] = {"D1": fwd_row["launches"],
                                    "K1": launches_k["flash_attention_fwd"]}
@@ -4532,27 +4776,14 @@ def main(argv=None) -> int:
         *(k0[c]["max_abs_err"] for c in ("qwen3_causal", "qwen3_full",
                                          "hd64_gqa", "ragged",
                                          "single_key")))
-    kernels.append(wkv_row(dev, args.seed, dict(
+    kernels.append(wkv_row(dev, seed, dict(
         launches_e, L1=launches_l["rwkv6_wkv_fwd"]), errs))
-    kernels.append(dict(
-        name="rwkv6_wkv_bwd", route="cuda",
-        source="src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
-        replaces="src/repro/models/rwkv6.py:88",
-        replaces_note="autodiff of the reference's lax.scan _wkv_scan "
-        "(called at :146); its Pallas WKV kernel has no backward",
-        launches=launches_l["rwkv6_wkv_bwd"],
-        launches_by_path={"L1": launches_l["rwkv6_wkv_bwd"]},
-        **l0["l1"],
-        cases={k: v for k, v in l0.items() if k != "l1"},
-        design="rows of each head's state over blocks of 16 (8 warps, 2 "
-        "rows a warp, 16 lanes a row, hd / 16 columns a lane of S and G in "
-        "registers); a checkpoint pass saves the state every 16 steps (hd "
-        "64), each chunk's states recomputed into registers and swept "
-        "back; dr, dk, dw complete in the block, dv's row-block partials "
-        "and du's batch partials summed in a fixed order by a second "
-        "kernel (no atomics)"))
-    kernels[-1]["max_abs_err"] = max(c["max_abs_err"] for c in l0.values())
+    kernels.append(wkv_bwd_row(out["L0"], launches_l["rwkv6_wkv_bwd"]))
+    return kernels
 
+
+def print_rows(kernels) -> None:
+    """Each kernel row's times, launches and notes, a line each."""
     for kern in kernels:
         print(f"kernel {kern['name']}: ms={kern['ms']!r} "
               f"plain_ms={kern['plain_ms']!r} bound_ms={kern['bound_ms']!r} "
@@ -4605,17 +4836,88 @@ def main(argv=None) -> int:
                   f"launches={kern['launches_by_path']}; a copy_ of the "
                   f"same state bytes: {kern['state_copy_ms_decode']!r} ms")
 
-    z = torch.zeros(1, device=dev)
-    print(f"floor of one replayed graph node (a one-element add_): "
-          f"{graph_ms(lambda: z.add_(1), 200)!r} ms")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", default=None,
+                    help="run only these paths, comma-separated (e.g. "
+                         "L0,L1 or K,L; a letter takes all its parts): "
+                         "the build and its checks, the named paths, the "
+                         "kernel rows they make whole, and a last line "
+                         "that names them; default: every path A-L, "
+                         "every kernel checked and every kernel row")
+    args = ap.parse_args(argv)
+    try:
+        names = (list(PATH_NAMES) if args.paths is None
+                 else select_paths(args.paths))
+    except ValueError as e:
+        ap.error(str(e))
+    full = tuple(names) == PATH_NAMES
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "drives the port on a CUDA card", file=sys.stderr)
+        return 2
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    from repro_torch.kernels import _build
+
+    print(card_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    dev = torch.device("cuda")
+    # full float32 products: the plain versions are the yardsticks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    lib = _build.build(verbose=True)
+    _build.library()
+    print(f"build_s={time.perf_counter() - t0!r}")
+    check_sass(lib)
+    check_ptxas()
+    errs = check_kernels(dev, args.seed) if full else None
+    out = run_named_paths(dev, args.seed, names)
+    if full:
+        kernels = kernel_rows(dev, args.seed, out, errs)
+    elif "L0" in out:
+        kernels = [wkv_bwd_row(out["L0"], out["L1"]["rwkv6_wkv_bwd"]
+                               if "L1" in out else None)]
+    else:
+        kernels = []
+    print_rows(kernels)
+    if full:
+        z = torch.zeros(1, device=dev)
+        print(f"floor of one replayed graph node (a one-element add_): "
+              f"{graph_ms(lambda: z.add_(1), 200)!r} ms")
     print(f"total_s={time.perf_counter() - t_start!r}")
-    # the card again, so that it stands in the output's tail beside the
-    # numbers (the build's register report above is long)
+    return finish(kernels, None if full else names)
+
+
+def finish(kernels, paths=None) -> int:
+    """The card's name and power limit again, so that they stand in the
+    output's tail beside the numbers (the build's register report above
+    is long), the kernel rows and the last line; a run of only some
+    ``paths`` names them in its last line."""
+    import torch
+
     print(card_line())
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
+    last = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}
+    if paths is not None:
+        last["paths"] = list(paths)
+    print(json.dumps(last))
     return 0
 
 

@@ -65,3 +65,10 @@ def rscore_of_set(
                 f"{sorted(unknown, key=repr)!r}; pass missing='zero' to "
                 f"count them as 0 (the monitor-gap contract)")
     return float(sum(speeds.get(p, 0.0) for p in moved)) / float(capacity)
+
+
+def recovery_iterations(r: float, rebalance_seconds: float) -> float:
+    """Max consumer iterations to recover the backlog accumulated while
+    rebalancing (Sec. IV-A: 'the combination of the time it took to
+    rebalance ... and the Rscore')."""
+    return r * rebalance_seconds

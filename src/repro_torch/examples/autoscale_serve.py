@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import weakref
 
 import numpy as np
 
@@ -68,10 +69,15 @@ def make_world(vocab_size: int, model=None, spike=SPIKE,
         sim.manager._factory = lambda cid: LLMReplica(
             cid, broker, sink, ReplicaConfig(rate=CAP), model)
 
-    # produce actual request payloads instead of raw bytes
+    # produce actual request payloads instead of raw bytes; the producer
+    # reaches the world through a weak reference, so that the world holds
+    # no reference cycle (through it, the model): dropped, it and its
+    # model are freed at once, without waiting for the cyclic collector
     rng = np.random.default_rng(seed)
+    world = weakref.ref(sim)
 
     def produce(dt):
+        sim = world()
         t = sim.clock.now()
         for i in range(N_STREAMS):
             tp = TopicPartition(sim.topic, i)

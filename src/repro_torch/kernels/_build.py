@@ -88,10 +88,18 @@ SIGNATURES = {
                               _I, _P),
     # r, k, v, w, u, s0, out, s_last (may alias s0), B, T, H, hd, stream
     "rwkv6_wkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # r, k, v, w, u, s0, do, ds_last, dr, dk, dv, dw, du, ds0, f32 scratch,
-    # its length in floats, B, T, H, hd, stream
+    # the same and the checkpoints (B, H, ceil(T / chunk), hd, hd), chunk,
+    # B, T, H, hd, stream
+    "rwkv6_wkv_ckpt_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _P),
+    # r, k, v, w, u, ckpt, do, ds_last, dr, dk, dv, dw, du, ds0, f32
+    # scratch (du's partials), its length in floats, chunk, rows, B, T, H,
+    # hd, stream
     "rwkv6_wkv_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _L, _I, _I, _I, _I, _P),
+                          _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    # hd, out: int clusters the card holds at once, int threads a block,
+    # int dynamic shared memory bytes a block
+    "rwkv6_wkv_bwd_occupancy": (_I, _P, _P, _P),
 }
 
 

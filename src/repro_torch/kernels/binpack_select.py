@@ -161,16 +161,17 @@ def pack_rows(speeds, prev, capacity, *, strategy: str,
                          f"{sort_key!r}")
     if speeds.device.type == "cpu":
         # the plain versions live beside their callers (core.pack imports
-        # this module, so the import waits for the call)
-        from repro_torch.core import pack as plain
+        # this module, so the import waits for the call; the submodule by
+        # its full name: the package's ``pack`` is the py packer)
+        from repro_torch.core.pack import modified_any_fit_plain, pack_plain
 
         if modified:
-            return plain.modified_any_fit_plain(
+            return modified_any_fit_plain(
                 speeds, prev, capacity, fit=strategy, sort_key=sort_key,
                 active=active)
-        return plain.pack_plain(speeds, prev, capacity, strategy=strategy,
-                                decreasing=decreasing, sticky=sticky,
-                                active=active)
+        return pack_plain(speeds, prev, capacity, strategy=strategy,
+                          decreasing=decreasing, sticky=sticky,
+                          active=active)
     if speeds.dim() != 2:
         raise ValueError(f"speeds must be [R, N]; got {tuple(speeds.shape)}")
     rows, n = speeds.shape

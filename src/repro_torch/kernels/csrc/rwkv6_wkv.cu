@@ -44,11 +44,17 @@
 //   written after the last step, each element by the lane that owns it,
 //   so s_last may alias s0 (the in-place decode).  One layout serves the
 //   prefill and T = 1.
+// - Training's variant (CKPT, entry rwkv6_wkv_ckpt_f32) also writes the
+//   state before every kBwdChunk<hd>-th step to ckpt (B, H, ceil(T /
+//   chunk), hd, hd), the checkpoints the backward (rwkv6_wkv_bwd.cu)
+//   sweeps from: each lane stores its state elements as they stand.  The
+//   write is compiled in only there, so serving's kernel is unchanged.
 #include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
+#include "rwkv6_chunk.cuh"
 
 namespace {
 
@@ -82,12 +88,13 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <int HD>
+template <int HD, bool CKPT>
 __global__ void __launch_bounds__(32 * Shape<HD>::W)
 rwkv6_wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ u, const float* s0,
-                 float* __restrict__ out, float* s_last, int T, int H) {
+                 float* __restrict__ out, float* s_last,
+                 float* __restrict__ ckpt, int T, int H) {
   using S = Shape<HD>;
   constexpr int P = S::P, G = S::G, NC = S::NC, C = S::C, ROW = S::ROW;
   constexpr int W = S::W, NCW = S::NCW, kR = S::R;
@@ -151,6 +158,12 @@ rwkv6_wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 
   float* dst = out + bth0 + col;
+  constexpr int kL = rwkv6::kBwdChunk<HD>;
+  float* ck = nullptr;           // the lane's state elements in checkpoint 0
+  if constexpr (CKPT) {
+    ck = ckpt + (static_cast<long long>(b) * H + h) * ((T + kL - 1) / kL) *
+                    HD * HD + col;
+  }
 
   for (int n = 0; n < tiles; ++n) {
     const int s = n % kNS;
@@ -160,6 +173,15 @@ rwkv6_wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const float* tile = ring + s * kKT * ROW;
 #pragma unroll 4
     for (int tt = 0; tt < cnt; ++tt) {
+      if constexpr (CKPT) {
+        if ((t0 + tt) % kL == 0 && live) {
+          float* c = ck + static_cast<long long>((t0 + tt) / kL) * HD * HD;
+#pragma unroll
+          for (int i = 0; i < kR; ++i) {
+            *reinterpret_cast<float4*>(c + row_of<P>(p, i) * HD) = st[i];
+          }
+        }
+      }
       const float* row = tile + tt * ROW;
       float rr[kR], kk[kR], ww[kR];
 #pragma unroll
@@ -220,31 +242,35 @@ rwkv6_wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool CKPT>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s0, float* out, float* s_last, int B,
-           int T, int H, cudaStream_t stream) {
+           const float* u, const float* s0, float* out, float* s_last,
+           float* ckpt, int B, int T, int H, cudaStream_t stream) {
   const dim3 grid(H * Shape<HD>::C, B);
-  rwkv6_wkv_kernel<HD><<<grid, 32 * Shape<HD>::W, 0, stream>>>(
-      r, k, v, w, u, s0, out, s_last, T, H);
+  rwkv6_wkv_kernel<HD, CKPT><<<grid, 32 * Shape<HD>::W, 0, stream>>>(
+      r, k, v, w, u, s0, out, s_last, ckpt, T, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int rwkv6_wkv_f32(const void* r, const void* k, const void* v,
-                             const void* w, const void* u, const void* s0,
-                             void* out, void* s_last, int B, int T, int H,
-                             int hd, cudaStream_t stream) {
+// chunk < 0: no checkpoints (serving); else it must be kBwdChunk<hd>
+template <bool CKPT>
+int dispatch(const void* r, const void* k, const void* v, const void* w,
+             const void* u, const void* s0, void* out, void* s_last,
+             void* ckpt, int chunk, int B, int T, int H, int hd,
+             cudaStream_t stream) {
   if (B <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
   if (T <= 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   auto run = [&](auto hd_tag) {
-    return launch<decltype(hd_tag)::value>(
+    constexpr int HD = decltype(hd_tag)::value;
+    if (CKPT && chunk != rwkv6::kBwdChunk<HD>) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch<HD, CKPT>(
         static_cast<const float*>(r), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(w),
         static_cast<const float*>(u), static_cast<const float*>(s0),
-        static_cast<float*>(out), static_cast<float*>(s_last), B, T, H,
-        stream);
+        static_cast<float*>(out), static_cast<float*>(s_last),
+        static_cast<float*>(ckpt), B, T, H, stream);
   };
   switch (hd) {
     case 16: return run(std::integral_constant<int, 16>());
@@ -253,4 +279,25 @@ extern "C" int rwkv6_wkv_f32(const void* r, const void* k, const void* v,
     case 128: return run(std::integral_constant<int, 128>());
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+extern "C" int rwkv6_wkv_f32(const void* r, const void* k, const void* v,
+                             const void* w, const void* u, const void* s0,
+                             void* out, void* s_last, int B, int T, int H,
+                             int hd, cudaStream_t stream) {
+  return dispatch<false>(r, k, v, w, u, s0, out, s_last, nullptr, -1, B, T,
+                         H, hd, stream);
+}
+
+// the same with the backward's checkpoints written to ckpt (B, H,
+// ceil(T / chunk), hd, hd); chunk must be kBwdChunk<hd>
+extern "C" int rwkv6_wkv_ckpt_f32(const void* r, const void* k,
+                                  const void* v, const void* w,
+                                  const void* u, const void* s0, void* out,
+                                  void* s_last, void* ckpt, int chunk, int B,
+                                  int T, int H, int hd, cudaStream_t stream) {
+  return dispatch<true>(r, k, v, w, u, s0, out, s_last, ckpt, chunk, B, T, H,
+                        hd, stream);
 }

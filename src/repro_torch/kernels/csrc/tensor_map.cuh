@@ -1,7 +1,9 @@
-// Host-side TMA tensor maps for the bfloat16 attention kernels: a (hd,
+// Host-side TMA tensor maps: for the bfloat16 attention kernels, a (hd,
 // rows, heads) bf16 tensor, boxes of one 128-byte (or narrower) column
 // block by `box_rows` rows of one head, swizzled to match the wgmma
-// descriptors of the kernel that reads them.
+// descriptors of the kernel that reads them; for the WKV backward, a
+// float32 (B, T, H, hd) stream, boxes of some columns of one head over
+// consecutive steps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; its encoder is looked up in libcuda
@@ -58,6 +60,31 @@ inline bool make_bf16(CUtensorMap* map, const void* ptr, int hd, int rows,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a (cols, heads, steps) f32 map of a (B, T, H, cols) tensor (steps = B
+// T, so that a box never needs a batch row's own bound), boxes of
+// (box_cols, 1, box_steps), unswizzled: a box lands as box_steps rows of
+// box_cols floats; steps past the tensor's end read as zeros
+inline bool make_f32_steps(CUtensorMap* map, const void* ptr, int cols,
+                           int heads, long long steps, int box_cols,
+                           int box_steps) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(cols) * 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(steps)};
+  const cuuint64_t strides[2] = {
+      row_bytes, row_bytes * static_cast<cuuint64_t>(heads)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(box_steps)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -3,7 +3,8 @@
 See ``engine.py`` for the step semantics, ``policies.py`` for the policy
 catalogue, ``controlplane.py`` for the emulated scaler control plane,
 ``fused.py`` for the fused path of the heuristic packers and
-``metrics.py`` for the SLO reductions.
+``metrics.py`` for the SLO reductions.  ``__all__`` is the reference's
+(``repro.lagsim``); ``NotPortedError`` is importable here too.
 """
 from .controlplane import ControlPlaneConfig, ControlPlaneState, wrap_policy
 from .engine import (
@@ -16,6 +17,11 @@ from .engine import (
 )
 from .fused import FUSED_MAX_PARTITIONS, FusedPathError, fused_mode
 from .metrics import SLO_METRIC_NAMES, longest_excursion, slo_summary, summarize_sweep
+from .policies import (
+    OPTIMIZER_POLICY_NAMES,
+    PACKING_POLICY_NAMES,
+    REACTIVE_BASELINE_NAMES,
+)
 
 
 def __getattr__(name: str):
@@ -35,7 +41,9 @@ __all__ = [
     "LagSimConfig",
     "LagSweepResult",
     "LagTrace",
-    "NotPortedError",
+    "OPTIMIZER_POLICY_NAMES",
+    "PACKING_POLICY_NAMES",
+    "REACTIVE_BASELINE_NAMES",
     "SLO_METRIC_NAMES",
     "fused_mode",
     "longest_excursion",

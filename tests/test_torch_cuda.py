@@ -491,11 +491,19 @@ def _wkv_bwd_inputs(b, t, h, hd, dev, seed=7):
     (2, 1000, 3, 64), (3, 1, 5, 64), (1, 1, 2, 16), (2, 16, 2, 64),
     (1, 9, 2, 128), (2, 65, 40, 64)])
 def test_wkv_bwd_kernel_matches_plain(cuda, chip_smoke, b, t, h, hd):
+    """The training forward kernel's checkpoints against the plain
+    forward's (within 1e-4 of their largest), and the backward kernel,
+    fed the plain checkpoints, against the plain backward."""
     xs = _wkv_bwd_inputs(b, t, h, hd, cuda)
     assert int((xs[3] == 0).sum()) > 0 or t * h * hd < 64
-    want = rwkv6_wkv_bwd_plain(*xs)
+    *_, ckpt = rwkv6_wkv_plain(*xs[:6], checkpoints=True)
+    *_, ckpt_k = rwkv6_wkv_fwd(*xs[:6], checkpoints=True)
+    assert float((ckpt_k - ckpt).abs().max()) <= 1e-4 * float(
+        ckpt.abs().max())
+    bx = [*xs[:5], ckpt, *xs[6:]]
+    want = rwkv6_wkv_bwd_plain(*bx)
     before = rwkv6_wkv_bwd.launches
-    got, again = rwkv6_wkv_bwd(*xs), rwkv6_wkv_bwd(*xs)
+    got, again = rwkv6_wkv_bwd(*bx), rwkv6_wkv_bwd(*bx)
     torch.cuda.synchronize()
     assert rwkv6_wkv_bwd.launches == before + 2
     verdict = chip_smoke.wkv_bwd_verdict(got, want)

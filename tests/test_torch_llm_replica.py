@@ -143,6 +143,33 @@ def test_llm_replica_fleet_equals_the_reference():
     assert max(n[SPIKE[0]:SPIKE[1]]) > n[SPIKE[0] - 1]
 
 
+def test_dropped_world_frees_its_model_without_the_cyclic_collector():
+    """J2's world (``make_world`` with every replica an ``LLMReplica`` on one
+    SMOKE ``SharedModel``), ticked through the spike and dropped: a weak
+    reference to the model is dead at once, with the cyclic collector off
+    and never run, so no reference cycle holds the model."""
+    import gc
+    import weakref
+
+    tcfg = smoke_f32(tconfigs)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        model = tllm.SharedModel(tcfg, max_len=16, max_batch=8, seed=0,
+                                 device="cpu")
+        sim = texample.make_world(tcfg.vocab_size, model, spike=SPIKE)
+        for _ in range(TICKS):
+            sim.tick(1.0)
+        assert any(type(r).__name__ == "LLMReplica"
+                   for r in sim.manager.replicas.values())
+        refs = weakref.ref(model), weakref.ref(sim)
+        del model, sim
+        assert [r() for r in refs] == [None, None]
+    finally:
+        if was:
+            gc.enable()
+
+
 def test_llm_replica_quirks():
     """Every chunk of a cycle generates the last request's ``gen``, chunks
     are ``max_batch`` wide, and the heartbeat carries ``tokens``."""

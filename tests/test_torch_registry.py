@@ -181,8 +181,12 @@ def _warned_access(fn):
 
 
 def _shims():
-    from repro_torch.core import modified, pack
+    import importlib
+
+    from repro_torch.core import modified
     from repro_torch.lagsim import policies
+
+    pack = importlib.import_module("repro_torch.core.pack")
 
     return {
         "ALL_ALGORITHMS": (lambda: modified.ALL_ALGORITHMS,

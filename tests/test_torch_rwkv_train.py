@@ -92,6 +92,23 @@ def _rel_max(got, want, what, tol=1e-5):
         f"{what}: max abs err {err} (largest {scale})"
 
 
+def _plain_grads(xs):
+    """The plain pair on xs (r, k, v, w, u, s0, do, ds_last as tensors):
+    the forward with checkpoints every ``BWD_CHUNK[hd]`` steps, then the
+    backward that reads them."""
+    *_, ckpt = ws.rwkv6_wkv_plain(*xs[:6], checkpoints=True)
+    return ws.rwkv6_wkv_bwd_plain(*xs[:5], ckpt, *xs[6:])
+
+
+def _autograd_grads(xs):
+    """Autograd of the plain loop ``rwkv6_wkv_ref`` on xs: the same
+    gradients as the plain pair, summed in another order."""
+    leaves = [x.clone().requires_grad_(True) for x in xs[:6]]
+    out, s_last = rwkv6_wkv_ref(*leaves)
+    return torch.autograd.grad((out * xs[6]).sum() + (s_last * xs[7]).sum(),
+                               leaves)
+
+
 def _reference_vjp(xs):
     """``jax.vjp`` of the reference's ``_wkv_scan`` at xs[:6], pulled back
     from the cotangents xs[6:] (do, ds_last)."""
@@ -110,10 +127,16 @@ def test_the_draw_holds_exact_zeros_and_values_near_one():
 
 
 @pytest.mark.parametrize("b,t,h,hd", BWD_SHAPES)
-@pytest.mark.parametrize("chunk", [ws.PLAIN_BWD_CHUNK, 16, 1])
-def test_plain_bwd_matches_reference_vjp(b, t, h, hd, chunk):
+@pytest.mark.parametrize("chunk", [64, 16, 1])
+def test_plain_bwd_matches_reference_vjp(b, t, h, hd, chunk, monkeypatch):
+    """The plain backward, reading the checkpoints the plain forward
+    wrote every ``chunk`` steps (the stride table set to ``chunk`` for
+    the test: the pair is right at any stride, one longer than T too),
+    against ``jax.vjp`` within 1e-5 of each gradient's largest (w exactly
+    0 and within 3.4e-4 of 1)."""
+    monkeypatch.setitem(ws.BWD_CHUNK, hd, chunk)
     xs = wkv_case(b, t, h, hd)
-    got = ws.rwkv6_wkv_bwd_plain(*map(torch.tensor, xs), chunk=chunk)
+    got = _plain_grads(list(map(torch.tensor, xs)))
     want = _reference_vjp(xs)
     for name, g, wt in zip(GRADS, got, want):
         assert g.dtype == torch.float32 and tuple(g.shape) == wt.shape
@@ -123,11 +146,8 @@ def test_plain_bwd_matches_reference_vjp(b, t, h, hd, chunk):
 @pytest.mark.parametrize("b,t,h,hd", BWD_SHAPES + [(2, 1, 2, 32)])
 def test_plain_bwd_matches_autograd_of_the_plain_loop(b, t, h, hd):
     xs = [torch.tensor(x) for x in wkv_case(b, t, h, hd, seed=1)]
-    leaves = [x.clone().requires_grad_(True) for x in xs[:6]]
-    out, s_last = rwkv6_wkv_ref(*leaves)
-    want = torch.autograd.grad((out * xs[6]).sum() + (s_last * xs[7]).sum(),
-                               leaves)
-    got = ws.rwkv6_wkv_bwd_plain(*xs)
+    want = _autograd_grads(xs)
+    got = _plain_grads(xs)
     for name, g, wt in zip(GRADS, got, want):
         _rel_max(g, wt.numpy(), f"{name} {(b, t, h, hd)}")
 
@@ -137,11 +157,36 @@ def test_plain_bwd_gradient_where_w_is_zero_is_finite_and_right():
     gradient is finite there); the sweep never divides by w."""
     xs = wkv_case(1, 40, 2, 16, seed=2)
     xs[3][:, ::3] = 0.0
-    got = ws.rwkv6_wkv_bwd_plain(*map(torch.tensor, xs))
+    got = _plain_grads(list(map(torch.tensor, xs)))
     assert all(bool(torch.isfinite(g).all()) for g in got)
     assert float(got[3][:, ::3].abs().max()) > 0
     for name, g, wt in zip(GRADS, got, _reference_vjp(xs)):
         _rel_max(g, wt, name)
+
+
+@pytest.mark.parametrize("b,t,h,hd", [(2, 37, 3, 16), (1, 70, 2, 64),
+                                      (2, 21, 2, 128), (2, 1, 2, 64),
+                                      (1, 1, 2, 32)])
+def test_plain_checkpoints_are_the_states_every_chunk(b, t, h, hd):
+    """The plain training forward: out and the last state bit-equal to the
+    forward without checkpoints, and checkpoint c bit-equal to the state
+    of ``rwkv6_wkv_plain`` after the first c * BWD_CHUNK[hd] steps (the
+    first is s0), with T ragged and T = 1; the wrapper on CPU tensors
+    gives the same."""
+    xs = [torch.tensor(x) for x in wkv_case(b, t, h, hd, seed=8)][:6]
+    out, s_last = ws.rwkv6_wkv_plain(*xs)
+    got = ws.rwkv6_wkv_plain(*xs, checkpoints=True)
+    assert torch.equal(got[0], out) and torch.equal(got[1], s_last)
+    ckpt, chunk = got[2], ws.BWD_CHUNK[hd]
+    assert tuple(ckpt.shape) == ws.ckpt_shape(b, t, h, hd) == (
+        b, h, -(-t // chunk), hd, hd)
+    assert torch.equal(ckpt[:, :, 0], xs[5])
+    for c in range(1, ckpt.shape[2]):
+        _, s = ws.rwkv6_wkv_plain(*(x[:, :c * chunk] for x in xs[:4]),
+                                  *xs[4:])
+        assert torch.equal(ckpt[:, :, c], s), c
+    wrapped = ws.rwkv6_wkv_fwd(*xs, checkpoints=True)
+    assert all(torch.equal(x, y) for x, y in zip(wrapped, got))
 
 
 def test_kernel_and_plain_pairs_share_one_signature():
@@ -156,23 +201,29 @@ def test_kernel_and_plain_pairs_share_one_signature():
 
 def test_bwd_rejects_bad_shapes_and_dtypes():
     xs = [torch.tensor(x) for x in wkv_case(1, 5, 2, 16)]
+    *_, ckpt = ws.rwkv6_wkv_plain(*xs[:6], checkpoints=True)
     with pytest.raises(ValueError, match="do must have"):
-        ws.rwkv6_wkv_bwd(*xs[:6], xs[6][:, :4], xs[7])
+        ws.rwkv6_wkv_bwd(*xs[:5], ckpt, xs[6][:, :4], xs[7])
+    with pytest.raises(ValueError, match="ckpt"):
+        ws.rwkv6_wkv_bwd(*xs[:5], ckpt[:, :, :0], xs[6], xs[7])
     with pytest.raises(ValueError, match="float32"):
-        ws.rwkv6_wkv_bwd(*xs[:7], xs[7].double())
+        ws.rwkv6_wkv_bwd(*xs[:5], ckpt, xs[6], xs[7].double())
 
 
 @pytest.mark.parametrize("hd,t", [(16, 37), (32, 64), (64, 2048),
                                   (128, 9)])
 def test_bwd_scratch_holds_checkpoints_partials_and_du(hd, t):
+    """The checkpoints come from the forward (the state every
+    ``BWD_CHUNK[hd]`` steps), dv's row-block partials stay on chip, and
+    the backward's scratch holds du's partials, one a batch row; a
+    chunk's recomputed states fit the kernel's ~32 KB of shared memory
+    (``csrc/rwkv6_chunk.cuh``)."""
     b, h = 2, 3
     chunks = -(-t // ws.BWD_CHUNK[hd])
-    blocks = hd // ws.BWD_ROWS
-    assert ws.bwd_scratch_floats(b, t, h, hd) == (
-        b * h * chunks * hd * hd + (blocks if blocks > 1 else 0) * b * t * h
-        * hd + b * h * hd)
-    # the kernel keeps a chunk's states in 64 registers a thread
-    assert ws.BWD_CHUNK[hd] * hd // 16 <= 64
+    assert ws.ckpt_shape(b, t, h, hd) == (b, h, chunks, hd, hd)
+    assert ws.bwd_scratch_floats(b, t, h, hd) == b * h * hd
+    assert hd % ws.BWD_ROWS == 0 and hd // ws.BWD_ROWS <= 8  # a cluster
+    assert (ws.BWD_CHUNK[hd] - 1) * ws.BWD_ROWS * (hd + 4) * 4 <= 40_000
 
 
 @pytest.fixture(scope="module")
@@ -191,12 +242,12 @@ def chip_smoke():
 def test_chip_checks_take_a_sound_backward_and_reject_the_controls(
         chip_smoke, b, t, h, hd):
     """``chip_smoke.wkv_bwd_verdict`` (path L0) passes a sound backward
-    that sums in another order (the plain sweep with another checkpoint
-    stride) and each of ``wkv_bwd_controls`` fails its relative check,
-    on the CPU before any chip time."""
+    that sums in another order (autograd of the plain loop) and each of
+    ``wkv_bwd_controls`` fails its relative check, on the CPU before any
+    chip time."""
     xs = [torch.tensor(x) for x in wkv_case(b, t, h, hd, seed=6)]
-    want = ws.rwkv6_wkv_bwd_plain(*xs)
-    sound = ws.rwkv6_wkv_bwd_plain(*xs, chunk=ws.BWD_CHUNK[hd])
+    want = _plain_grads(xs)
+    sound = _autograd_grads(xs)
     verdict = chip_smoke.wkv_bwd_verdict(sound, want)
     assert all(c["close"] and c["rel_ok"] for c in verdict.values()), \
         verdict
@@ -215,11 +266,131 @@ def test_chip_relative_check_sees_a_fault_in_one_block(chip_smoke):
     xs = [torch.tensor(x) for x in wkv_case(2, 256, 4, 16, seed=7)]
     xs[6][1, :, 2] *= 1e-2
     xs[7][1, 2] *= 1e-2
-    want = ws.rwkv6_wkv_bwd_plain(*xs)
+    want = _plain_grads(xs)
     bad = [g.clone() for g in want]
     bad[2][1, 64:128, 2] *= 1.0 + 1e-3
     cv = chip_smoke.wkv_bwd_verdict(bad, want)
     assert cv["dv"]["close"] and not cv["dv"]["rel_ok"]
+
+
+def test_chip_checkpoint_check_sees_a_fault_in_one_state(chip_smoke):
+    """``chip_smoke.wkv_ckpt_rel_err`` (path L0's check of the training
+    forward's checkpoints): the plain checkpoints against themselves give
+    0; one checkpoint of a head whose state is small (its k and v scaled
+    by 1e-1, its s0 by 1e-2) off by 1e-3 of itself passes the
+    largest-magnitude check and fails the relative check by (batch row,
+    head, checkpoint)."""
+    xs = [torch.tensor(x) for x in wkv_case(2, 100, 4, 64, seed=10)][:6]
+    for i in (1, 2):
+        xs[i][1, :, 2] *= 1e-1
+    xs[5][1, 2] *= 1e-2
+    *_, ckpt = ws.rwkv6_wkv_plain(*xs, checkpoints=True)
+    assert chip_smoke.wkv_ckpt_rel_err(ckpt, ckpt) == 0.0
+    bad = ckpt.clone()
+    bad[1, 2, 5] *= 1.0 + 1e-3
+    assert float((bad - ckpt).abs().max()) <= chip_smoke.WKV_TOL * float(
+        ckpt.abs().max())
+    assert chip_smoke.wkv_ckpt_rel_err(bad, ckpt) > chip_smoke.WKV_BWD_REL_TOL
+
+
+def test_chip_update_check_sees_a_fault_in_one_leaf(chip_smoke):
+    """``chip_smoke.update_verdict`` (path L2's check of the updates): a
+    sound pair of updates (1e-3 relative noise, and one element of a leaf
+    off by 15% of the leaf's largest update, the gap bf16 leaves near
+    g = 0) passes its relative norms; the same with one leaf's update
+    wrong by 10% fails them, at that leaf."""
+    gen = torch.Generator().manual_seed(9)
+    want = {f"layers.{i}.tm.{n}": torch.randn(64, 48, generator=gen) * 1e-3
+            for i in range(2) for n in ("w_k", "bonus_u", "decay_w0")}
+    got = {n: w * (1 + 1e-3 * torch.randn(w.shape, generator=gen))
+           for n, w in want.items()}
+    got["layers.1.tm.bonus_u"][3, 5] += 0.15 * float(
+        want["layers.1.tm.bonus_u"].abs().max())
+    sound = chip_smoke.update_verdict((n, got[n], want[n]) for n in want)
+    assert sound["max_rel"] > 0.1 and sound["rel_ok"], sound
+    bad = dict(got)
+    bad["layers.0.tm.w_k"] = want["layers.0.tm.w_k"] * 1.1
+    verdict = chip_smoke.update_verdict((n, bad[n], want[n]) for n in want)
+    assert not verdict["rel_ok"]
+    assert verdict["rel_norm_at"] == "layers.0.tm.w_k"
+    assert verdict["rel_norm"] > chip_smoke.L2_UPDATE_REL_TOL
+
+
+def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
+    """``--paths``: names and letters pick parts of ``PATH_NAMES`` in the
+    full run's order; a name that is not a path raises."""
+    assert chip_smoke.select_paths("L1, l0") == ["L0", "L1"]
+    assert chip_smoke.select_paths("L,K") == [
+        "K0", "K1", "K2", "K3", "L0", "L1", "L2"]
+    assert chip_smoke.select_paths("J2,A") == ["A", "J2"]
+    for bad in ("L3", "M", ""):
+        with pytest.raises(ValueError):
+            chip_smoke.select_paths(bad)
+
+
+def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
+                                                     monkeypatch):
+    """The full run and ``--paths`` share ``run_named_paths``: each named
+    path runs once, in the given order, and paths A, B, C1, G and H get
+    the traffic the full run makes for them (B's made once for four
+    paths), which the result keeps for the kernel rows."""
+    calls = []
+
+    def path(name):
+        def run(*args):
+            calls.append((name, args[-2:] if name in "A B C1 G H".split()
+                          else ()))
+            return {name: len(calls)}
+        return run
+
+    for name, fn in (("A", "run_path_a"), ("B", "run_path_b"),
+                     ("C1", "run_path_c1"), ("C2", "run_path_c2"),
+                     ("F", "run_path_f"), ("G", "run_path_g"),
+                     ("H", "run_path_h"), ("I", "run_path_i"),
+                     ("D", "run_path_d"), ("E", "run_path_e"),
+                     ("J1", "run_path_j1"), ("J2", "run_path_j2"),
+                     ("K0", "run_path_k0"), ("K1", "run_path_k1"),
+                     ("K2", "run_path_k2"), ("K3", "run_path_k3"),
+                     ("L0", "run_path_l0"), ("L1", "run_path_l1"),
+                     ("L2", "run_path_l2")):
+        monkeypatch.setattr(chip_smoke, fn, path(name))
+    made = []
+    monkeypatch.setattr(chip_smoke, "path_a_traffic",
+                        lambda dev, seed: made.append("a") or ("ra", "aa"))
+    monkeypatch.setattr(chip_smoke, "path_b_traffic",
+                        lambda dev, seed: made.append("b") or ("rb", "ab"))
+    out = chip_smoke.run_named_paths("cpu", 0, list(chip_smoke.PATH_NAMES))
+    assert [c[0] for c in calls] == list(chip_smoke.PATH_NAMES)
+    assert made == ["a", "b"]
+    assert dict(calls)["A"] == ("ra", "aa")
+    assert all(dict(calls)[p] == ("rb", "ab") for p in ("B", "C1", "G", "H"))
+    assert out["traffic_a"] == ("ra", "aa") and out["traffic_b"] == (
+        "rb", "ab")
+    assert all(out[p] == {p: i + 1}
+               for i, p in enumerate(chip_smoke.PATH_NAMES))
+    calls.clear()
+    out = chip_smoke.run_named_paths("cpu", 0, ["L0", "L1"])
+    assert [c[0] for c in calls] == ["L0", "L1"]
+    assert set(out) == {"L0", "L1"}
+
+
+def test_chip_last_line_names_the_paths_of_a_partial_run(chip_smoke,
+                                                         monkeypatch,
+                                                         capsys):
+    """The full run's last line is ``{"ok": true, "device": ...}`` and
+    nothing more; a ``--paths`` run's names its paths."""
+    import json
+
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 700 W")
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i: "card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    device = {"platform": "gpu", "kind": "card", "count": 1}
+    assert chip_smoke.finish([]) == 0
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert last == {"ok": True, "device": device}
+    assert chip_smoke.finish([], ["L0", "L1"]) == 0
+    last = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert last == {"ok": True, "device": device, "paths": ["L0", "L1"]}
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +420,7 @@ def test_wkv_function_runs_the_given_pair_and_matches_the_plain_bwd():
     got = torch.autograd.grad((out * xs[6]).sum() + (s_last * xs[7]).sum(),
                               leaves)
     assert calls == ["rwkv6_wkv_plain", "rwkv6_wkv_bwd_plain"]
-    for name, g, wt in zip(GRADS, got, ws.rwkv6_wkv_bwd_plain(*xs)):
+    for name, g, wt in zip(GRADS, got, _plain_grads(xs)):
         assert torch.equal(g, wt), name
 
 
@@ -298,8 +469,9 @@ def test_off_the_cpu_the_wrappers_raise_and_never_run_the_plain_pair(
     leaves = [x.requires_grad_(True) for x in xs[:6]]
     with pytest.raises(_build.KernelBuildError):
         ws.WKV.apply(*leaves, ws.rwkv6_wkv_fwd, ws.rwkv6_wkv_bwd)
+    ckpt = torch.empty(ws.ckpt_shape(1, 4, 2, 64), device="meta")
     with pytest.raises(_build.KernelBuildError):
-        ws.rwkv6_wkv_bwd(*xs)
+        ws.rwkv6_wkv_bwd(*xs[:5], ckpt, *xs[6:])
     assert calls == []
 
 

@@ -7,6 +7,8 @@ reference's ``sweep_streams`` / ``evaluate_stream_jax`` and the port's
 R-scores within ``1e-5``; with batch 1 the port's sweep equals its own
 ``evaluate_stream`` bit for bit.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -16,7 +18,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import jaxpack as jp  # noqa: E402
 from repro.registry import PACKER_FAMILIES, list_policies  # noqa: E402
-from repro_torch.core import pack as tp  # noqa: E402
+
+# the batched submodule (the package-level ``pack`` is the py packer)
+tp = importlib.import_module("repro_torch.core.pack")
 
 ALGORITHMS = list_policies(family=PACKER_FAMILIES, backend="jax")
 TOL = dict(atol=1e-5, rtol=0)
