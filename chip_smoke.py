@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the lag twin, the fleet layer, the
 packers' sweep, the optimizer, the adversarial search and trace replay,
-LLM serving of a dense model and of RWKV-6, the paper's own system with
+LLM serving of a dense model, of RWKV-6, of a mixture of experts and of
+the hybrid Mamba family, the paper's own system with
 an autoscaled fleet of LLM replicas, and training of a dense LLM and of
 RWKV-6) on one NVIDIA card.
 
@@ -144,8 +145,11 @@ Run from a checkout of the repository on a machine with a CUDA card and
    layers) in bfloat16 with bfloat16 weights drawn on the card from
    ``--seed``; D1 is ``make_prefill_step`` on 8 requests x 1024 prompt
    tokens (36 flash-attention launches), D2 is ``SharedModel.generate``
-   on the same requests with a 1152-token cache: 1024 teacher-forced steps
-   and 128 greedy ones (36 x 1152 decode-attention launches);
+   on the same requests with a 1152-token cache: their first 256 tokens
+   teacher-forced and 128 greedy ones (36 x 384 decode-attention
+   launches); one decode step at the cache's last fill replayed as a CUDA
+   graph (its device time, torch ops, bytes and their bound) and one
+   eager step under ``torch.profiler`` (device ms by operator);
 13. the agreement check of the LLM kernels: qwen3-8b at full width with 4
    layers in float32, prefill and 48 + 16 decode steps once with the
    kernels and once with their plain versions on the card: logits within
@@ -156,13 +160,31 @@ Run from a checkout of the repository on a machine with a CUDA card and
    in bfloat16 with bfloat16 weights drawn on the card from ``--seed``;
    E1 is ``make_prefill_step`` on 8 requests x 1024 prompt tokens (32
    WKV launches), E2 is ``SharedModel.generate`` on the same requests,
-   1024 teacher-forced steps and 128 greedy ones (32 x 1152 WKV
-   launches, each writing its layer's state in place);
+   256 teacher-forced steps and 128 greedy ones (32 x 384 WKV launches,
+   each writing its layer's state in place), its step as D2's;
 15. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
    float32 (bonus and decay perturbed from their init constants), prefill
    and 48 + 16 decode steps once with the WKV kernel and once with its
    plain version on the card, with the same checks as phase 13;
-16. path J, the paper's system (broker, monitor, controller, replicas;
+16. path M, MoE serving: qwen2-moe-a2.7b at full width and depth (24
+   layers, each of 16 attention heads of 128 over 16 KV heads and a
+   mixture of 60 experts of d_ff 1408, top-4, with 4 shared) in bfloat16
+   with bfloat16 weights (the routers float32) drawn on the card from
+   ``--seed``: M1 prefills 8 x 1024 tokens (24 flash-attention launches;
+   the expert dispatch at a capacity of 128 a row), M2 generates 256
+   teacher-forced + 128 greedy tokens through ``SharedModel.generate``
+   (24 x 384 decode-attention launches, one query head a KV head; the 8
+   decode rows one dispatch group, a capacity of 1), its step as D2's;
+   then the agreement check of phase 13 at 4
+   layers in float32, the smallest top-4 routing margin printed, and
+   decode against prefill at the capacity factor where nothing drops (15);
+17. path N, hybrid serving: jamba-v0.1-52b at full width cut to one
+   period (8 of its 32 layers: 1 attention, 7 Mamba, 4 mixtures of 16
+   experts of d_ff 14336, top-2, 4 MLPs), as path M: N1 1 flash launch,
+   N2 1 x 384 decode launches; then the agreement check at those 8
+   layers in float32 (~53 GB, its peak printed), decode against prefill
+   at capacity factor 8;
+18. path J, the paper's system (broker, monitor, controller, replicas;
    host code) with the port's kernels behind it: J1 runs the object world
    ``AutoscaleSimulation`` at the paper's 30 partitions (constant rates
    of whole 16 KiB records, ``k_i`` in [14, 126] from ``--seed``, BFD, a
@@ -181,7 +203,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
    ``decode_attention`` launches a serve step, the byte-level world equal
    integer for integer to the same world with byte replicas on the host,
    and the first generate call once more giving the same tokens;
-17. path K, training: K0 holds the flash-attention backward (dq, dk and
+19. path K, training: K0 holds the flash-attention backward (dq, dk and
    dv: ``csrc/flash_attention_bwd_bf16.cu`` on ``wgmma`` for bfloat16 at
    head dims 64 and 128, ``csrc/flash_attention_bwd.cu`` on the CUDA
    cores for float32) against its plain version (the explicit formula,
@@ -216,7 +238,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
    writes a TINY state with the port's store in the reference's layout
    (layers stacked), reads it back through ``convert`` and resumes on
    the card: equal state, the same next step;
-18. path L, RWKV-6 training: L0 holds the training forward (the forward
+20. path L, RWKV-6 training: L0 holds the training forward (the forward
    kernel's checkpoint variant: out and the last state bit-equal to the
    forward without checkpoints, its checkpoints within ``1e-4`` of the
    plain forward's) and the WKV recurrence's backward
@@ -251,7 +273,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
    (lr 1e-3, eps 1e-3) within ``L2_UPDATE_REL_TOL`` by its relative norm
    by leaf, and in float32 within 5e-2 of its largest (see
    ``run_path_l2``);
-19. each kernel's time at its path's shapes beside its bound, its plain
+21. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
@@ -304,8 +326,18 @@ FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LLM = "qwen3-8b"
-D_BATCH, D_PROMPT, D_GEN = 8, 1024, 128     # paths D, E: requests, tokens
+D_BATCH, D_PROMPT, D_GEN = 8, 1024, 128  # paths D, E, M, N: requests, tokens
+#: the teacher-forced prompt of the generate phases (D2, E2, M2, N2): the
+#: first D_FORCED tokens of each request (1024 until paths M and N came;
+#: the phases are host-bound, and at 1024 the whole script overran its
+#: time limit on a slow host); the cache keeps D_PROMPT + D_GEN positions
+D_FORCED = 256
 RWKV = "rwkv6-3b"
+MOE = "qwen2-moe-a2.7b"
+HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8   # one period of jamba's 4
+#: the agreement check's host prefill copies the weights to the CPU only
+#: below this many bytes (path N's 8 float32 layers hold ~53 GB)
+HOST_CHECK_BYTES = 16e9
 WKV_TOL = 1e-4                # of the plain result's largest magnitude
 
 
@@ -902,7 +934,46 @@ def _heads(cfg) -> str:
     if cfg.rwkv:
         return (f"heads={cfg.d_model // cfg.rwkv_head_size}x"
                 f"{cfg.rwkv_head_size}")
-    return f"heads={cfg.n_heads}/{cfg.n_kv_heads}"
+    out = f"heads={cfg.n_heads}/{cfg.n_kv_heads}"
+    if cfg.moe:
+        out += (f" experts={cfg.n_experts} top-{cfg.experts_per_token} "
+                f"expert_ff={cfg.expert_ff} shared={cfg.n_shared_experts}"
+                f" moe_every={cfg.moe_every}")
+    if cfg.attn_layer_period:
+        out += (f" attention 1 in {cfg.attn_layer_period} (offset "
+                f"{cfg.attn_layer_offset}), the rest Mamba")
+    return out
+
+
+def _kernel_layers(cfg) -> int:
+    """The layers that launch a serving kernel: every RWKV layer (the WKV
+    kernel), else the attention layers (one a period of a hybrid
+    model)."""
+    from repro_torch.models.transformer import attention_layers
+
+    return cfg.n_layers if cfg.rwkv else len(attention_layers(cfg))
+
+
+def step_bytes(cfg, params, state, fill: int) -> dict:
+    """The bytes one decode step at ``fill`` must move: every weight but
+    the embedding table, of which only the batch's rows are read (a MoE
+    layer at decode computes every expert's capacity slot, so all its
+    experts are read); the filled KV cache read once; a recurrent state
+    (Mamba, RWKV) read and written once."""
+    from repro_torch.models import param_bytes
+
+    table = params["embedding"]["table"]
+    weights = param_bytes(params)
+    if not cfg.tie_embeddings:
+        weights -= param_bytes(table)
+    kv = state.get("kv")
+    kv_read = 0 if kv is None else 2 * param_bytes(kv["k"]) * (fill + 1) \
+        // kv["k"].shape[3]
+    recurrent = 2 * param_bytes(state.get("mamba") or state.get("rwkv")
+                                or [])
+    return {"weights": weights, "kv": kv_read, "state": recurrent,
+            "bound_ms": (weights + kv_read + recurrent)
+            / HBM_BYTES_PER_S * 1e3}
 
 
 def _launched(kernel: str, want: int, what: str) -> int:
@@ -919,12 +990,15 @@ def _launched(kernel: str, want: int, what: str) -> int:
     return counts[kernel]
 
 
-def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel):
-    """``name`` serving at full width and depth in bfloat16: ``tag``1
-    prefills D_BATCH x D_PROMPT tokens (one ``prefill_kernel`` launch a
-    layer), ``tag``2 is greedy generation for them through
-    ``SharedModel.generate`` (one ``decode_kernel`` launch a layer a step).
-    Returns the two phases' launch counts."""
+def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel,
+                     layers=None):
+    """``name`` serving at full width in bfloat16 (full depth, or
+    ``layers`` layers): ``tag``1 prefills D_BATCH x D_PROMPT tokens (one
+    ``prefill_kernel`` launch a kernel layer: every layer of a dense,
+    MoE or RWKV model, the attention layers of a hybrid one), ``tag``2 is
+    greedy generation of D_GEN tokens after the first D_FORCED of them
+    through ``SharedModel.generate`` (one ``decode_kernel`` launch a
+    kernel layer a step).  Returns the two phases' launch counts."""
     import dataclasses
 
     import numpy as np
@@ -938,6 +1012,9 @@ def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel):
 
     cfg = dataclasses.replace(configs.get(name), dtype="bfloat16",
                               param_dtype="bfloat16")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    per_step = _kernel_layers(cfg)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device=dev)
     torch.cuda.synchronize()
@@ -959,23 +1036,25 @@ def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel):
     logits = prefill(params, {"inputs": prompts})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {f"{tag}1": _launched(prefill_kernel, cfg.n_layers,
+    launches = {f"{tag}1": _launched(prefill_kernel, per_step,
                                      f"path {tag}1")}
     _require(tuple(logits.shape) == (D_BATCH, cfg.vocab_size)
              and bool(torch.isfinite(logits).all()),
              f"path {tag}1: logits {tuple(logits.shape)} not finite of "
              f"shape [{D_BATCH}, {cfg.vocab_size}]")
-    first = logits.argmax(-1)
     print(f"path {tag}1 (prefill): {D_BATCH} x {D_PROMPT} tokens "
           f"wall_s={wall!r} prefill_tokens_per_s={D_BATCH * D_PROMPT / wall!r} "
           f"launches={{'{prefill_kernel}': {launches[tag + '1']}}} "
           f"logits_absmax={float(logits.float().abs().max())!r}")
     del logits
 
-    # greedy generation through the decode path
-    model = SharedModel(cfg, max_len=D_PROMPT + D_GEN, max_batch=D_BATCH,
-                        device=dev, params=params)
-    host_prompts = prompts.cpu().tolist()
+    # greedy generation through the decode path, from the first D_FORCED
+    # tokens, in a cache of D_PROMPT + D_GEN positions
+    cache = D_PROMPT + D_GEN
+    first = prefill(params, {"inputs": prompts[:, :D_FORCED]}).argmax(-1)
+    model = SharedModel(cfg, max_len=cache, max_batch=D_BATCH, device=dev,
+                        params=params)
+    host_prompts = prompts[:, :D_FORCED].cpu().tolist()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -983,40 +1062,48 @@ def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel):
     out = model.generate(host_prompts, D_GEN)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    steps = D_PROMPT + D_GEN
-    launches[f"{tag}2"] = _launched(decode_kernel, cfg.n_layers * steps,
+    steps = D_FORCED + D_GEN
+    launches[f"{tag}2"] = _launched(decode_kernel, per_step * steps,
                                     f"path {tag}2")
     _require(out.shape == (D_BATCH, D_GEN) and (out >= 0).all()
              and (out < cfg.vocab_size).all(),
              f"path {tag}2: generated tokens {out.shape} out of range")
     agree = int((out[:, 0] == first.cpu().numpy()).sum())
     del model
-    state = init_decode_state(cfg, D_BATCH, steps, dev)
-    print(f"path {tag}2 (generate): {D_BATCH} requests x ({D_PROMPT} "
-          f"teacher-forced + {D_GEN} greedy) steps, decode state "
+    state = init_decode_state(cfg, D_BATCH, cache, dev)
+    print(f"path {tag}2 (generate): {D_BATCH} requests x ({D_FORCED} "
+          f"teacher-forced + {D_GEN} greedy) steps in a {cache}-position "
+          f"cache, decode state "
           f"{param_bytes(state)} bytes: wall_s={wall!r} "
           f"ms_per_decode_step={wall / steps * 1e3!r} "
           f"decode_tokens_per_s={D_BATCH * steps / wall!r} "
           f"generated_tokens_per_s={D_BATCH * D_GEN / wall!r} "
           f"peak_mem_bytes={peak} "
           f"launches={{'{decode_kernel}': {launches[tag + '2']}}}")
-    print(f"  first generated token equals {tag}1's argmax in {agree} of "
-          f"{D_BATCH} requests (bf16, prefill and decode paths: printed, "
-          f"not required)")
+    print(f"  first generated token equals the argmax of a prefill of the "
+          f"same {D_FORCED} tokens in {agree} of {D_BATCH} requests (bf16, "
+          f"prefill and decode paths: printed, not required)")
     print(f"  tokens[0, :16]={np.asarray(out[0, :16]).tolist()}")
 
-    # one decode step at the last fill: its device time replayed as a
-    # CUDA graph (no host work in it) and the torch ops it dispatches
-    state["cache_len"].fill_(steps - 1)
+    # one decode step at the cache's last fill: its device time replayed
+    # as a CUDA graph (no host work in it) and the torch ops it dispatches
+    state["cache_len"].fill_(cache - 1)
     step = make_serve_step(cfg, dev)
     tok = prompts[:, 0]
     step_ms = graph_ms(lambda: step(params, state, {"inputs": tok}), 1)
     with _op_counter() as ops:
         step(params, state, {"inputs": tok})
-    print(f"  one decode step at fill {steps - 1}: device_ms={step_ms!r} "
+    profile_decode_step(lambda: step(params, state, {"inputs": tok}),
+                        f"path {tag}2")
+    print(f"  one decode step at fill {cache - 1}: device_ms={step_ms!r} "
           f"(CUDA graph replay) torch_ops={ops.n} "
           f"({ops.n / cfg.n_layers!r} a layer) against "
           f"{wall / steps * 1e3!r} ms a step in {tag}2")
+    moved = step_bytes(cfg, params, state, cache - 1)
+    print(f"  bytes a decode step must move: weights={moved['weights']} "
+          f"kv_cache={moved['kv']} recurrent_state={moved['state']}; "
+          f"bound_ms={moved['bound_ms']!r} at {HBM_BYTES_PER_S:.3g} B/s "
+          f"({moved['bound_ms'] / step_ms:.1%} of the replayed step)")
     return launches
 
 
@@ -1050,28 +1137,80 @@ def _swapped(plain):
             setattr(mod, attr, fn)
 
 
+@contextlib.contextmanager
+def _topk_margins(margins: list):
+    """Within the block, every MoE routing call appends to ``margins`` the
+    smallest gap between a token's k-th and (k+1)-th expert probability (a
+    device scalar: no sync).  A gap near a float32 ulp lets a last-bit
+    difference upstream flip an expert choice, which tells such a flip
+    from a fault."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recorded(p, cfg, x):
+        probs, gate, eidx = route(p, cfg, x)
+        top = probs.sort(dim=-1, descending=True).values
+        k = cfg.experts_per_token
+        margins.append((top[..., k - 1] - top[..., k]).min())
+        return probs, gate, eidx
+
+    with _swapped([(moe, "route", recorded)]):
+        yield
+
+
+def no_drop(cfg):
+    """``cfg`` with the capacity factor at which no routed entry is ever
+    dropped, prefill or decode: n_experts / experts_per_token (an expert
+    then holds a slot for every token of its group; 8 for jamba, 15 for
+    qwen2-moe, whose decode groups of 2 tokens get 1 slot an expert at
+    8).  The reference's decode-against-prefill property is defined only
+    there (``tests/test_jamba_consistency.py``)."""
+    import dataclasses
+
+    if not cfg.moe:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+
+
 def agreement(dev, seed, name, plain, layers=4, batch=2, prompt=48,
               steps=16):
     """``name`` at full width with ``layers`` layers in float32: prefill
     and ``prompt`` teacher-forced + ``steps`` greedy decode steps with the
     kernels, then with their plain versions on the card (``plain`` as
-    :func:`_swapped` takes it): logits within 1e-4, the same tokens.  Then
-    the reference's own property (``tests/test_arch_smoke.py``): decoding
-    token by token gives the full-sequence logits at every prompt position,
-    within 2e-2.  RWKV's bonus and decay are perturbed from their init
-    constants (u = 0 would leave the bonus term out)."""
+    :func:`_swapped` takes it): logits within 1e-4, the same tokens (a MoE
+    model at its own capacity factor, drops included; the smallest top-k
+    margin of its routing is printed).  Then the reference's own property
+    (``tests/test_arch_smoke.py``): decoding token by token gives the
+    full-sequence logits at every prompt position, within 2e-2 (a MoE
+    model at :func:`no_drop`'s capacity factor).  RWKV's bonus and decay
+    are perturbed from their init constants (u = 0 would leave the bonus
+    term out).  The peak memory is printed; the same prefill on the CPU
+    only where the weights are below ``HOST_CHECK_BYTES``."""
     import dataclasses
 
     import torch
 
     from repro_torch import configs
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.models import init_decode_state, init_params, param_bytes
     from repro_torch.models.layers import embed_inputs, logits_fn
     from repro_torch.models.transformer import backbone
 
     cfg = dataclasses.replace(configs.get(name), n_layers=layers,
                               dtype="float32", param_dtype="float32")
+    # cuBLAS keeps a workspace for each stream it has run on (graph_ms
+    # captures on a new stream at each call): free them, and count what
+    # earlier paths still hold besides
+    held = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        torch.cuda.empty_cache()
+    workspaces = held - torch.cuda.memory_allocated()
+    held -= workspaces
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, seed=seed + 1, device=dev)
     gen = torch.Generator(dev).manual_seed(seed + 1)
     if cfg.rwkv:
@@ -1084,7 +1223,7 @@ def agreement(dev, seed, name, plain, layers=4, batch=2, prompt=48,
     toks = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=gen,
                          device=dev)
 
-    def run():
+    def run(cfg):
         logits = [make_prefill_step(cfg, dev)(params, {"inputs": toks})]
         step = make_serve_step(cfg, dev)
         state = init_decode_state(cfg, batch, prompt + steps, dev)
@@ -1104,30 +1243,48 @@ def agreement(dev, seed, name, plain, layers=4, batch=2, prompt=48,
         return (torch.stack(logits), torch.stack(chosen, 1),
                 torch.stack(forced, 1))
 
-    got, got_tok, forced = run()
-    with _swapped(plain):
-        want, want_tok, _ = run()
+    margins = []
+    with _topk_margins(margins):
+        got, got_tok, forced = run(cfg)
+        with _swapped(plain):
+            want, want_tok, _ = run(cfg)
     err = _max_err(got, want)
+    margin = (f"; smallest top-{cfg.experts_per_token} routing margin "
+              f"{float(torch.stack(margins).min())!r}" if margins else "")
     _require(torch.equal(got_tok, want_tok),
              f"{cfg.name} agreement: greedy tokens differ between the "
-             f"kernels and their plain versions")
+             f"kernels and their plain versions{margin}")
     _require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-             f"{cfg.name} agreement: logits differ by {err} (> 1e-4)")
+             f"{cfg.name} agreement: logits differ by {err} (> 1e-4)"
+             f"{margin}")
     print(f"agreement {cfg.name} d_model={cfg.d_model} {layers} layers "
           f"float32, prefill {batch} x {prompt} then {prompt} teacher-forced "
           f"+ {steps} greedy decode steps: kernels vs plain versions on the "
           f"card max_abs_err={err!r} (logits absmax "
-          f"{float(want.abs().max())!r}), tokens equal")
+          f"{float(want.abs().max())!r}), tokens equal{margin}")
+    whole = no_drop(cfg)
+    if whole is not cfg:
+        forced = run(whole)[2]
     positions = torch.arange(prompt, device=dev).expand(batch, prompt)
     with torch.no_grad():
-        x = embed_inputs(params["embedding"], cfg, toks)
-        full = logits_fn(params, cfg, backbone(params, cfg, x, positions))
+        x = embed_inputs(params["embedding"], whole, toks)
+        full = logits_fn(params, whole,
+                         backbone(params, whole, x, positions))
     drift = _max_err(forced, full)
     _require(torch.allclose(forced, full, rtol=2e-2, atol=2e-2),
              f"{cfg.name} decode vs prefill: logits differ by {drift} "
              f"(> 2e-2)")
-    print(f"  decode vs prefill at all {prompt} positions (kernels): "
-          f"max_abs_diff={drift!r} (within 2e-2)")
+    print(f"  decode vs prefill at all {prompt} positions (kernels"
+          f"{f', capacity_factor {whole.capacity_factor}' if cfg.moe else ''}"
+          f"): max_abs_diff={drift!r} (within 2e-2)")
+    weights = param_bytes(params)
+    print(f"  float32 weights {weights} bytes; peak_mem_bytes="
+          f"{torch.cuda.max_memory_allocated()} ({held} held before, after "
+          f"{workspaces} bytes of cuBLAS workspaces were freed)")
+    if weights > HOST_CHECK_BYTES:
+        print(f"  card vs CPU prefill: skipped ({weights} bytes of weights "
+              f"> {HOST_CHECK_BYTES:.3g})")
+        return
     # the same prefill on the host's CPU (plain versions): how far the
     # card's float32 (norms, products, kernels) drifts from it
     host = make_prefill_step(cfg, "cpu")(_tree_to(params, "cpu"),
@@ -1148,8 +1305,11 @@ def _tree_to(tree, device):
 
 
 def attention_rows(dev, seed, launches, errs):
-    """Kernel rows of flash_attention (path D1's call) and decode_attention
-    (path D2's call at the full cache)."""
+    """Kernel rows of flash_attention (path D1's call; M1's 16 heads of
+    16 KV heads too) and decode_attention (D2's call at its cache's last
+    fill, as D2's replayed step makes it; M2's one query head a KV head
+    and J2's short cache too), with the launches of paths D, M and N
+    (``launches`` by phase)."""
     import torch
     import torch.nn.functional as F
 
@@ -1172,7 +1332,8 @@ def attention_rows(dev, seed, launches, errs):
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
         replaces="src/repro/kernels/flash_attention.py:73",
-        launches=launches["D1"],
+        launches=sum(launches[p] for p in ("D1", "M1", "N1")),
+        launches_by_path={p: launches[p] for p in ("D1", "M1", "N1")},
         max_abs_err=errs["flash_attention_fwd"], ms=graph_ms(kern, 10),
         plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])]
@@ -1200,6 +1361,17 @@ def attention_rows(dev, seed, launches, errs):
                    wrapper_ms_f32=cuda_ms(kern, 5)[0],
                    source_f32="src/repro_torch/kernels/csrc/flash_attention.cu")
     del q, k, v
+    # path M1's call: 16 query heads over 16 KV heads (no grouping)
+    q = _normal(gen, (b, 16, s, hd), "bfloat16", dev)
+    k = _normal(gen, (b, 16, s, hd), "bfloat16", dev)
+    v = _normal(gen, (b, 16, s, hd), "bfloat16", dev)
+    bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                       4 * b * 16 * s * s * hd / 2, BF16_OPS_PER_S)
+    rows[0].update(ms_m1=graph_ms(kern, 10), plain_ms_m1=graph_ms(plain, 3),
+                   bound_ms_m1=bnd, bound_by_m1=by,
+                   library_ms_m1=graph_ms(lib, 10),
+                   wrapper_ms_m1=cuda_ms(kern, 10)[0])
+    del q, k, v
 
     g, smax = h // kv, D_PROMPT + D_GEN
     fill = smax - 1
@@ -1221,11 +1393,28 @@ def attention_rows(dev, seed, launches, errs):
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:65",
-        launches=launches["D2"] + launches["J2"],
-        launches_by_path={"D2": launches["D2"], "J2": launches["J2"]},
+        launches=sum(launches[p] for p in ("D2", "M2", "N2", "J2")),
+        launches_by_path={p: launches[p] for p in ("D2", "M2", "N2", "J2")},
         max_abs_err=errs["decode_attention_fwd"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0]))
+    del q, kc, vc, q4
+
+    # path M2's call: one query head over each of 16 KV heads
+    q = _normal(gen, (b, 16, 1, hd), "bfloat16", dev)
+    kc = _normal(gen, (b, 16, smax, hd), "bfloat16", dev)
+    vc = _normal(gen, (b, 16, smax, hd), "bfloat16", dev)
+    q4 = q.reshape(b, 16, 1, hd)
+    _require(torch.allclose(lib().reshape(q.shape).float(), kern().float(),
+                            rtol=2e-2, atol=2e-2),
+             "decode_attention and scaled_dot_product_attention disagree "
+             "at path M2's call")
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * 16 * (fill + 1) * hd),
+                       4 * b * 16 * (fill + 1) * hd, BF16_OPS_PER_S)
+    rows[-1].update(ms_m2=graph_ms(kern, 200), plain_ms_m2=graph_ms(plain, 50),
+                    bound_ms_m2=bnd, bound_by_m2=by,
+                    library_ms_m2=graph_ms(lib, 200),
+                    wrapper_ms_m2=cuda_ms(kern, 200)[0])
     del q, kc, vc, q4
 
     # path J2's call: SharedModel(max_len=16) at its last serve step of a
@@ -4045,14 +4234,9 @@ def run_path_l1(dev, seed):
     return launches
 
 
-def profile_train_step(run, what: str) -> None:
-    """One more call of ``run`` (a train step, donated) under
-    ``torch.profiler``: its wall, the card's busy time (the union of its
-    kernels' intervals) and share of the wall, the device time of the
-    matmuls (``aten::mm``), of each WKV kernel and of everything else,
-    and the five kernels that took the most."""
-    from collections import defaultdict
-
+def _profiled(run):
+    """``(the profiler, wall seconds)`` of one call of ``run`` (which
+    syncs) under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4060,8 +4244,16 @@ def profile_train_step(run, what: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(run()[2]["loss"])
+        run()
         wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def _device_time(prof):
+    """``(kernel intervals, device ms by kernel name, busy ms)``: busy is
+    the union of the kernels' intervals."""
+    from collections import defaultdict
+
     spans, by_name = [], defaultdict(float)
     for e in prof.events():
         if (str(getattr(e, "device_type", "")).endswith("CUDA")
@@ -4076,9 +4268,47 @@ def profile_train_step(run, what: str) -> None:
         else:
             cur[1] = max(cur[1], b)
     busy = (busy + (0 if cur is None else cur[1] - cur[0])) / 1e3
-    mm = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if e.key == "aten::mm") / 1e3
+    return spans, by_name, busy
+
+
+def _op_device_ms(prof) -> dict:
+    """Self device ms by operator (``aten::bmm``, ``aten::mm``, ...)."""
+    return {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / 1e3
+            for e in prof.key_averages()}
+
+
+def profile_decode_step(run, what: str) -> None:
+    """One eager decode step (``run``) under ``torch.profiler``: its wall,
+    the card's busy time and idle share, and the device ms of the
+    operators that took the most (``aten::bmm`` is the MoE experts'
+    batched products, ``aten::mm`` every other projection)."""
+    import torch
+
+    prof, wall = _profiled(lambda: (run(), torch.cuda.synchronize()))
+    spans, by_name, busy = _device_time(prof)
+    ops = sorted(((k, v) for k, v in _op_device_ms(prof).items()
+                  if k.startswith("aten::") and v > 0),
+                 key=lambda kv: -kv[1])[:8]
+    ours = sum(v for k, v in by_name.items()
+               if any(n in k for n in ("decode_split", "decode_merge",
+                                       "flash_attention", "rwkv6_wkv")))
+    print(f"  {what} one decode step under torch.profiler: wall_ms="
+          f"{wall * 1e3!r} device_busy_ms={busy!r} (idle "
+          f"{1 - busy / (wall * 1e3):.1%}) kernels={len(spans)}; the "
+          f"port's own kernels {ours!r} ms; device ms by operator: "
+          + "; ".join(f"{k} {v!r}" for k, v in ops))
+
+
+def profile_train_step(run, what: str) -> None:
+    """One more call of ``run`` (a train step, donated) under
+    ``torch.profiler``: its wall, the card's busy time (the union of its
+    kernels' intervals) and share of the wall, the device time of the
+    matmuls (``aten::mm``), of each WKV kernel and of everything else,
+    and the five kernels that took the most."""
+    prof, wall = _profiled(lambda: float(run()[2]["loss"]))
+    spans, by_name, busy = _device_time(prof)
+    mm = _op_device_ms(prof).get("aten::mm", 0.0)
     wkv_bwd = sum(v for k, v in by_name.items() if "rwkv6_wkv_bwd" in k)
     wkv_fwd = sum(v for k, v in by_name.items()
                   if "rwkv6_wkv_kernel" in k)
@@ -4315,19 +4545,24 @@ def run_path_d(dev, seed):
     attention kernels.  Returns the launch counts."""
     import torch
 
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import attention
-
     launches_d = run_serving_path(dev, seed, "D", LLM,
                                   "flash_attention_fwd",
                                   "decode_attention_fwd")
     torch.cuda.empty_cache()
-    agreement(dev, seed, LLM, [
-        (attention, "flash_attention_fwd", fa.flash_attention_plain),
-        (attention, "decode_attention_fwd", da.decode_attention_plain)])
+    agreement(dev, seed, LLM, _attention_plain())
     torch.cuda.empty_cache()
     return launches_d
+
+
+def _attention_plain():
+    """The attention kernels' plain versions, as :func:`_swapped` takes
+    them."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    return [(attention, "flash_attention_fwd", fa.flash_attention_plain),
+            (attention, "decode_attention_fwd", da.decode_attention_plain)]
 
 
 def run_path_e(dev, seed):
@@ -4347,10 +4582,42 @@ def run_path_e(dev, seed):
     return launches_e
 
 
+def run_path_m(dev, seed):
+    """Path M: qwen2-moe-a2.7b serving at full width and depth (24 MoE
+    layers of 60 experts, top-4, and 4 shared), then the 4-layer agreement
+    check of the attention kernels with the expert dispatch between them.
+    Returns the launch counts."""
+    import torch
+
+    launches = run_serving_path(dev, seed, "M", MOE, "flash_attention_fwd",
+                                "decode_attention_fwd")
+    torch.cuda.empty_cache()
+    agreement(dev, seed, MOE, _attention_plain())
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_path_n(dev, seed):
+    """Path N: jamba-v0.1-52b at full width, cut to one period of its 4
+    (HYBRID_LAYERS = 8 layers: 1 attention, 7 Mamba, 4 MoE of 16 experts,
+    top-2), serving, then the agreement check at those 8 layers in
+    float32 (~53 GB).  Returns the launch counts."""
+    import torch
+
+    launches = run_serving_path(dev, seed, "N", HYBRID,
+                                "flash_attention_fwd",
+                                "decode_attention_fwd",
+                                layers=HYBRID_LAYERS)
+    torch.cuda.empty_cache()
+    agreement(dev, seed, HYBRID, _attention_plain(), layers=HYBRID_LAYERS)
+    torch.cuda.empty_cache()
+    return launches
+
+
 #: ``--paths``' names in the order of the full run: a letter names the
 #: path with all its parts, C1, C2, J1, J2, K0-K3 and L0-L2 one part
-PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "J1", "J2",
-              "K0", "K1", "K2", "K3", "L0", "L1", "L2")
+PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "M", "N",
+              "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2")
 
 
 def select_paths(spec: str):
@@ -4362,7 +4629,7 @@ def select_paths(spec: str):
            and not any(p.startswith(x) for p in PATH_NAMES)]
     if bad or not want:
         raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
-                         f"{', '.join(PATH_NAMES)} or a letter A-L")
+                         f"{', '.join(PATH_NAMES)} or a letter A-N")
     return [p for p in PATH_NAMES
             if any(p == x or (len(x) == 1 and p.startswith(x))
                    for x in want)]
@@ -4397,6 +4664,8 @@ def run_named_paths(dev, seed, names) -> dict:
         "I": lambda: run_path_i(dev, seed),
         "D": lambda: run_path_d(dev, seed),
         "E": lambda: run_path_e(dev, seed),
+        "M": lambda: run_path_m(dev, seed),
+        "N": lambda: run_path_n(dev, seed),
         "J1": lambda: run_path_j1(dev, seed),
         "J2": lambda: run_path_j2(dev, seed),
         "K0": lambda: run_path_k0(dev, seed),
@@ -4432,9 +4701,11 @@ def check_kernels(dev, seed) -> dict:
     from repro_torch.kernels import decode_attention as da
 
     gen = torch.Generator(dev).manual_seed(seed)
-    # path D2's split count: fills 4 * split - 2 and - 1 put the last
-    # filled position one short of and at a split boundary
+    # path D2's (and N2's) split count: fills 4 * split - 2 and - 1 put
+    # the last filled position one short of and at a split boundary; path
+    # M2's 16 KV heads of one query head each split their own way
     split = da.decode_splits(D_BATCH, 8, D_PROMPT + D_GEN)
+    split_m = da.decode_splits(D_BATCH, 16, D_PROMPT + D_GEN)
     # path F's bucket groups: rows x N_b for pack_rows and lag_update
     f_groups = fleet_groups(seed)
     print(f"path F's bucket groups (T_b, N_b): scenarios {f_groups}")
@@ -4479,13 +4750,20 @@ def check_kernels(dev, seed) -> dict:
             check_anneal_step(dev, gen, 8, 6, 6)),     # path I1: N = 6
         "flash_attention_fwd": max(
             check_flash(dev, gen, D_BATCH, 32, 8, D_PROMPT, D_PROMPT, 128),
+            check_flash(dev, gen, D_BATCH, 16, 16, D_PROMPT, D_PROMPT,
+                        128),                                  # path M1
             check_flash(dev, gen, 1, 32, 8, 8192, 8192, 128),   # stress
             check_flash(dev, gen, 2, 32, 8, 1000, 1000, 128),   # odd length
             check_flash(dev, gen, 2, 32, 8, 333, 1000, 128, causal=False)),
         "decode_attention_fwd": max(
             check_decode(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN, 128,
                          (0, 7, 4 * split - 2, 4 * split - 1,
-                          D_PROMPT + D_GEN - 1)),        # path D2
+                          D_PROMPT + D_GEN - 1)),        # paths D2, N2
+            check_decode(dev, gen, D_BATCH, 16, 1, D_PROMPT + D_GEN, 128,
+                         (0, 7, 4 * split_m - 2, 4 * split_m - 1,
+                          D_PROMPT + D_GEN - 1)),        # path M2
+            check_decode_graph(dev, gen, D_BATCH, 16, 1, D_PROMPT + D_GEN,
+                               128, (17, 700, D_PROMPT + D_GEN - 1)),
             check_decode(dev, gen, D_BATCH, 8, 4, 32768, 128, (32767,)),
             check_decode_graph(dev, gen, D_BATCH, 8, 4, D_PROMPT + D_GEN,
                                128, (17, 700, D_PROMPT + D_GEN - 1)),
@@ -4523,7 +4801,8 @@ def kernel_rows(dev, seed, out, errs) -> list:
      launches_j1, launches_k, launches_l) = (out[p] for p in (
         "A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "J1", "K1",
         "L1"))
-    launches_d["J2"] = out["J2"]["decode_attention_fwd"]
+    launches_d = dict(launches_d, **out["M"], **out["N"],
+                      J2=out["J2"]["decode_attention_fwd"])
     k0 = out["K0"]
 
     kernels = []
@@ -4735,8 +5014,7 @@ def kernel_rows(dev, seed, out, errs) -> list:
 
     kernels += attention_rows(dev, seed, launches_d, errs)
     fwd_row = kernels[-2]
-    fwd_row["launches_by_path"] = {"D1": fwd_row["launches"],
-                                   "K1": launches_k["flash_attention_fwd"]}
+    fwd_row["launches_by_path"]["K1"] = launches_k["flash_attention_fwd"]
     fwd_row["launches"] += launches_k["flash_attention_fwd"]
     kernels.append(dict(
         name="flash_attention_bwd", route="cuda",
@@ -4817,6 +5095,20 @@ def print_rows(kernels) -> None:
                   f"({kern['bound_by_f32']}) "
                   f"library_ms={kern['library_ms_f32']!r} "
                   f"wrapper_ms={kern['wrapper_ms_f32']!r}")
+        if "ms_m1" in kern:
+            print(f"kernel {kern['name']} at path M1's call (16/16 heads): "
+                  f"ms={kern['ms_m1']!r} plain_ms={kern['plain_ms_m1']!r} "
+                  f"bound_ms={kern['bound_ms_m1']!r} ({kern['bound_by_m1']}) "
+                  f"library_ms={kern['library_ms_m1']!r} "
+                  f"wrapper_ms={kern['wrapper_ms_m1']!r} "
+                  f"launches={kern['launches_by_path']}")
+        if "ms_m2" in kern:
+            print(f"kernel {kern['name']} at path M2's call (1 query head a "
+                  f"KV head, 16 KV heads): ms={kern['ms_m2']!r} "
+                  f"plain_ms={kern['plain_ms_m2']!r} "
+                  f"bound_ms={kern['bound_ms_m2']!r} ({kern['bound_by_m2']}) "
+                  f"library_ms={kern['library_ms_m2']!r} "
+                  f"wrapper_ms={kern['wrapper_ms_m2']!r}")
         if "ms_j2" in kern:
             print(f"kernel {kern['name']} at path J2's call (cache 16, "
                   f"4 filled): ms={kern['ms_j2']!r} "
@@ -4846,7 +5138,7 @@ def main(argv=None) -> int:
                          "L0,L1 or K,L; a letter takes all its parts): "
                          "the build and its checks, the named paths, the "
                          "kernel rows they make whole, and a last line "
-                         "that names them; default: every path A-L, "
+                         "that names them; default: every path A-N, "
                          "every kernel checked and every kernel row")
     args = ap.parse_args(argv)
     try:

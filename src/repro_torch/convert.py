@@ -199,9 +199,13 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     = the CUDA card) in ``cfg.param_dtype``.
 
     The reference stacks the layers on a leading dim (``layers.attn.wq``
-    is (L, d, H, hd)); the port keeps a list of per-layer dicts.  Leaf
-    shapes are checked against ``cfg``: ``wq`` (d, H, hd), ``wo`` (H, hd,
-    d) and so on.
+    is (L, d, H, hd); a hybrid model's ``layers.sub{j}.mix.w_in`` is
+    stacked over its periods); the port keeps a list of per-layer dicts,
+    layer ``p * period + j`` for period ``p``'s ``sub{j}``.  Leaf shapes
+    are checked against ``cfg``: ``wq`` (d, H, hd), ``wo`` (H, hd, d), a
+    MoE layer's ``wi`` (E, d, f) and so on.  A MoE router stays float32
+    whatever ``param_dtype`` is, as the reference draws it: routing on
+    rounded router weights would pick other experts.
     """
     return _layers_from_numpy(tree, cfg, resolve_device(device), cfg.pdtype)
 
@@ -234,7 +238,7 @@ def _layers_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
         if name not in shapes or tuple(t.shape) != shapes[name]:
             raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
                              f"want {shapes.get(name, 'no such parameter')}")
-        return t.to(dtype)
+        return t.to(torch.float32 if name.endswith(".ffn.router") else dtype)
 
     def walk(prefix, node, layer=None):
         """The subtree's leaves as tensors; ``layer`` picks one layer out
@@ -248,8 +252,15 @@ def _layers_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
         return out
 
     out = {k: walk(f"{k}.", v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [walk(f"layers.{i}.", tree["layers"], i)
-                     for i in range(cfg.n_layers)]
+    period = (cfg.attn_layer_period
+              if cfg.attn_layer_period > 0 and not cfg.rwkv else 0)
+    if period:      # layers.sub{j}.*[p] -> layer p * period + j
+        out["layers"] = [walk(f"layers.{i}.",
+                              tree["layers"][f"sub{i % period}"], i // period)
+                         for i in range(cfg.n_layers)]
+    else:
+        out["layers"] = [walk(f"layers.{i}.", tree["layers"], i)
+                         for i in range(cfg.n_layers)]
     # subtrees without leaves (a non-parametric norm, a tied head) are not
     # in a checkpoint; the port's tree keeps them as empty dicts
     for k in ("final_norm", "lm_head"):

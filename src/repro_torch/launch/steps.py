@@ -29,7 +29,9 @@ def _ids(x, dev: torch.device) -> torch.Tensor:
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     device=None, *, donate: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``: the loss and its gradient with respect to every parameter
+    metrics)`` of a dense or RWKV-6 model (the MoE and hybrid families
+    raise :class:`NotPortedError`: the port serves them, training them is
+    the next slice): the loss and its gradient with respect to every parameter
     (``models.forward``, one backward pass), then ``adamw_update``.
     ``batch`` holds ``inputs`` and ``labels`` (B, S) token ids, tensors or
     arrays (the data pipeline's numpy batches), and optionally
@@ -68,8 +70,11 @@ def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
     """``prefill(params, batch) -> logits (B, V)`` of the last position:
     ``batch["inputs"]`` token ids (B, S) (a tensor or an array), optional
     ``batch["positions"]`` (B, S; RWKV reads none).  On the card every
-    dense layer's attention runs on the flash-attention kernel, every
-    RWKV layer's recurrence on the WKV kernel (one launch a layer)."""
+    attention layer (each layer of a dense or MoE model, one a period of
+    a hybrid one) runs on the flash-attention kernel, every RWKV layer's
+    recurrence on the WKV kernel (one launch a layer); the expert
+    dispatch and the Mamba scan are plain PyTorch, as the reference's are
+    jnp."""
     check_ported(cfg)
     dev = resolve_device(device)
 
@@ -88,9 +93,10 @@ def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
 
 def make_serve_step(cfg: ArchConfig, device=None) -> Callable:
     """``step(params, state, batch) -> (logits (B, V), new_state)``: one
-    decode step (``models.serve_step``); on the card every dense layer's
-    cache attention runs on the decode-attention kernel, every RWKV
-    layer's one-token recurrence on the WKV kernel, in place."""
+    decode step (``models.serve_step``); on the card every attention
+    layer's cache attention runs on the decode-attention kernel, every
+    RWKV layer's one-token recurrence on the WKV kernel, in place (a
+    Mamba layer's state is written in place too)."""
     check_ported(cfg)
     dev = resolve_device(device)
 

@@ -94,10 +94,12 @@ def attention_block(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-                  device=None) -> Dict[str, torch.Tensor]:
-    """KV cache, kv-head-major (L, B, KV, S, hd), in the activation dtype."""
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, n_layers: int,
+                  *, device=None) -> Dict[str, torch.Tensor]:
+    """KV cache, kv-head-major (L, B, KV, S, hd), in the activation dtype,
+    over ``n_layers`` attention layers (a hybrid model's are fewer than
+    its layers)."""
+    shape = (n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
 

@@ -3,8 +3,9 @@
 ``ArchConfig`` carries every field and default of the reference's, so a
 config of either package compares with the other field for field
 (``dataclasses.asdict``).  The port runs the dense, token-input family
-and RWKV-6 (``rwkv=True``); the model functions raise
-:class:`NotPortedError` for MoE, hybrid and encoder-decoder configs.
+RWKV-6 (``rwkv=True``), mixture-of-experts layers (``moe=True``) and
+the hybrid Mamba family (``attn_layer_period > 0``); the model functions
+raise :class:`NotPortedError` for encoder-decoder configs.
 
 Parameters are drawn on the run's device from an explicit
 ``torch.Generator``, directly in ``param_dtype``.  Those draws never equal
@@ -89,12 +90,25 @@ class ArchConfig:
                 else self.d_model // self.n_heads)
 
     @property
+    def expert_ff(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
+
+    @property
     def adtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
 
     @property
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
+
+    def is_attn_layer(self, idx: int) -> bool:
+        if self.attn_layer_period <= 0:
+            return not self.rwkv
+        return idx % self.attn_layer_period == self.attn_layer_offset
+
+    def is_moe_layer(self, idx: int) -> bool:
+        every = max(1, self.moe_every)
+        return self.moe and idx % every == every - 1
 
     def n_params(self) -> int:
         """Total parameter count (from the shapes)."""

@@ -111,9 +111,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(cfg: ArchConfig, *,
-             generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ArchConfig, *, generator: torch.Generator,
+             d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """SwiGLU (or GELU) weights of width ``d_ff`` (default ``cfg.d_ff``;
+    a MoE layer's shared expert passes its own)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     p = {"wi": scaled_normal((d, f), d, cfg.pdtype, generator=generator),
          "wo": scaled_normal((f, d), f, cfg.pdtype, generator=generator)}
     if cfg.gated_mlp:

@@ -1,24 +1,34 @@
-"""Decoder-only model assembly, dense and RWKV-6: init, the prefill
-backbone and the one-token serve step.
+"""Decoder-only model assembly: init, the prefill backbone, the one-token
+serve step and the training loss of the dense, MoE, hybrid Mamba and
+RWKV-6 families.
 
-The reference scans one stacked set of layer weights; the port keeps the
-layers as a list of per-layer dicts and loops over them (PyTorch runs
-eagerly; a list saves indexing every stacked leaf every step).  The dense
-layers are [attention + MLP] on the attention kernels, the RWKV layers
-[time-mix + channel-mix] on the WKV kernel.  The MoE, hybrid (Mamba) and
-encoder-decoder branches raise :class:`NotPortedError`, as do the tailed
-decode and RWKV's ``wkv_impl="kernel_stub"``.
+The reference scans one stacked set of layer weights (jamba: one stacked
+set of 8-layer periods); the port keeps the layers as a flat list of
+per-layer dicts and loops over them (PyTorch runs eagerly; a list saves
+indexing every stacked leaf every step).  Layer ``i`` of a hybrid model is
+the reference's ``sub{i % period}`` of period ``i // period``.
+- dense and MoE: ``{ln1, attn, ln2, ffn}``, attention on the attention
+  kernels, ``ffn`` an MLP or (``moe``) a mixture of experts;
+- hybrid (jamba): ``{ln1, mix, ln2, ffn}``, ``mix`` attention on one
+  layer of each period (``is_attn_layer``), a Mamba block on the others,
+  ``ffn`` a mixture of experts on every ``moe_every``-th layer;
+- RWKV-6: ``{ln1, tm, ln2, cm}``, the recurrence on the WKV kernels.
+The encoder-decoder branch raises :class:`NotPortedError`, as do the
+embeddings front end, M-RoPE, the tailed decode and RWKV's
+``wkv_impl="kernel_stub"``.
 
-``forward`` is the training loss of a dense or an RWKV model; with
+``forward`` is the training loss (the token-mean cross-entropy plus
+``AUX_LOSS_COEF`` times the summed MoE auxiliary loss); with
 ``cfg.remat`` its backbone checkpoints each layer
 (``torch.utils.checkpoint``), as the reference's
 ``jax.checkpoint(nothing_saveable)`` does over its scan body.  An RWKV
 layer's recurrence takes its gradient from the WKV backward kernel
-(``kernels.rwkv6_scan.WKV``).
+(``kernels.rwkv6_scan.WKV``).  Training itself (``check_trainable``)
+still refuses the MoE and hybrid families.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -31,12 +41,14 @@ from .base import ArchConfig, NotPortedError
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_inputs,
                      init_embedding, init_lm_head, init_mlp, init_norm,
                      logits_fn, rope_tables)
+from .mamba import (init_mamba, init_mamba_state, mamba_block,
+                    mamba_decode_step, mamba_shapes)
+from .moe import apply_moe, init_moe
 from .rwkv6 import (LORA_RANK, _dims, init_rwkv_channel_mix,
                     init_rwkv_state, init_rwkv_time_mix, rwkv_channel_mix,
                     rwkv_time_mix)
 
-#: the weight of the MoE auxiliary loss in the training loss (0 for the
-#: dense models the port trains)
+#: the weight of the MoE auxiliary loss in the training loss
 AUX_LOSS_COEF = 0.01
 
 
@@ -48,8 +60,6 @@ def check_ported(cfg: ArchConfig) -> None:
                        (cfg.rwkv and cfg.wkv_impl != "scan",
                         f"wkv_impl={cfg.wkv_impl!r} (the reference's roofline "
                         f"stand-in for the WKV kernel)"),
-                       (cfg.attn_layer_period > 0, "the hybrid Mamba family"),
-                       (cfg.moe, "mixture-of-experts layers"),
                        (cfg.input_mode != "tokens", f"input_mode="
                         f"{cfg.input_mode!r}"),
                        (bool(cfg.mrope_sections), "M-RoPE"),
@@ -58,24 +68,67 @@ def check_ported(cfg: ArchConfig) -> None:
         if flag:
             raise NotPortedError(f"{cfg.name}: {what} is not yet ported to "
                                  f"repro_torch")
+    if _hybrid(cfg) and cfg.n_layers % cfg.attn_layer_period:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"whole number of periods of "
+                         f"{cfg.attn_layer_period}")
+    if cfg.moe and cfg.moe_every != 1 and not _hybrid(cfg) and not cfg.rwkv:
+        raise NotImplementedError("interleaved MoE only via attn_layer_period")
 
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise :class:`NotPortedError` for what the port cannot train: what
-    it does not carry at all (:func:`check_ported`).  Everything it
-    serves, dense and RWKV-6, it trains."""
+    it does not carry at all (:func:`check_ported`), and the MoE and
+    hybrid families, which it serves but does not yet train (gradients
+    through the expert dispatch and the selective scan are the next
+    slice).  Dense models and RWKV-6 it trains."""
     check_ported(cfg)
+    for flag, what in ((cfg.moe, "training mixture-of-experts layers"),
+                       (_hybrid(cfg), "training the hybrid Mamba family")):
+        if flag:
+            raise NotPortedError(f"{cfg.name}: {what} is not yet ported to "
+                                 f"repro_torch (serving is)")
 
 
-def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """Every parameter's shape by dotted name (layer ``i`` as
-    ``layers.i.``), the counterpart of the reference's ``eval_shape``."""
-    check_ported(cfg)
-    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+def _hybrid(cfg: ArchConfig) -> bool:
+    return cfg.attn_layer_period > 0 and not cfg.rwkv
+
+
+def _kinds(cfg: ArchConfig, i: int) -> Tuple[str, str]:
+    """Layer ``i``'s mixer (``attn`` or ``mamba``) and feed-forward
+    (``mlp`` or ``moe``) in a non-RWKV model; a hybrid model picks both by
+    the layer's index in its period, as the reference does."""
+    j = i % cfg.attn_layer_period if _hybrid(cfg) else i
+    return ("attn" if cfg.is_attn_layer(j) else "mamba",
+            "moe" if cfg.is_moe_layer(j) else "mlp")
+
+
+def _mix_key(cfg: ArchConfig) -> str:
+    """The mixer's key in a layer dict: the reference names it ``mix`` in
+    a hybrid period, ``attn`` in a homogeneous stack."""
+    return "mix" if _hybrid(cfg) else "attn"
+
+
+def attention_layers(cfg: ArchConfig) -> List[int]:
+    """The indices of the attention layers (each holds one slice of the
+    KV cache and launches the attention kernels): every layer of a dense
+    or MoE model, one a period of a hybrid one, none of RWKV."""
+    if cfg.rwkv:
+        return []
+    return [i for i in range(cfg.n_layers) if _kinds(cfg, i)[0] == "attn"]
+
+
+def _mlp_shapes(cfg: ArchConfig, f: int, prefix: str):
+    d = cfg.d_model
+    out = {f"{prefix}wi": (d, f), f"{prefix}wo": (f, d)}
+    if cfg.gated_mlp:
+        out[f"{prefix}wg"] = (d, f)
+    return out
+
+
+def _layer_shapes(cfg: ArchConfig, i: int) -> Dict[str, Tuple[int, ...]]:
+    d, f = cfg.d_model, cfg.d_ff
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    norm = {"rmsnorm": {"scale": (d,)},
-            "layernorm": {"scale": (d,), "bias": (d,)},
-            "nonparametric_ln": {}}[cfg.norm_type]
     if cfg.rwkv:
         rh, rhd = _dims(cfg)
         layer = {f"tm.w_{n}": (d, d) for n in "rkvgo"}
@@ -84,18 +137,41 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
                       "tm.mix": (5, d), "tm.ln_x": (d,),
                       "cm.w_k": (d, f), "cm.w_v": (f, d), "cm.w_r": (d, d),
                       "cm.mix": (2, d)})
-    else:
-        layer = {"attn.wq": (d, h, hd), "attn.wk": (d, kv, hd),
-                 "attn.wv": (d, kv, hd), "attn.wo": (h, hd, d),
-                 "ffn.wi": (d, f), "ffn.wo": (f, d)}
+        return layer
+    mixer, ffn = _kinds(cfg, i)
+    key = _mix_key(cfg)
+    if mixer == "attn":
+        layer = {f"{key}.wq": (d, h, hd), f"{key}.wk": (d, kv, hd),
+                 f"{key}.wv": (d, kv, hd), f"{key}.wo": (h, hd, d)}
         if cfg.qk_norm:
-            layer.update({"attn.q_norm": (hd,), "attn.k_norm": (hd,)})
-        if cfg.gated_mlp:
-            layer["ffn.wg"] = (d, f)
-    for ln in ("ln1", "ln2"):
-        layer.update({f"{ln}.{k}": s for k, s in norm.items()})
+            layer.update({f"{key}.q_norm": (hd,), f"{key}.k_norm": (hd,)})
+    else:
+        layer = {f"mix.{k}": s for k, s in mamba_shapes(cfg).items()}
+    if ffn == "moe":
+        e, ef = cfg.n_experts, cfg.expert_ff
+        layer.update({"ffn.router": (d, e), "ffn.wi": (e, d, ef),
+                      "ffn.wg": (e, d, ef), "ffn.wo": (e, ef, d)})
+        if cfg.n_shared_experts > 0:
+            layer.update(_mlp_shapes(cfg, cfg.n_shared_experts * ef,
+                                     "ffn.shared."))
+    else:
+        layer.update(_mlp_shapes(cfg, f, "ffn."))
+    return layer
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter's shape by dotted name (layer ``i`` as
+    ``layers.i.``), the counterpart of the reference's ``eval_shape``."""
+    check_ported(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    norm = {"rmsnorm": {"scale": (d,)},
+            "layernorm": {"scale": (d,), "bias": (d,)},
+            "nonparametric_ln": {}}[cfg.norm_type]
     out = {"embedding.table": (v, d)}
     for i in range(cfg.n_layers):
+        layer = _layer_shapes(cfg, i)
+        for ln in ("ln1", "ln2"):
+            layer.update({f"{ln}.{k}": s for k, s in norm.items()})
         out.update({f"layers.{i}.{k}": s for k, s in layer.items()})
     out.update({f"final_norm.{k}": s for k, s in norm.items()})
     if not cfg.tie_embeddings:
@@ -103,24 +179,35 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+def _init_layer(cfg: ArchConfig, i: int, gen: torch.Generator,
+                dev: torch.device) -> Dict[str, Any]:
+    if cfg.rwkv:
+        return {"ln1": init_norm(cfg, device=dev),
+                "tm": init_rwkv_time_mix(cfg, generator=gen),
+                "ln2": init_norm(cfg, device=dev),
+                "cm": init_rwkv_channel_mix(cfg, generator=gen)}
+    mixer, ffn = _kinds(cfg, i)
+    return {"ln1": init_norm(cfg, device=dev),
+            _mix_key(cfg): (init_attention if mixer == "attn"
+                            else init_mamba)(cfg, generator=gen),
+            "ln2": init_norm(cfg, device=dev),
+            "ffn": (init_moe if ffn == "moe" else init_mlp)(cfg,
+                                                            generator=gen)}
+
+
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters drawn on ``device`` (``None`` = the CUDA card) from
     a ``torch.Generator`` seeded with ``seed``, directly in
-    ``cfg.param_dtype``.  ``params["layers"]`` is a list of per-layer
-    dicts ``{"ln1", "attn", "ln2", "ffn"}`` (dense) or ``{"ln1", "tm",
+    ``cfg.param_dtype`` (a MoE router in float32).  ``params["layers"]``
+    is a list of per-layer dicts ``{"ln1", "attn", "ln2", "ffn"}`` (dense,
+    MoE), ``{"ln1", "mix", "ln2", "ffn"}`` (hybrid) or ``{"ln1", "tm",
     "ln2", "cm"}`` (RWKV)."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: Dict[str, Any] = {"embedding": init_embedding(cfg, generator=gen)}
-    mix, ffn = ((("tm", init_rwkv_time_mix), ("cm", init_rwkv_channel_mix))
-                if cfg.rwkv else (("attn", init_attention), ("ffn", init_mlp)))
-    params["layers"] = [
-        {"ln1": init_norm(cfg, device=dev),
-         mix[0]: mix[1](cfg, generator=gen),
-         "ln2": init_norm(cfg, device=dev),
-         ffn[0]: ffn[1](cfg, generator=gen)}
-        for _ in range(cfg.n_layers)]
+    params["layers"] = [_init_layer(cfg, i, gen, dev)
+                        for i in range(cfg.n_layers)]
     params["final_norm"] = init_norm(cfg, device=dev)
     params["lm_head"] = init_lm_head(cfg, generator=gen)
     return params
@@ -140,12 +227,24 @@ def param_bytes(params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _dense_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
-                 positions: torch.Tensor, rope) -> torch.Tensor:
+def _block(lp: Dict, cfg: ArchConfig, i: int, x: torch.Tensor,
+           positions: torch.Tensor, rope
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Layer ``i`` of a dense, MoE or hybrid model: ``(x, aux)``, aux the
+    layer's MoE auxiliary loss (``None`` for an MLP layer)."""
+    mixer, ffn = _kinds(cfg, i)
     h = apply_norm(lp["ln1"], cfg, x)
-    x = x + attention_block(lp["attn"], cfg, h, positions, rope=rope)
+    if mixer == "attn":
+        x = x + attention_block(lp[_mix_key(cfg)], cfg, h, positions,
+                                rope=rope)
+    else:
+        x = x + mamba_block(lp["mix"], cfg, h)
     h = apply_norm(lp["ln2"], cfg, x)
-    return x + apply_mlp(lp["ffn"], cfg, h)
+    if ffn == "moe":
+        y, aux = apply_moe(lp["ffn"], cfg, h)
+    else:
+        y, aux = apply_mlp(lp["ffn"], cfg, h), None
+    return x + y, aux
 
 
 def _rwkv_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -161,49 +260,60 @@ def _rwkv_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
     return x + rwkv_channel_mix(lp["cm"], cfg, h, cm)[0]
 
 
+def _backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
+              positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final norm output, the f32 MoE auxiliary loss summed over the
+    layers: 0 without MoE layers)."""
+    check_ported(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.rwkv:
+        for lp in params["layers"]:
+            x = (checkpoint(_rwkv_block, lp, cfg, x, use_reentrant=False)
+                 if remat else _rwkv_block(lp, cfg, x))
+    else:
+        rope = rope_tables(positions, cfg)
+        for i, lp in enumerate(params["layers"]):
+            x, a = (checkpoint(_block, lp, cfg, i, x, positions, rope,
+                               use_reentrant=False)
+                    if remat else _block(lp, cfg, i, x, positions, rope))
+            if a is not None:
+                aux = aux + a
+    return apply_norm(params["final_norm"], cfg, x), aux
+
+
 def backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
     """Token embeddings (B, S, d) -> final norm output (B, S, d).  The
-    reference also returns the MoE auxiliary loss, which neither a dense
-    model nor an RWKV one has.  RWKV reads no positions.
+    reference also returns the MoE auxiliary loss; ``forward`` reads it
+    (from the same layers).  RWKV reads no positions.
 
     Differentiable: with gradients on and ``cfg.remat``, each layer runs
     under ``torch.utils.checkpoint`` (non-reentrant), so the backward
     keeps only each layer's input and recomputes the layer, its attention
     or WKV forward included."""
-    check_ported(cfg)
-    remat = cfg.remat and torch.is_grad_enabled()
-    if cfg.rwkv:
-        block, args = _rwkv_block, ()
-    else:
-        block, args = _dense_block, (positions, rope_tables(positions, cfg))
-    for lp in params["layers"]:
-        if remat:
-            x = checkpoint(block, lp, cfg, x, *args, use_reentrant=False)
-        else:
-            x = block(lp, cfg, x, *args)
-    return apply_norm(params["final_norm"], cfg, x)
+    return _backbone(params, cfg, x, positions)[0]
 
 
 def forward(params: Dict, cfg: ArchConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Training loss of a dense or an RWKV model: ``batch["inputs"]``
-    token ids (B, S), ``batch["labels"]`` (B, S), optional
-    ``batch["positions"]`` (B, S; RWKV reads none) and ``batch["mask"]``
-    (B, S), all tensors on the parameters' device.  Returns ``(loss,
-    {"ce", "aux"})``: the token-mean cross-entropy plus ``AUX_LOSS_COEF``
-    times the MoE auxiliary loss, which is 0 for both."""
-    check_trainable(cfg)
+    """Training loss: ``batch["inputs"]`` token ids (B, S),
+    ``batch["labels"]`` (B, S), optional ``batch["positions"]`` (B, S;
+    RWKV reads none) and ``batch["mask"]`` (B, S), all tensors on the
+    parameters' device.  Returns ``(loss, {"ce", "aux"})``: the
+    token-mean cross-entropy plus ``AUX_LOSS_COEF`` times the MoE
+    auxiliary loss summed over the layers (0 without MoE layers)."""
+    check_ported(cfg)
     inputs = batch["inputs"]
     b, s = inputs.shape[0], inputs.shape[1]
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(s, device=inputs.device).expand(b, s)
     x = embed_inputs(params["embedding"], cfg, inputs)
-    h = backbone(params, cfg, x, positions)
+    h, aux = _backbone(params, cfg, x, positions)
     logits = logits_fn(params, cfg, h)
     loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
 
 
@@ -214,10 +324,13 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device=None) -> Dict[str, Any]:
-    """``{"cache_len": int32 scalar, "kv": {"k", "v"}}`` sized for
-    ``max_len`` tokens (dense), or ``{"cache_len", "rwkv": [per layer
-    {"tm_shift", "wkv", "cm_shift"}]}`` (RWKV: a constant-size state;
-    ``max_len`` is unused), on ``device`` (``None`` = the CUDA card)."""
+    """On ``device`` (``None`` = the CUDA card): ``{"cache_len": int32
+    scalar, "kv": {"k", "v"}}``, the cache sized for ``max_len`` tokens
+    over the attention layers (every layer of a dense or MoE model, one a
+    period of a hybrid one), a hybrid model's ``"mamba"``: a list of
+    ``{"h", "conv"}``, one a Mamba layer in layer order; or RWKV's
+    ``{"cache_len", "rwkv": [per layer {"tm_shift", "wkv", "cm_shift"}]}``
+    (a constant-size state; ``max_len`` is unused)."""
     check_ported(cfg)
     dev = resolve_device(device)
     state: Dict[str, Any] = {
@@ -225,8 +338,13 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.rwkv:
         state["rwkv"] = [init_rwkv_state(cfg, batch, dev)
                          for _ in range(cfg.n_layers)]
-    else:
-        state["kv"] = init_kv_cache(cfg, batch, max_len, device=dev)
+        return state
+    state["kv"] = init_kv_cache(cfg, batch, max_len,
+                                len(attention_layers(cfg)), device=dev)
+    if _hybrid(cfg):
+        state["mamba"] = [init_mamba_state(cfg, batch, dev)
+                          for i in range(cfg.n_layers)
+                          if _kinds(cfg, i)[0] == "mamba"]
     return state
 
 
@@ -236,9 +354,10 @@ def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
 
     The KV cache holds ``state["cache_len"]`` tokens; the step appends one,
     writing the cache in place, and returns ``(logits, new_state)`` with
-    ``new_state["cache_len"]`` one more.  An RWKV model instead writes
-    each layer's shift and WKV state in place.  ``cache_len`` stays on the
-    device: the step never syncs the host.
+    ``new_state["cache_len"]`` one more.  A Mamba layer writes its SSM
+    state and conv window in place, an RWKV layer its shift and WKV
+    state.  ``cache_len`` stays on the device: the step never syncs the
+    host (the MoE dispatch included).
     """
     check_ported(cfg)
     inputs = batch["inputs"]
@@ -255,18 +374,27 @@ def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
             positions = clen.reshape(1, 1).expand(x.shape[0], 1)
         rope = rope_tables(positions, cfg)
         kc, vc = state["kv"]["k"], state["kv"]["v"]
+        mamba_states = iter(state.get("mamba", ()))
+        key, a = _mix_key(cfg), 0
         for i, lp in enumerate(params["layers"]):
+            mixer, ffn = _kinds(cfg, i)
             h = apply_norm(lp["ln1"], cfg, x)
-            y, _, _ = decode_attention(lp["attn"], cfg, h, kc[i], vc[i],
-                                       clen, positions, rope=rope)
+            if mixer == "attn":
+                y, _, _ = decode_attention(lp[key], cfg, h, kc[a], vc[a],
+                                           clen, positions, rope=rope)
+                a += 1
+            else:
+                y, _ = mamba_decode_step(lp["mix"], cfg, h,
+                                         next(mamba_states))
             x = x + y
             h = apply_norm(lp["ln2"], cfg, x)
-            x = x + apply_mlp(lp["ffn"], cfg, h)
+            x = x + (apply_moe(lp["ffn"], cfg, h)[0] if ffn == "moe"
+                     else apply_mlp(lp["ffn"], cfg, h))
     h = apply_norm(params["final_norm"], cfg, x)
     logits = logits_fn(params, cfg, h)[:, 0, :]
     return logits, dict(state, cache_len=clen + 1)
 
 
-__all__ = ["AUX_LOSS_COEF", "backbone", "check_ported", "check_trainable",
-           "forward", "init_decode_state", "init_params", "param_bytes",
-           "param_shapes", "serve_step"]
+__all__ = ["AUX_LOSS_COEF", "attention_layers", "backbone", "check_ported",
+           "check_trainable", "forward", "init_decode_state", "init_params",
+           "param_bytes", "param_shapes", "serve_step"]

@@ -10,7 +10,10 @@ right-padded with token 0 and those zeros are teacher-forced like real
 tokens; the prompts run through the decode path one token at a time;
 prompts and generated tokens share one ``cache_len``; greedy ``argmax``
 takes the first maximum.  An RWKV model carries its constant-size state
-instead of a KV cache (``max_len`` is then unused).  Every step stays on
+instead of a KV cache (``max_len`` is then unused); a hybrid (jamba)
+model a KV cache for its attention layers and a Mamba state for the
+others; a MoE model routes each decode step's batch as dispatch groups
+(``models.moe``).  Every step stays on
 the card; the tokens come to the host once, at the end.
 
 ``LLMReplica`` reads one request a record, ``{"prompt": [ids], "gen":

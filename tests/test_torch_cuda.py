@@ -116,6 +116,9 @@ def _normal(seed, shapes, dtype, dev):
     (2, 8, 2, 1, 1, 128), (2, 8, 2, 65, 65, 128), (2, 8, 2, 129, 129, 128),
     (2, 8, 2, 1000, 1000, 128), (2, 8, 2, 129, 700, 128),
     (2, 8, 2, 333, 1000, 128),
+    # chip_smoke's paths: M1 (qwen2-moe, 16 heads over 16 KV heads) and
+    # N1 (jamba, 32 over 8; D1's shape too)
+    (8, 16, 16, 1024, 1024, 128), (8, 32, 8, 1024, 1024, 128),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
@@ -330,7 +333,10 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
 
 
 @pytest.mark.parametrize("b,kv,g,s,hd", [
-    (2, 2, 4, 256, 64), (1, 4, 1, 128, 128), (3, 1, 8, 512, 64)])
+    (2, 2, 4, 256, 64), (1, 4, 1, 128, 128), (3, 1, 8, 512, 64),
+    # chip_smoke's paths M2 (one query head over each of 16 KV heads) and
+    # N2 (4 over each of 8), at their 1152-position caches
+    (8, 16, 1, 1152, 128), (8, 8, 4, 1152, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fill", [0, 7, 200])
 def test_decode_kernel_matches_plain(cuda, b, kv, g, s, hd, dtype, fill):
@@ -355,7 +361,7 @@ def _boundary_fills(b, kv, s):
 
 
 @pytest.mark.parametrize("b,kv,g,s", [(2, 2, 4, 200), (8, 8, 4, 1152),
-                                      (1, 2, 4, 32768)])
+                                      (1, 2, 4, 32768), (8, 16, 1, 1152)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_split_boundaries(cuda, b, kv, g, s, dtype):
     q, k, v = _normal(8, [(b, kv, g, 128), (b, kv, s, 128),
@@ -564,19 +570,18 @@ def test_rwkv_train_step_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "olmo-1b", "granite-3-8b",
-                                  "rwkv6-3b"])
+                                  "rwkv6-3b", "qwen2-moe-a2.7b",
+                                  "llama4-scout-17b-a16e", "jamba-v0.1-52b"])
 def test_model_on_the_card_matches_the_cpu(cuda, arch):
     """The smoke model in float32: prefill and six decode steps on the card
-    (kernels) against the same weights on the CPU (plain versions)."""
+    (kernels; a MoE model's dispatch on the card) against the same weights
+    on the CPU (plain versions)."""
     cfg = dataclasses.replace(configs.get(arch, smoke=True),
                               dtype="float32")
     cpu_params = init_params(cfg, seed=0, device="cpu")
-    params = {k: v for k, v in cpu_params.items() if k != "layers"}
-    params = {k: {n: t.to(cuda) for n, t in v.items()}
-              for k, v in params.items()}
-    params["layers"] = [{k: {n: t.to(cuda) for n, t in v.items()}
-                         for k, v in lp.items()}
-                        for lp in cpu_params["layers"]]
+    from repro_torch import _tree
+
+    params = _tree.tree_map(lambda t: t.to(cuda), cpu_params)
     toks = np.random.default_rng(6).integers(
         0, cfg.vocab_size, (2, 6)).astype(np.int32)
     torch.testing.assert_close(

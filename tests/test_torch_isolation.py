@@ -24,6 +24,7 @@ from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.models import init_decode_state, init_params  # noqa: E402
+from repro_torch.models import mamba, moe  # noqa: E402,F401
 from repro_torch.registry import make_policy  # noqa: E402
 from repro_torch.scenarios import trace_from_scenario  # noqa: E402
 from repro_torch.serving import SharedModel, Sink  # noqa: E402
@@ -31,6 +32,8 @@ from repro_torch.serving.llm_replica import LLMReplica  # noqa: E402
 
 LLM = configs.get("qwen3-8b", smoke=True)
 RWKV = configs.get("rwkv6-3b", smoke=True)
+MOE = configs.get("qwen2-moe-a2.7b", smoke=True)
+HYBRID = configs.get("jamba-v0.1-52b", smoke=True)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "repro")
@@ -100,6 +103,15 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: train(LLM, steps=1, batch=1, seq=4, ckpt_dir=None),
     lambda: elastic_train.main([]),
     lambda: opt_state_from_numpy({}, LLM),
+    lambda: init_params(MOE),
+    lambda: make_prefill_step(MOE),
+    lambda: make_serve_step(MOE),
+    lambda: SharedModel(MOE),
+    lambda: init_params(HYBRID),
+    lambda: make_prefill_step(HYBRID),
+    lambda: SharedModel(HYBRID),
+    lambda: init_decode_state(HYBRID, 1, 4),
+    lambda: params_from_numpy({}, HYBRID),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
@@ -110,7 +122,11 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
         "scenarios.generate_scenario", "api.attack", "api.replay",
         "seed_trace", "trace_from_scenario", "LLMReplica",
         "examples.autoscale_serve", "make_train_step", "launch.train",
-        "examples.elastic_train", "opt_state_from_numpy"))
+        "examples.elastic_train", "opt_state_from_numpy", "moe-init_params",
+        "moe-make_prefill_step", "moe-make_serve_step", "moe-SharedModel",
+        "hybrid-init_params", "hybrid-make_prefill_step",
+        "hybrid-SharedModel", "hybrid-init_decode_state",
+        "hybrid-params_from_numpy"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):

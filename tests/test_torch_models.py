@@ -29,17 +29,21 @@ from repro.models import init_params as j_init_params  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.launch.steps import make_prefill_step  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_train_step)
 from repro_torch.models import NotPortedError, init_params  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.base import torch_dtype  # noqa: E402
 from repro_torch.models.transformer import param_shapes  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 
 ARCHS = ("qwen3-8b", "olmo-1b", "granite-3-8b")
 #: archs whose layers are not [attention + MLP]; the family-agnostic
-#: tests take them too (``tests/test_torch_rwkv.py`` holds the rest)
-OTHER_ARCHS = ("rwkv6-3b",)
+#: tests take them too (``tests/test_torch_rwkv.py``,
+#: ``test_torch_moe.py`` and ``test_torch_hybrid.py`` hold the rest)
+OTHER_ARCHS = ("rwkv6-3b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+               "jamba-v0.1-52b")
 #: compute dtype, parameter dtype
 DTYPES = {"f32": ("float32", "float32"), "bf16": ("bfloat16", "float32"),
           "bf16-params": ("bfloat16", "bfloat16")}
@@ -111,9 +115,17 @@ def test_param_count_and_shapes_match_reference(arch):
     assert tcfg.n_params() == jcfg.n_params()
     flat = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
     ref = {}
+    period = tcfg.attn_layer_period
     for path, leaf in flat.items():
         name = ".".join(k.key for k in path)
-        if name.startswith("layers."):
+        if name.startswith("layers.sub"):
+            # a hybrid period's sub{j}.* stacked over periods: the port's
+            # layer p * period + j
+            j, rest = name[len("layers.sub"):].split(".", 1)
+            for p in range(tcfg.n_layers // period):
+                ref[f"layers.{p * period + int(j)}.{rest}"] = tuple(
+                    leaf.shape[1:])
+        elif name.startswith("layers."):
             for i in range(tcfg.n_layers):
                 ref["layers." + str(i) + name[6:]] = tuple(leaf.shape[1:])
         else:
@@ -140,15 +152,29 @@ def test_init_params_draws_truncated_scaled_normals(arch):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(moe=True, n_experts=4, experts_per_token=2),
-    dict(rwkv=True, wkv_impl="kernel_stub"), dict(attn_layer_period=2),
+    dict(moe=True, n_experts=4, experts_per_token=2, decode_tail_window=4),
+    dict(rwkv=True, wkv_impl="kernel_stub"), dict(mrope_sections=(2, 3, 3)),
     dict(encoder_decoder=True),
     dict(input_mode="embeddings"), dict(decode_tail_window=4),
-], ids=("moe", "rwkv", "hybrid", "encoder_decoder", "embeddings", "tailed"))
+], ids=("moe_tailed", "rwkv", "mrope", "encoder_decoder", "embeddings",
+        "tailed"))
 def test_unported_options_raise(opt):
     cfg = dataclasses.replace(tconfigs.get("qwen3-8b", smoke=True), **opt)
     with pytest.raises(NotPortedError, match="not yet ported"):
         init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                                  "jamba-v0.1-52b"])
+@pytest.mark.parametrize("smoke", [False, True])
+def test_train_step_refuses_moe_and_hybrid(arch, smoke):
+    """The port serves the MoE and hybrid families but does not train
+    them yet: ``make_train_step`` (through ``check_trainable``) raises
+    before it touches a device."""
+    cfg = tconfigs.get(arch, smoke=smoke)
+    with pytest.raises(NotPortedError, match="not yet ported"):
+        make_train_step(cfg, AdamWConfig(), device="cpu")
+    init_params(tconfigs.get(arch, smoke=True), device="cpu")
 
 
 # ---------------------------------------------------------------------------

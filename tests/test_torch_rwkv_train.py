@@ -323,7 +323,8 @@ def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
     assert chip_smoke.select_paths("L,K") == [
         "K0", "K1", "K2", "K3", "L0", "L1", "L2"]
     assert chip_smoke.select_paths("J2,A") == ["A", "J2"]
-    for bad in ("L3", "M", ""):
+    assert chip_smoke.select_paths("N,M,E") == ["E", "M", "N"]
+    for bad in ("L3", "P", ""):
         with pytest.raises(ValueError):
             chip_smoke.select_paths(bad)
 
@@ -348,6 +349,7 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
                      ("F", "run_path_f"), ("G", "run_path_g"),
                      ("H", "run_path_h"), ("I", "run_path_i"),
                      ("D", "run_path_d"), ("E", "run_path_e"),
+                     ("M", "run_path_m"), ("N", "run_path_n"),
                      ("J1", "run_path_j1"), ("J2", "run_path_j2"),
                      ("K0", "run_path_k0"), ("K1", "run_path_k1"),
                      ("K2", "run_path_k2"), ("K3", "run_path_k3"),
