@@ -3,8 +3,9 @@
 packers' sweep, the optimizer, the adversarial search and trace replay,
 LLM serving of a dense model, of RWKV-6, of a mixture of experts and of
 the hybrid Mamba family, the paper's own system with
-an autoscaled fleet of LLM replicas, and training of a dense LLM and of
-RWKV-6) on one NVIDIA card.
+an autoscaled fleet of LLM replicas, training of a dense LLM and of
+RWKV-6, and serving and training of the encoder-decoder family) on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--paths L0,L1]
 
@@ -273,7 +274,29 @@ Run from a checkout of the repository on a machine with a CUDA card and
    (lr 1e-3, eps 1e-3) within ``L2_UPDATE_REL_TOL`` by its relative norm
    by leaf, and in float32 within 5e-2 of its largest (see
    ``run_path_l2``);
-21. each kernel's time at its path's shapes beside its bound, its plain
+21. path O, whisper-large-v3 (32 encoder + 32 decoder layers, d_model
+   1280, 20 heads of 64, T_enc 1500, random weights from ``--seed``): O0
+   holds the attention kernels at whisper's calls against their plain
+   versions and times them beside SDPA and their bounds (the flash
+   forward without the mask at the encoder's q = k = v [8, 20, 1500, 64]
+   and the prefill's cross call q [8, 20, 32, 64] over k/v [8, 20, 1500,
+   64]; the flash backward without the mask at O3's encoder and cross
+   calls, under ``bwd_case``'s checks and controls; the decode kernel
+   over a [8, 20, 1500, 64] cross cache at fill 1499); O1 prefills 8
+   requests of 1500 frames and a 32-token prompt in bf16 (exactly 96
+   flash launches); O2 encodes once, precomputes the cross K/V and runs
+   32 teacher-forced + 224 greedy decode steps in a 256-position cache
+   (exactly 64 decode launches a step), then one step as a graph replay,
+   its torch ops, one step under ``torch.profiler`` and its bytes; then
+   the f32 agreement at 4 + 4 layers (prefill and 16 greedy steps
+   against the plain versions within 1e-4, tokens equal; decode against
+   the teacher-forced decoder within 2e-2); O3 trains at full width and
+   depth (f32 parameters, bf16 compute, remat, donated): a warm-up, then
+   4 steps of 4 x (1500 frames + 448 tokens), exactly 192 forward and 96
+   backward flash launches a step, the watched gradients nonzero; then
+   2 steps at 4 + 4 layers against the plain versions, f32 and bf16,
+   held by ``update_verdict``;
+22. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
@@ -297,7 +320,8 @@ pays.
 
 ``--paths`` runs phases 1-2 and then only the named paths (a letter
 takes all its parts), and prints the kernel rows they make whole (the
-WKV backward's, after L0) and the last line.
+WKV backward's, after L0; the three attention kernels' at whisper's
+calls, after O0) and the last line.
 
 Kernel launch counts are zeroed just before each path and read just
 after it; a path that launched none of its kernels fails.  The line
@@ -4278,11 +4302,13 @@ def _op_device_ms(prof) -> dict:
             for e in prof.key_averages()}
 
 
-def profile_decode_step(run, what: str) -> None:
-    """One eager decode step (``run``) under ``torch.profiler``: its wall,
-    the card's busy time and idle share, and the device ms of the
-    operators that took the most (``aten::bmm`` is the MoE experts'
-    batched products, ``aten::mm`` every other projection)."""
+def profile_decode_step(run, what: str, label: str = "one decode step"
+                        ) -> None:
+    """One eager decode step (``run``; or the call ``label`` names) under
+    ``torch.profiler``: its wall, the card's busy time and idle share,
+    and the device ms of the operators that took the most
+    (``aten::bmm`` is the MoE experts' batched products, ``aten::mm``
+    every other projection)."""
     import torch
 
     prof, wall = _profiled(lambda: (run(), torch.cuda.synchronize()))
@@ -4293,33 +4319,40 @@ def profile_decode_step(run, what: str) -> None:
     ours = sum(v for k, v in by_name.items()
                if any(n in k for n in ("decode_split", "decode_merge",
                                        "flash_attention", "rwkv6_wkv")))
-    print(f"  {what} one decode step under torch.profiler: wall_ms="
+    print(f"  {what} {label} under torch.profiler: wall_ms="
           f"{wall * 1e3!r} device_busy_ms={busy!r} (idle "
           f"{1 - busy / (wall * 1e3):.1%}) kernels={len(spans)}; the "
           f"port's own kernels {ours!r} ms; device ms by operator: "
           + "; ".join(f"{k} {v!r}" for k, v in ops))
 
 
-def profile_train_step(run, what: str) -> None:
+#: the kernels ``profile_train_step`` reports by name: the WKV kernels'
+#: backward and forward (path L1) by default
+WKV_KERNELS = (("rwkv6_wkv_bwd", "rwkv6_wkv_bwd"),
+               ("rwkv6_wkv", "rwkv6_wkv_kernel"))
+
+
+def profile_train_step(run, what: str, kernels=WKV_KERNELS) -> None:
     """One more call of ``run`` (a train step, donated) under
     ``torch.profiler``: its wall, the card's busy time (the union of its
     kernels' intervals) and share of the wall, the device time of the
-    matmuls (``aten::mm``), of each WKV kernel and of everything else,
-    and the five kernels that took the most."""
+    matmuls (``aten::mm``), of each of ``kernels`` (``(label, substring
+    of the kernel's name)`` pairs) and of everything else, and the five
+    kernels that took the most."""
     prof, wall = _profiled(lambda: float(run()[2]["loss"]))
     spans, by_name, busy = _device_time(prof)
     mm = _op_device_ms(prof).get("aten::mm", 0.0)
-    wkv_bwd = sum(v for k, v in by_name.items() if "rwkv6_wkv_bwd" in k)
-    wkv_fwd = sum(v for k, v in by_name.items()
-                  if "rwkv6_wkv_kernel" in k)
+    ours = {label: sum(v for k, v in by_name.items() if sub in k)
+            for label, sub in kernels}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     total = sum(by_name.values())
     print(f"{what} profile (one more step under torch.profiler): "
           f"wall_ms={wall * 1e3!r} device_busy_ms={busy!r} "
           f"({busy / (wall * 1e3):.1%} of the wall; idle "
           f"{1 - busy / (wall * 1e3):.1%}) kernels={len(spans)} "
-          f"kernel_ms={total!r}: aten::mm {mm!r}, rwkv6_wkv_bwd {wkv_bwd!r}, "
-          f"rwkv6_wkv {wkv_fwd!r}, the rest {total - mm - wkv_bwd - wkv_fwd!r}"
+          f"kernel_ms={total!r}: aten::mm {mm!r}, "
+          + "".join(f"{k} {v!r}, " for k, v in ours.items())
+          + f"the rest {total - mm - sum(ours.values())!r}"
           f"; the five kernels that took the most (ms): "
           + "; ".join(f"{k[:60]} {v!r}" for k, v in top))
 
@@ -4614,10 +4647,638 @@ def run_path_n(dev, seed):
     return launches
 
 
+#: path O: whisper-large-v3, the encoder-decoder family
+WHISPER = "whisper-large-v3"
+#: O1 and O2: requests (30 s of audio, 1500 frames, each), the decoder
+#: prompt, and O2's greedy steps after it (a 256-position cache, under
+#: the 448 learned positions)
+O_BATCH, O_PROMPT, O_GEN = 8, 32, 224
+#: O3: batch, decoder tokens (all 448 learned positions), timed steps
+#: after one warm-up step
+O_TRAIN_BATCH, O_TRAIN_SEQ, O_TRAIN_STEPS = 4, 448, 4
+#: the agreement checks: encoder and decoder layers each, at full width
+O_AGREE_LAYERS = 4
+
+
+def _whisper_cfg(**over):
+    """whisper-large-v3 as published (f32 parameters, bf16 compute,
+    remat), with ``over`` replaced."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get(WHISPER)
+    _require(cfg.encoder_decoder and cfg.param_dtype == "float32"
+             and cfg.dtype == "bfloat16" and cfg.remat,
+             f"{WHISPER}: not the published config")
+    return dataclasses.replace(cfg, **over)
+
+
+def _whisper_header(tag, cfg, params) -> str:
+    from repro_torch.models import param_bytes
+
+    return (f"path {tag}: {cfg.name} {cfg.n_encoder_layers} encoder + "
+            f"{cfg.n_layers} decoder layers d_model={cfg.d_model} "
+            f"heads={cfg.n_heads}x{cfg.head_dim} (kv {cfg.n_kv_heads}) "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} T_enc="
+            f"{cfg.encoder_seq_len} params {cfg.param_dtype} compute "
+            f"{cfg.dtype}: {cfg.n_params()} parameters, "
+            f"{param_bytes(params)} bytes on the card")
+
+
+def _whisper_inputs(cfg, dev, seed, batch, seq):
+    """Frame embeddings (batch, T_enc, d) float32 and decoder tokens
+    (batch, seq), drawn on the card from ``seed``."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    frames = torch.randn((batch, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device=dev)
+    toks = torch.randint(1, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=dev)
+    return frames, toks
+
+
+def whisper_step_bytes(cfg, params, state, fill: int) -> dict:
+    """The bytes one whisper decode step at ``fill`` must move: the
+    decoder's weights but the cross-attention's wk and wv (read only by
+    ``precompute_cross_kv``), the final norm and the head (of the token
+    and position tables one row each, counted as nothing); the filled
+    self-attention K/V; every layer's cross K/V, read whole."""
+    from repro_torch.models import param_bytes
+
+    layers = params["layers"]
+    weights = (param_bytes(layers) + param_bytes(params["final_norm"])
+               + param_bytes(params["lm_head"])
+               - sum(param_bytes([lp["cross_attn"]["wk"],
+                                  lp["cross_attn"]["wv"]]) for lp in layers))
+    kv = state["kv"]
+    kv_read = 2 * param_bytes(kv["k"]) * (fill + 1) // kv["k"].shape[3]
+    cross = param_bytes(state["cross_k"]) + param_bytes(state["cross_v"])
+    return {"weights": weights, "kv": kv_read, "cross_kv": cross,
+            "bound_ms": (weights + kv_read + cross) / HBM_BYTES_PER_S * 1e3}
+
+
+def _flash_call(dev, gen, b, h, kv, sq, skv, hd, causal, what):
+    """The flash forward at q [b, h, sq, hd] over k/v [b, kv, skv, hd]:
+    held against its plain version in float32 and bfloat16
+    (``check_flash``), then timed in bfloat16 as CUDA-graph replays beside
+    its plain version, SDPA and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    err = check_flash(dev, gen, b, h, kv, sq, skv, hd, causal=causal)
+    q = _normal(gen, (b, h, sq, hd), "bfloat16", dev)
+    k = _normal(gen, (b, kv, skv, hd), "bfloat16", dev)
+    v = _normal(gen, (b, kv, skv, hd), "bfloat16", dev)
+    kern = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: fa.flash_attention_plain(  # noqa: E731
+        q, k, v, causal=causal)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=causal, enable_gqa=kv != h)
+    bnd, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * b * h * hd * _causal_pairs(sq, skv, causal),
+                       BF16_OPS_PER_S)
+    row = dict(max_abs_err=err, ms=graph_ms(kern, 10),
+               plain_ms=graph_ms(plain, 2), bound_ms=bnd, bound_by=by,
+               library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])
+    print(f"time {what}: flash_attention q=[{b}, {h}, {sq}, {hd}] over k/v "
+          f"[{b}, {kv}, {skv}, {hd}] causal={causal} bf16: ms={row['ms']!r} "
+          f"plain_ms={row['plain_ms']!r} bound_ms={bnd!r} ({by}, "
+          f"{bnd / row['ms']:.1%} of it) sdpa_ms={row['library_ms']!r} "
+          f"wrapper_ms={row['wrapper_ms']!r}")
+    return row
+
+
+def _decode_call(dev, gen, b, kv, g, s, fill, hd, what):
+    """The bfloat16 decode kernel at q [b, kv, g, hd] over caches [b, kv,
+    s, hd] at ``fill``, timed as CUDA-graph replays beside its plain
+    version, SDPA over the filled positions and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+
+    q = _normal(gen, (b, kv, g, hd), "bfloat16", dev)
+    kc = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    vc = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+    q4 = q.reshape(b, kv * g, 1, hd)
+    kern = lambda: da.decode_attention_fwd(q, kc, vc, clen)  # noqa: E731
+    plain = lambda: da.decode_attention_plain(q, kc, vc, clen)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kc[:, :, :fill + 1], vc[:, :, :fill + 1], enable_gqa=g > 1)
+    _require(torch.allclose(lib().reshape(q.shape).float(), kern().float(),
+                            rtol=2e-2, atol=2e-2),
+             f"{what}: decode_attention and SDPA disagree")
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
+                       4 * b * kv * g * (fill + 1) * hd, BF16_OPS_PER_S)
+    row = dict(ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50),
+               bound_ms=bnd, bound_by=by, library_ms=graph_ms(lib, 200),
+               wrapper_ms=cuda_ms(kern, 200)[0])
+    print(f"time {what}: decode_attention q=[{b}, {kv}, {g}, {hd}] cache "
+          f"{s} at fill {fill} bf16: ms={row['ms']!r} "
+          f"plain_ms={row['plain_ms']!r} bound_ms={bnd!r} ({by}, "
+          f"{bnd / row['ms']:.1%} of it) sdpa_ms={row['library_ms']!r} "
+          f"wrapper_ms={row['wrapper_ms']!r}")
+    return row
+
+
+def run_path_o0(dev, seed):
+    """O0: the attention kernels at whisper's calls, each against its
+    plain version with the tolerances and relative checks of the other
+    paths, timed as CUDA-graph replays beside SDPA (and SDPA's backward)
+    and its bound: the flash forward without the mask at O1's encoder
+    call (q = k = v [8, 20, 1500, 64]) and cross call (q [8, 20, 32, 64]
+    over k/v [8, 20, 1500, 64]), and causal at its decoder self call; the
+    flash backward without the mask at O3's encoder call ([4, 20, 1500,
+    64]) and cross call (q [4, 20, 448, 64] over k/v [4, 20, 1500, 64]),
+    and causal at its self call; the decode kernel at O2's cross call (q
+    [8, 20, 1, 64] over a [8, 20, 1500, 64] cache at fill 1499) and self
+    call (a 256-position cache), also at split-boundary fills and
+    replayed from a CUDA graph.  Returns the cases by name."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    cfg = _whisper_cfg()
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t, g = cfg.encoder_seq_len, cfg.n_heads // cfg.n_kv_heads
+    gen = torch.Generator(dev).manual_seed(seed + 31)
+    out = {
+        "fwd_encoder": _flash_call(dev, gen, O_BATCH, h, kv, t, t, hd, False,
+                                   "path O1's encoder call"),
+        "fwd_cross": _flash_call(dev, gen, O_BATCH, h, kv, O_PROMPT, t, hd,
+                                 False, "path O1's cross call"),
+        "fwd_self": _flash_call(dev, gen, O_BATCH, h, kv, O_PROMPT,
+                                O_PROMPT, hd, True,
+                                "path O1's decoder self call"),
+        "bwd_encoder": bwd_case(dev, gen, O_TRAIN_BATCH, h, kv, t, hd,
+                                "bfloat16", False),
+        "bwd_cross": bwd_case(dev, gen, O_TRAIN_BATCH, h, kv, O_TRAIN_SEQ,
+                              hd, "bfloat16", False, skv=t),
+        "bwd_self": bwd_case(dev, gen, O_TRAIN_BATCH, h, kv, O_TRAIN_SEQ, hd,
+                             "bfloat16", True)}
+    cache = O_PROMPT + O_GEN
+    split = da.decode_splits(O_BATCH, kv, cache)
+    split_x = da.decode_splits(O_BATCH, kv, t)
+    err = max(
+        check_decode(dev, gen, O_BATCH, kv, g, t, hd,
+                     (0, 4 * split_x - 1, t // split_x, t - 2, t - 1)),
+        check_decode_graph(dev, gen, O_BATCH, kv, g, t, hd, (17, t - 1)),
+        check_decode(dev, gen, O_BATCH, kv, g, cache, hd,
+                     (0, 4 * split - 2, 4 * split - 1, cache - 1)),
+        check_decode_graph(dev, gen, O_BATCH, kv, g, cache, hd,
+                           (31, cache - 1)))
+    out["decode_cross"] = dict(
+        _decode_call(dev, gen, O_BATCH, kv, g, t, t - 1, hd,
+                     "path O2's cross call"), max_abs_err=err)
+    out["decode_self"] = dict(
+        _decode_call(dev, gen, O_BATCH, kv, g, cache, cache - 1, hd,
+                     "path O2's self call at the cache's last fill"),
+        max_abs_err=err)
+    return out
+
+
+def run_path_o1(dev, seed):
+    """O1: whisper-large-v3 prefill at full width and depth in bfloat16
+    (3.21 GB of weights): O_BATCH requests of 1500 frames and an
+    O_PROMPT-token decoder prompt through ``make_prefill_step``, exactly
+    3 x 32 flash launches (32 encoder and 32 cross without the mask, 32
+    decoder self causal).  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = _whisper_cfg(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"{_whisper_header('O1', cfg, params)}, drawn in "
+          f"{time.perf_counter() - t0!r} s")
+    frames, prompts = _whisper_inputs(cfg, dev, seed, O_BATCH, O_PROMPT)
+    prefill = make_prefill_step(cfg, dev)
+    prefill(params, {"inputs": frames[:1], "decoder_tokens":
+                     prompts[:1, :4]})                  # cuBLAS warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, {"inputs": frames, "decoder_tokens": prompts})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _launched("flash_attention_fwd", 3 * cfg.n_layers, "path O1")
+    # the same call again: the first one at these shapes also pays
+    # cuBLAS's first choice of its kernels
+    t0 = time.perf_counter()
+    prefill(params, {"inputs": frames, "decoder_tokens": prompts})
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t0
+    profile_decode_step(lambda: prefill(params, {
+        "inputs": frames, "decoder_tokens": prompts}), "path O1",
+        "one prefill call")
+    _require(tuple(logits.shape) == (O_BATCH, cfg.vocab_size)
+             and bool(torch.isfinite(logits).all()),
+             f"path O1: logits {tuple(logits.shape)} not finite of shape "
+             f"[{O_BATCH}, {cfg.vocab_size}]")
+    print(f"path O1 (prefill): {O_BATCH} requests x ({cfg.encoder_seq_len} "
+          f"frames + {O_PROMPT} decoder tokens) wall_s={wall!r} "
+          f"frames_per_s={O_BATCH * cfg.encoder_seq_len / wall!r} "
+          f"(a second call {again!r} s) "
+          f"launches={{'flash_attention_fwd': {n}}} (a layer pair: encoder "
+          f"and cross without the mask, decoder self causal) "
+          f"logits_absmax={float(logits.float().abs().max())!r}")
+    return {"O1": n}
+
+
+def run_path_o2(dev, seed):
+    """O2: whisper-large-v3 generation at full width and depth in
+    bfloat16: ``encode`` (32 flash launches) and ``precompute_cross_kv``
+    once, then O_PROMPT + O_GEN steps of ``make_serve_step`` in a
+    256-position cache (the prompt teacher-forced, then each step fed the
+    argmax of the one before, on the card: no host sync), exactly 64
+    decode launches a step (32 self, 32 cross).  Then one step's device
+    time as a CUDA-graph replay, its torch ops, one step under
+    ``torch.profiler``, and the bytes a step must move; then the
+    serving agreement (:func:`whisper_serving_agreement`).  Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state, init_params, param_bytes
+    from repro_torch.models.whisper import encode, precompute_cross_kv
+
+    cfg = _whisper_cfg(param_dtype="bfloat16")
+    params = init_params(cfg, seed=seed, device=dev)
+    print(_whisper_header("O2", cfg, params))
+    frames, prompts = _whisper_inputs(cfg, dev, seed, O_BATCH, O_PROMPT)
+    cache = O_PROMPT + O_GEN
+    step = make_serve_step(cfg, dev)
+    with torch.no_grad():                              # cuBLAS warm-up
+        warm = init_decode_state(cfg, 1, 4, dev)
+        warm["cross_k"], warm["cross_v"] = precompute_cross_kv(
+            params, cfg, encode(params, cfg, frames[:1]))
+        step(params, warm, {"inputs": prompts[:1, 0]})
+    del warm
+    state = init_decode_state(cfg, O_BATCH, cache, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state["cross_k"], state["cross_v"] = precompute_cross_kv(
+            params, cfg, encode(params, cfg, frames))
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    launches = {"O2_encode": _launched("flash_attention_fwd", cfg.n_layers,
+                                       "path O2's encode")}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cur, out = None, []
+    for t in range(cache):
+        tok = prompts[:, t] if t < O_PROMPT else cur
+        logits, state = step(params, state, {"inputs": tok})
+        cur = logits.argmax(-1)
+        if t >= O_PROMPT - 1:
+            out.append(cur)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches["O2"] = _launched("decode_attention_fwd",
+                               2 * cfg.n_layers * cache, "path O2")
+    gen_toks = torch.stack(out, 1).cpu()
+    _require(int(state["cache_len"]) == cache
+             and bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()),
+             "path O2: cache_len or generated tokens out of range")
+    print(f"path O2 (generate): encode + precompute_cross_kv of {O_BATCH} x "
+          f"{cfg.encoder_seq_len} frames {enc_s!r} s; {O_BATCH} requests x "
+          f"({O_PROMPT} teacher-forced + {O_GEN} greedy) steps in a {cache}"
+          f"-position cache, decode state {param_bytes(state)} bytes: "
+          f"wall_s={wall!r} ms_per_decode_step={wall / cache * 1e3!r} "
+          f"decode_tokens_per_s={O_BATCH * cache / wall!r} "
+          f"peak_mem_bytes={peak} launches={launches} (a step: "
+          f"{cfg.n_layers} self + {cfg.n_layers} cross decode launches)")
+    print(f"  tokens[0, :16]={np.asarray(gen_toks[0, :16]).tolist()}")
+
+    # one decode step at the cache's last fill: its device time replayed
+    # as a CUDA graph (no host work in it) and the torch ops it dispatches
+    state["cache_len"].fill_(cache - 1)
+    tok = prompts[:, 0]
+    step_ms = graph_ms(lambda: step(params, state, {"inputs": tok}), 1)
+    with _op_counter() as ops:
+        step(params, state, {"inputs": tok})
+    profile_decode_step(lambda: step(params, state, {"inputs": tok}),
+                        "path O2")
+    print(f"  one decode step at fill {cache - 1}: device_ms={step_ms!r} "
+          f"(CUDA graph replay) torch_ops={ops.n} "
+          f"({ops.n / cfg.n_layers!r} a layer) against "
+          f"{wall / cache * 1e3!r} ms a step in O2")
+    moved = whisper_step_bytes(cfg, params, state, cache - 1)
+    print(f"  bytes a decode step must move: weights={moved['weights']} "
+          f"self_kv={moved['kv']} cross_kv={moved['cross_kv']}; "
+          f"bound_ms={moved['bound_ms']!r} at {HBM_BYTES_PER_S:.3g} B/s "
+          f"({moved['bound_ms'] / step_ms:.1%} of the replayed step)")
+    del params, state
+    torch.cuda.empty_cache()
+    whisper_serving_agreement(dev, seed)
+    return launches
+
+
+def whisper_serving_agreement(dev, seed, batch=2, prompt=8, steps=16):
+    """whisper-large-v3 at full width with O_AGREE_LAYERS encoder and
+    decoder layers in float32: the prefill, then ``encode``,
+    ``precompute_cross_kv`` and ``prompt`` teacher-forced + ``steps``
+    greedy decode steps, with the kernels and then with their plain
+    versions on the card: logits within 1e-4, the same tokens.  Then the
+    reference's own property: the decode logits of every step equal the
+    teacher-forced decoder's logits of the same tokens within 2e-2."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.models.layers import logits_fn
+    from repro_torch.models.whisper import (decoder, encode,
+                                            precompute_cross_kv)
+
+    cfg = _whisper_cfg(n_layers=O_AGREE_LAYERS,
+                       n_encoder_layers=O_AGREE_LAYERS, dtype="float32")
+    params = init_params(cfg, seed=seed + 1, device=dev)
+    frames, toks = _whisper_inputs(cfg, dev, seed + 1, batch, prompt)
+
+    def run():
+        logits = [make_prefill_step(cfg, dev)(
+            params, {"inputs": frames, "decoder_tokens": toks})]
+        step = make_serve_step(cfg, dev)
+        state = init_decode_state(cfg, batch, prompt + steps, dev)
+        with torch.no_grad():
+            state["cross_k"], state["cross_v"] = precompute_cross_kv(
+                params, cfg, encode(params, cfg, frames))
+        fed, every, cur = [], [], None
+        for t in range(prompt + steps):
+            tok = toks[:, t] if t < prompt else cur
+            out, state = step(params, state, {"inputs": tok})
+            fed.append(tok)
+            every.append(out)
+            cur = out.argmax(-1)
+            if t >= prompt - 1:
+                logits.append(out)
+        torch.cuda.synchronize()
+        return (torch.stack(logits), torch.stack(fed, 1),
+                torch.stack(every, 1))
+
+    got, got_fed, every = run()
+    with _swapped(_attention_plain()):
+        want, want_fed, _ = run()
+    err = _max_err(got, want)
+    _require(torch.equal(got_fed, want_fed),
+             f"{cfg.name} agreement: greedy tokens differ between the "
+             f"kernels and their plain versions")
+    _require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+             f"{cfg.name} agreement: logits differ by {err} (> 1e-4)")
+    with torch.no_grad():
+        full = logits_fn(params, cfg, decoder(
+            params, cfg, encode(params, cfg, frames), got_fed))
+    drift = _max_err(every, full)
+    _require(torch.allclose(every, full, rtol=2e-2, atol=2e-2),
+             f"{cfg.name} decode vs teacher-forced: logits differ by "
+             f"{drift} (> 2e-2)")
+    print(f"agreement {cfg.name} d_model={cfg.d_model} {O_AGREE_LAYERS} + "
+          f"{O_AGREE_LAYERS} layers float32, prefill {batch} x "
+          f"({cfg.encoder_seq_len} frames + {prompt} tokens), then {prompt} "
+          f"teacher-forced + {steps} greedy decode steps: kernels vs plain "
+          f"versions on the card max_abs_err={err!r} (logits absmax "
+          f"{float(want.abs().max())!r}), tokens equal; decode vs the "
+          f"teacher-forced decoder at all {prompt + steps} positions "
+          f"max_abs_diff={drift!r} (within 2e-2)")
+
+
+def run_path_o3(dev, seed):
+    """O3: whisper-large-v3 training at full width and depth (f32
+    parameters, bf16 compute, remat) through ``make_train_step(...,
+    donate=True)``: one warm-up step, then O_TRAIN_STEPS AdamW steps of
+    O_TRAIN_BATCH x (1500 frames + O_TRAIN_SEQ decoder tokens), exactly
+    192 forward (96, and 96 recomputed by remat) and 96 backward flash
+    launches a step, finite losses, nonzero gradients at the adapter, one
+    encoder wq, one cross wk and the head; then the training agreement
+    (:func:`whisper_train_agreement`).  Returns the launch counts."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, param_bytes
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = _whisper_cfg()
+    held = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=seed, device=dev)
+    opt_state = adamw_init(params)
+    torch.cuda.synchronize()
+    print(f"{_whisper_header('O3', cfg, params)}, "
+          f"{param_bytes(opt_state)} bytes of AdamW state, remat="
+          f"{cfg.remat}")
+    step = make_train_step(cfg, AdamWConfig(warmup_steps=2,
+                                            total_steps=O_TRAIN_STEPS + 1),
+                           dev, donate=True)
+
+    def batch(i):
+        frames, toks = _whisper_inputs(cfg, dev, seed + 100 + i,
+                                       O_TRAIN_BATCH, O_TRAIN_SEQ + 1)
+        return {"inputs": frames, "decoder_tokens": toks[:, :-1],
+                "labels": toks[:, 1:]}
+
+    t0 = time.perf_counter()
+    params, opt_state, m = step(params, opt_state, batch(0))
+    warm = float(m["loss"])
+    warm_s = time.perf_counter() - t0
+    # the first moment after one step is 0.1 x the clipped gradient
+    mu = opt_state["mu"]
+    watched = {"embedding.adapter": mu["embedding"]["adapter"],
+               "enc_layers.0.attn.wq": mu["enc_layers"][0]["attn"]["wq"],
+               "layers.0.cross_attn.wk": mu["layers"][0]["cross_attn"]["wk"],
+               "lm_head.w": mu["lm_head"]["w"]}
+    dead = [k for k, x in watched.items() if not float(x.abs().max()) > 0]
+    _require(math.isfinite(warm) and not dead,
+             f"path O3 warm-up: loss {warm}, zero gradients in {dead}")
+    del mu, watched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    walls = []
+    for i in range(O_TRAIN_STEPS):
+        b = batch(i + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        loss = float(m["loss"])            # syncs: the step's wall is whole
+        walls.append(time.perf_counter() - t0)
+        _require(math.isfinite(loss), f"path O3 step {i + 1}: loss {loss}")
+        print(f"path O3 step {i + 1}: loss={loss!r} lr={float(m['lr'])!r} "
+              f"grad_norm={float(m['grad_norm'])!r} wall_s={walls[-1]!r}")
+    peak = torch.cuda.max_memory_allocated()
+    counts = _build.launch_counts()
+    launches = {k: counts[k] for k in ("flash_attention_fwd",
+                                       "flash_attention_bwd")}
+    calls = cfg.n_encoder_layers + 2 * cfg.n_layers  # encoder, self, cross
+    want = {"flash_attention_fwd": 2 * calls * O_TRAIN_STEPS,
+            "flash_attention_bwd": calls * O_TRAIN_STEPS}
+    _require(launches == want, f"path O3: launches {launches}, want {want}")
+    others = {k: n for k, n in counts.items() if n and k not in launches}
+    _require(not others, f"path O3 launched {others}")
+    mean = sum(walls) / len(walls)
+    profile_train_step(lambda: step(params, opt_state, batch(9)),
+                       "path O3", (("flash_attention_bwd", "flash_bwd"),
+                                   ("flash_attention", "flash_attention")))
+    print(f"path O3: warm-up step {warm_s!r} s (loss {warm!r}), then "
+          f"{O_TRAIN_STEPS} steps of {O_TRAIN_BATCH} x "
+          f"({cfg.encoder_seq_len} frames + {O_TRAIN_SEQ} decoder tokens): "
+          f"mean {mean!r} s a step, decoder_tokens_per_s="
+          f"{O_TRAIN_BATCH * O_TRAIN_SEQ / mean!r} frames_per_s="
+          f"{O_TRAIN_BATCH * cfg.encoder_seq_len / mean!r}; "
+          f"peak_mem_bytes={peak} (of which {held} held before O3) "
+          f"launches={launches} (a step: {2 * calls} forward, {calls} of "
+          f"them recomputed by remat, and {calls} backward); nonzero "
+          f"gradients at the adapter, enc_layers.0.attn.wq, "
+          f"layers.0.cross_attn.wk and lm_head.w")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    whisper_train_agreement(dev, seed)
+    return launches
+
+
+def whisper_train_agreement(dev, seed, batch=2, seq=64):
+    """whisper-large-v3 at full width with O_AGREE_LAYERS encoder and
+    decoder layers (remat), two ``make_train_step`` steps (AdamW lr
+    L2_LR, eps K2_EPS, as L2) with the flash kernels and then with their
+    plain versions swapped in (forward and backward), from the same
+    weights and batches, in float32 and in bfloat16 compute: the losses
+    within 2e-2, every leaf's update over the two steps within
+    L2_UPDATE_REL_TOL by its relative norm (:func:`update_verdict`), and
+    in float32 within K2_TOL of its largest update."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention, init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    plain = [(attention, "flash_attention_fwd", fa.flash_attention_plain),
+             (attention, "flash_attention_bwd", fa.flash_attention_bwd_plain)]
+    opt = AdamWConfig(lr=L2_LR, warmup_steps=1, eps=K2_EPS)
+    calls = 3 * O_AGREE_LAYERS
+    for dtype in ("float32", "bfloat16"):
+        cfg = _whisper_cfg(n_layers=O_AGREE_LAYERS,
+                           n_encoder_layers=O_AGREE_LAYERS, dtype=dtype)
+        params = init_params(cfg, seed=seed + 3, device=dev)
+        batches = []
+        for i in range(2):
+            frames, toks = _whisper_inputs(cfg, dev, seed + 3 + i, batch,
+                                           seq + 1)
+            batches.append({"inputs": frames,
+                            "decoder_tokens": toks[:, :-1],
+                            "labels": toks[:, 1:]})
+        step = make_train_step(cfg, opt, dev)
+        out = []
+        for swap in ([], plain):
+            with _swapped(swap):
+                _build.reset_launches()
+                p, st, losses = params, adamw_init(params), []
+                for b in batches:
+                    p, st, m = step(p, st, b)
+                    losses.append(float(m["loss"]))
+                counts = {k: _build.launch_counts()[k] for k in (
+                    "flash_attention_fwd", "flash_attention_bwd")}
+            want = ({"flash_attention_fwd": 4 * calls,
+                     "flash_attention_bwd": 2 * calls} if not swap
+                    else dict.fromkeys(counts, 0))
+            _require(counts == want, f"path O3 agreement {dtype}: launches "
+                                     f"{counts}, want {want}")
+            out.append((p, losses))
+        (got_p, got_l), (want_p, want_l) = out
+        dloss = max(abs(a - b) for a, b in zip(got_l, want_l))
+        _require(dloss <= 2e-2, f"path O3 agreement {dtype}: losses "
+                                f"{got_l} and {want_l} differ by {dloss}")
+        uv = update_verdict(
+            (name, new.float() - old.float(), ref.float() - old.float())
+            for (name, old), new, ref in zip(_tree.items(params),
+                                             _tree.leaves(got_p),
+                                             _tree.leaves(want_p)))
+        print(f"agreement {cfg.name} training d_model={cfg.d_model} "
+              f"{O_AGREE_LAYERS} + {O_AGREE_LAYERS} layers {dtype}, 2 steps "
+              f"of {batch} x ({cfg.encoder_seq_len} frames + {seq} tokens) "
+              f"(AdamW lr {L2_LR}, eps {K2_EPS}), flash kernels against "
+              f"their plain versions on the card: losses {got_l!r} vs "
+              f"{want_l!r} (|diff| {dloss!r}, within 2e-2); updates within "
+              f"{uv['max_rel']!r} of the largest (worst {uv['max_rel_at']}"
+              f"{'' if dtype == 'bfloat16' else f', held to {K2_TOL}'}), "
+              f"relative norm by leaf {uv['rel_norm']!r} (worst "
+              f"{uv['rel_norm_at']}, held to {L2_UPDATE_REL_TOL})")
+        _require(uv["rel_ok"], f"path O3 agreement {dtype}: "
+                               f"{uv['rel_norm_at']}'s update differs by a "
+                               f"relative norm of {uv['rel_norm']:.3g} "
+                               f"(> {L2_UPDATE_REL_TOL})")
+        _require(dtype != "float32" or uv["max_rel"] <= K2_TOL,
+                 f"path O3 agreement {dtype}: {uv['max_rel_at']}'s update "
+                 f"differs by {uv['max_rel']:.3g} of its largest "
+                 f"(> {K2_TOL})")
+        del params, got_p, want_p, out
+
+
+def whisper_rows(o0, launches) -> list:
+    """The attention kernels' rows at whisper's calls (O0's cases), with
+    the launches of O1-O3 (``launches`` by part; a part that did not run
+    counts none): the forward at O1's encoder call, the backward at O3's
+    encoder call, the decode kernel at O2's cross call, each with all its
+    whisper calls under ``whisper``."""
+    def fields(case):
+        return {k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "wrapper_ms")}
+
+    def count(part, key):
+        return (launches.get(part) or {}).get(key, 0)
+
+    fwd = {"O1": count("O1", "O1"), "O2": count("O2", "O2_encode"),
+           "O3": count("O3", "flash_attention_fwd")}
+    bwd = {"O3": count("O3", "flash_attention_bwd")}
+    dec = {"O2": count("O2", "O2")}
+    return [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+             replaces="src/repro/kernels/flash_attention.py:73",
+             launches=sum(fwd.values()), launches_by_path=fwd,
+             **fields(o0["fwd_encoder"]),
+             whisper={k: fields(o0[k]) for k in ("fwd_encoder", "fwd_cross",
+                                                 "fwd_self")}),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+             replaces="src/repro/kernels/ops.py:48",
+             launches=sum(bwd.values()), launches_by_path=bwd,
+             **fields(o0["bwd_encoder"]),
+             whisper={k: fields(o0[k]) for k in ("bwd_encoder", "bwd_cross",
+                                                 "bwd_self")}),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:65",
+             launches=sum(dec.values()), launches_by_path=dec,
+             **fields(o0["decode_cross"]),
+             whisper={k: fields(o0[k]) for k in ("decode_cross",
+                                                 "decode_self")})]
+
+
 #: ``--paths``' names in the order of the full run: a letter names the
-#: path with all its parts, C1, C2, J1, J2, K0-K3 and L0-L2 one part
+#: path with all its parts, C1, C2, J1, J2, K0-K3, L0-L2 and O0-O3 one
+#: part
 PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "M", "N",
-              "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2")
+              "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2", "O0",
+              "O1", "O2", "O3")
 
 
 def select_paths(spec: str):
@@ -4629,7 +5290,7 @@ def select_paths(spec: str):
            and not any(p.startswith(x) for p in PATH_NAMES)]
     if bad or not want:
         raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
-                         f"{', '.join(PATH_NAMES)} or a letter A-N")
+                         f"{', '.join(PATH_NAMES)} or a letter A-O")
     return [p for p in PATH_NAMES
             if any(p == x or (len(x) == 1 and p.startswith(x))
                    for x in want)]
@@ -4675,6 +5336,10 @@ def run_named_paths(dev, seed, names) -> dict:
         "L0": lambda: run_path_l0(dev, seed),
         "L1": lambda: run_path_l1(dev, seed),
         "L2": lambda: run_path_l2(dev, seed),
+        "O0": lambda: run_path_o0(dev, seed),
+        "O1": lambda: run_path_o1(dev, seed),
+        "O2": lambda: run_path_o2(dev, seed),
+        "O3": lambda: run_path_o3(dev, seed),
     }
     for name in names:
         t0 = time.perf_counter()
@@ -5057,7 +5722,22 @@ def kernel_rows(dev, seed, out, errs) -> list:
     kernels.append(wkv_row(dev, seed, dict(
         launches_e, L1=launches_l["rwkv6_wkv_fwd"]), errs))
     kernels.append(wkv_bwd_row(out["L0"], launches_l["rwkv6_wkv_bwd"]))
+    merge_whisper_rows(kernels, whisper_rows(out["O0"], out))
     return kernels
+
+
+def merge_whisper_rows(kernels, rows) -> None:
+    """Path O's launches and calls into the full run's attention rows:
+    each row's launches grow by O's, its error by O's worst, and its
+    whisper calls stand under ``whisper``."""
+    by_name = {k["name"]: k for k in kernels}
+    for row in rows:
+        kern = by_name[row["name"]]
+        kern["launches"] += row["launches"]
+        kern.setdefault("launches_by_path", {}).update(
+            row["launches_by_path"])
+        kern["max_abs_err"] = max(kern["max_abs_err"], row["max_abs_err"])
+        kern["whisper"] = row["whisper"]
 
 
 def print_rows(kernels) -> None:
@@ -5117,6 +5797,14 @@ def print_rows(kernels) -> None:
                   f"library_ms={kern['library_ms_j2']!r} "
                   f"wrapper_ms={kern['wrapper_ms_j2']!r} "
                   f"launches={kern['launches_by_path']}")
+        for case, c in kern.get("whisper", {}).items():
+            print(f"kernel {kern['name']} at whisper's {case} call (path "
+                  f"O): ms={c['ms']!r} plain_ms={c['plain_ms']!r} "
+                  f"bound_ms={c['bound_ms']!r} ({c['bound_by']}, "
+                  f"{c['bound_ms'] / c['ms']:.1%} of it) "
+                  f"library_ms={c['library_ms']!r} "
+                  f"wrapper_ms={c['wrapper_ms']!r} "
+                  f"max_abs_err={c['max_abs_err']!r}")
         if "ms_decode" in kern:
             print(f"kernel {kern['name']} at one decode step: "
                   f"ms={kern['ms_decode']!r} "
@@ -5181,11 +5869,13 @@ def main(argv=None) -> int:
     out = run_named_paths(dev, args.seed, names)
     if full:
         kernels = kernel_rows(dev, args.seed, out, errs)
-    elif "L0" in out:
-        kernels = [wkv_bwd_row(out["L0"], out["L1"]["rwkv6_wkv_bwd"]
-                               if "L1" in out else None)]
     else:
         kernels = []
+        if "L0" in out:
+            kernels.append(wkv_bwd_row(out["L0"], out["L1"]["rwkv6_wkv_bwd"]
+                                       if "L1" in out else None))
+        if "O0" in out:
+            kernels += whisper_rows(out["O0"], out)
     print_rows(kernels)
     if full:
         z = torch.zeros(1, device=dev)

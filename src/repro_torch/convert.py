@@ -200,8 +200,9 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
 
     The reference stacks the layers on a leading dim (``layers.attn.wq``
     is (L, d, H, hd); a hybrid model's ``layers.sub{j}.mix.w_in`` is
-    stacked over its periods); the port keeps a list of per-layer dicts,
-    layer ``p * period + j`` for period ``p``'s ``sub{j}``.  Leaf shapes
+    stacked over its periods; whisper's ``enc_layers.*`` over its encoder
+    layers); the port keeps a list of per-layer dicts, layer ``p * period
+    + j`` for period ``p``'s ``sub{j}``.  Leaf shapes
     are checked against ``cfg``: ``wq`` (d, H, hd), ``wo`` (H, hd, d), a
     MoE layer's ``wi`` (E, d, f) and so on.  A MoE router stays float32
     whatever ``param_dtype`` is, as the reference draws it: routing on
@@ -251,7 +252,12 @@ def _layers_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
                 out[k] = leaf(f"{prefix}{k}", v if layer is None else v[layer])
         return out
 
-    out = {k: walk(f"{k}.", v) for k, v in tree.items() if k != "layers"}
+    stacked = ("layers", "enc_layers")
+    out = {k: walk(f"{k}.", v) if isinstance(v, Mapping) else leaf(k, v)
+           for k, v in tree.items() if k not in stacked}
+    if cfg.encoder_decoder:
+        out["enc_layers"] = [walk(f"enc_layers.{i}.", tree["enc_layers"], i)
+                             for i in range(cfg.n_encoder_layers)]
     period = (cfg.attn_layer_period
               if cfg.attn_layer_period > 0 and not cfg.rwkv else 0)
     if period:      # layers.sub{j}.*[p] -> layer p * period + j
@@ -265,9 +271,11 @@ def _layers_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
     # in a checkpoint; the port's tree keeps them as empty dicts
     for k in ("final_norm", "lm_head"):
         out.setdefault(k, {})
-    for lp in out["layers"]:
-        lp.setdefault("ln1", {})
-        lp.setdefault("ln2", {})
+    for lp in out["layers"] + out.get("enc_layers", []):
+        for ln in ("ln1", "ln2") + (("ln3",) if "cross_attn" in lp else ()):
+            lp.setdefault(ln, {})
+    if cfg.encoder_decoder:
+        out.setdefault("enc_norm", {})
     missing = set(shapes) - set(_names(out))
     if missing:
         raise ValueError(f"parameters missing from the tree: "

@@ -19,6 +19,7 @@ from repro_torch.models import (ArchConfig, forward,
 from repro_torch.models.layers import embed_inputs, logits_fn
 from repro_torch.models.transformer import (backbone, check_ported,
                                             check_trainable)
+from repro_torch.models.whisper import decoder, encode
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
@@ -35,7 +36,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     (``models.forward``, one backward pass), then ``adamw_update``.
     ``batch`` holds ``inputs`` and ``labels`` (B, S) token ids, tensors or
     arrays (the data pipeline's numpy batches), and optionally
-    ``positions`` and ``mask``; the step moves them to the device.
+    ``positions`` and ``mask``; whisper's holds ``inputs`` (B, T_enc, d)
+    frame embeddings, ``decoder_tokens`` and ``labels`` (B, S) and
+    optionally ``mask``; the step moves them to the device.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``lr`` and ``grad_norm``
     as tensors on the device (the step never syncs the host).  The given
     parameters and state are left as they were, unless ``donate``: then,
@@ -45,7 +48,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     runs the flash forward kernel (twice with ``cfg.remat``: once more
     when the backward recomputes the layer) and the flash backward kernel
     once; every RWKV layer's recurrence the WKV forward kernel (twice
-    with ``cfg.remat``) and the WKV backward kernel once."""
+    with ``cfg.remat``) and the WKV backward kernel once.  Whisper
+    launches three flash forwards a layer pair (the encoder layer's
+    self-attention without the mask, the decoder layer's causal
+    self-attention and its cross-attention without the mask), each twice
+    with ``cfg.remat``, and three flash backwards: at whisper-large-v3's
+    32 + 32 layers, 192 forward and 96 backward launches a step."""
     check_trainable(cfg)
     dev = resolve_device(device)
 
@@ -74,9 +82,25 @@ def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
     a hybrid one) runs on the flash-attention kernel, every RWKV layer's
     recurrence on the WKV kernel (one launch a layer); the expert
     dispatch and the Mamba scan are plain PyTorch, as the reference's are
-    jnp."""
+    jnp.
+
+    Whisper's batch is ``inputs`` (B, T_enc, d) frame embeddings and
+    ``decoder_tokens`` (B, S): the encoder, then the teacher-forced
+    decoder over the prompt, three flash launches a layer pair (encoder
+    self-attention and cross-attention without the mask, decoder
+    self-attention causal).  Like the reference's, it leaves the decode
+    caches empty."""
     check_ported(cfg)
     dev = resolve_device(device)
+
+    if cfg.encoder_decoder:
+        @torch.no_grad()
+        def prefill_whisper(params: Dict, batch: Dict) -> torch.Tensor:
+            frames = torch.as_tensor(batch["inputs"], device=dev)
+            enc = encode(params, cfg, frames)
+            h = decoder(params, cfg, enc, _ids(batch["decoder_tokens"], dev))
+            return logits_fn(params, cfg, h[:, -1:, :])[:, 0, :]
+        return prefill_whisper
 
     @torch.no_grad()
     def prefill(params: Dict, batch: Dict) -> torch.Tensor:

@@ -3,9 +3,9 @@
 ``ArchConfig`` carries every field and default of the reference's, so a
 config of either package compares with the other field for field
 (``dataclasses.asdict``).  The port runs the dense, token-input family
-RWKV-6 (``rwkv=True``), mixture-of-experts layers (``moe=True``) and
-the hybrid Mamba family (``attn_layer_period > 0``); the model functions
-raise :class:`NotPortedError` for encoder-decoder configs.
+RWKV-6 (``rwkv=True``), mixture-of-experts layers (``moe=True``), the
+hybrid Mamba family (``attn_layer_period > 0``) and the encoder-decoder
+family (``encoder_decoder=True``: whisper).
 
 Parameters are drawn on the run's device from an explicit
 ``torch.Generator``, directly in ``param_dtype``.  Those draws never equal

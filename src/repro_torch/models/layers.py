@@ -11,6 +11,7 @@ reference leaves them to XLA.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -106,6 +107,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, rope_tables(positions, cfg))
 
 
+def sinusoidal_positions(seq_len: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-encoder style fixed sinusoids (T, d) in float32 on
+    ``device``: the sines of ``pos / 10000 ** (2i / d)`` for the d / 2
+    frequencies, then their cosines."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(-math.log(10000.0) * torch.arange(
+        0, d, 2, dtype=torch.float32, device=device) / d)
+    ang = pos * div[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU or GELU)
 # ---------------------------------------------------------------------------
@@ -141,8 +153,8 @@ def apply_mlp(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _tokens_only(cfg: ArchConfig) -> None:
     if cfg.input_mode != "tokens":
-        raise NotPortedError(f"input_mode={cfg.input_mode!r} (the VLM/audio "
-                             f"front end) is not yet ported to repro_torch")
+        raise NotPortedError(f"input_mode={cfg.input_mode!r} (the VLM front "
+                             f"end) is not yet ported to repro_torch")
 
 
 def init_embedding(cfg: ArchConfig, *,
@@ -161,9 +173,16 @@ def embed_inputs(p: Dict, cfg: ArchConfig, inputs: torch.Tensor
     return p["table"][inputs.long()].to(cfg.adtype)
 
 
+def tied_head(cfg: ArchConfig) -> bool:
+    """Whether the logits read the embedding table: ``tie_embeddings`` ties
+    the head only where the inputs are tokens, as in the reference (an
+    embeddings front end has no table; whisper's head is its own)."""
+    return cfg.tie_embeddings and cfg.input_mode == "tokens"
+
+
 def init_lm_head(cfg: ArchConfig, *,
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    if cfg.tie_embeddings:
+    if tied_head(cfg):
         return {}
     return {"w": scaled_normal((cfg.d_model, cfg.vocab_size), cfg.d_model,
                                cfg.pdtype, generator=generator)}
@@ -171,7 +190,7 @@ def init_lm_head(cfg: ArchConfig, *,
 
 def logits_fn(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.adtype
-    if cfg.tie_embeddings:
+    if tied_head(cfg):
         return x @ params["embedding"]["table"].to(dt).T
     return x @ params["lm_head"]["w"].to(dt)
 

@@ -1,6 +1,8 @@
-"""Decoder-only model assembly: init, the prefill backbone, the one-token
-serve step and the training loss of the dense, MoE, hybrid Mamba and
-RWKV-6 families.
+"""Model assembly: init, the prefill backbone, the one-token serve step
+and the training loss of the dense, MoE, hybrid Mamba and RWKV-6
+families, and the dispatch to the encoder-decoder family
+(``models.whisper``) where ``cfg.encoder_decoder``, as the reference
+dispatches.
 
 The reference scans one stacked set of layer weights (jamba: one stacked
 set of 8-layer periods); the port keeps the layers as a flat list of
@@ -13,9 +15,9 @@ the reference's ``sub{i % period}`` of period ``i // period``.
   layer of each period (``is_attn_layer``), a Mamba block on the others,
   ``ffn`` a mixture of experts on every ``moe_every``-th layer;
 - RWKV-6: ``{ln1, tm, ln2, cm}``, the recurrence on the WKV kernels.
-The encoder-decoder branch raises :class:`NotPortedError`, as do the
-embeddings front end, M-RoPE, the tailed decode and RWKV's
-``wkv_impl="kernel_stub"``.
+The embeddings front end of a decoder-only model (the VLM), M-RoPE, the
+tailed decode and RWKV's ``wkv_impl="kernel_stub"`` raise
+:class:`NotPortedError`.
 
 ``forward`` is the training loss (the token-mean cross-entropy plus
 ``AUX_LOSS_COEF`` times the summed MoE auxiliary loss); with
@@ -40,13 +42,16 @@ from .attention import (attention_block, decode_attention, init_attention,
 from .base import ArchConfig, NotPortedError
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_inputs,
                      init_embedding, init_lm_head, init_mlp, init_norm,
-                     logits_fn, rope_tables)
+                     logits_fn, rope_tables, tied_head)
 from .mamba import (init_mamba, init_mamba_state, mamba_block,
                     mamba_decode_step, mamba_shapes)
 from .moe import apply_moe, init_moe
 from .rwkv6 import (LORA_RANK, _dims, init_rwkv_channel_mix,
                     init_rwkv_state, init_rwkv_time_mix, rwkv_channel_mix,
                     rwkv_time_mix)
+from .whisper import (WHISPER_MAX_TARGET_POSITIONS, init_whisper,
+                      init_whisper_decode_state, whisper_forward,
+                      whisper_serve_step)
 
 #: the weight of the MoE auxiliary loss in the training loss
 AUX_LOSS_COEF = 0.01
@@ -55,13 +60,13 @@ AUX_LOSS_COEF = 0.01
 def check_ported(cfg: ArchConfig) -> None:
     """Raise :class:`NotPortedError` naming the first option of ``cfg``
     that this slice does not carry."""
-    for flag, what in ((cfg.encoder_decoder, "the encoder-decoder family "
-                        "(whisper)"),
-                       (cfg.rwkv and cfg.wkv_impl != "scan",
+    for flag, what in ((cfg.rwkv and cfg.wkv_impl != "scan",
                         f"wkv_impl={cfg.wkv_impl!r} (the reference's roofline "
                         f"stand-in for the WKV kernel)"),
-                       (cfg.input_mode != "tokens", f"input_mode="
-                        f"{cfg.input_mode!r}"),
+                       (cfg.input_mode != "tokens"
+                        and not cfg.encoder_decoder, f"input_mode="
+                        f"{cfg.input_mode!r} in a decoder-only model (the "
+                        f"VLM front end)"),
                        (bool(cfg.mrope_sections), "M-RoPE"),
                        (cfg.decode_tail_window > 0, "the tailed decode "
                         "(decode_tail_window > 0)")):
@@ -81,7 +86,7 @@ def check_trainable(cfg: ArchConfig) -> None:
     it does not carry at all (:func:`check_ported`), and the MoE and
     hybrid families, which it serves but does not yet train (gradients
     through the expert dispatch and the selective scan are the next
-    slice).  Dense models and RWKV-6 it trains."""
+    slice).  Dense models, RWKV-6 and whisper it trains."""
     check_ported(cfg)
     for flag, what in ((cfg.moe, "training mixture-of-experts layers"),
                        (_hybrid(cfg), "training the hybrid Mamba family")):
@@ -112,7 +117,10 @@ def _mix_key(cfg: ArchConfig) -> str:
 def attention_layers(cfg: ArchConfig) -> List[int]:
     """The indices of the attention layers (each holds one slice of the
     KV cache and launches the attention kernels): every layer of a dense
-    or MoE model, one a period of a hybrid one, none of RWKV."""
+    or MoE model, one a period of a hybrid one, none of RWKV, every
+    decoder layer of whisper."""
+    if cfg.encoder_decoder:
+        return list(range(cfg.n_layers))
     if cfg.rwkv:
         return []
     return [i for i in range(cfg.n_layers) if _kinds(cfg, i)[0] == "attn"]
@@ -126,9 +134,24 @@ def _mlp_shapes(cfg: ArchConfig, f: int, prefix: str):
     return out
 
 
+def _attn_shapes(cfg: ArchConfig, prefix: str):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {f"{prefix}wq": (d, h, hd), f"{prefix}wk": (d, kv, hd),
+           f"{prefix}wv": (d, kv, hd), f"{prefix}wo": (h, hd, d)}
+    if cfg.qk_norm:
+        out.update({f"{prefix}q_norm": (hd,), f"{prefix}k_norm": (hd,)})
+    return out
+
+
+def _norm_shapes(cfg: ArchConfig, prefix: str):
+    d = cfg.d_model
+    names = {"rmsnorm": ("scale",), "layernorm": ("scale", "bias"),
+             "nonparametric_ln": ()}[cfg.norm_type]
+    return {f"{prefix}{k}": (d,) for k in names}
+
+
 def _layer_shapes(cfg: ArchConfig, i: int) -> Dict[str, Tuple[int, ...]]:
     d, f = cfg.d_model, cfg.d_ff
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.rwkv:
         rh, rhd = _dims(cfg)
         layer = {f"tm.w_{n}": (d, d) for n in "rkvgo"}
@@ -139,12 +162,8 @@ def _layer_shapes(cfg: ArchConfig, i: int) -> Dict[str, Tuple[int, ...]]:
                       "cm.mix": (2, d)})
         return layer
     mixer, ffn = _kinds(cfg, i)
-    key = _mix_key(cfg)
     if mixer == "attn":
-        layer = {f"{key}.wq": (d, h, hd), f"{key}.wk": (d, kv, hd),
-                 f"{key}.wv": (d, kv, hd), f"{key}.wo": (h, hd, d)}
-        if cfg.qk_norm:
-            layer.update({f"{key}.q_norm": (hd,), f"{key}.k_norm": (hd,)})
+        layer = _attn_shapes(cfg, f"{_mix_key(cfg)}.")
     else:
         layer = {f"mix.{k}": s for k, s in mamba_shapes(cfg).items()}
     if ffn == "moe":
@@ -163,19 +182,40 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Every parameter's shape by dotted name (layer ``i`` as
     ``layers.i.``), the counterpart of the reference's ``eval_shape``."""
     check_ported(cfg)
+    if cfg.encoder_decoder:
+        return _whisper_shapes(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    norm = {"rmsnorm": {"scale": (d,)},
-            "layernorm": {"scale": (d,), "bias": (d,)},
-            "nonparametric_ln": {}}[cfg.norm_type]
     out = {"embedding.table": (v, d)}
     for i in range(cfg.n_layers):
         layer = _layer_shapes(cfg, i)
-        for ln in ("ln1", "ln2"):
-            layer.update({f"{ln}.{k}": s for k, s in norm.items()})
+        for ln in ("ln1.", "ln2."):
+            layer.update(_norm_shapes(cfg, ln))
         out.update({f"layers.{i}.{k}": s for k, s in layer.items()})
-    out.update({f"final_norm.{k}": s for k, s in norm.items()})
-    if not cfg.tie_embeddings:
+    out.update(_norm_shapes(cfg, "final_norm."))
+    if not tied_head(cfg):
         out["lm_head.w"] = (d, v)
+    return out
+
+
+def _whisper_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Whisper's shapes (``enc_layers.i.`` and ``layers.i.`` for layer
+    ``i``), as the reference's ``init_whisper`` draws them."""
+    d, v = cfg.d_model, cfg.vocab_size
+    enc = {**_norm_shapes(cfg, "ln1."), **_attn_shapes(cfg, "attn."),
+           **_norm_shapes(cfg, "ln2."), **_mlp_shapes(cfg, cfg.d_ff, "mlp.")}
+    dec = {**_norm_shapes(cfg, "ln1."), **_attn_shapes(cfg, "self_attn."),
+           **_norm_shapes(cfg, "ln2."), **_attn_shapes(cfg, "cross_attn."),
+           **_norm_shapes(cfg, "ln3."), **_mlp_shapes(cfg, cfg.d_ff, "mlp.")}
+    out = {"embedding.adapter": (d, d)}
+    for i in range(cfg.n_encoder_layers):
+        out.update({f"enc_layers.{i}.{k}": s for k, s in enc.items()})
+    out.update(_norm_shapes(cfg, "enc_norm."))
+    out["dec_embed"] = (v, d)
+    out["dec_pos"] = (WHISPER_MAX_TARGET_POSITIONS, d)
+    for i in range(cfg.n_layers):
+        out.update({f"layers.{i}.{k}": s for k, s in dec.items()})
+    out.update(_norm_shapes(cfg, "final_norm."))
+    out["lm_head.w"] = (d, v)
     return out
 
 
@@ -201,10 +241,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     ``cfg.param_dtype`` (a MoE router in float32).  ``params["layers"]``
     is a list of per-layer dicts ``{"ln1", "attn", "ln2", "ffn"}`` (dense,
     MoE), ``{"ln1", "mix", "ln2", "ffn"}`` (hybrid) or ``{"ln1", "tm",
-    "ln2", "cm"}`` (RWKV)."""
+    "ln2", "cm"}`` (RWKV); whisper's tree is ``models.whisper``'s."""
     check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.encoder_decoder:
+        return init_whisper(cfg, gen, dev)
     params: Dict[str, Any] = {"embedding": init_embedding(cfg, generator=gen)}
     params["layers"] = [_init_layer(cfg, i, gen, dev)
                         for i in range(cfg.n_layers)]
@@ -292,7 +334,12 @@ def backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
     Differentiable: with gradients on and ``cfg.remat``, each layer runs
     under ``torch.utils.checkpoint`` (non-reentrant), so the backward
     keeps only each layer's input and recomputes the layer, its attention
-    or WKV forward included."""
+    or WKV forward included.  Whisper's decoder reads the encoder's
+    output besides: ``models.whisper.decoder``."""
+    if cfg.encoder_decoder:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model has no "
+                         f"decoder-only backbone; use "
+                         f"models.whisper.decoder")
     return _backbone(params, cfg, x, positions)[0]
 
 
@@ -303,8 +350,11 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict
     RWKV reads none) and ``batch["mask"]`` (B, S), all tensors on the
     parameters' device.  Returns ``(loss, {"ce", "aux"})``: the
     token-mean cross-entropy plus ``AUX_LOSS_COEF`` times the MoE
-    auxiliary loss summed over the layers (0 without MoE layers)."""
+    auxiliary loss summed over the layers (0 without MoE layers).
+    Whisper's batch and loss are ``models.whisper.whisper_forward``'s."""
     check_ported(cfg)
+    if cfg.encoder_decoder:
+        return whisper_forward(params, cfg, batch)
     inputs = batch["inputs"]
     b, s = inputs.shape[0], inputs.shape[1]
     positions = batch.get("positions")
@@ -330,9 +380,12 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     period of a hybrid one), a hybrid model's ``"mamba"``: a list of
     ``{"h", "conv"}``, one a Mamba layer in layer order; or RWKV's
     ``{"cache_len", "rwkv": [per layer {"tm_shift", "wkv", "cm_shift"}]}``
-    (a constant-size state; ``max_len`` is unused)."""
+    (a constant-size state; ``max_len`` is unused); whisper's is
+    ``models.whisper.init_whisper_decode_state``'s."""
     check_ported(cfg)
     dev = resolve_device(device)
+    if cfg.encoder_decoder:
+        return init_whisper_decode_state(cfg, batch, max_len, dev)
     state: Dict[str, Any] = {
         "cache_len": torch.zeros((), dtype=torch.int32, device=dev)}
     if cfg.rwkv:
@@ -357,9 +410,12 @@ def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
     ``new_state["cache_len"]`` one more.  A Mamba layer writes its SSM
     state and conv window in place, an RWKV layer its shift and WKV
     state.  ``cache_len`` stays on the device: the step never syncs the
-    host (the MoE dispatch included).
+    host (the MoE dispatch included).  Whisper's step is
+    ``models.whisper.whisper_serve_step``.
     """
     check_ported(cfg)
+    if cfg.encoder_decoder:
+        return whisper_serve_step(params, cfg, state, batch)
     inputs = batch["inputs"]
     if inputs.dim() == 1:
         inputs = inputs[:, None]

@@ -598,6 +598,81 @@ def test_model_on_the_card_matches_the_cpu(cuda, arch):
     assert int(states[0]["cache_len"]) == 6
 
 
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """whisper SMOKE in float32: prefill, then the encoder, the cross K/V
+    and six decode steps on the card (flash and decode kernels) against
+    the same weights on the CPU (plain versions)."""
+    from repro_torch import _tree
+    from repro_torch.models.whisper import encode, precompute_cross_kv
+
+    cfg = dataclasses.replace(configs.get("whisper-large-v3", smoke=True),
+                              dtype="float32")
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    params = _tree.tree_map(lambda t: t.to(cuda), cpu_params)
+    rng = np.random.default_rng(7)
+    frames = rng.standard_normal((2, cfg.encoder_seq_len, cfg.d_model),
+                                 dtype=np.float32)
+    toks = rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
+    batch = {"inputs": frames, "decoder_tokens": toks}
+    torch.testing.assert_close(
+        make_prefill_step(cfg, cuda)(params, batch).cpu(),
+        make_prefill_step(cfg, "cpu")(cpu_params, batch),
+        rtol=1e-5, atol=1e-5)
+    states, steps = [], []
+    for p, d in ((params, cuda), (cpu_params, "cpu")):
+        st = init_decode_state(cfg, 2, 8, d)
+        with torch.no_grad():
+            st["cross_k"], st["cross_v"] = precompute_cross_kv(
+                p, cfg, encode(p, cfg, torch.tensor(frames, device=d)))
+        states.append(st)
+        steps.append(make_serve_step(cfg, d))
+    torch.testing.assert_close(states[0]["cross_k"].cpu(),
+                               states[1]["cross_k"], rtol=1e-5, atol=1e-5)
+    before = decode_attention_fwd.launches
+    for t in range(6):
+        (got, states[0]), (want, states[1]) = (
+            step(p, st, {"inputs": toks[:, t]})
+            for step, p, st in zip(steps, (params, cpu_params), states))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert decode_attention_fwd.launches == before + 6 * 2 * cfg.n_layers
+    assert int(states[0]["cache_len"]) == 6
+
+
+def test_whisper_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two AdamW steps of whisper SMOKE in float32 (remat on) on the card
+    (flash forward and backward, the masks off and on) against the CPU
+    (plain versions)."""
+    from repro_torch import _tree
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(configs.get("whisper-large-v3", smoke=True),
+                              dtype="float32", remat=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4, eps=1e-6)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    card = _tree.tree_map(lambda t: t.to(cuda), cpu)
+    params, states = [card, cpu], [adamw_init(card), adamw_init(cpu)]
+    steps = [make_train_step(cfg, opt, d) for d in (cuda, "cpu")]
+    rng = np.random.default_rng(8)
+    for _ in range(2):
+        batch = {"inputs": rng.standard_normal(
+                     (2, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32),
+                 "decoder_tokens": rng.integers(0, cfg.vocab_size, (2, 12)),
+                 "labels": rng.integers(0, cfg.vocab_size, (2, 12))}
+        before = flash_attention_bwd.launches
+        out = [step(p, st, batch)
+               for step, p, st in zip(steps, params, states)]
+        assert flash_attention_bwd.launches == before + (
+            cfg.n_encoder_layers + 2 * cfg.n_layers)
+        params = [o[0] for o in out]
+        states = [o[1] for o in out]
+        torch.testing.assert_close(out[0][2]["loss"].cpu(), out[1][2]["loss"],
+                                   rtol=1e-4, atol=1e-4)
+        for (name, g), w in zip(_tree.items(params[0]),
+                                _tree.leaves(params[1])):
+            scale = max(float(w.abs().max()), 1.0)
+            assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, name
+
+
 def _lag_inputs(seed, b, n, masked, mask_dtype, assign_dtype, dev):
     """A row batch over 2n + 2 bins with bins that several partitions
     share, unassigned (-1) and out-of-range names; ``active`` is one step

@@ -34,6 +34,7 @@ LLM = configs.get("qwen3-8b", smoke=True)
 RWKV = configs.get("rwkv6-3b", smoke=True)
 MOE = configs.get("qwen2-moe-a2.7b", smoke=True)
 HYBRID = configs.get("jamba-v0.1-52b", smoke=True)
+WHISPER = configs.get("whisper-large-v3", smoke=True)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "repro")
@@ -112,6 +113,12 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: SharedModel(HYBRID),
     lambda: init_decode_state(HYBRID, 1, 4),
     lambda: params_from_numpy({}, HYBRID),
+    lambda: init_params(WHISPER),
+    lambda: make_prefill_step(WHISPER),
+    lambda: make_serve_step(WHISPER),
+    lambda: make_train_step(WHISPER, AdamWConfig()),
+    lambda: init_decode_state(WHISPER, 1, 4),
+    lambda: params_from_numpy({}, WHISPER),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
@@ -126,7 +133,10 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
         "moe-make_prefill_step", "moe-make_serve_step", "moe-SharedModel",
         "hybrid-init_params", "hybrid-make_prefill_step",
         "hybrid-SharedModel", "hybrid-init_decode_state",
-        "hybrid-params_from_numpy"))
+        "hybrid-params_from_numpy", "whisper-init_params",
+        "whisper-make_prefill_step", "whisper-make_serve_step",
+        "whisper-make_train_step", "whisper-init_decode_state",
+        "whisper-params_from_numpy"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):

@@ -28,6 +28,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch._tree import items as _tree_items  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_train_step)
@@ -41,9 +42,10 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 ARCHS = ("qwen3-8b", "olmo-1b", "granite-3-8b")
 #: archs whose layers are not [attention + MLP]; the family-agnostic
 #: tests take them too (``tests/test_torch_rwkv.py``,
-#: ``test_torch_moe.py`` and ``test_torch_hybrid.py`` hold the rest)
+#: ``test_torch_moe.py``, ``test_torch_hybrid.py`` and
+#: ``test_torch_whisper.py`` hold the rest)
 OTHER_ARCHS = ("rwkv6-3b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
-               "jamba-v0.1-52b")
+               "jamba-v0.1-52b", "whisper-large-v3")
 #: compute dtype, parameter dtype
 DTYPES = {"f32": ("float32", "float32"), "bf16": ("bfloat16", "float32"),
           "bf16-params": ("bfloat16", "bfloat16")}
@@ -125,6 +127,10 @@ def test_param_count_and_shapes_match_reference(arch):
             for p in range(tcfg.n_layers // period):
                 ref[f"layers.{p * period + int(j)}.{rest}"] = tuple(
                     leaf.shape[1:])
+        elif name.startswith("enc_layers."):
+            for i in range(tcfg.n_encoder_layers):
+                ref["enc_layers." + str(i) + name[10:]] = tuple(
+                    leaf.shape[1:])
         elif name.startswith("layers."):
             for i in range(tcfg.n_layers):
                 ref["layers." + str(i) + name[6:]] = tuple(leaf.shape[1:])
@@ -154,12 +160,26 @@ def test_init_params_draws_truncated_scaled_normals(arch):
 @pytest.mark.parametrize("opt", [
     dict(moe=True, n_experts=4, experts_per_token=2, decode_tail_window=4),
     dict(rwkv=True, wkv_impl="kernel_stub"), dict(mrope_sections=(2, 3, 3)),
-    dict(encoder_decoder=True),
+    dict(encoder_decoder=True, n_encoder_layers=2, encoder_seq_len=16),
     dict(input_mode="embeddings"), dict(decode_tail_window=4),
 ], ids=("moe_tailed", "rwkv", "mrope", "encoder_decoder", "embeddings",
         "tailed"))
 def test_unported_options_raise(opt):
+    """The options the port does not carry raise; ``encoder_decoder``,
+    ported since whisper, instead draws the reference's tree: every
+    leaf's shape as the reference's ``init_params`` of the same config."""
     cfg = dataclasses.replace(tconfigs.get("qwen3-8b", smoke=True), **opt)
+    if cfg.encoder_decoder:
+        jcfg = dataclasses.replace(jconfigs.get("qwen3-8b", smoke=True),
+                                   **opt)
+        want = jax.eval_shape(lambda k: j_init_params(k, jcfg),
+                              jax.random.key(0))
+        zeros = jax.tree.map(lambda a: np.zeros(a.shape, np.float32), want)
+        want = params_from_numpy(zeros, cfg, device="cpu")
+        got = init_params(cfg, device="cpu")
+        assert ({k: tuple(v.shape) for k, v in _tree_items(got)}
+                == {k: tuple(v.shape) for k, v in _tree_items(want)})
+        return
     with pytest.raises(NotPortedError, match="not yet ported"):
         init_params(cfg, device="cpu")
 

@@ -324,6 +324,7 @@ def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
         "K0", "K1", "K2", "K3", "L0", "L1", "L2"]
     assert chip_smoke.select_paths("J2,A") == ["A", "J2"]
     assert chip_smoke.select_paths("N,M,E") == ["E", "M", "N"]
+    assert chip_smoke.select_paths("O") == ["O0", "O1", "O2", "O3"]
     for bad in ("L3", "P", ""):
         with pytest.raises(ValueError):
             chip_smoke.select_paths(bad)
@@ -354,7 +355,9 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
                      ("K0", "run_path_k0"), ("K1", "run_path_k1"),
                      ("K2", "run_path_k2"), ("K3", "run_path_k3"),
                      ("L0", "run_path_l0"), ("L1", "run_path_l1"),
-                     ("L2", "run_path_l2")):
+                     ("L2", "run_path_l2"), ("O0", "run_path_o0"),
+                     ("O1", "run_path_o1"), ("O2", "run_path_o2"),
+                     ("O3", "run_path_o3")):
         monkeypatch.setattr(chip_smoke, fn, path(name))
     made = []
     monkeypatch.setattr(chip_smoke, "path_a_traffic",
