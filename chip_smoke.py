@@ -4,8 +4,9 @@ packers' sweep, the optimizer, the adversarial search and trace replay,
 LLM serving of a dense model, of RWKV-6, of a mixture of experts and of
 the hybrid Mamba family, the paper's own system with
 an autoscaled fleet of LLM replicas, training of a dense LLM and of
-RWKV-6, and serving and training of the encoder-decoder family) on one
-NVIDIA card.
+RWKV-6, serving and training of the encoder-decoder family, and serving
+of the VLM and of a dense model through the tailed decode) on one NVIDIA
+card.
 
     python3 chip_smoke.py [--seed 0] [--paths L0,L1]
 
@@ -41,7 +42,12 @@ Run from a checkout of the repository on a machine with a CUDA card and
    path C1's, C2's and I1's shapes, masked and unmasked, every state
    tensor bit for bit; ``pack_rows`` (BFD, exact) and ``lag_update``
    (within ``1e-5``) also on path J1's own row of 30 partitions in bytes,
-   and decode attention at path J2's 16-position cache, 1-4 filled);
+   and decode attention at path J2's 16-position cache, 1-4 filled; the
+   flash forward at 64 query heads over 8 KV heads, the decode kernel at
+   8 query rows a KV head and the decode kernel's tailed entry at 4 and 8
+   rows, eager at fills with an empty main cache, a full tail, an empty
+   tail, mid-way and last, and replayed from a CUDA graph across flushes:
+   ``check_new_calls``, run also by a ``--paths`` run that names P or Q);
 4. path A: ``repro_torch.api.simulate`` with the 8 heuristic packers
    through the ``loop_fused`` kernel (``fused_steps=8, fused_kernel=True``)
    over 4096 consumer groups x 2880 steps (one day at a 30 s monitor
@@ -146,8 +152,8 @@ Run from a checkout of the repository on a machine with a CUDA card and
    layers) in bfloat16 with bfloat16 weights drawn on the card from
    ``--seed``; D1 is ``make_prefill_step`` on 8 requests x 1024 prompt
    tokens (36 flash-attention launches), D2 is ``SharedModel.generate``
-   on the same requests with a 1152-token cache: their first 256 tokens
-   teacher-forced and 128 greedy ones (36 x 384 decode-attention
+   on the same requests with a 1152-token cache: their first 128 tokens
+   teacher-forced and 128 greedy ones (36 x 256 decode-attention
    launches); one decode step at the cache's last fill replayed as a CUDA
    graph (its device time, torch ops, bytes and their bound) and one
    eager step under ``torch.profiler`` (device ms by operator);
@@ -161,7 +167,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
    in bfloat16 with bfloat16 weights drawn on the card from ``--seed``;
    E1 is ``make_prefill_step`` on 8 requests x 1024 prompt tokens (32
    WKV launches), E2 is ``SharedModel.generate`` on the same requests,
-   256 teacher-forced steps and 128 greedy ones (32 x 384 WKV launches,
+   128 teacher-forced steps and 128 greedy ones (32 x 256 WKV launches,
    each writing its layer's state in place), its step as D2's;
 15. the RWKV agreement check: rwkv6-3b at full width with 4 layers in
    float32 (bonus and decay perturbed from their init constants), prefill
@@ -172,9 +178,9 @@ Run from a checkout of the repository on a machine with a CUDA card and
    mixture of 60 experts of d_ff 1408, top-4, with 4 shared) in bfloat16
    with bfloat16 weights (the routers float32) drawn on the card from
    ``--seed``: M1 prefills 8 x 1024 tokens (24 flash-attention launches;
-   the expert dispatch at a capacity of 128 a row), M2 generates 256
+   the expert dispatch at a capacity of 128 a row), M2 generates 128
    teacher-forced + 128 greedy tokens through ``SharedModel.generate``
-   (24 x 384 decode-attention launches, one query head a KV head; the 8
+   (24 x 256 decode-attention launches, one query head a KV head; the 8
    decode rows one dispatch group, a capacity of 1), its step as D2's;
    then the agreement check of phase 13 at 4
    layers in float32, the smallest top-4 routing margin printed, and
@@ -182,7 +188,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
 17. path N, hybrid serving: jamba-v0.1-52b at full width cut to one
    period (8 of its 32 layers: 1 attention, 7 Mamba, 4 mixtures of 16
    experts of d_ff 14336, top-2, 4 MLPs), as path M: N1 1 flash launch,
-   N2 1 x 384 decode launches; then the agreement check at those 8
+   N2 1 x 256 decode launches; then the agreement check at those 8
    layers in float32 (~53 GB, its peak printed), decode against prefill
    at capacity factor 8;
 18. path J, the paper's system (broker, monitor, controller, replicas;
@@ -296,7 +302,31 @@ Run from a checkout of the repository on a machine with a CUDA card and
    backward flash launches a step, the watched gradients nonzero; then
    2 steps at 4 + 4 layers against the plain versions, f32 and bf16,
    held by ``update_verdict``;
-22. each kernel's time at its path's shapes beside its bound, its plain
+22. path P, the VLM: qwen2-vl-72b at full width (64 heads over 8 KV
+   heads of 128, d_ff 29568, M-RoPE sections (16, 24, 24)) cut to 16 of
+   its 80 layers, bf16 weights from ``--seed``: P1 prefills 8 requests of
+   1024 standard-normal embeddings through the (d, d) adapter, laid out
+   as Qwen2-VL lays out 64 text positions, one 24 x 32 image (t fixed, h
+   the row, w the column) and 192 text positions resuming at 96 (exactly
+   16 flash launches); P2 runs 128 teacher-forced decode steps of (B, 1,
+   d) embeddings at text positions from 288 (exactly 16 decode launches
+   a step, G = 8), one step replayed as a CUDA graph at the cache's last
+   fill beside its bytes; then the f32 agreement at 4 layers (prefill
+   with 3-stream positions, the prompt through the decode path and 16
+   more steps, kernels against plain within 1e-4, decode against
+   prefill within 2e-2);
+23. path Q, the tailed decode: deepseek-67b at full width (64 heads over
+   8 KV heads, d_ff 22016) cut to 16 of its 95 layers, bf16, with
+   ``decode_tail_window = 256``: Q1 prefills 8 x 1024 tokens (16 flash
+   launches); Q2 decodes 256 teacher-forced + 128 greedy tokens through
+   the tailed state, flushing at 256 (exactly 16 tailed decode launches
+   a step), then the same steps untailed (16 decode launches a step):
+   teacher-forced logits within 5e-2; both steps and the flush replayed
+   as CUDA graphs; then the f32 agreement at 4 layers and window 16
+   (prefill, then 48 + 16 steps across 4 flushes: tailed kernels against
+   tailed plain versions and against the untailed kernels, logits within
+   1e-4, tokens equal; tailed decode against prefill within 2e-2);
+24. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
@@ -321,7 +351,7 @@ pays.
 ``--paths`` runs phases 1-2 and then only the named paths (a letter
 takes all its parts), and prints the kernel rows they make whole (the
 WKV backward's, after L0; the three attention kernels' at whisper's
-calls, after O0) and the last line.
+calls, after O0; the tailed decode's, after Q) and the last line.
 
 Kernel launch counts are zeroed just before each path and read just
 after it; a path that launched none of its kernels fails.  The line
@@ -351,11 +381,12 @@ BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LLM = "qwen3-8b"
 D_BATCH, D_PROMPT, D_GEN = 8, 1024, 128  # paths D, E, M, N: requests, tokens
-#: the teacher-forced prompt of the generate phases (D2, E2, M2, N2): the
-#: first D_FORCED tokens of each request (1024 until paths M and N came;
-#: the phases are host-bound, and at 1024 the whole script overran its
-#: time limit on a slow host); the cache keeps D_PROMPT + D_GEN positions
-D_FORCED = 256
+#: the teacher-forced prompt of the generate phases (D2, E2, M2, N2, P2):
+#: the first D_FORCED tokens of each request (1024 until paths M and N
+#: came, 256 until paths P and Q: the phases are host-bound, and the
+#: whole script must stay inside its time limit on a slow host); the
+#: cache keeps D_PROMPT + D_GEN positions
+D_FORCED = 128
 RWKV = "rwkv6-3b"
 MOE = "qwen2-moe-a2.7b"
 HYBRID, HYBRID_LAYERS = "jamba-v0.1-52b", 8   # one period of jamba's 4
@@ -807,6 +838,132 @@ def check_decode_graph(dev, gen, b, kv, g, s, hd, fills):
     return worst
 
 
+def _tailed_inputs(gen, b, kv, g, s, w, hd, dtype, dev):
+    """q [b, kv, g, hd], main caches [b, kv, s, hd] and tails [b, kv, w,
+    hd], standard normal."""
+    return (_normal(gen, (b, kv, g, hd), dtype, dev),
+            _normal(gen, (b, kv, s, hd), dtype, dev),
+            _normal(gen, (b, kv, s, hd), dtype, dev),
+            _normal(gen, (b, kv, w, hd), dtype, dev),
+            _normal(gen, (b, kv, w, hd), dtype, dev))
+
+
+def check_decode_tailed(dev, gen, b, kv, g, s, w, hd, fills):
+    """The decode kernel's tailed entry against its plain version (the
+    reference's two-part merge) at q [b, kv, g, hd] over main caches [b,
+    kv, s, hd] and tails [b, kv, w, hd] for each fill (``main_len = 0``
+    below w, ``tail_len = 0`` at multiples of w), float32 and bfloat16."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        q, km, vm, kt, vt = _tailed_inputs(gen, b, kv, g, s, w, hd, dtype,
+                                           dev)
+        for fill in fills:
+            clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+            got = da.decode_attention_tailed_fwd(q, km, vm, kt, vt, clen, w)
+            want = da.decode_attention_tailed_plain(q, km, vm, kt, vt, clen,
+                                                    w)
+            torch.cuda.synchronize()
+            err = _attn_close(got, want, dtype, f"decode_attention_tailed "
+                              f"q={[b, kv, g, hd]} S={s} W={w} fill={fill} "
+                              f"{dtype}")
+            print(f"check decode_attention_tailed q=[{b}, {kv}, {g}, {hd}] "
+                  f"S={s} W={w} fill={fill} (main {fill // w * w}, tail "
+                  f"{fill % w + 1}) {dtype}: max_abs_err={err!r}")
+            worst = max(worst, err)
+        del q, km, vm, kt, vt
+    return worst
+
+
+def check_decode_tailed_graph(dev, gen, b, kv, g, s, w, hd, fills):
+    """One tailed decode call captured in a CUDA graph and replayed at
+    each fill set in place on the card, the tail flushed into the main
+    cache (``models.flush_kv_tail``, in place) and refilled with new rows
+    whenever a fill reaches a multiple of w: equal to the plain version at
+    every replay, float32 and bfloat16."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import flush_kv_tail
+
+    cfg = dataclasses.replace(configs.get(TAILED), decode_tail_window=w)
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        q, km, vm, kt, vt = _tailed_inputs(gen, b, kv, g, s, w, hd, dtype,
+                                           dev)
+        clen = torch.tensor(fills[0], dtype=torch.int32, device=dev)
+        state = {"cache_len": clen, "kv": {"k": km[None], "v": vm[None]},
+                 "tail": {"k": kt[None], "v": vt[None]}}
+        call = lambda: da.decode_attention_tailed_fwd(  # noqa: E731
+            q, km, vm, kt, vt, clen, w)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = call()
+        for fill in fills:
+            clen.fill_(fill)
+            if fill and fill % w == 0:
+                flush_kv_tail(cfg, state)
+                _require(not bool(kt.any()), "flush_kv_tail left the tail")
+                kt.copy_(_normal(gen, kt.shape, dtype, dev))
+                vt.copy_(_normal(gen, vt.shape, dtype, dev))
+            graph.replay()
+            torch.cuda.synchronize()
+            err = _attn_close(got, da.decode_attention_tailed_plain(
+                q, km, vm, kt, vt, clen, w), dtype, f"decode_attention_tailed"
+                f" graph replay at fill={fill} {dtype}")
+            worst = max(worst, err)
+        del q, km, vm, kt, vt, got, graph, state
+    print(f"check decode_attention_tailed q=[{b}, {kv}, {g}, {hd}] S={s} "
+          f"W={w}: one call captured in a CUDA graph, replayed at fills "
+          f"{list(fills)} set on the card, the tail flushed and refilled at "
+          f"{[f for f in fills if f and f % w == 0]}, float32 and bfloat16: "
+          f"max_abs_err={worst!r}")
+    return worst
+
+
+def check_new_calls(dev, gen) -> dict:
+    """The calls paths P and Q add, each kernel against its plain version:
+    the flash forward at 64 query heads over 8 KV heads (P1, Q1), the
+    decode kernel at G = 8 query rows a KV head (P2, Q2's control), eager
+    at several fills and replayed from a graph, and the tailed entry at G
+    = 4 and G = 8 (Q2's call) at fills with ``main_len = 0``, ``cache_len
+    = W - 1``, ``W`` (``tail_len = 0``), one mid-way and the last, eager
+    and replayed across flushes, and at a window that does not divide the
+    cache.  Returns the largest error by kernel wrapper."""
+    s, w = D_PROMPT + D_GEN, Q_WINDOW
+    fills = (0, 100, w - 1, w, 700, s - 1)
+    return {
+        "flash_attention_fwd": check_flash(dev, gen, D_BATCH, 64, 8,
+                                           D_PROMPT, D_PROMPT, 128),
+        "decode_attention_fwd": max(
+            check_decode(dev, gen, D_BATCH, 8, 8, s, 128, fills),
+            check_decode_graph(dev, gen, D_BATCH, 8, 8, s, 128,
+                               (17, 700, s - 1))),
+        "decode_attention_tailed_fwd": max(
+            check_decode_tailed(dev, gen, D_BATCH, 8, 8, s, w, 128, fills),
+            check_decode_tailed(dev, gen, D_BATCH, 8, 4, s, w, 128, fills),
+            check_decode_tailed(dev, gen, 2, 8, 8, s, 100, 128,
+                                (99, 100, 1099, 1100, s - 1)),
+            check_decode_tailed(dev, gen, 2, 8, 8, 64, Q_AGREE_WINDOW, 128,
+                                (0, 15, 16, 33, 63)),          # agreement
+            check_decode_tailed_graph(dev, gen, D_BATCH, 8, 8, s, w, 128,
+                                      (100, w - 1, w, w + 5, 2 * w - 1,
+                                       2 * w, s - 1)),
+            check_decode_tailed_graph(dev, gen, D_BATCH, 8, 4, s, w, 128,
+                                      (0, w - 1, w, 700)))}
+
+
 def check_sass(lib) -> None:
     """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) in every
     instantiation of the bfloat16 flash kernel and of the bfloat16
@@ -951,7 +1108,7 @@ def check_ptxas() -> None:
 #: the serving paths' kernel wrappers: each phase of a serving path
 #: launches its own kernel and none of the others
 SERVING_KERNELS = ("flash_attention_fwd", "decode_attention_fwd",
-                   "rwkv6_wkv_fwd")
+                   "decode_attention_tailed_fwd", "rwkv6_wkv_fwd")
 
 
 def _heads(cfg) -> str:
@@ -980,15 +1137,17 @@ def _kernel_layers(cfg) -> int:
 
 def step_bytes(cfg, params, state, fill: int) -> dict:
     """The bytes one decode step at ``fill`` must move: every weight but
-    the embedding table, of which only the batch's rows are read (a MoE
-    layer at decode computes every expert's capacity slot, so all its
-    experts are read); the filled KV cache read once; a recurrent state
-    (Mamba, RWKV) read and written once."""
+    the embedding table, of which only the batch's rows are read (an
+    embeddings model's adapter is read whole; a MoE layer at decode
+    computes every expert's capacity slot, so all its experts are read);
+    the filled KV cache read once (a tailed state's main rows and tail
+    rows, as many); a recurrent state (Mamba, RWKV) read and written
+    once."""
     from repro_torch.models import param_bytes
 
-    table = params["embedding"]["table"]
+    table = params["embedding"].get("table")
     weights = param_bytes(params)
-    if not cfg.tie_embeddings:
+    if table is not None and not cfg.tie_embeddings:
         weights -= param_bytes(table)
     kv = state.get("kv")
     kv_read = 0 if kv is None else 2 * param_bytes(kv["k"]) * (fill + 1) \
@@ -1023,54 +1182,23 @@ def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel,
     greedy generation of D_GEN tokens after the first D_FORCED of them
     through ``SharedModel.generate`` (one ``decode_kernel`` launch a
     kernel layer a step).  Returns the two phases' launch counts."""
-    import dataclasses
-
     import numpy as np
     import torch
 
-    from repro_torch import configs
     from repro_torch.kernels import _build
-    from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import init_decode_state, init_params, param_bytes
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state, param_bytes
     from repro_torch.serving import SharedModel
 
-    cfg = dataclasses.replace(configs.get(name), dtype="bfloat16",
-                              param_dtype="bfloat16")
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+    print(f"path {tag}: {name} serving")
+    cfg, params = _bf16_model(name, layers, dev, seed)
     per_step = _kernel_layers(cfg)
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=seed, device=dev)
-    torch.cuda.synchronize()
-    print(f"path {tag}: {cfg.name} {cfg.n_layers} layers d_model="
-          f"{cfg.d_model} {_heads(cfg)} d_ff={cfg.d_ff} vocab="
-          f"{cfg.vocab_size} bf16: {cfg.n_params()} parameters, "
-          f"{param_bytes(params)} bytes on the card, drawn in "
-          f"{time.perf_counter() - t0!r} s")
     gen = torch.Generator(dev).manual_seed(seed)
     prompts = torch.randint(1, cfg.vocab_size, (D_BATCH, D_PROMPT),
                             generator=gen, device=dev)
-    prefill = make_prefill_step(cfg, dev)
-    prefill(params, {"inputs": prompts[:1, :16]})     # cuBLAS warm-up
-
-    # prefill
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    logits = prefill(params, {"inputs": prompts})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {f"{tag}1": _launched(prefill_kernel, per_step,
-                                     f"path {tag}1")}
-    _require(tuple(logits.shape) == (D_BATCH, cfg.vocab_size)
-             and bool(torch.isfinite(logits).all()),
-             f"path {tag}1: logits {tuple(logits.shape)} not finite of "
-             f"shape [{D_BATCH}, {cfg.vocab_size}]")
-    print(f"path {tag}1 (prefill): {D_BATCH} x {D_PROMPT} tokens "
-          f"wall_s={wall!r} prefill_tokens_per_s={D_BATCH * D_PROMPT / wall!r} "
-          f"launches={{'{prefill_kernel}': {launches[tag + '1']}}} "
-          f"logits_absmax={float(logits.float().abs().max())!r}")
-    del logits
+    n, prefill = _timed_prefill(f"{tag}1", cfg, params, {"inputs": prompts},
+                                dev, prefill_kernel)
+    launches = {f"{tag}1": n}
 
     # greedy generation through the decode path, from the first D_FORCED
     # tokens, in a cache of D_PROMPT + D_GEN positions
@@ -1114,20 +1242,9 @@ def run_serving_path(dev, seed, tag, name, prefill_kernel, decode_kernel,
     state["cache_len"].fill_(cache - 1)
     step = make_serve_step(cfg, dev)
     tok = prompts[:, 0]
-    step_ms = graph_ms(lambda: step(params, state, {"inputs": tok}), 1)
-    with _op_counter() as ops:
-        step(params, state, {"inputs": tok})
-    profile_decode_step(lambda: step(params, state, {"inputs": tok}),
-                        f"path {tag}2")
-    print(f"  one decode step at fill {cache - 1}: device_ms={step_ms!r} "
-          f"(CUDA graph replay) torch_ops={ops.n} "
-          f"({ops.n / cfg.n_layers!r} a layer) against "
-          f"{wall / steps * 1e3!r} ms a step in {tag}2")
-    moved = step_bytes(cfg, params, state, cache - 1)
-    print(f"  bytes a decode step must move: weights={moved['weights']} "
-          f"kv_cache={moved['kv']} recurrent_state={moved['state']}; "
-          f"bound_ms={moved['bound_ms']!r} at {HBM_BYTES_PER_S:.3g} B/s "
-          f"({moved['bound_ms'] / step_ms:.1%} of the replayed step)")
+    _step_report(f"{tag}2", cfg, params, state,
+                 lambda: step(params, state, {"inputs": tok}), cache - 1,
+                 wall / steps * 1e3)
     return launches
 
 
@@ -1356,8 +1473,9 @@ def attention_rows(dev, seed, launches, errs):
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
         replaces="src/repro/kernels/flash_attention.py:73",
-        launches=sum(launches[p] for p in ("D1", "M1", "N1")),
-        launches_by_path={p: launches[p] for p in ("D1", "M1", "N1")},
+        launches=sum(launches[p] for p in ("D1", "M1", "N1", "P1", "Q1")),
+        launches_by_path={p: launches[p]
+                          for p in ("D1", "M1", "N1", "P1", "Q1")},
         max_abs_err=errs["flash_attention_fwd"], ms=graph_ms(kern, 10),
         plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])]
@@ -1396,6 +1514,17 @@ def attention_rows(dev, seed, launches, errs):
                    library_ms_m1=graph_ms(lib, 10),
                    wrapper_ms_m1=cuda_ms(kern, 10)[0])
     del q, k, v
+    # paths P1's and Q1's call: 64 query heads over 8 KV heads
+    q = _normal(gen, (b, 64, s, hd), "bfloat16", dev)
+    k = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    v = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
+                       4 * b * 64 * s * s * hd / 2, BF16_OPS_PER_S)
+    rows[0].update(ms_p1=graph_ms(kern, 10), plain_ms_p1=graph_ms(plain, 3),
+                   bound_ms_p1=bnd, bound_by_p1=by,
+                   library_ms_p1=graph_ms(lib, 10),
+                   wrapper_ms_p1=cuda_ms(kern, 10)[0])
+    del q, k, v
 
     g, smax = h // kv, D_PROMPT + D_GEN
     fill = smax - 1
@@ -1417,8 +1546,10 @@ def attention_rows(dev, seed, launches, errs):
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:65",
-        launches=sum(launches[p] for p in ("D2", "M2", "N2", "J2")),
-        launches_by_path={p: launches[p] for p in ("D2", "M2", "N2", "J2")},
+        launches=sum(launches[p] for p in ("D2", "M2", "N2", "J2", "P2",
+                                            "Q2_control")),
+        launches_by_path={p: launches[p] for p in ("D2", "M2", "N2", "J2",
+                                                   "P2", "Q2_control")},
         max_abs_err=errs["decode_attention_fwd"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0]))
@@ -1441,6 +1572,24 @@ def attention_rows(dev, seed, launches, errs):
                     wrapper_ms_m2=cuda_ms(kern, 200)[0])
     del q, kc, vc, q4
 
+    # paths P2's and Q2's control call: 8 query heads over each of 8 KV
+    # heads (the kernel's 8-row group)
+    q = _normal(gen, (b, kv, 8, hd), "bfloat16", dev)
+    kc = _normal(gen, (b, kv, smax, hd), "bfloat16", dev)
+    vc = _normal(gen, (b, kv, smax, hd), "bfloat16", dev)
+    q4 = q.reshape(b, kv * 8, 1, hd)
+    _require(torch.allclose(lib().reshape(q.shape).float(), kern().float(),
+                            rtol=2e-2, atol=2e-2),
+             "decode_attention and scaled_dot_product_attention disagree "
+             "at path P2's call")
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
+                       4 * b * kv * 8 * (fill + 1) * hd, BF16_OPS_PER_S)
+    rows[-1].update(ms_p2=graph_ms(kern, 200), plain_ms_p2=graph_ms(plain, 50),
+                    bound_ms_p2=bnd, bound_by_p2=by,
+                    library_ms_p2=graph_ms(lib, 200),
+                    wrapper_ms_p2=cuda_ms(kern, 200)[0])
+    del q, kc, vc, q4
+
     # path J2's call: SharedModel(max_len=16) at its last serve step of a
     # generate call (cache_len 3: 4 of 16 positions filled)
     smax, fill = 16, 3
@@ -1456,6 +1605,65 @@ def attention_rows(dev, seed, launches, errs):
                     library_ms_j2=graph_ms(lib, 200),
                     wrapper_ms_j2=cuda_ms(kern, 200)[0])
     return rows
+
+
+def tailed_row(dev, seed, launches, err) -> dict:
+    """The tailed decode call's row at path Q2's call at the cache's last
+    fill (q [8, 8, 8, 128], main [8, 8, 1152, 128], tail [8, 8, 256, 128];
+    main_len 1024, 128 tail rows): the kernel against its plain version,
+    timed beside SDPA over the same rows laid out contiguously (the
+    ``cat`` not timed) and beside the untailed kernel over that contiguous
+    cache; ``launches`` path Q's by part, ``err`` the largest error of the
+    kernel checks."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    b, kv, g, hd, w = D_BATCH, 8, 8, 128, Q_WINDOW
+    s = D_PROMPT + D_GEN
+    fill = s - 1
+    q, km, vm, kt, vt = _tailed_inputs(gen, b, kv, g, s, w, hd, "bfloat16",
+                                       dev)
+    clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+    main_len, n = fill // w * w, fill + 1
+    kc = torch.cat([km[:, :, :main_len], kt[:, :, :n - main_len]], 2)
+    vc = torch.cat([vm[:, :, :main_len], vt[:, :, :n - main_len]], 2)
+    q4 = q.reshape(b, kv * g, 1, hd)
+    kern = lambda: da.decode_attention_tailed_fwd(  # noqa: E731
+        q, km, vm, kt, vt, clen, w)
+    plain = lambda: da.decode_attention_tailed_plain(  # noqa: E731
+        q, km, vm, kt, vt, clen, w)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kc, vc, enable_gqa=True)
+    clen_joined = torch.tensor(n - 1, dtype=torch.int32, device=dev)
+    untailed = lambda: da.decode_attention_fwd(  # noqa: E731
+        q, kc, vc, clen_joined)
+    err = max(err, _attn_close(kern(), plain(), "bfloat16",
+                               "decode_attention_tailed at path Q2's call"))
+    _require(torch.allclose(lib().reshape(q.shape).float(), kern().float(),
+                            rtol=2e-2, atol=2e-2),
+             "decode_attention_tailed and scaled_dot_product_attention "
+             "disagree at path Q2's call")
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * n * hd),
+                       4 * b * kv * g * n * hd, BF16_OPS_PER_S)
+    return dict(
+        name="decode_attention_tailed", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/models/attention.py:185",
+        replaces_note="the reference's jnp decode_attention_tailed (no "
+        "Pallas kernel), run on the decode kernel's tailed entry points "
+        "decode_attention_tailed_{f32,bf16}",
+        launches=launches["Q2"], launches_by_path={"Q2": launches["Q2"]},
+        max_abs_err=err, ms=graph_ms(kern, 200),
+        plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
+        library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0],
+        ms_untailed=graph_ms(untailed, 200),
+        design="the splits take equal shares of the joined main_len + "
+        "tail_len + 1 rows, each row read from the main cache below "
+        "main_len and from the tail above; main_len and tail_len from "
+        "cache_len on the card")
 
 
 def _wkv_inputs(gen, b, t, h, hd, dev):
@@ -4595,7 +4803,9 @@ def _attention_plain():
     from repro_torch.models import attention
 
     return [(attention, "flash_attention_fwd", fa.flash_attention_plain),
-            (attention, "decode_attention_fwd", da.decode_attention_plain)]
+            (attention, "decode_attention_fwd", da.decode_attention_plain),
+            (attention, "decode_attention_tailed_fwd",
+             da.decode_attention_tailed_plain)]
 
 
 def run_path_e(dev, seed):
@@ -5273,12 +5483,485 @@ def whisper_rows(o0, launches) -> list:
                                                  "decode_self")})]
 
 
+#: path P: qwen2-vl-72b at full width, its depth cut to P_LAYERS of 80
+VLM, P_LAYERS = "qwen2-vl-72b", 16
+#: P1's request layout, as Qwen2-VL's ``get_rope_index`` lays out a text
+#: prefix, one image of 1 x 24 x 32 merged patches and a text suffix
+#: (D_PROMPT = 64 + 768 + 192 positions)
+P_PREFIX, P_GRID, P_SUFFIX = 64, (24, 32), 192
+#: path Q: deepseek-67b at full width, its depth cut to Q_LAYERS of 95,
+#: decoding through a tail of Q_WINDOW rows (the reference's ``tail256``
+#: dry-run rules)
+TAILED, Q_LAYERS, Q_WINDOW = "deepseek-67b", 16, 256
+#: Q2's teacher-forced steps: a whole window, so that its D_GEN greedy
+#: steps attend the flushed rows
+Q_FORCED = Q_WINDOW
+#: the tailed agreement check's window: 64 decode steps cross 4 flushes
+Q_AGREE_WINDOW = 16
+
+
+def mrope_positions(batch: int, prefix: int, grid, suffix: int):
+    """(3, B, S) int64 numpy M-RoPE positions (t, h, w) of ``batch``
+    requests laid out as Qwen2-VL's ``get_rope_index`` lays out text and
+    one image: ``prefix`` text positions with t = h = w = 0..prefix-1;
+    the image's ``grid = (rows, cols)`` patches with t = prefix, h =
+    prefix + row, w = prefix + col; then ``suffix`` text positions
+    resuming after the image's largest stream, at prefix + max(rows,
+    cols)."""
+    import numpy as np
+
+    rows, cols = grid
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    text = np.arange(prefix)
+    after = prefix + max(rows, cols) + np.arange(suffix)
+    streams = [np.concatenate([text, prefix + img, after])
+               for img in (np.zeros_like(r), r, c)]
+    return np.ascontiguousarray(np.broadcast_to(
+        np.stack(streams)[:, None], (3, batch, prefix + rows * cols + suffix)))
+
+
+def text_positions(start: int, batch: int, dev):
+    """(3, B, 1) int64 positions t = h = w = ``start`` on ``dev``: a
+    decode step's text position continuing an M-RoPE layout."""
+    import torch
+
+    return torch.full((3, batch, 1), start, dtype=torch.long, device=dev)
+
+
+def _bf16_model(name, layers, dev, seed, **over):
+    """``name`` at full width with ``layers`` layers (``None``: all),
+    bf16 weights drawn on ``dev`` from ``seed``: ``(cfg, params)``,
+    printed with its size."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import init_params, param_bytes
+
+    cfg = configs.get(name)
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers,
+                              dtype="bfloat16", param_dtype="bfloat16",
+                              **over)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name} {cfg.n_layers} layers d_model={cfg.d_model} "
+          f"{_heads(cfg)} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"input_mode={cfg.input_mode} mrope_sections="
+          f"{cfg.mrope_sections} decode_tail_window={cfg.decode_tail_window}"
+          f" bf16: {cfg.n_params()} parameters, {param_bytes(params)} bytes "
+          f"on the card, drawn in {time.perf_counter() - t0!r} s")
+    return cfg, params
+
+
+def _timed_prefill(tag, cfg, params, batch, dev,
+                   kernel="flash_attention_fwd"):
+    """``make_prefill_step`` on ``batch`` (D_BATCH x D_PROMPT), after a
+    short warm-up: exactly one ``kernel`` launch a kernel layer; finite
+    logits.  Returns the launches and the prefill step."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg, dev)
+    warm = {k: v[..., :1, :16] if k == "positions" else v[:1, :16]
+            for k, v in batch.items()}
+    prefill(params, warm)                              # cuBLAS warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = _launched(kernel, _kernel_layers(cfg), f"path {tag}")
+    _require(tuple(logits.shape) == (D_BATCH, cfg.vocab_size)
+             and bool(torch.isfinite(logits).all()),
+             f"path {tag}: logits {tuple(logits.shape)} not finite of shape "
+             f"[{D_BATCH}, {cfg.vocab_size}]")
+    print(f"path {tag} (prefill): {D_BATCH} x {D_PROMPT} wall_s={wall!r} "
+          f"prefill_tokens_per_s={D_BATCH * D_PROMPT / wall!r} "
+          f"launches={{'{kernel}': {n}}} "
+          f"logits_absmax={float(logits.float().abs().max())!r}")
+    return n, prefill
+
+
+def _step_report(tag, cfg, params, state, run, fill, wall_ms) -> float:
+    """One decode step ``run`` at ``fill`` (already set in ``state``): its
+    device ms replayed as a CUDA graph, its torch ops, one eager step under
+    ``torch.profiler``, and the bytes it must move against that time.
+    Returns the device ms."""
+    step_ms = graph_ms(run, 1)
+    with _op_counter() as ops:
+        run()
+    profile_decode_step(run, f"path {tag}")
+    moved = step_bytes(cfg, params, state, fill)
+    print(f"  {tag} one decode step at fill {fill}: device_ms={step_ms!r} "
+          f"(CUDA graph replay) torch_ops={ops.n} "
+          f"({ops.n / cfg.n_layers!r} a layer) against {wall_ms!r} ms a "
+          f"step in the run; bytes it must move: weights="
+          f"{moved['weights']} kv_cache={moved['kv']} recurrent_state="
+          f"{moved['state']}; bound_ms="
+          f"{moved['bound_ms']!r} at {HBM_BYTES_PER_S:.3g} B/s "
+          f"({moved['bound_ms'] / step_ms:.1%} of the replayed step)")
+    return step_ms
+
+
+def run_path_p(dev, seed):
+    """Path P: qwen2-vl-72b at full width (d_model 8192, 64 heads over 8
+    KV heads of 128, d_ff 29568, vocab 152064, M-RoPE sections (16, 24,
+    24)), depth cut to P_LAYERS, bf16.  P1 prefills D_BATCH requests of
+    standard-normal patch and text embeddings laid out by
+    :func:`mrope_positions` (exactly one flash launch a layer); P2 runs
+    D_FORCED teacher-forced decode steps of (B, 1, d) embeddings at text
+    positions continuing each request's (one decode launch a layer a
+    step; no greedy phase: an embeddings model has no token table), then
+    one step replayed as a CUDA graph at the cache's last fill.  Then the
+    float32 agreement at 4 layers.  Returns the launches by part."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import init_decode_state, param_bytes
+
+    print("path P: qwen2-vl-72b, the embeddings front end and M-RoPE")
+    cfg, params = _bf16_model(VLM, P_LAYERS, dev, seed)
+    gen = torch.Generator(dev).manual_seed(seed)
+    pos = torch.as_tensor(mrope_positions(D_BATCH, P_PREFIX, P_GRID,
+                                          P_SUFFIX), device=dev)
+    x = torch.randn((D_BATCH, D_PROMPT, cfg.d_model), generator=gen,
+                    device=dev)
+    launches = {"P1": _timed_prefill("P1", cfg, params,
+                                     {"inputs": x, "positions": pos}, dev)[0]}
+    del x
+
+    cache = D_PROMPT + D_GEN
+    start = int(pos[0, 0, -1]) + 1             # the text stream's next
+    feed = torch.randn((D_BATCH, D_FORCED, cfg.d_model), generator=gen,
+                       device=dev)
+    where = [text_positions(start + t, D_BATCH, dev) for t in range(D_FORCED)]
+    step = make_serve_step(cfg, dev)
+    state = init_decode_state(cfg, D_BATCH, cache, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(D_FORCED):
+        out, state = step(params, state, {"inputs": feed[:, t:t + 1],
+                                          "positions": where[t]})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["P2"] = _launched("decode_attention_fwd", P_LAYERS * D_FORCED,
+                               "path P2")
+    _require(tuple(out.shape) == (D_BATCH, cfg.vocab_size)
+             and bool(torch.isfinite(out).all()),
+             f"path P2: logits {tuple(out.shape)} not finite")
+    print(f"path P2 (teacher-forced decode): {D_BATCH} requests x "
+          f"{D_FORCED} steps of (B, 1, d) embeddings at text positions "
+          f"{start}.. in a {cache}-position cache, decode state "
+          f"{param_bytes(state)} bytes: wall_s={wall!r} ms_per_decode_step="
+          f"{wall / D_FORCED * 1e3!r} decode_tokens_per_s="
+          f"{D_BATCH * D_FORCED / wall!r} peak_mem_bytes="
+          f"{torch.cuda.max_memory_allocated()} launches="
+          f"{{'decode_attention_fwd': {launches['P2']}}}")
+    state["cache_len"].fill_(cache - 1)
+    one = {"inputs": feed[:, :1], "positions": where[-1]}
+    _step_report("P2", cfg, params, state, lambda: step(params, state, one),
+                 cache - 1, wall / D_FORCED * 1e3)
+    del params, state, feed, where
+    torch.cuda.empty_cache()
+    vlm_agreement(dev, seed)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_agreement(dev, seed, layers=4, batch=2, steps=16):
+    """qwen2-vl-72b at full width with ``layers`` layers in float32: a
+    prefill of 48 embeddings laid out by :func:`mrope_positions` (8 text,
+    a 4 x 6 image, 16 text), the same 48 teacher-forced through the
+    decode path with their 3-stream positions, then ``steps`` more at
+    text positions, with the kernels and with their plain versions on the
+    card: logits within 1e-4, the same argmax (the smallest top-2 margin
+    printed); and the decode path's logits at every prompt position equal
+    to the full-sequence logits within 2e-2 (M-RoPE in decode as in
+    prefill)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.models.layers import embed_inputs, logits_fn
+    from repro_torch.models.transformer import backbone
+
+    cfg = dataclasses.replace(configs.get(VLM), n_layers=layers,
+                              dtype="float32", param_dtype="float32")
+    params = init_params(cfg, seed=seed + 1, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    pos = torch.as_tensor(mrope_positions(batch, 8, (4, 6), 16), device=dev)
+    prompt = pos.shape[-1]
+    start = int(pos[0, 0, -1]) + 1
+    x = torch.randn((batch, prompt, cfg.d_model), generator=gen, device=dev)
+    feed = torch.randn((batch, steps, cfg.d_model), generator=gen,
+                       device=dev)
+
+    def run():
+        logits = [make_prefill_step(cfg, dev)(
+            params, {"inputs": x, "positions": pos})]
+        step = make_serve_step(cfg, dev)
+        state = init_decode_state(cfg, batch, prompt + steps, dev)
+        forced = []
+        for t in range(prompt):
+            out, state = step(params, state, {
+                "inputs": x[:, t:t + 1], "positions": pos[:, :, t:t + 1]})
+            forced.append(out)
+        for t in range(steps):
+            out, state = step(params, state, {
+                "inputs": feed[:, t:t + 1],
+                "positions": text_positions(start + t, batch, dev)})
+            logits.append(out)
+        torch.cuda.synchronize()
+        return torch.stack(logits), torch.stack(forced, 1)
+
+    got, forced = run()
+    with _swapped(_attention_plain()):
+        want, _ = run()
+    err = _max_err(got, want)
+    top = want.topk(2, dim=-1).values
+    margin = float((top[..., 0] - top[..., 1]).min())
+    _require(torch.equal(got.argmax(-1), want.argmax(-1)),
+             f"{cfg.name} agreement: argmax differs between the kernels and "
+             f"their plain versions (smallest top-2 margin {margin!r})")
+    _require(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+             f"{cfg.name} agreement: logits differ by {err} (> 1e-4)")
+    print(f"agreement {cfg.name} d_model={cfg.d_model} {layers} layers "
+          f"float32, prefill {batch} x {prompt} embeddings (3-stream "
+          f"positions: 8 text, a 4 x 6 image, 16 text) then {prompt} "
+          f"teacher-forced + {steps} decode steps: kernels vs plain versions "
+          f"on the card max_abs_err={err!r} (logits absmax "
+          f"{float(want.abs().max())!r}), argmax equal; smallest top-2 "
+          f"margin {margin!r}")
+    with torch.no_grad():
+        full = logits_fn(params, cfg, backbone(
+            params, cfg, embed_inputs(params["embedding"], cfg, x), pos))
+    drift = _max_err(forced, full)
+    _require(torch.allclose(forced, full, rtol=2e-2, atol=2e-2),
+             f"{cfg.name} decode vs prefill: logits differ by {drift} "
+             f"(> 2e-2)")
+    print(f"  decode (3-stream positions a step) vs prefill at all {prompt} "
+          f"positions: max_abs_diff={drift!r} (within 2e-2)")
+
+
+def _tailed_generate(tag, cfg, params, toks, kernel, dev):
+    """Q_FORCED teacher-forced tokens of ``toks`` and D_GEN greedy ones
+    through ``make_serve_step`` in a D_PROMPT + D_GEN cache, flushing the
+    tail whenever ``cache_len`` reaches a multiple of the window (known on
+    the host: no sync): exactly one ``kernel`` launch a layer a step.
+    Returns the teacher-forced logits, the greedy tokens, ms a step, the
+    launches, the state and the step."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import flush_kv_tail, init_decode_state
+
+    w = cfg.decode_tail_window
+    step = make_serve_step(cfg, dev)
+    state = init_decode_state(cfg, D_BATCH, D_PROMPT + D_GEN, dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    forced, chosen, flushes = [], [], 0
+    cur = None
+    for t in range(Q_FORCED + D_GEN):
+        if t >= Q_FORCED:
+            chosen.append(cur)
+        out, state = step(params, state, {
+            "inputs": toks[:, t] if t < Q_FORCED else cur})
+        if w and (t + 1) % w == 0:
+            state = flush_kv_tail(cfg, state)
+            flushes += 1
+        if t < Q_FORCED:
+            forced.append(out)
+        cur = out.argmax(-1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (Q_FORCED + D_GEN) * 1e3
+    n = _launched(kernel, cfg.n_layers * (Q_FORCED + D_GEN), f"path {tag}")
+    print(f"path {tag}: {D_BATCH} requests x ({Q_FORCED} teacher-forced + "
+          f"{D_GEN} greedy) steps, window {w}, {flushes} flushes: "
+          f"ms_per_decode_step={ms!r} launches={{'{kernel}': {n}}}")
+    return torch.stack(forced, 1), torch.stack(chosen, 1), ms, n, state, step
+
+
+def run_path_q(dev, seed):
+    """Path Q: deepseek-67b at full width (d_model 8192, 64 heads over 8
+    KV heads, d_ff 22016, vocab 102400), depth cut to Q_LAYERS, bf16,
+    with ``decode_tail_window = Q_WINDOW``.  Q1 prefills D_BATCH x
+    D_PROMPT tokens (one flash launch a layer); Q2 decodes Q_FORCED
+    teacher-forced and D_GEN greedy tokens through the tailed state,
+    flushing at ``cache_len = Q_WINDOW`` (one tailed decode launch a layer
+    a step), then the same steps untailed as the control (one decode
+    launch a layer a step): teacher-forced logits within 5e-2; each run's
+    step replayed as a CUDA graph at the cache's last fill, and the
+    flush's device ms.  Then the float32 agreement of the tailed decode
+    at 4 layers and window Q_AGREE_WINDOW.  Returns the launches by
+    part."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import flush_kv_tail, param_bytes
+
+    print(f"path Q: {TAILED}, the tailed decode")
+    cfg, params = _bf16_model(TAILED, Q_LAYERS, dev, seed,
+                              decode_tail_window=Q_WINDOW)
+    gen = torch.Generator(dev).manual_seed(seed)
+    prompts = torch.randint(1, cfg.vocab_size, (D_BATCH, D_PROMPT),
+                            generator=gen, device=dev)
+    launches = {"Q1": _timed_prefill("Q1", cfg, params, {"inputs": prompts},
+                                     dev)[0]}
+    toks = prompts[:, :Q_FORCED]
+    plain = dataclasses.replace(cfg, decode_tail_window=0)
+    forced, chosen, ms, launches["Q2"], state, step = _tailed_generate(
+        "Q2", cfg, params, toks, "decode_attention_tailed_fwd", dev)
+    forced_c, chosen_c, ms_c, launches["Q2_control"], state_c, step_c = \
+        _tailed_generate("Q2 control (untailed)", plain, params, toks,
+                         "decode_attention_fwd", dev)
+    diff = _max_err(forced, forced_c)
+    _require(torch.allclose(forced.float(), forced_c.float(), rtol=5e-2,
+                            atol=5e-2),
+             f"path Q2: tailed and untailed teacher-forced logits differ by "
+             f"{diff} (> 5e-2)")
+    _require(bool(torch.isfinite(forced).all()),
+             "path Q2: logits not finite")
+    same = int((chosen == chosen_c).all(1).sum())
+    print(f"  Q2 tailed vs untailed: teacher-forced logits max_abs_diff="
+          f"{diff!r} (bit-equal: {torch.equal(forced, forced_c)}; within "
+          f"5e-2 required); greedy tokens equal in {same} of {D_BATCH} "
+          f"requests (printed)")
+    fill = D_PROMPT + D_GEN - 1
+    tok = prompts[:, 0]
+    for tag, st, stp, c, wall_ms in (("Q2", state, step, cfg, ms),
+                                     ("Q2 control", state_c, step_c, plain,
+                                      ms_c)):
+        st["cache_len"].fill_(fill)
+        _step_report(tag, c, params, st,
+                     lambda st=st, stp=stp: stp(params, st, {"inputs": tok}),
+                     fill, wall_ms)
+    flush_ms = graph_ms(lambda: flush_kv_tail(cfg, state), 1)
+    moved = 3 * param_bytes(state["tail"])
+    print(f"  Q2 one flush_kv_tail ({Q_LAYERS} layers' tails of "
+          f"{Q_WINDOW} rows into the main cache, then zeroed): device_ms="
+          f"{flush_ms!r} (CUDA graph replay), {moved} bytes read and "
+          f"written: bound_ms={moved / HBM_BYTES_PER_S * 1e3!r}; a "
+          f"flush every {Q_WINDOW} steps adds {flush_ms / Q_WINDOW!r} ms a "
+          f"step")
+    del params, state, state_c
+    torch.cuda.empty_cache()
+    tailed_agreement(dev, seed)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tailed_agreement(dev, seed, layers=4, batch=2, prompt=48, steps=16,
+                     window=Q_AGREE_WINDOW):
+    """deepseek-67b at full width with ``layers`` layers in float32 and
+    ``decode_tail_window = window``: a prefill with the kernels and with
+    their plain versions (logits within 1e-4), then ``prompt``
+    teacher-forced + ``steps`` greedy decode steps flushing every
+    ``window`` (4 flushes at 16, 32, 48 and 64): tailed with the kernels,
+    tailed with the plain versions and untailed with the kernels, logits
+    within 1e-4 of each other and the same tokens (the smallest top-2
+    margin printed); and the tailed decode's logits at every prompt
+    position equal to the full-sequence logits within 2e-2."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import (flush_kv_tail, init_decode_state,
+                                    init_params)
+    from repro_torch.models.layers import embed_inputs, logits_fn
+    from repro_torch.models.transformer import backbone
+
+    cfg = dataclasses.replace(configs.get(TAILED), n_layers=layers,
+                              dtype="float32", param_dtype="float32",
+                              decode_tail_window=window)
+    params = init_params(cfg, seed=seed + 1, device=dev)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    toks = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=dev)
+    prefill = make_prefill_step(cfg, dev)
+    got_p = prefill(params, {"inputs": toks})
+    with _swapped(_attention_plain()):
+        want_p = prefill(params, {"inputs": toks})
+    err_p = _max_err(got_p, want_p)
+    _require(torch.allclose(got_p, want_p, rtol=1e-4, atol=1e-4),
+             f"{cfg.name} agreement: prefill logits differ by {err_p}")
+
+    def run(c):
+        step = make_serve_step(c, dev)
+        state = init_decode_state(c, batch, prompt + steps, dev)
+        logits, chosen, flushes = [], [], 0
+        cur = None
+        for t in range(prompt + steps):
+            if t >= prompt:
+                chosen.append(cur)
+            out, state = step(params, state, {
+                "inputs": toks[:, t] if t < prompt else cur})
+            if c.decode_tail_window and (t + 1) % window == 0:
+                state = flush_kv_tail(c, state)
+                flushes += 1
+            logits.append(out)
+            cur = out.argmax(-1)
+        torch.cuda.synchronize()
+        return torch.stack(logits, 1), torch.stack(chosen, 1), flushes
+
+    got, got_tok, flushes = run(cfg)
+    with _swapped(_attention_plain()):
+        want, want_tok, _ = run(cfg)
+    ctrl, ctrl_tok, _ = run(dataclasses.replace(cfg, decode_tail_window=0))
+    top = want.topk(2, dim=-1).values
+    margin = float((top[..., 0] - top[..., 1]).min())
+    errs = {"kernels vs plain": _max_err(got, want),
+            "tailed vs untailed": _max_err(got, ctrl)}
+    for what, other, other_tok in (("kernels vs plain", want, want_tok),
+                                   ("tailed vs untailed", ctrl, ctrl_tok)):
+        _require(torch.equal(got_tok, other_tok),
+                 f"{cfg.name} tailed agreement ({what}): greedy tokens "
+                 f"differ (smallest top-2 margin {margin!r})")
+        _require(torch.allclose(got, other, rtol=1e-4, atol=1e-4),
+                 f"{cfg.name} tailed agreement ({what}): logits differ by "
+                 f"{errs[what]} (> 1e-4)")
+    print(f"agreement {cfg.name} d_model={cfg.d_model} {layers} layers "
+          f"float32 window {window}: prefill {batch} x {prompt} kernels vs "
+          f"plain max_abs_err={err_p!r}; {prompt} teacher-forced + {steps} "
+          f"greedy tailed steps, {flushes} flushes: max_abs_err "
+          + ", ".join(f"{k} {v!r}" for k, v in errs.items())
+          + f" (logits absmax {float(want.abs().max())!r}), tokens equal; "
+          f"smallest top-2 margin {margin!r}")
+    positions = torch.arange(prompt, device=dev).expand(batch, prompt)
+    with torch.no_grad():
+        full = logits_fn(params, cfg, backbone(
+            params, cfg, embed_inputs(params["embedding"], cfg, toks),
+            positions))
+    drift = _max_err(got[:, :prompt], full)
+    _require(torch.allclose(got[:, :prompt], full, rtol=2e-2, atol=2e-2),
+             f"{cfg.name} tailed decode vs prefill: logits differ by "
+             f"{drift} (> 2e-2)")
+    print(f"  tailed decode vs prefill at all {prompt} positions: "
+          f"max_abs_diff={drift!r} (within 2e-2)")
+
+
 #: ``--paths``' names in the order of the full run: a letter names the
 #: path with all its parts, C1, C2, J1, J2, K0-K3, L0-L2 and O0-O3 one
 #: part
 PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "M", "N",
               "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2", "O0",
-              "O1", "O2", "O3")
+              "O1", "O2", "O3", "P", "Q")
 
 
 def select_paths(spec: str):
@@ -5290,7 +5973,7 @@ def select_paths(spec: str):
            and not any(p.startswith(x) for p in PATH_NAMES)]
     if bad or not want:
         raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
-                         f"{', '.join(PATH_NAMES)} or a letter A-O")
+                         f"{', '.join(PATH_NAMES)} or a letter A-Q")
     return [p for p in PATH_NAMES
             if any(p == x or (len(x) == 1 and p.startswith(x))
                    for x in want)]
@@ -5340,6 +6023,8 @@ def run_named_paths(dev, seed, names) -> dict:
         "O1": lambda: run_path_o1(dev, seed),
         "O2": lambda: run_path_o2(dev, seed),
         "O3": lambda: run_path_o3(dev, seed),
+        "P": lambda: run_path_p(dev, seed),
+        "Q": lambda: run_path_q(dev, seed),
     }
     for name in names:
         t0 = time.perf_counter()
@@ -5444,6 +6129,8 @@ def check_kernels(dev, seed) -> dict:
             check_wkv(dev, gen, 1, 13, 5, 64),   # T not a multiple of 8
             check_wkv(dev, gen, 3, 1, 5, 128),   # 4-warp blocks, T = 1
             check_wkv(dev, gen, 2, 77, 4, 128))}
+    for k, err in check_new_calls(dev, gen).items():     # paths P and Q
+        errs[k] = max(errs.get(k, 0.0), err)
     return errs
 
 
@@ -5466,8 +6153,8 @@ def kernel_rows(dev, seed, out, errs) -> list:
      launches_j1, launches_k, launches_l) = (out[p] for p in (
         "A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "J1", "K1",
         "L1"))
-    launches_d = dict(launches_d, **out["M"], **out["N"],
-                      J2=out["J2"]["decode_attention_fwd"])
+    launches_d = dict(launches_d, **out["M"], **out["N"], **out["P"],
+                      **out["Q"], J2=out["J2"]["decode_attention_fwd"])
     k0 = out["K0"]
 
     kernels = []
@@ -5723,6 +6410,8 @@ def kernel_rows(dev, seed, out, errs) -> list:
         launches_e, L1=launches_l["rwkv6_wkv_fwd"]), errs))
     kernels.append(wkv_bwd_row(out["L0"], launches_l["rwkv6_wkv_bwd"]))
     merge_whisper_rows(kernels, whisper_rows(out["O0"], out))
+    kernels.append(tailed_row(dev, seed, out["Q"],
+                              errs["decode_attention_tailed_fwd"]))
     return kernels
 
 
@@ -5797,6 +6486,24 @@ def print_rows(kernels) -> None:
                   f"library_ms={kern['library_ms_j2']!r} "
                   f"wrapper_ms={kern['wrapper_ms_j2']!r} "
                   f"launches={kern['launches_by_path']}")
+        if "ms_p1" in kern:
+            print(f"kernel {kern['name']} at paths P1's and Q1's call (64/8 "
+                  f"heads): ms={kern['ms_p1']!r} "
+                  f"plain_ms={kern['plain_ms_p1']!r} "
+                  f"bound_ms={kern['bound_ms_p1']!r} ({kern['bound_by_p1']}) "
+                  f"library_ms={kern['library_ms_p1']!r} "
+                  f"wrapper_ms={kern['wrapper_ms_p1']!r}")
+        if "ms_p2" in kern:
+            print(f"kernel {kern['name']} at paths P2's and Q2's control call "
+                  f"(8 query heads a KV head, 8 KV heads, fill "
+                  f"{D_PROMPT + D_GEN - 1}): ms={kern['ms_p2']!r} "
+                  f"plain_ms={kern['plain_ms_p2']!r} "
+                  f"bound_ms={kern['bound_ms_p2']!r} ({kern['bound_by_p2']}) "
+                  f"library_ms={kern['library_ms_p2']!r} "
+                  f"wrapper_ms={kern['wrapper_ms_p2']!r}")
+        if "ms_untailed" in kern:
+            print(f"kernel {kern['name']}: the untailed kernel over the same "
+                  f"rows as one cache ms={kern['ms_untailed']!r}")
         for case, c in kern.get("whisper", {}).items():
             print(f"kernel {kern['name']} at whisper's {case} call (path "
                   f"O): ms={c['ms']!r} plain_ms={c['plain_ms']!r} "
@@ -5826,7 +6533,7 @@ def main(argv=None) -> int:
                          "L0,L1 or K,L; a letter takes all its parts): "
                          "the build and its checks, the named paths, the "
                          "kernel rows they make whole, and a last line "
-                         "that names them; default: every path A-N, "
+                         "that names them; default: every path A-Q, "
                          "every kernel checked and every kernel row")
     args = ap.parse_args(argv)
     try:
@@ -5865,7 +6572,12 @@ def main(argv=None) -> int:
     print(f"build_s={time.perf_counter() - t0!r}")
     check_sass(lib)
     check_ptxas()
-    errs = check_kernels(dev, args.seed) if full else None
+    errs = None
+    if full:
+        errs = check_kernels(dev, args.seed)
+    elif {"P", "Q"} & set(names):
+        errs = check_new_calls(dev, torch.Generator(dev).manual_seed(
+            args.seed))
     out = run_named_paths(dev, args.seed, names)
     if full:
         kernels = kernel_rows(dev, args.seed, out, errs)
@@ -5876,6 +6588,9 @@ def main(argv=None) -> int:
                                        if "L1" in out else None))
         if "O0" in out:
             kernels += whisper_rows(out["O0"], out)
+        if "Q" in out:
+            kernels.append(tailed_row(dev, args.seed, out["Q"],
+                                      errs["decode_attention_tailed_fwd"]))
     print_rows(kernels)
     if full:
         z = torch.zeros(1, device=dev)

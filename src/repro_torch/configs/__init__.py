@@ -1,9 +1,10 @@
 """Architecture registry of the port: the reference's ids, each module
 exporting ``FULL`` (the published config) and ``SMOKE`` (a reduced
-same-family config for CPU tests).  The port carries the three dense
-token-input archs, RWKV-6, the two MoE archs, the hybrid Mamba arch
-(jamba) and the encoder-decoder arch (whisper); ``get`` of any other id
-raises :class:`NotPortedError`.
+same-family config for CPU tests).  The port carries all ten: the four
+dense token-input archs, the VLM (qwen2-vl: embeddings front end and
+M-RoPE), RWKV-6, the two MoE archs, the hybrid Mamba arch (jamba) and
+the encoder-decoder arch (whisper).  ``get`` of an id outside
+``PORTED`` raises :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ ARCH_IDS = {
 }
 
 #: the module names of the archs this port carries
-PORTED = ("granite_3_8b", "olmo_1b", "qwen3_8b", "rwkv6_3b",
+PORTED = ("granite_3_8b", "olmo_1b", "qwen3_8b", "deepseek_67b", "rwkv6_3b",
           "qwen2_moe_a2_7b", "llama4_scout_17b_a16e", "jamba_v0_1_52b",
-          "whisper_large_v3")
+          "whisper_large_v3", "qwen2_vl_72b")
 
 
 def get(name: str, smoke: bool = False) -> ArchConfig:

@@ -10,7 +10,9 @@ draws (the state of a stochastic policy); ``controlplane_state_from_numpy``,
 control-plane-wrapped policy's state, a sketch state and an alert state
 with numpy leaves, one stream or a batch of them.  The LLM's weights come
 across with ``params_from_numpy``, its optimizer state with
-``opt_state_from_numpy``.  All are plain data in, port objects
+``opt_state_from_numpy``, a dense or MoE model's decode state (the KV
+cache, the tailed decode's tail and ``cache_len``) with
+``decode_state_from_numpy``.  All are plain data in, port objects
 out, so a test can feed one set of inputs to both packages, compare
 their states leaf by leaf, and resume a port run from a reference state.
 """
@@ -27,7 +29,7 @@ from repro_torch.lagsim.controlplane import (ControlPlaneConfig,
                                              ControlPlaneState)
 from repro_torch.lagsim.engine import LagSimConfig
 from repro_torch.models import ArchConfig
-from repro_torch.models.transformer import param_shapes
+from repro_torch.models.transformer import attention_layers, param_shapes
 from repro_torch.opt.anneal import AnnealNoise
 from repro_torch.telemetry.alerts import AlertConfig, AlertRule, AlertState
 from repro_torch.telemetry.record import TelemetryConfig
@@ -225,6 +227,45 @@ def opt_state_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,
             "nu": _layers_from_numpy(tree["nu"], cfg, dev, torch.float32),
             "step": torch.tensor(int(np.asarray(tree["step"])),
                                  dtype=torch.int32, device=dev)}
+
+
+def decode_state_from_numpy(state: Mapping[str, Any], cfg: ArchConfig,
+                            device=None) -> dict:
+    """The reference's decode state of a dense or MoE model (numpy leaves:
+    ``cache_len`` (), ``kv`` {k, v} (L, B, KV, S, hd) and, with
+    ``decode_tail_window = W > 0``, ``tail`` {k, v} (L, B, KV, W, hd)) ->
+    the port's on ``device`` (``None`` = the CUDA card): the same layout
+    (both kv-major) in the activation dtype, ``cache_len`` an int32
+    scalar, so that a port run resumes from a reference state mid-run
+    (between flushes included).  Shapes are checked against ``cfg``."""
+    if cfg.rwkv or cfg.encoder_decoder or cfg.attn_layer_period > 0:
+        raise ValueError(f"{cfg.name}: decode_state_from_numpy takes the KV "
+                         f"cache state of a dense or MoE model")
+    dev = resolve_device(device)
+    names = ("kv", "tail") if cfg.decode_tail_window > 0 else ("kv",)
+    if set(state) != {"cache_len", *names}:
+        raise ValueError(f"decode state keys {sorted(state)}, want "
+                         f"{sorted(['cache_len', *names])}")
+    out = {"cache_len": torch.tensor(int(np.asarray(state["cache_len"])),
+                                     dtype=torch.int32, device=dev)}
+    layers = len(attention_layers(cfg))
+    for name in names:
+        out[name] = {}
+        rows = cfg.decode_tail_window if name == "tail" else None
+        for k in ("k", "v"):
+            t = torch.tensor(np.asarray(state[name][k], np.float32),
+                             device=dev).to(cfg.adtype)
+            if (t.dim() != 5 or t.shape[0] != layers
+                    or t.shape[2] != cfg.n_kv_heads
+                    or t.shape[4] != cfg.head_dim
+                    or rows not in (None, t.shape[3])):
+                raise ValueError(
+                    f"decode state {name}.{k}: shape {tuple(t.shape)}, want "
+                    f"(L, B, KV, {'W' if rows else 'S'}, hd) with L = "
+                    f"{layers}, KV = {cfg.n_kv_heads}, hd = {cfg.head_dim}"
+                    + (f", W = {rows}" if rows else ""))
+            out[name][k] = t
+    return out
 
 
 def _layers_from_numpy(tree: Mapping[str, Any], cfg: ArchConfig,

@@ -86,6 +86,12 @@ SIGNATURES = {
                              _P),
     "decode_attention_bf16": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _P),
+    # q, k_cache, v_cache, k_tail, v_tail, cache_len (device int32), out,
+    # f32 partials, B, KV, G, S, W, hd, splits, stream
+    "decode_attention_tailed_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _P),
+    "decode_attention_tailed_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _I, _P),
     # r, k, v, w, u, s0, out, s_last (may alias s0), B, T, H, hd, stream
     "rwkv6_wkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the same and the checkpoints (B, H, ceil(T / chunk), hd, hd), chunk,

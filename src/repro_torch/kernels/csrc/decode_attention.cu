@@ -34,6 +34,17 @@
 //     launched from the same entry point, merges the splits with the
 //     log-sum-exp rescaling and writes the output in the input type (zeros
 //     when n = 0).
+//
+// The tailed call (decode_attention_tailed_*; the reference's jnp
+// decode_attention_tailed, src/repro/models/attention.py:185, which has no
+// Pallas kernel) attends main[0:main_len] ++ tail[0:tail_len] inclusive
+// under one softmax, with main_len = (cache_len / W) * W and tail_len =
+// cache_len - main_len, both computed here from cache_len on the device.
+// The same kernels run it: the splits take equal shares of the n = main_len
+// + tail_len + 1 positions of that joined sequence, position p read from
+// main row p below main_len and from tail row p - main_len above, so every
+// split does the work it does untailed at the same fill (main_len = 0, the
+// first W steps, is a sequence of tail rows only).
 #include <cmath>
 #include <type_traits>
 
@@ -132,10 +143,11 @@ struct Plan {
 template <typename T, int HD, int GB>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc,
+                    const T* __restrict__ vc, const T* __restrict__ kt,
+                    const T* __restrict__ vt,
                     const int* __restrict__ cache_len,
-                    float* __restrict__ ws, int KV, int G, int S, int splits,
-                    float scale) {
+                    float* __restrict__ ws, int KV, int G, int S, int W,
+                    int splits, float scale) {
   using P = Plan<T, HD, GB>;
   constexpr int kTS = P::kTS, kTPP = P::kTPP, kVec = P::kVec;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -160,7 +172,17 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* ws_acc = ws + 2 * rows;                      // [...][G][HD]
   const long long part = (pr * splits + split) * G;   // row (.., split, 0)
 
-  const int n = max(0, min(*cache_len + 1, S));       // positions attended
+  // positions attended: n, the first n_main of them cache rows, the rest
+  // (tailed, W > 0) tail rows
+  const int clen = *cache_len;
+  int n, n_main;
+  if (W > 0) {
+    const int main_len = max(0, clen) / W * W;
+    n_main = min(main_len, S);
+    n = n_main + min(max(0, clen - main_len) + 1, W);
+  } else {
+    n = n_main = max(0, min(clen + 1, S));
+  }
   const int per = (n + splits - 1) / splits;
   const int lo = split * per;
   const int hi = min(n, lo + per);
@@ -179,6 +201,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   const T* kb = kc + pr * S * HD;
   const T* vb = vc + pr * S * HD;
+  const T* ktb = kt + pr * W * HD;                    // W = 0: never read
+  const T* vtb = vt + pr * W * HD;
   auto load_tile = [&](int t) {                       // tile t -> stage t & 1
     const int p0 = lo + t * kTS;
     const int cnt = min(kTS, hi - p0);
@@ -187,9 +211,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int e = tid; e < cnt * P::kChunks; e += kThreads) {
       const int c = e / P::kChunks;
       const int ch = e - c * P::kChunks;
-      const long long g = (long long)(p0 + c) * HD + ch * kVec;
-      cp_async_16(smem_u32(dk + c * P::kKRow + ch * 16), kb + g);
-      cp_async_16(smem_u32(dv + c * P::kVRow + ch * 16), vb + g);
+      const int pos = p0 + c;
+      const bool in_main = pos < n_main;
+      const long long g =
+          (long long)(in_main ? pos : pos - n_main) * HD + ch * kVec;
+      cp_async_16(smem_u32(dk + c * P::kKRow + ch * 16),
+                  (in_main ? kb : ktb) + g);
+      cp_async_16(smem_u32(dv + c * P::kVRow + ch * 16),
+                  (in_main ? vb : vtb) + g);
     }
   };
   const int n_t = (hi - lo + kTS - 1) / kTS;
@@ -376,9 +405,9 @@ decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int G,
 }
 
 template <typename T, int HD, int GB>
-int launch(const T* q, const T* k, const T* v, const int* cache_len, T* o,
-           float* ws, int B, int KV, int G, int S, int splits,
-           cudaStream_t stream) {
+int launch(const T* q, const T* k, const T* v, const T* kt, const T* vt,
+           const int* cache_len, T* o, float* ws, int B, int KV, int G,
+           int S, int W, int splits, cudaStream_t stream) {
   using P = Plan<T, HD, GB>;
   auto kernel = decode_split_kernel<T, HD, GB>;
   if (P::kSmem > 48 * 1024) {
@@ -388,7 +417,7 @@ int launch(const T* q, const T* k, const T* v, const int* cache_len, T* o,
   }
   const dim3 grid(splits, KV * ((G + GB - 1) / GB), B);
   kernel<<<grid, kThreads, P::kSmem, stream>>>(
-      q, k, v, cache_len, ws, KV, G, S, splits,
+      q, k, v, kt, vt, cache_len, ws, KV, G, S, W, splits,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -399,34 +428,37 @@ int launch(const T* q, const T* k, const T* v, const int* cache_len, T* o,
 }
 
 template <typename T, int HD>
-int by_group(const T* q, const T* k, const T* v, const int* cache_len, T* o,
-             float* ws, int B, int KV, int G, int S, int splits,
-             cudaStream_t stream) {
+int by_group(const T* q, const T* k, const T* v, const T* kt, const T* vt,
+             const int* cache_len, T* o, float* ws, int B, int KV, int G,
+             int S, int W, int splits, cudaStream_t stream) {
   if (G <= 1)
-    return launch<T, HD, 1>(q, k, v, cache_len, o, ws, B, KV, G, S, splits,
-                            stream);
+    return launch<T, HD, 1>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S,
+                            W, splits, stream);
   if (G <= 2)
-    return launch<T, HD, 2>(q, k, v, cache_len, o, ws, B, KV, G, S, splits,
-                            stream);
+    return launch<T, HD, 2>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S,
+                            W, splits, stream);
   if (G <= 4)
-    return launch<T, HD, 4>(q, k, v, cache_len, o, ws, B, KV, G, S, splits,
-                            stream);
-  return launch<T, HD, kMaxGroup>(q, k, v, cache_len, o, ws, B, KV, G, S,
-                                  splits, stream);
+    return launch<T, HD, 4>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S,
+                            W, splits, stream);
+  return launch<T, HD, kMaxGroup>(q, k, v, kt, vt, cache_len, o, ws, B, KV,
+                                  G, S, W, splits, stream);
 }
 
+// W = 0: the cache alone (kt, vt unused); W > 0: the tailed call
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v,
-             const int* cache_len, void* o, void* ws, int B, int KV, int G,
-             int S, int hd, int splits, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, const void* kt,
+             const void* vt, const int* cache_len, void* o, void* ws, int B,
+             int KV, int G, int S, int W, int hd, int splits,
+             cudaStream_t stream) {
   if (B <= 0 || KV <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
-  if (S <= 0 || splits <= 0 || splits > S)
+  if (S <= 0 || W < 0 || splits <= 0 || splits > S)
     return static_cast<int>(cudaErrorInvalidValue);
   auto run = [&](auto hd_tag) {
     return by_group<T, decltype(hd_tag)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), cache_len, static_cast<T*>(o),
-        static_cast<float*>(ws), B, KV, G, S, splits, stream);
+        static_cast<const T*>(v), static_cast<const T*>(kt),
+        static_cast<const T*>(vt), cache_len, static_cast<T*>(o),
+        static_cast<float*>(ws), B, KV, G, S, W, splits, stream);
   };
   switch (hd) {
     case 16: return run(std::integral_constant<int, 16>());
@@ -446,8 +478,8 @@ extern "C" int decode_attention_f32(const void* q, const void* k,
                                     void* o, void* ws, int B, int KV, int G,
                                     int S, int hd, int splits,
                                     cudaStream_t stream) {
-  return dispatch<float>(q, k, v, cache_len, o, ws, B, KV, G, S, hd, splits,
-                         stream);
+  return dispatch<float>(q, k, v, nullptr, nullptr, cache_len, o, ws, B, KV,
+                         G, S, 0, hd, splits, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k,
@@ -455,6 +487,31 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      void* o, void* ws, int B, int KV, int G,
                                      int S, int hd, int splits,
                                      cudaStream_t stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, cache_len, o, ws, B, KV, G, S, hd,
-                                 splits, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, cache_len, o, ws,
+                                 B, KV, G, S, 0, hd, splits, stream);
+}
+
+// the tailed call: caches (B, KV, S, hd), tails (B, KV, W, hd), W >= 1
+extern "C" int decode_attention_tailed_f32(const void* q, const void* k,
+                                           const void* v, const void* kt,
+                                           const void* vt,
+                                           const int* cache_len, void* o,
+                                           void* ws, int B, int KV, int G,
+                                           int S, int W, int hd, int splits,
+                                           cudaStream_t stream) {
+  if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<float>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S, W,
+                         hd, splits, stream);
+}
+
+extern "C" int decode_attention_tailed_bf16(const void* q, const void* k,
+                                            const void* v, const void* kt,
+                                            const void* vt,
+                                            const int* cache_len, void* o,
+                                            void* ws, int B, int KV, int G,
+                                            int S, int W, int hd, int splits,
+                                            cudaStream_t stream) {
+  if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<__nv_bfloat16>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G,
+                                 S, W, hd, splits, stream);
 }

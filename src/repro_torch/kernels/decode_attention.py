@@ -13,6 +13,13 @@ by log-sum-exp rescaling; ``decode_splits`` picks the split count.
 ``decode_attention_plain`` is the plain PyTorch version (the CPU path,
 and the yardstick the kernel is held against on the card): the
 full-softmax ``ref.decode_attention_ref``.
+
+``decode_attention_tailed_fwd(q, k_main, v_main, k_tail, v_tail,
+cache_len, window)`` is the tailed decode's call (``decode_tail_window >
+0``): q over ``main[0:main_len] ++ tail[0:tail_len]`` inclusive under one
+softmax, ``main_len = (cache_len // W) * W``.  The same kernel runs it
+(its own entry points); ``decode_attention_tailed_plain`` is
+``ref.decode_attention_tailed_ref``, the reference's two-part merge.
 """
 from __future__ import annotations
 
@@ -22,14 +29,18 @@ import torch
 
 from . import _build
 from .flash_attention import check_attention_inputs
-from .ref import decode_attention_ref
+from .ref import decode_attention_ref, decode_attention_tailed_ref
 
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
+_TAILED_ENTRY = {torch.float32: "decode_attention_tailed_f32",
+                 torch.bfloat16: "decode_attention_tailed_bf16"}
 
 
 #: the plain version: masked softmax over the whole cache in float32
 decode_attention_plain = decode_attention_ref
+#: the tailed call's plain version: the reference's two-part merge in f32
+decode_attention_tailed_plain = decode_attention_tailed_ref
 
 #: blocks a decode call aims for: two on each of the H100's 132 SMs
 SPLIT_BLOCKS = 2 * 132
@@ -79,22 +90,86 @@ def decode_attention_fwd(q, k_cache, v_cache, cache_len):
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     check_attention_inputs(q, k_cache, v_cache, what="decode_attention")
+    clen = _clen(cache_len, q, "decode_attention")
+    out, ws, splits = _alloc(q, s)
+    _build.launch(_ENTRY[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+                  v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(), ws, b,
+                  kvh, g, s, hd, splits,
+                  _build.stream_ptr(q.device))
+    decode_attention_fwd.launches += 1
+    return out
+
+
+def _clen(cache_len, q, what: str) -> torch.Tensor:
+    """``cache_len`` as an int32 tensor of one element on q's device (the
+    caller keeps it until the launch is queued)."""
     clen = torch.as_tensor(cache_len, device=q.device)
     if clen.numel() != 1:
-        raise ValueError(f"decode_attention: cache_len must hold one value; "
-                         f"got shape {tuple(clen.shape)}")
-    clen = clen.to(torch.int32).contiguous()
+        raise ValueError(f"{what}: cache_len must hold one value; got shape "
+                         f"{tuple(clen.shape)}")
+    return clen.to(torch.int32).contiguous()
+
+
+def _alloc(q, s: int):
+    """``(out, the address of the f32 partials, splits)`` for a decode
+    call over a cache of ``s`` positions: one allocation, the output, then
+    the partials 16-byte aligned."""
+    b, kvh, g, hd = q.shape
     splits = decode_splits(b, kvh, s)
-    # one allocation: the output, then the f32 partials 16-byte aligned
     size = q.element_size()
     ws_at = -(-q.numel() * size // 16) * 16
     ws_bytes = 4 * b * kvh * splits * g * (hd + 2)
     buf = torch.empty(-(-(ws_at + ws_bytes) // size), dtype=q.dtype,
                       device=q.device)
-    out = buf.as_strided(q.shape, q.stride())
-    _build.launch(_ENTRY[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-                  v_cache.data_ptr(), clen.data_ptr(), out.data_ptr(),
-                  buf.data_ptr() + ws_at, b, kvh, g, s, hd, splits,
-                  _build.stream_ptr(q.device))
-    decode_attention_fwd.launches += 1
+    return buf.as_strided(q.shape, q.stride()), buf.data_ptr() + ws_at, splits
+
+
+@_build.counted
+def decode_attention_tailed_fwd(q, k_main, v_main, k_tail, v_tail,
+                                cache_len, window: int):
+    """The tailed decode's attention: q (B, KV, G, hd); caches (B, KV, S,
+    hd); tails (B, KV, W, hd) with ``W = window``; ``cache_len`` an int32
+    tensor of one element on q's device (or an int).  Attends
+    ``main[0:main_len]`` and ``tail[0:tail_len]`` inclusive, ``main_len =
+    (cache_len // W) * W`` and ``tail_len = cache_len - main_len`` (the new
+    token's K/V already written at ``tail[tail_len]``).  Returns (B, KV,
+    G, hd) in q.dtype.
+
+    Replaces the reference's jnp ``decode_attention_tailed``
+    (``src/repro/models/attention.py:185``), which has no Pallas kernel:
+    the decode kernel (``csrc/decode_attention.cu``) runs it through its
+    tailed entry points, the splits taking equal shares of the joined
+    ``main_len + tail_len + 1`` positions; ``main_len`` and ``tail_len``
+    are computed on the card from ``cache_len``, so a step never syncs
+    the host and replays in a CUDA graph across flushes.  Bound by bytes,
+    as the untailed call.  A call is two launches and counts one.
+
+    CPU tensors run ``decode_attention_tailed_plain``; CUDA tensors launch
+    the kernel or raise.
+    """
+    b, kvh, g, hd = q.shape
+    s = k_main.shape[2]
+    want = ((b, kvh, s, hd), (b, kvh, s, hd), (b, kvh, window, hd),
+            (b, kvh, window, hd))
+    got = tuple(tuple(x.shape) for x in (k_main, v_main, k_tail, v_tail))
+    if window < 1 or got != want:
+        raise ValueError(f"decode_attention_tailed: want q (B, KV, G, hd), "
+                         f"caches (B, KV, S, hd) and tails (B, KV, W, hd) "
+                         f"with W = window >= 1; got q {tuple(q.shape)}, "
+                         f"{got}, window {window}")
+    if q.device.type == "cpu":
+        return decode_attention_tailed_plain(q, k_main, v_main, k_tail,
+                                             v_tail, cache_len, window)
+    what = "decode_attention_tailed"
+    q = q.contiguous()
+    k_main, v_main = k_main.contiguous(), v_main.contiguous()
+    k_tail, v_tail = k_tail.contiguous(), v_tail.contiguous()
+    check_attention_inputs(q, k_main, v_main, k_tail, v_tail, what=what)
+    clen = _clen(cache_len, q, what)
+    out, ws, splits = _alloc(q, s)
+    _build.launch(_TAILED_ENTRY[q.dtype], q.data_ptr(), k_main.data_ptr(),
+                  v_main.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
+                  clen.data_ptr(), out.data_ptr(), ws, b, kvh, g, s, window,
+                  hd, splits, _build.stream_ptr(q.device))
+    decode_attention_tailed_fwd.launches += 1
     return out

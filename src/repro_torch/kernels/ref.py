@@ -79,6 +79,42 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len):
     return o.to(q.dtype)
 
 
+def decode_attention_tailed_ref(q, k_main, v_main, k_tail, v_tail,
+                                cache_len, window: int):
+    """The tailed decode's attention in float32, the reference's two-part
+    online-softmax merge (``decode_attention_tailed`` in
+    ``src/repro/models/attention.py``): q (B, KV, G, hd) over
+    ``main[0:main_len]`` (caches (B, KV, S, hd)) and ``tail[0:tail_len]``
+    inclusive (tails (B, KV, W, hd)), with ``main_len = (cache_len // W)
+    * W`` and ``tail_len = cache_len - main_len``; each part masked with
+    ``NEG_INF`` (finite, as the reference's: an empty main part gets the
+    weight ``exp(NEG_INF - m) = 0`` in the merge).  ``cache_len`` an int
+    or an integer tensor of one element.  Returns (B, KV, G, hd) in
+    q.dtype."""
+    hd, s_len = q.shape[-1], k_main.shape[2]
+    if torch.is_tensor(cache_len):
+        cache_len = cache_len.reshape(())
+    main_len = (cache_len // window) * window
+    tail_len = cache_len - main_len
+    qf = q.float()
+
+    def part(k, v, valid):
+        s = (qf @ k.float().transpose(-1, -2)) * hd ** -0.5
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        return m, p.sum(-1), p @ v.float()
+
+    m1, l1, o1 = part(k_main, v_main,
+                      torch.arange(s_len, device=q.device) < main_len)
+    m2, l2, o2 = part(k_tail, v_tail,
+                      torch.arange(window, device=q.device) <= tail_len)
+    m = torch.maximum(m1, m2)
+    e1, e2 = torch.exp(m1 - m)[..., None], torch.exp(m2 - m)[..., None]
+    denom = l1[..., None] * e1 + l2[..., None] * e2
+    return ((o1 * e1 + o2 * e2) / denom.clamp(min=1e-30)).to(q.dtype)
+
+
 def rwkv6_wkv_ref(r, k, v, w, u, s0):
     """The RWKV-6 WKV recurrence, a sequential loop over T, all float32.
     r, k, v, w: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd), indexed

@@ -27,6 +27,13 @@ def _ids(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=dev).long()
 
 
+def _inputs(x, dev: torch.device) -> torch.Tensor:
+    """Token ids as int64; float embeddings (the VLM's, whisper's frames)
+    as they are."""
+    x = torch.as_tensor(x, device=dev)
+    return x if x.is_floating_point() else x.long()
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     device=None, *, donate: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -34,11 +41,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     raise :class:`NotPortedError`: the port serves them, training them is
     the next slice): the loss and its gradient with respect to every parameter
     (``models.forward``, one backward pass), then ``adamw_update``.
-    ``batch`` holds ``inputs`` and ``labels`` (B, S) token ids, tensors or
+    ``batch`` holds ``inputs`` (B, S) token ids (or (B, S, d) embeddings
+    where ``input_mode="embeddings"``) and ``labels`` (B, S), tensors or
     arrays (the data pipeline's numpy batches), and optionally
-    ``positions`` and ``mask``; whisper's holds ``inputs`` (B, T_enc, d)
-    frame embeddings, ``decoder_tokens`` and ``labels`` (B, S) and
-    optionally ``mask``; the step moves them to the device.
+    ``positions`` ((B, S), or (3, B, S) for M-RoPE) and ``mask``;
+    whisper's holds ``inputs`` (B, T_enc, d) frame embeddings,
+    ``decoder_tokens`` and ``labels`` (B, S) and optionally ``mask``; the
+    step moves them to the device.
     ``metrics`` holds ``loss``, ``ce``, ``aux``, ``lr`` and ``grad_norm``
     as tensors on the device (the step never syncs the host).  The given
     parameters and state are left as they were, unless ``donate``: then,
@@ -76,8 +85,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
 
 def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
     """``prefill(params, batch) -> logits (B, V)`` of the last position:
-    ``batch["inputs"]`` token ids (B, S) (a tensor or an array), optional
-    ``batch["positions"]`` (B, S; RWKV reads none).  On the card every
+    ``batch["inputs"]`` token ids (B, S) or, where
+    ``input_mode="embeddings"``, float embeddings (B, S, d) (a tensor or
+    an array), optional ``batch["positions"]`` ((B, S), or (3, B, S) for
+    M-RoPE; RWKV reads none).  On the card every
     attention layer (each layer of a dense or MoE model, one a period of
     a hybrid one) runs on the flash-attention kernel, every RWKV layer's
     recurrence on the WKV kernel (one launch a layer); the expert
@@ -104,8 +115,8 @@ def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
 
     @torch.no_grad()
     def prefill(params: Dict, batch: Dict) -> torch.Tensor:
-        inputs = _ids(batch["inputs"], dev)
-        b, s = inputs.shape
+        inputs = _inputs(batch["inputs"], dev)
+        b, s = inputs.shape[:2]
         positions = batch.get("positions")
         positions = (torch.arange(s, device=dev).expand(b, s)
                      if positions is None else _ids(positions, dev))
@@ -120,12 +131,14 @@ def make_serve_step(cfg: ArchConfig, device=None) -> Callable:
     decode step (``models.serve_step``); on the card every attention
     layer's cache attention runs on the decode-attention kernel, every
     RWKV layer's one-token recurrence on the WKV kernel, in place (a
-    Mamba layer's state is written in place too)."""
+    Mamba layer's state is written in place too; a tailed state's tail
+    too, on the decode kernel's tailed entry).  ``batch["inputs"]`` token
+    ids (B,) or embeddings (B, 1, d), optional ``batch["positions"]``."""
     check_ported(cfg)
     dev = resolve_device(device)
 
     @torch.no_grad()
     def step(params: Dict, state: Dict, batch: Dict):
-        batch = {k: _ids(v, dev) for k, v in batch.items()}
+        batch = {k: _inputs(v, dev) for k, v in batch.items()}
         return model_serve_step(params, cfg, state, batch)
     return step

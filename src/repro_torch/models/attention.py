@@ -14,6 +14,12 @@ layer's slice is already the decode kernel's (B, KV, S, hd).  Unlike the
 reference's functional update, ``decode_attention`` writes the new K/V
 into the cache in place (``index_copy_`` at a device index: no host
 sync) and returns the same tensors.
+
+The tailed decode (``decode_tail_window = W > 0``) writes each new K/V
+into a small tail (L, B, KV, W, hd) instead, in place, and attends
+``main[0:main_len] ++ tail[0:tail_len]`` inclusive under one softmax on
+the decode kernel's tailed entry; ``flush_kv_tail`` moves a full tail
+into the main cache every W steps.
 """
 from __future__ import annotations
 
@@ -21,12 +27,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention_fwd
+from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                  decode_attention_tailed_fwd)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_fwd)
 
-from .base import ArchConfig, NotPortedError, scaled_normal
+from .base import ArchConfig, scaled_normal
 from .layers import Rope, rms_norm_headwise, rope_tables, rotate
 
 
@@ -118,9 +125,6 @@ def decode_attention(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     attends to the first ``cache_len + 1`` entries.  Returns (y,
     k_cache, v_cache) with the caches the same tensors as given.
     """
-    if cfg.decode_tail_window > 0:
-        raise NotPortedError("the tailed decode (decode_tail_window > 0, "
-                             "flush_kv_tail) is not yet ported to repro_torch")
     b = x.shape[0]
     q, k_new, v_new = _qkv(p, cfg, x, positions, rope)
     at = cache_len.reshape(1).clamp(max=k_cache.shape[2] - 1).long()
@@ -130,3 +134,69 @@ def decode_attention(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     o = decode_attention_fwd(q.reshape(b, kv, cfg.n_heads // kv, hd),
                              k_cache, v_cache, cache_len)
     return _out(p, cfg, o.reshape(b, 1, cfg.n_heads, hd)), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# tailed decode (block-buffered writes)
+# ---------------------------------------------------------------------------
+
+
+def init_kv_tail(cfg: ArchConfig, batch: int, window: int, n_layers: int,
+                 *, device=None) -> Dict[str, torch.Tensor]:
+    """The tailed decode's write buffer, (L, B, KV, W, hd) in the
+    activation dtype: kv-major like the cache, so a layer's slice is the
+    kernel's tail and the flush a copy along the sequence axis."""
+    shape = (n_layers, batch, cfg.n_kv_heads, window, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
+
+
+def decode_attention_tailed(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                            k_main: torch.Tensor, v_main: torch.Tensor,
+                            k_tail: torch.Tensor, v_tail: torch.Tensor,
+                            cache_len: torch.Tensor, positions: torch.Tensor,
+                            *, rope: Optional[Rope] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """One-token decode with a tail.  x (B, 1, d); k/v_main (B, KV, S, hd),
+    read only; k/v_tail (B, KV, W, hd); cache_len an int32 tensor of one
+    element on the device; positions (B, 1) or (3, B, 1).
+
+    With ``main_len = (cache_len // W) * W`` and ``tail_len = cache_len -
+    main_len`` (both on the device: the step never syncs the host), writes
+    the new token's K/V at ``tail[tail_len]`` in place and attends
+    ``main[0:main_len]`` and ``tail[0:tail_len]`` inclusive under one
+    softmax.  Returns (y, k_tail, v_tail), the tails the same tensors."""
+    b, w = x.shape[0], cfg.decode_tail_window
+    q, k_new, v_new = _qkv(p, cfg, x, positions, rope)
+    at = cache_len.reshape(1).remainder(w).long()
+    k_tail.index_copy_(2, at, k_new.transpose(1, 2).to(k_tail.dtype))
+    v_tail.index_copy_(2, at, v_new.transpose(1, 2).to(v_tail.dtype))
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    o = decode_attention_tailed_fwd(q.reshape(b, kv, cfg.n_heads // kv, hd),
+                                    k_main, v_main, k_tail, v_tail,
+                                    cache_len, w)
+    return _out(p, cfg, o.reshape(b, 1, cfg.n_heads, hd)), k_tail, v_tail
+
+
+def flush_kv_tail(cfg: ArchConfig, state: Dict) -> Dict:
+    """Move a full tail (W rows) into the main cache at ``cache_len - W``,
+    then zero the tail; in place, on the device (no host sync: a CUDA
+    graph can hold it).  The start is placed as the reference's
+    ``dynamic_update_slice`` places it: a negative start counts from the
+    cache's end, then it is clamped into the cache.  Call when
+    ``cache_len % W == 0`` and ``cache_len > 0``.  Returns the state, its
+    tensors the same."""
+    w = cfg.decode_tail_window
+    kv, tail = state["kv"], state["tail"]
+    s = kv["k"].shape[3]
+    if not 0 < w <= s:
+        raise ValueError(f"flush_kv_tail: window {w} must be in 1..{s}, the "
+                         f"cache's length")
+    dst = state["cache_len"].reshape(1).long() - w
+    dst = torch.where(dst < 0, dst + s, dst).clamp(0, s - w)
+    idx = dst + torch.arange(w, device=dst.device)
+    for name in ("k", "v"):
+        kv[name].index_copy_(3, idx, tail[name])
+        tail[name].zero_()
+    return state

@@ -82,7 +82,7 @@ class ArchConfig:
     mamba_chunk: int = 128
     use_pallas: bool = False        # the port always runs its CUDA kernels
     wkv_impl: str = "scan"
-    decode_tail_window: int = 0     # > 0 (tailed decode) is not ported
+    decode_tail_window: int = 0     # > 0: the tailed decode (a W-row tail)
 
     @property
     def head_dim(self) -> int:

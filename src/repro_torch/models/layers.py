@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .base import ArchConfig, NotPortedError, scaled_normal
+from .base import ArchConfig, scaled_normal
 
 # ---------------------------------------------------------------------------
 # norms
@@ -60,7 +60,7 @@ def rms_norm_headwise(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary position embeddings (1-D RoPE)
+# rotary position embeddings (RoPE + qwen2-vl's multimodal M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -80,16 +80,37 @@ def _freqs(hd: int, theta: float, device: str) -> torch.Tensor:
             ).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _sections(sections: Tuple[int, ...], device: str) -> torch.Tensor:
+    """The position stream of each of the hd/2 frequency slots: for
+    (16, 24, 24), slots 0-15 read t, 16-39 h and 40-63 w."""
+    return torch.repeat_interleave(torch.arange(len(sections)),
+                                   torch.tensor(sections)).to(device)
+
+
 Rope = Tuple[torch.Tensor, torch.Tensor]
 
 
 def rope_tables(positions: torch.Tensor, cfg: ArchConfig) -> Rope:
-    """``(cos, sin)``, each f32 (B, S, 1, hd/2), for positions (B, S).
-    Every layer of one call shares them, so callers compute them once."""
-    if cfg.mrope_sections or positions.dim() == 3:
-        raise NotPortedError("M-RoPE (qwen2-vl's 3-stream positions) is not "
-                             "yet ported to repro_torch")
-    theta = positions.float()[..., None] * rope_freqs(cfg, positions.device)
+    """``(cos, sin)``, each f32 (B, S, 1, hd/2), for positions (B, S), or
+    (3, B, S) for M-RoPE.  Every layer of one call shares them, so callers
+    compute them once.
+
+    M-RoPE (qwen2-vl): with 3-stream positions and ``mrope_sections``,
+    each frequency slot takes its angle from the stream of its section
+    (t, h, w); text has t == h == w, where M-RoPE is 1-D RoPE.  As in the
+    reference, 3-stream positions without sections read stream 0, and
+    (B, S) positions with sections (a decode step's default) give 1-D
+    RoPE."""
+    freqs = rope_freqs(cfg, positions.device)
+    pos = positions.float()
+    if positions.dim() == 3 and cfg.mrope_sections:
+        sec = _sections(tuple(cfg.mrope_sections), str(positions.device))
+        theta = pos[sec].permute(1, 2, 0) * freqs     # (B, S, hd/2)
+    else:
+        if positions.dim() == 3:
+            pos = pos[0]
+        theta = pos[..., None] * freqs
     return torch.cos(theta)[:, :, None, :], torch.sin(theta)[:, :, None, :]
 
 
@@ -151,26 +172,28 @@ def apply_mlp(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _tokens_only(cfg: ArchConfig) -> None:
-    if cfg.input_mode != "tokens":
-        raise NotPortedError(f"input_mode={cfg.input_mode!r} (the VLM front "
-                             f"end) is not yet ported to repro_torch")
-
-
 def init_embedding(cfg: ArchConfig, *,
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    _tokens_only(cfg)
-    return {"table": scaled_normal((cfg.vocab_size, cfg.d_model), cfg.d_model,
-                                   cfg.pdtype, generator=generator)}
+    """A token table (V, d), or for an embeddings front end (the VLM's
+    stub) a (d, d) adapter over precomputed patch embeddings."""
+    if cfg.input_mode == "tokens":
+        return {"table": scaled_normal((cfg.vocab_size, cfg.d_model),
+                                       cfg.d_model, cfg.pdtype,
+                                       generator=generator)}
+    return {"adapter": scaled_normal((cfg.d_model, cfg.d_model), cfg.d_model,
+                                     cfg.pdtype, generator=generator)}
 
 
 def embed_inputs(p: Dict, cfg: ArchConfig, inputs: torch.Tensor
                  ) -> torch.Tensor:
     """Token ids (...) -> embeddings (..., d) in the activation dtype (the
     rows are gathered first, then cast: the same values as the reference's
-    cast-then-gather)."""
-    _tokens_only(cfg)
-    return p["table"][inputs.long()].to(cfg.adtype)
+    cast-then-gather); or embeddings (..., d) through the adapter, both
+    cast to the activation dtype first, as the reference's
+    cast-then-einsum."""
+    if cfg.input_mode == "tokens":
+        return p["table"][inputs.long()].to(cfg.adtype)
+    return inputs.to(cfg.adtype) @ p["adapter"].to(cfg.adtype)
 
 
 def tied_head(cfg: ArchConfig) -> bool:

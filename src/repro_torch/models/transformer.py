@@ -15,9 +15,13 @@ the reference's ``sub{i % period}`` of period ``i // period``.
   layer of each period (``is_attn_layer``), a Mamba block on the others,
   ``ffn`` a mixture of experts on every ``moe_every``-th layer;
 - RWKV-6: ``{ln1, tm, ln2, cm}``, the recurrence on the WKV kernels.
-The embeddings front end of a decoder-only model (the VLM), M-RoPE, the
-tailed decode and RWKV's ``wkv_impl="kernel_stub"`` raise
-:class:`NotPortedError`.
+A decoder-only model with ``input_mode="embeddings"`` (the VLM) reads
+(B, S, d) embeddings through a (d, d) adapter, and takes (3, B, S)
+M-RoPE positions where ``mrope_sections`` is set.  With
+``decode_tail_window > 0`` a dense or MoE model decodes through a tail
+(``attention.decode_attention_tailed``; hybrid and RWKV models ignore
+the window, as the reference's do).  Only RWKV's
+``wkv_impl="kernel_stub"`` raises :class:`NotPortedError`.
 
 ``forward`` is the training loss (the token-mean cross-entropy plus
 ``AUX_LOSS_COEF`` times the summed MoE auxiliary loss); with
@@ -37,8 +41,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 
-from .attention import (attention_block, decode_attention, init_attention,
-                        init_kv_cache)
+from .attention import (attention_block, decode_attention,
+                        decode_attention_tailed, init_attention,
+                        init_kv_cache, init_kv_tail)
 from .base import ArchConfig, NotPortedError
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_inputs,
                      init_embedding, init_lm_head, init_mlp, init_norm,
@@ -58,21 +63,15 @@ AUX_LOSS_COEF = 0.01
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise :class:`NotPortedError` naming the first option of ``cfg``
-    that this slice does not carry."""
-    for flag, what in ((cfg.rwkv and cfg.wkv_impl != "scan",
-                        f"wkv_impl={cfg.wkv_impl!r} (the reference's roofline "
-                        f"stand-in for the WKV kernel)"),
-                       (cfg.input_mode != "tokens"
-                        and not cfg.encoder_decoder, f"input_mode="
-                        f"{cfg.input_mode!r} in a decoder-only model (the "
-                        f"VLM front end)"),
-                       (bool(cfg.mrope_sections), "M-RoPE"),
-                       (cfg.decode_tail_window > 0, "the tailed decode "
-                        "(decode_tail_window > 0)")):
-        if flag:
-            raise NotPortedError(f"{cfg.name}: {what} is not yet ported to "
-                                 f"repro_torch")
+    """Raise :class:`NotPortedError` for the one option of the reference's
+    model code the port does not carry: RWKV's ``wkv_impl`` other than
+    ``"scan"`` (``"kernel_stub"``, the dry run's roofline stand-in for the
+    WKV kernel); ``ValueError`` / ``NotImplementedError`` for layouts the
+    reference cannot build either."""
+    if cfg.rwkv and cfg.wkv_impl != "scan":
+        raise NotPortedError(f"{cfg.name}: wkv_impl={cfg.wkv_impl!r} (the "
+                             f"reference's roofline stand-in for the WKV "
+                             f"kernel) is not yet ported to repro_torch")
     if _hybrid(cfg) and cfg.n_layers % cfg.attn_layer_period:
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
                          f"whole number of periods of "
@@ -185,7 +184,8 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     if cfg.encoder_decoder:
         return _whisper_shapes(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    out = {"embedding.table": (v, d)}
+    out = ({"embedding.table": (v, d)} if cfg.input_mode == "tokens"
+           else {"embedding.adapter": (d, d)})
     for i in range(cfg.n_layers):
         layer = _layer_shapes(cfg, i)
         for ln in ("ln1.", "ln2."):
@@ -327,9 +327,10 @@ def _backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 def backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
-    """Token embeddings (B, S, d) -> final norm output (B, S, d).  The
-    reference also returns the MoE auxiliary loss; ``forward`` reads it
-    (from the same layers).  RWKV reads no positions.
+    """Input embeddings (B, S, d) -> final norm output (B, S, d);
+    positions (B, S), or (3, B, S) for M-RoPE.  The reference also
+    returns the MoE auxiliary loss; ``forward`` reads it (from the same
+    layers).  RWKV reads no positions.
 
     Differentiable: with gradients on and ``cfg.remat``, each layer runs
     under ``torch.utils.checkpoint`` (non-reentrant), so the backward
@@ -345,10 +346,11 @@ def backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 def forward(params: Dict, cfg: ArchConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Training loss: ``batch["inputs"]`` token ids (B, S),
-    ``batch["labels"]`` (B, S), optional ``batch["positions"]`` (B, S;
-    RWKV reads none) and ``batch["mask"]`` (B, S), all tensors on the
-    parameters' device.  Returns ``(loss, {"ce", "aux"})``: the
+    """Training loss: ``batch["inputs"]`` token ids (B, S) or, with
+    ``input_mode="embeddings"``, embeddings (B, S, d); ``batch["labels"]``
+    (B, S), optional ``batch["positions"]`` ((B, S), or (3, B, S) for
+    M-RoPE; RWKV reads none) and ``batch["mask"]`` (B, S), all tensors on
+    the parameters' device.  Returns ``(loss, {"ce", "aux"})``: the
     token-mean cross-entropy plus ``AUX_LOSS_COEF`` times the MoE
     auxiliary loss summed over the layers (0 without MoE layers).
     Whisper's batch and loss are ``models.whisper.whisper_forward``'s."""
@@ -381,7 +383,10 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     ``{"h", "conv"}``, one a Mamba layer in layer order; or RWKV's
     ``{"cache_len", "rwkv": [per layer {"tm_shift", "wkv", "cm_shift"}]}``
     (a constant-size state; ``max_len`` is unused); whisper's is
-    ``models.whisper.init_whisper_decode_state``'s."""
+    ``models.whisper.init_whisper_decode_state``'s.  A dense or MoE model
+    with ``decode_tail_window = W > 0`` also holds ``"tail": {"k", "v"}``,
+    (L, B, KV, W, hd) (``attention.init_kv_tail``); hybrid and RWKV
+    models ignore the window, as the reference's do."""
     check_ported(cfg)
     dev = resolve_device(device)
     if cfg.encoder_decoder:
@@ -398,16 +403,23 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
         state["mamba"] = [init_mamba_state(cfg, batch, dev)
                           for i in range(cfg.n_layers)
                           if _kinds(cfg, i)[0] == "mamba"]
+    elif cfg.decode_tail_window > 0:
+        state["tail"] = init_kv_tail(cfg, batch, cfg.decode_tail_window,
+                                     cfg.n_layers, device=dev)
     return state
 
 
 def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
                ) -> Tuple[torch.Tensor, Dict]:
-    """One decode step: new token ids (B,) or (B, 1) -> logits (B, V).
+    """One decode step: new token ids (B,) or (B, 1), or embeddings (B, 1,
+    d) -> logits (B, V); optional ``batch["positions"]`` (B, 1), or (3, B,
+    1) for M-RoPE (default: ``cache_len`` for every row).
 
     The KV cache holds ``state["cache_len"]`` tokens; the step appends one,
-    writing the cache in place, and returns ``(logits, new_state)`` with
-    ``new_state["cache_len"]`` one more.  A Mamba layer writes its SSM
+    writing the cache in place (a tailed state: its tail, at ``cache_len %
+    W``; the main cache is written only by ``attention.flush_kv_tail``),
+    and returns ``(logits, new_state)`` with ``new_state["cache_len"]``
+    one more.  A Mamba layer writes its SSM
     state and conv window in place, an RWKV layer its shift and WKV
     state.  ``cache_len`` stays on the device: the step never syncs the
     host (the MoE dispatch included).  Whisper's step is
@@ -430,14 +442,18 @@ def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
             positions = clen.reshape(1, 1).expand(x.shape[0], 1)
         rope = rope_tables(positions, cfg)
         kc, vc = state["kv"]["k"], state["kv"]["v"]
+        tail = state.get("tail")
         mamba_states = iter(state.get("mamba", ()))
         key, a = _mix_key(cfg), 0
         for i, lp in enumerate(params["layers"]):
             mixer, ffn = _kinds(cfg, i)
             h = apply_norm(lp["ln1"], cfg, x)
             if mixer == "attn":
-                y, _, _ = decode_attention(lp[key], cfg, h, kc[a], vc[a],
-                                           clen, positions, rope=rope)
+                caches = (kc[a], vc[a]) if tail is None else (
+                    kc[a], vc[a], tail["k"][a], tail["v"][a])
+                y = (decode_attention if tail is None
+                     else decode_attention_tailed)(
+                    lp[key], cfg, h, *caches, clen, positions, rope=rope)[0]
                 a += 1
             else:
                 y, _ = mamba_decode_step(lp["mix"], cfg, h,

@@ -30,27 +30,29 @@ tensor-core kernels at hd 64 and 128 with G = 1 and 4 and ragged Sq !=
 Skv (two calls bit-equal, and the routes that stay on the CUDA-core
 kernels), the forward kernel's lse within 1e-5 of the plain lse (its
 output bit-equal with and without it), decode fills on either side of a
-split boundary and a decode call replayed from a CUDA graph at other
-fills, and a small model
-end to end; the adversarial search's oracle rows on the card against
-the CPU transform of the same draws, a search run twice with one seed
-(bit-equal), a trace replayed equal to a direct run, and the ``py``
-packers equal to the ``torch`` packers on the card; tolerances as
-everywhere for
-the attention kernels: 2e-5 in float32, 2e-2 in bfloat16 (the backward's
-absolute part scaled by the largest gradient of the plain result, and
-beside it ``chip_smoke.bwd_rel_errs``'s relative norms, whole and by
-blocks of 64 rows of one head, within ``chip_smoke.BWD_REL_TOL``); a
-train step of a smoke model on the card against the CPU within 1e-4 of
-each leaf's largest magnitude (loss, parameters, moments); the WKV kernel
-(float32 only) within 1e-4 of the largest magnitude of its plain result,
-the reference's own tolerance for its kernel; its backward
-(``rwkv6_wkv_bwd``) at every head size, T not a multiple of its
-checkpoint stride and T = 1, decays that are exactly 0 and near 1, within
-1e-4 of each plain gradient's largest magnitude and
-``chip_smoke.WKV_BWD_REL_TOL`` in relative norm (whole and by 64-step
-blocks), two calls bit-equal; and an RWKV smoke model's train steps on
-the card against the CPU.
+split boundary and a decode call replayed from a CUDA graph at other fills
+(also at 8 query rows a KV head), the decode kernel's tailed entry
+(``decode_attention_tailed_fwd``) at 4 and 8 rows with an empty main
+cache, a full tail, an empty tail and a window that does not divide the
+cache, replayed from a CUDA graph across flushes, and small models end to
+end (a tailed serve step and the VLM's M-RoPE prefill and decode); the
+adversarial search's oracle rows on the card against the CPU transform of
+the same draws, a search run twice with one seed (bit-equal), a trace
+replayed equal to a direct run, and the ``py`` packers equal to the
+``torch`` packers on the card; tolerances as everywhere for the attention
+kernels: 2e-5 in float32, 2e-2 in bfloat16 (the backward's absolute part
+scaled by the largest gradient of the plain result, and beside it
+``chip_smoke.bwd_rel_errs``'s relative norms, whole and by blocks of 64
+rows of one head, within ``chip_smoke.BWD_REL_TOL``); a train step of a
+smoke model on the card against the CPU within 1e-4 of each leaf's largest
+magnitude (loss, parameters, moments); the WKV kernel (float32 only)
+within 1e-4 of the largest magnitude of its plain result, the reference's
+own tolerance for its kernel; its backward (``rwkv6_wkv_bwd``) at every
+head size, T not a multiple of its checkpoint stride and T = 1, decays
+that are exactly 0 and near 1, within 1e-4 of each plain gradient's
+largest magnitude and ``chip_smoke.WKV_BWD_REL_TOL`` in relative norm
+(whole and by 64-step blocks), two calls bit-equal; and an RWKV smoke
+model's train steps on the card against the CPU.
 """
 import dataclasses
 import sys
@@ -67,7 +69,9 @@ from repro_torch.kernels.binpack_select import (  # noqa: E402
     PACK_MAX_N, PackWidthError, pack_rows, select_slot_grid,
     select_slot_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_fwd, decode_attention_plain, decode_splits)
+    decode_attention_fwd, decode_attention_plain,
+    decode_attention_tailed_fwd, decode_attention_tailed_plain,
+    decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain)
@@ -334,9 +338,10 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
 
 @pytest.mark.parametrize("b,kv,g,s,hd", [
     (2, 2, 4, 256, 64), (1, 4, 1, 128, 128), (3, 1, 8, 512, 64),
-    # chip_smoke's paths M2 (one query head over each of 16 KV heads) and
-    # N2 (4 over each of 8), at their 1152-position caches
-    (8, 16, 1, 1152, 128), (8, 8, 4, 1152, 128)])
+    # chip_smoke's paths M2 (one query head over each of 16 KV heads), N2
+    # (4 over each of 8) and P2 (8 over each of 8), at their 1152-position
+    # caches
+    (8, 16, 1, 1152, 128), (8, 8, 4, 1152, 128), (8, 8, 8, 1152, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fill", [0, 7, 200])
 def test_decode_kernel_matches_plain(cuda, b, kv, g, s, hd, dtype, fill):
@@ -401,6 +406,137 @@ def test_decode_graph_replays_at_other_fills(cuda, dtype):
             out.float(), decode_attention_plain(q, k, v, clen).float(),
             rtol=TOL[dtype], atol=TOL[dtype],
             msg=lambda m: f"fill {fill}: {m}")
+
+
+@pytest.mark.parametrize("b,kv,g,s,w", [
+    (8, 8, 8, 1152, 256), (8, 8, 4, 1152, 256), (2, 2, 8, 64, 16),
+    (2, 4, 1, 200, 7), (1, 2, 2, 1152, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_tailed_kernel_matches_plain(cuda, b, kv, g, s, w, dtype):
+    """The tailed entry at fills with an empty main cache (0, w - 1), an
+    empty tail (w, 2w), mid-way and the last fill: one counted launch a
+    call, equal to the reference's two-part merge."""
+    q, km, vm, kt, vt = _normal(11, [(b, kv, g, 128), (b, kv, s, 128),
+                                     (b, kv, s, 128), (b, kv, w, 128),
+                                     (b, kv, w, 128)], dtype, cuda)
+    for fill in sorted({0, w - 1, w, 2 * w, s // 2, s - 1}):
+        clen = torch.tensor(fill, dtype=torch.int32, device=cuda)
+        before = decode_attention_tailed_fwd.launches
+        got = decode_attention_tailed_fwd(q, km, vm, kt, vt, clen, w)
+        torch.cuda.synchronize()
+        assert decode_attention_tailed_fwd.launches == before + 1
+        torch.testing.assert_close(
+            got.float(), decode_attention_tailed_plain(
+                q, km, vm, kt, vt, clen, w).float(),
+            rtol=TOL[dtype], atol=TOL[dtype],
+            msg=lambda m: f"fill {fill}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_tailed_graph_replays_across_a_flush(cuda, dtype):
+    """One tailed call captured in a CUDA graph, replayed at fills set on
+    the card, the tail flushed into the main cache (``flush_kv_tail``, in
+    place) and refilled at each multiple of the window: every replay
+    equals the plain version."""
+    from repro_torch.models import flush_kv_tail
+
+    b, kv, g, s, w = 4, 8, 8, 1152, 256
+    cfg = dataclasses.replace(configs.get("deepseek-67b", smoke=True),
+                              decode_tail_window=w)
+    q, km, vm, kt, vt = _normal(12, [(b, kv, g, 128), (b, kv, s, 128),
+                                     (b, kv, s, 128), (b, kv, w, 128),
+                                     (b, kv, w, 128)], dtype, cuda)
+    clen = torch.tensor(100, dtype=torch.int32, device=cuda)
+    state = {"cache_len": clen, "kv": {"k": km[None], "v": vm[None]},
+             "tail": {"k": kt[None], "v": vt[None]}}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_tailed_fwd(q, km, vm, kt, vt, clen, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_tailed_fwd(q, km, vm, kt, vt, clen, w)
+    gen = torch.Generator(cuda).manual_seed(0)
+    for fill in (100, w - 1, w, w + 9, 2 * w, s - 1):
+        clen.fill_(fill)
+        if fill % w == 0:
+            flush_kv_tail(cfg, state)
+            assert not bool(kt.any())
+            kt.copy_(torch.randn(kt.shape, generator=gen, device=cuda))
+            vt.copy_(torch.randn(vt.shape, generator=gen, device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), decode_attention_tailed_plain(
+                q, km, vm, kt, vt, clen, w).float(),
+            rtol=TOL[dtype], atol=TOL[dtype],
+            msg=lambda m: f"fill {fill}: {m}")
+
+
+def test_tailed_serve_on_the_card_matches_the_cpu(cuda):
+    """deepseek SMOKE in float32 with a tail of 4: 11 decode steps with a
+    flush at 4 and 8 on the card (the tailed entry, 3 launches a step)
+    against the same weights on the CPU (plain versions): logits, the main
+    cache and the tail."""
+    from repro_torch import _tree
+    from repro_torch.models import flush_kv_tail
+
+    cfg = dataclasses.replace(configs.get("deepseek-67b", smoke=True),
+                              dtype="float32", decode_tail_window=4)
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    params = _tree.tree_map(lambda t: t.to(cuda), cpu_params)
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    states = [init_decode_state(cfg, 2, 16, d) for d in (cuda, "cpu")]
+    steps = [make_serve_step(cfg, d) for d in (cuda, "cpu")]
+    before = decode_attention_tailed_fwd.launches
+    for t in range(11):
+        (got, states[0]), (want, states[1]) = (
+            step(p, st, {"inputs": toks[:, t]})
+            for step, p, st in zip(steps, (params, cpu_params), states))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        if (t + 1) % 4 == 0:
+            states = [flush_kv_tail(cfg, st) for st in states]
+    assert decode_attention_tailed_fwd.launches == before + 11 * cfg.n_layers
+    for part in ("kv", "tail"):
+        for name in ("k", "v"):
+            torch.testing.assert_close(states[0][part][name].cpu(),
+                                       states[1][part][name], rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_vlm_on_the_card_matches_the_cpu(cuda):
+    """qwen2-vl SMOKE in float32: a prefill of embeddings with 3-stream
+    image-grid positions and six decode steps of (B, 1, d) embeddings on
+    the card against the CPU."""
+    from repro_torch import _tree
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        from chip_smoke import mrope_positions
+    finally:
+        sys.path.pop(0)
+    cfg = dataclasses.replace(configs.get("qwen2-vl-72b", smoke=True),
+                              dtype="float32")
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    params = _tree.tree_map(lambda t: t.to(cuda), cpu_params)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 13, cfg.d_model), dtype=np.float32)
+    batch = {"inputs": x, "positions": mrope_positions(2, 3, (2, 3), 4)}
+    torch.testing.assert_close(
+        make_prefill_step(cfg, cuda)(params, batch).cpu(),
+        make_prefill_step(cfg, "cpu")(cpu_params, batch),
+        rtol=1e-5, atol=1e-5)
+    states = [init_decode_state(cfg, 2, 8, d) for d in (cuda, "cpu")]
+    steps = [make_serve_step(cfg, d) for d in (cuda, "cpu")]
+    for t in range(6):
+        feed = {"inputs": x[:, t:t + 1],
+                "positions": np.full((3, 2, 1), 10 + t, np.int64)}
+        (got, states[0]), (want, states[1]) = (
+            step(p, st, feed)
+            for step, p, st in zip(steps, (params, cpu_params), states))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 def _wkv_inputs(b, t, h, hd, dev, seed=3):

@@ -3,13 +3,14 @@ attention and the prefill.
 
 The reference's weights (``repro.models.init_params``) are carried across
 with ``convert.params_from_numpy``; the same numpy token ids and
-activations enter both packages.  Smoke configs of qwen3 (GQA, qk-norm),
-olmo (MHA, non-parametric LayerNorm, tied embeddings) and granite (GQA,
-d_ff 160).  Tolerances: ``atol = rtol = 1e-5`` where the compute dtype is
-float32, ``5e-2`` in bfloat16 (the reference's own jnp and Pallas
-prefills differ by 2 bf16 ulps there).  The port's attention runs the
-kernels' plain versions on the CPU; the reference runs both of its paths
-(``use_pallas`` True: its Pallas kernel in interpret mode).
+activations enter both packages. Smoke configs of qwen3 (GQA, qk-norm),
+olmo (MHA, non-parametric LayerNorm, tied embeddings), granite (GQA,
+d_ff 160) and deepseek (GQA, 3 layers, d_ff 160). Tolerances: ``atol =
+rtol = 1e-5`` where the compute dtype is float32, ``5e-2`` in bfloat16
+(the reference's own jnp and Pallas prefills differ by 2 bf16 ulps
+there). The port's attention runs the kernels' plain versions on the
+CPU; the reference runs both of its paths (``use_pallas`` True: its
+Pallas kernel in interpret mode).
 """
 import dataclasses
 import functools
@@ -25,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.launch.steps import make_prefill_step as j_prefill  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
+from repro.models import init_decode_state as j_init_state  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
@@ -32,20 +34,21 @@ from repro_torch._tree import items as _tree_items  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_train_step)
-from repro_torch.models import NotPortedError, init_params  # noqa: E402
+from repro_torch.models import (NotPortedError, init_decode_state,  # noqa: E402
+                                init_params)
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.base import torch_dtype  # noqa: E402
 from repro_torch.models.transformer import param_shapes  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 
-ARCHS = ("qwen3-8b", "olmo-1b", "granite-3-8b")
+ARCHS = ("qwen3-8b", "olmo-1b", "granite-3-8b", "deepseek-67b")
 #: archs whose layers are not [attention + MLP]; the family-agnostic
 #: tests take them too (``tests/test_torch_rwkv.py``,
-#: ``test_torch_moe.py``, ``test_torch_hybrid.py`` and
-#: ``test_torch_whisper.py`` hold the rest)
+#: ``test_torch_moe.py``, ``test_torch_hybrid.py``,
+#: ``test_torch_whisper.py`` and ``test_torch_vlm.py`` hold the rest)
 OTHER_ARCHS = ("rwkv6-3b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
-               "jamba-v0.1-52b", "whisper-large-v3")
+               "jamba-v0.1-52b", "whisper-large-v3", "qwen2-vl-72b")
 #: compute dtype, parameter dtype
 DTYPES = {"f32": ("float32", "float32"), "bf16": ("bfloat16", "float32"),
           "bf16-params": ("bfloat16", "bfloat16")}
@@ -102,12 +105,21 @@ def test_configs_equal_reference_field_for_field(arch, smoke):
 
 
 def test_arch_list_and_unported_archs():
+    """Every arch of the reference is ported; an unknown id is a
+    KeyError, an id outside ``PORTED`` a NotPortedError."""
     assert tconfigs.list_archs() == jconfigs.list_archs()
-    for arch in set(jconfigs.list_archs()) - set(ARCHS + OTHER_ARCHS):
-        with pytest.raises(NotPortedError, match="not yet ported"):
-            tconfigs.get(arch)
+    assert set(jconfigs.list_archs()) == set(ARCHS + OTHER_ARCHS)
+    for arch in jconfigs.list_archs():
+        assert tconfigs.get(arch).name == jconfigs.get(arch).name
     with pytest.raises(KeyError):
         tconfigs.get("no-such-arch")
+    ported = tconfigs.PORTED
+    try:
+        tconfigs.PORTED = tuple(m for m in ported if m != "deepseek_67b")
+        with pytest.raises(NotPortedError, match="not yet ported"):
+            tconfigs.get("deepseek-67b")
+    finally:
+        tconfigs.PORTED = ported
 
 
 @pytest.mark.parametrize("arch", ARCHS + OTHER_ARCHS)
@@ -165,23 +177,35 @@ def test_init_params_draws_truncated_scaled_normals(arch):
 ], ids=("moe_tailed", "rwkv", "mrope", "encoder_decoder", "embeddings",
         "tailed"))
 def test_unported_options_raise(opt):
-    """The options the port does not carry raise; ``encoder_decoder``,
-    ported since whisper, instead draws the reference's tree: every
-    leaf's shape as the reference's ``init_params`` of the same config."""
+    """RWKV's ``wkv_impl="kernel_stub"`` (the dry run's roofline stand-in)
+    is the one option the port still refuses.  The others, ported since
+    (``encoder_decoder`` with whisper; M-RoPE, the embeddings front end
+    and the tailed decode with qwen2-vl and deepseek), draw the
+    reference's tree: every parameter's shape as the reference's
+    ``init_params`` of the same config, and every decode-state leaf's
+    shape and dtype as its ``init_decode_state`` (the tail's too)."""
     cfg = dataclasses.replace(tconfigs.get("qwen3-8b", smoke=True), **opt)
-    if cfg.encoder_decoder:
-        jcfg = dataclasses.replace(jconfigs.get("qwen3-8b", smoke=True),
-                                   **opt)
-        want = jax.eval_shape(lambda k: j_init_params(k, jcfg),
-                              jax.random.key(0))
-        zeros = jax.tree.map(lambda a: np.zeros(a.shape, np.float32), want)
-        want = params_from_numpy(zeros, cfg, device="cpu")
-        got = init_params(cfg, device="cpu")
-        assert ({k: tuple(v.shape) for k, v in _tree_items(got)}
-                == {k: tuple(v.shape) for k, v in _tree_items(want)})
+    if cfg.rwkv:
+        with pytest.raises(NotPortedError, match="not yet ported"):
+            init_params(cfg, device="cpu")
         return
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        init_params(cfg, device="cpu")
+    jcfg = dataclasses.replace(jconfigs.get("qwen3-8b", smoke=True), **opt)
+    want = jax.eval_shape(lambda k: j_init_params(k, jcfg),
+                          jax.random.key(0))
+    zeros = jax.tree.map(lambda a: np.zeros(a.shape, np.float32), want)
+    want = params_from_numpy(zeros, cfg, device="cpu")
+    got = init_params(cfg, device="cpu")
+    assert ({k: tuple(v.shape) for k, v in _tree_items(got)}
+            == {k: tuple(v.shape) for k, v in _tree_items(want)})
+    if cfg.encoder_decoder:
+        return
+    jstate = jax.eval_shape(lambda: j_init_state(jcfg, 2, 8))
+    state = init_decode_state(cfg, 2, 8, device="cpu")
+    assert ({k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+             for k, v in _tree_items(state)}
+            == {k: (tuple(v.shape), str(v.dtype))
+                for k, v in _tree_items(jstate)})
+    assert ("tail" in state) == (cfg.decode_tail_window > 0)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e",

@@ -325,7 +325,9 @@ def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
     assert chip_smoke.select_paths("J2,A") == ["A", "J2"]
     assert chip_smoke.select_paths("N,M,E") == ["E", "M", "N"]
     assert chip_smoke.select_paths("O") == ["O0", "O1", "O2", "O3"]
-    for bad in ("L3", "P", ""):
+    assert chip_smoke.select_paths("q,P") == ["P", "Q"]
+    assert chip_smoke.select_paths("P,D") == ["D", "P"]
+    for bad in ("L3", "R", "P1", ""):
         with pytest.raises(ValueError):
             chip_smoke.select_paths(bad)
 
@@ -357,7 +359,8 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
                      ("L0", "run_path_l0"), ("L1", "run_path_l1"),
                      ("L2", "run_path_l2"), ("O0", "run_path_o0"),
                      ("O1", "run_path_o1"), ("O2", "run_path_o2"),
-                     ("O3", "run_path_o3")):
+                     ("O3", "run_path_o3"), ("P", "run_path_p"),
+                     ("Q", "run_path_q")):
         monkeypatch.setattr(chip_smoke, fn, path(name))
     made = []
     monkeypatch.setattr(chip_smoke, "path_a_traffic",

@@ -45,7 +45,7 @@ from repro_torch.convert import (opt_state_from_numpy,  # noqa: E402
                                  params_from_numpy)
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step, make_train_step)
-from repro_torch.models import (NotPortedError, backbone,  # noqa: E402
+from repro_torch.models import (backbone,  # noqa: E402
                                 forward, init_decode_state, init_params,
                                 serve_step)
 from repro_torch.models import layers as tlayers  # noqa: E402
@@ -573,10 +573,25 @@ def test_serve_step_smoke():
 
 
 def test_decoder_only_embeddings_front_end_still_refused():
-    cfg = dataclasses.replace(tconfigs.get("qwen3-8b", smoke=True),
-                              input_mode="embeddings")
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        init_params(cfg, device="cpu")
+    """No longer refused (ported with qwen2-vl): a decoder-only model with
+    ``input_mode="embeddings"`` draws the reference's (d, d) adapter, not
+    whisper's encoder, and its prefill over (B, S, d) embeddings gives the
+    reference's logits (float32, within 1e-5)."""
+    over = dict(input_mode="embeddings", dtype="float32",
+                param_dtype="float32")
+    tcfg = dataclasses.replace(tconfigs.get("qwen3-8b", smoke=True), **over)
+    jcfg = dataclasses.replace(jconfigs.get("qwen3-8b", smoke=True), **over)
+    assert set(init_params(tcfg, device="cpu")) == {
+        "embedding", "layers", "final_norm", "lm_head"}
+    jp = j_init_params(jax.random.key(0), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    assert set(tp["embedding"]) == {"adapter"}
+    x = np.random.default_rng(0).standard_normal((2, 8, tcfg.d_model),
+                                                 dtype=np.float32)
+    got = make_prefill_step(tcfg, "cpu")(tp, {"inputs": x})
+    want = jax.jit(j_prefill(jcfg))(jp, {"inputs": jnp.asarray(x)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------
