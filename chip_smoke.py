@@ -4,9 +4,10 @@ packers' sweep, the optimizer, the adversarial search and trace replay,
 LLM serving of a dense model, of RWKV-6, of a mixture of experts and of
 the hybrid Mamba family, the paper's own system with
 an autoscaled fleet of LLM replicas, training of a dense LLM and of
-RWKV-6, serving and training of the encoder-decoder family, and serving
-of the VLM and of a dense model through the tailed decode) on one NVIDIA
-card.
+RWKV-6, serving and training of the encoder-decoder family, serving of
+the VLM and of a dense model through the tailed decode, training of the
+MoE and hybrid Mamba families, and the lag twin's five examples) on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--paths L0,L1]
 
@@ -326,14 +327,35 @@ Run from a checkout of the repository on a machine with a CUDA card and
    (prefill, then 48 + 16 steps across 4 flushes: tailed kernels against
    tailed plain versions and against the untailed kernels, logits within
    1e-4, tokens equal; tailed decode against prefill within 2e-2);
-24. each kernel's time at its path's shapes beside its bound, its plain
+24. path R, training the MoE and hybrid families: R1 trains
+   qwen2-moe-a2.7b at full width (60 experts top-4 and 4 shared, 16
+   heads of 128) cut to 4 of its 24 layers, f32 parameters, bf16
+   compute, remat, donated: 4 AdamW steps of 4 x 2048 tokens, exactly 8
+   forward and 4 backward flash launches a step, finite loss, ce and
+   aux > 0, a nonzero gradient in every layer's router, wq/wk/wv and
+   shared expert and in every expert that took a token; one step under
+   the profiler, split by part (the flash kernels, the expert einsums,
+   the dispatch's gathers and their scatter-add backwards, the f32 loss,
+   the other matmuls, AdamW); the flash forward with its lse at R1's
+   call, timed; R2 the step at 2 layers in float32 with the kernels and
+   with their plain versions, losses within 1e-5 and every leaf's update
+   by its relative norm (``update_verdict``), the smallest top-k margin
+   printed; R3 the same for 3 steps of jamba-smoke (the period layout,
+   Mamba layers) and llama4-scout-smoke (top-1 routing);
+25. path S, the lag twin's five examples (``repro_torch.examples``:
+   quickstart, scenario_sweep, lag_slo_sweep ``--smoke --use-kernel``,
+   pareto_frontier, live_dashboard ``--smoke``) on the card, each held
+   to running through and to launching the kernels its route reaches
+   (``pack_rows``; ``lag_update``; ``anneal_step``);
+26. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
    backward of that call at K1's shape, replayed from a CUDA graph like
    the kernel, and eager as ``library_eager_ms`` beside ``wrapper_ms``;
    the flash row also in float32 at
-   D1's shape, and in bfloat16 with its lse stored (training's call); no
+   D1's shape, and in bfloat16 with its lse stored (training's call, at
+   D1's shape and at R1's); no
    PyTorch call computes the WKV recurrence; ``pack_rows`` at path B's
    Modified Any Fit call, MBF over [1024, 32]; ``anneal_step``
    at C1's and C2's shapes; the move plane ``move_eval``, which no path
@@ -351,7 +373,8 @@ pays.
 ``--paths`` runs phases 1-2 and then only the named paths (a letter
 takes all its parts), and prints the kernel rows they make whole (the
 WKV backward's, after L0; the three attention kernels' at whisper's
-calls, after O0; the tailed decode's, after Q) and the last line.
+calls, after O0; the tailed decode's, after Q; the flash forward's at
+R1's call, after R1) and the last line.
 
 Kernel launch counts are zeroed just before each path and read just
 after it; a path that launched none of its kernels fails.  The line
@@ -1478,15 +1501,17 @@ def attention_rows(dev, seed, launches, errs):
                           for p in ("D1", "M1", "N1", "P1", "Q1")},
         max_abs_err=errs["flash_attention_fwd"], ms=graph_ms(kern, 10),
         plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
-        library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])]
+        library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0],
+        calls=[])]
     # the same call with its lse stored (training's forward): the same
     # output bits, its time beside the serving call's
     with_lse = lambda: fa.flash_attention_fwd(  # noqa: E731
         q, k, v, causal=True, return_lse=True)
     _require(torch.equal(with_lse()[0], kern()),
              "flash_attention: the output with lse stored differs")
-    rows[0].update(ms_lse=graph_ms(with_lse, 10),
-                   wrapper_ms_lse=cuda_ms(with_lse, 10)[0])
+    rows[0]["calls"].append(dict(
+        at="D1's shape with its lse stored (training's call)",
+        ms=graph_ms(with_lse, 10), wrapper_ms=cuda_ms(with_lse, 10)[0]))
     del q, k, v
     # the float32 kernel (csrc/flash_attention.cu, on the CUDA cores) at
     # the same shape, against the float32 peak outside the tensor cores
@@ -1497,11 +1522,11 @@ def attention_rows(dev, seed, launches, errs):
                                             "D1's shape")
     bnd, by = bound_ms(4 * (q.numel() + k.numel() + v.numel() + q.numel()),
                        4 * b * h * s * s * hd / 2)
-    rows[0].update(ms_f32=graph_ms(kern, 5), plain_ms_f32=graph_ms(plain, 2),
-                   bound_ms_f32=bnd, bound_by_f32=by,
-                   library_ms_f32=graph_ms(lib, 5),
-                   wrapper_ms_f32=cuda_ms(kern, 5)[0],
-                   source_f32="src/repro_torch/kernels/csrc/flash_attention.cu")
+    rows[0]["calls"].append(dict(
+        at="D1's shape in float32", ms=graph_ms(kern, 5),
+        plain_ms=graph_ms(plain, 2), bound_ms=bnd, bound_by=by,
+        library_ms=graph_ms(lib, 5), wrapper_ms=cuda_ms(kern, 5)[0],
+        source="src/repro_torch/kernels/csrc/flash_attention.cu"))
     del q, k, v
     # path M1's call: 16 query heads over 16 KV heads (no grouping)
     q = _normal(gen, (b, 16, s, hd), "bfloat16", dev)
@@ -1509,10 +1534,10 @@ def attention_rows(dev, seed, launches, errs):
     v = _normal(gen, (b, 16, s, hd), "bfloat16", dev)
     bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
                        4 * b * 16 * s * s * hd / 2, BF16_OPS_PER_S)
-    rows[0].update(ms_m1=graph_ms(kern, 10), plain_ms_m1=graph_ms(plain, 3),
-                   bound_ms_m1=bnd, bound_by_m1=by,
-                   library_ms_m1=graph_ms(lib, 10),
-                   wrapper_ms_m1=cuda_ms(kern, 10)[0])
+    rows[0]["calls"].append(dict(
+        at="path M1's call (16 over 16 heads)", ms=graph_ms(kern, 10),
+        plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
+        library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0]))
     del q, k, v
     # paths P1's and Q1's call: 64 query heads over 8 KV heads
     q = _normal(gen, (b, 64, s, hd), "bfloat16", dev)
@@ -1520,10 +1545,11 @@ def attention_rows(dev, seed, launches, errs):
     v = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
     bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
                        4 * b * 64 * s * s * hd / 2, BF16_OPS_PER_S)
-    rows[0].update(ms_p1=graph_ms(kern, 10), plain_ms_p1=graph_ms(plain, 3),
-                   bound_ms_p1=bnd, bound_by_p1=by,
-                   library_ms_p1=graph_ms(lib, 10),
-                   wrapper_ms_p1=cuda_ms(kern, 10)[0])
+    rows[0]["calls"].append(dict(
+        at="paths P1's and Q1's call (64 over 8 heads)",
+        ms=graph_ms(kern, 10), plain_ms=graph_ms(plain, 3), bound_ms=bnd,
+        bound_by=by, library_ms=graph_ms(lib, 10),
+        wrapper_ms=cuda_ms(kern, 10)[0]))
     del q, k, v
 
     g, smax = h // kv, D_PROMPT + D_GEN
@@ -1552,7 +1578,8 @@ def attention_rows(dev, seed, launches, errs):
                                                    "P2", "Q2_control")},
         max_abs_err=errs["decode_attention_fwd"], ms=graph_ms(kern, 200),
         plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
-        library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0]))
+        library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0],
+        calls=[]))
     del q, kc, vc, q4
 
     # path M2's call: one query head over each of 16 KV heads
@@ -1566,10 +1593,11 @@ def attention_rows(dev, seed, launches, errs):
              "at path M2's call")
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * 16 * (fill + 1) * hd),
                        4 * b * 16 * (fill + 1) * hd, BF16_OPS_PER_S)
-    rows[-1].update(ms_m2=graph_ms(kern, 200), plain_ms_m2=graph_ms(plain, 50),
-                    bound_ms_m2=bnd, bound_by_m2=by,
-                    library_ms_m2=graph_ms(lib, 200),
-                    wrapper_ms_m2=cuda_ms(kern, 200)[0])
+    rows[-1]["calls"].append(dict(
+        at="path M2's call (1 query head over each of 16 KV heads)",
+        ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50), bound_ms=bnd,
+        bound_by=by, library_ms=graph_ms(lib, 200),
+        wrapper_ms=cuda_ms(kern, 200)[0]))
     del q, kc, vc, q4
 
     # paths P2's and Q2's control call: 8 query heads over each of 8 KV
@@ -1584,10 +1612,12 @@ def attention_rows(dev, seed, launches, errs):
              "at path P2's call")
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
                        4 * b * kv * 8 * (fill + 1) * hd, BF16_OPS_PER_S)
-    rows[-1].update(ms_p2=graph_ms(kern, 200), plain_ms_p2=graph_ms(plain, 50),
-                    bound_ms_p2=bnd, bound_by_p2=by,
-                    library_ms_p2=graph_ms(lib, 200),
-                    wrapper_ms_p2=cuda_ms(kern, 200)[0])
+    rows[-1]["calls"].append(dict(
+        at=f"paths P2's and Q2's control call (8 query heads over "
+           f"each of 8 KV heads, fill {fill})",
+        ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50), bound_ms=bnd,
+        bound_by=by, library_ms=graph_ms(lib, 200),
+        wrapper_ms=cuda_ms(kern, 200)[0]))
     del q, kc, vc, q4
 
     # path J2's call: SharedModel(max_len=16) at its last serve step of a
@@ -1600,10 +1630,11 @@ def attention_rows(dev, seed, launches, errs):
     q4 = q.reshape(b, h, 1, hd)
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
                        4 * b * h * (fill + 1) * hd, BF16_OPS_PER_S)
-    rows[-1].update(ms_j2=graph_ms(kern, 200), plain_ms_j2=graph_ms(plain, 50),
-                    bound_ms_j2=bnd, bound_by_j2=by,
-                    library_ms_j2=graph_ms(lib, 200),
-                    wrapper_ms_j2=cuda_ms(kern, 200)[0])
+    rows[-1]["calls"].append(dict(
+        at="path J2's call (cache 16, 4 filled)",
+        ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50), bound_ms=bnd,
+        bound_by=by, library_ms=graph_ms(lib, 200),
+        wrapper_ms=cuda_ms(kern, 200)[0]))
     return rows
 
 
@@ -1659,7 +1690,8 @@ def tailed_row(dev, seed, launches, err) -> dict:
         max_abs_err=err, ms=graph_ms(kern, 200),
         plain_ms=graph_ms(plain, 50), bound_ms=bnd, bound_by=by,
         library_ms=graph_ms(lib, 200), wrapper_ms=cuda_ms(kern, 200)[0],
-        ms_untailed=graph_ms(untailed, 200),
+        calls=[dict(at="the untailed kernel over the same rows as one cache",
+                    ms=graph_ms(untailed, 200))],
         design="the splits take equal shares of the joined main_len + "
         "tail_len + 1 rows, each row read from the main cache below "
         "main_len and from the tail above; main_len and tail_len from "
@@ -1782,15 +1814,17 @@ def wkv_row(dev, seed, launches, errs):
         for xs, dst in zip(layers, spare):
             dst.copy_(xs[5])
 
-    row.update(ms_decode=graph_ms(kern, 10) / n_layers,
-               state_copy_ms_decode=graph_ms(copies, 10) / n_layers,
-               plain_ms_decode=graph_ms(plain, 5) / n_layers,
-               bound_ms_decode=bnd, bound_by_decode=by,
-               wrapper_ms_decode=cuda_ms(kern, 10)[0] / n_layers)
+    row["calls"] = [dict(
+        at="one decode step (path E2's call, a layer's state)",
+        ms=graph_ms(kern, 10) / n_layers,
+        plain_ms=graph_ms(plain, 5) / n_layers, bound_ms=bnd, bound_by=by,
+        wrapper_ms=cuda_ms(kern, 10)[0] / n_layers,
+        state_copy_ms=graph_ms(copies, 10) / n_layers)]
     return row
 
 
-def anneal_step_row(dev, gen, launches_c1, launches_c2, launches_i, errs):
+def anneal_step_row(dev, gen, launches_c1, launches_c2, launches_i,
+                    launches_s, errs):
     """Kernel row of anneal_step: one step of path C1's 1024 rows x 6
     chains at N = 32 (the warp layout), and of C2's 28 chains at N = 256
     (the cluster layout), each beside its plain step.  Bound: the state
@@ -1825,12 +1859,14 @@ def anneal_step_row(dev, gen, launches_c1, launches_c2, launches_i, errs):
         "around it (src/repro/opt/anneal.py:147-186, chain_update and "
         "body): one launch an anneal step, the plane never written",
         launches=launches_c1["anneal_step"] + launches_c2["anneal_step"]
-        + launches_i["anneal_step"],
+        + launches_i["anneal_step"] + launches_s["anneal_step"],
         launches_by_path={"C1": launches_c1["anneal_step"],
                           "C2": launches_c2["anneal_step"],
-                          "I": launches_i["anneal_step"]},
+                          "I": launches_i["anneal_step"],
+                          "S": launches_s["anneal_step"]},
         max_abs_err=errs["anneal_step"], library_ms=None, **c1,
-        **{f"{key}_c2": val for key, val in c2.items()})
+        calls=[dict(c2, at="path C2's call (28 chains of N = 256, the "
+                           "cluster layout)")])
 
 
 def heuristic_kwargs():
@@ -3996,18 +4032,19 @@ def update_rel_errs(leaves) -> dict:
     return out
 
 
-def update_verdict(leaves) -> dict:
+def update_verdict(leaves, tol: float = L2_UPDATE_REL_TOL) -> dict:
     """L2's update checks, without raising: the largest of max |got -
     want| / max |want| over the leaves and its leaf (printed; held to
     K2_TOL in float32), and the largest relative norm of
-    :func:`update_rel_errs` and its leaf, held to L2_UPDATE_REL_TOL in
-    both dtypes."""
+    :func:`update_rel_errs` and its leaf, held to ``tol`` (L2's
+    L2_UPDATE_REL_TOL in both dtypes; the float32 training agreements'
+    F32_UPDATE_REL_TOL)."""
     leaves = list(leaves)
     worst, at = _worst_leaf(leaves)
     rels = update_rel_errs(leaves)
     rel_at = max(rels, key=rels.get)
     return dict(max_rel=worst, max_rel_at=at, rel_norm=rels[rel_at],
-                rel_norm_at=rel_at, rel_ok=rels[rel_at] <= L2_UPDATE_REL_TOL)
+                rel_norm_at=rel_at, rel_ok=rels[rel_at] <= tol)
 
 
 #: the WKV backward's second check, as ``bwd_rel_errs`` makes it for the
@@ -4466,15 +4503,16 @@ def run_path_l1(dev, seed):
     return launches
 
 
-def _profiled(run):
+def _profiled(run, **opts):
     """``(the profiler, wall seconds)`` of one call of ``run`` (which
-    syncs) under ``torch.profiler``."""
+    syncs) under ``torch.profiler`` (``opts`` its options, e.g.
+    ``record_shapes``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA], **opts) as prof:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
@@ -4483,12 +4521,15 @@ def _profiled(run):
 
 def _device_time(prof):
     """``(kernel intervals, device ms by kernel name, busy ms)``: busy is
-    the union of the kernels' intervals."""
+    the union of the kernels' intervals.  A ``record_function`` range's
+    own span on the device (a user annotation, not a kernel) is left
+    out."""
     from collections import defaultdict
 
     spans, by_name = [], defaultdict(float)
     for e in prof.events():
         if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)
                 and e.time_range.end > e.time_range.start):
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
@@ -4540,14 +4581,20 @@ WKV_KERNELS = (("rwkv6_wkv_bwd", "rwkv6_wkv_bwd"),
                ("rwkv6_wkv", "rwkv6_wkv_kernel"))
 
 
-def profile_train_step(run, what: str, kernels=WKV_KERNELS) -> None:
+def profile_train_step(run, what: str, kernels=WKV_KERNELS,
+                       parts=None) -> None:
     """One more call of ``run`` (a train step, donated) under
     ``torch.profiler``: its wall, the card's busy time (the union of its
     kernels' intervals) and share of the wall, the device time of the
     matmuls (``aten::mm``), of each of ``kernels`` (``(label, substring
     of the kernel's name)`` pairs) and of everything else, and the five
-    kernels that took the most."""
-    prof, wall = _profiled(lambda: float(run()[2]["loss"]))
+    kernels that took the most.  With ``parts`` (a function of the
+    profile and the device ms by kernel name that gives ``{label: device
+    ms}``, e.g. :func:`moe_step_parts`), the profile records every
+    operator's input shapes, and a line follows for each part and for
+    the rest."""
+    prof, wall = _profiled(lambda: float(run()[2]["loss"]),
+                           record_shapes=parts is not None)
     spans, by_name, busy = _device_time(prof)
     mm = _op_device_ms(prof).get("aten::mm", 0.0)
     ours = {label: sum(v for k, v in by_name.items() if sub in k)
@@ -4563,6 +4610,11 @@ def profile_train_step(run, what: str, kernels=WKV_KERNELS) -> None:
           + f"the rest {total - mm - sum(ours.values())!r}"
           f"; the five kernels that took the most (ms): "
           + "; ".join(f"{k[:60]} {v!r}" for k, v in top))
+    if parts is not None:
+        split = parts(prof, by_name)
+        for k, v in split.items():
+            print(f"  {what} {k}: {v!r} ms ({v / max(total, 1e-9):.1%})")
+        print(f"  {what} the rest: {total - sum(split.values())!r} ms")
 
 
 def _l2_grads(params, cfg, batch, pair):
@@ -5363,30 +5415,18 @@ def run_path_o3(dev, seed):
 
 def whisper_train_agreement(dev, seed, batch=2, seq=64):
     """whisper-large-v3 at full width with O_AGREE_LAYERS encoder and
-    decoder layers (remat), two ``make_train_step`` steps (AdamW lr
-    L2_LR, eps K2_EPS, as L2) with the flash kernels and then with their
-    plain versions swapped in (forward and backward), from the same
-    weights and batches, in float32 and in bfloat16 compute: the losses
-    within 2e-2, every leaf's update over the two steps within
-    L2_UPDATE_REL_TOL by its relative norm (:func:`update_verdict`), and
-    in float32 within K2_TOL of its largest update."""
-    import torch
+    decoder layers (remat), two steps of ``batch`` x (1500 frames + ``seq``
+    decoder tokens) (AdamW lr L2_LR, eps K2_EPS, as L2), in float32 and
+    in bfloat16 compute: :func:`train_agreement` from weights of seed
+    ``seed + 3``, three flash calls a layer pair, the losses within
+    R_LOSS_TOL in float32 and 2e-2 in bfloat16."""
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
 
-    from repro_torch import _tree
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import attention, init_params
-    from repro_torch.optim import AdamWConfig, adamw_init
-
-    plain = [(attention, "flash_attention_fwd", fa.flash_attention_plain),
-             (attention, "flash_attention_bwd", fa.flash_attention_bwd_plain)]
     opt = AdamWConfig(lr=L2_LR, warmup_steps=1, eps=K2_EPS)
-    calls = 3 * O_AGREE_LAYERS
     for dtype in ("float32", "bfloat16"):
         cfg = _whisper_cfg(n_layers=O_AGREE_LAYERS,
                            n_encoder_layers=O_AGREE_LAYERS, dtype=dtype)
-        params = init_params(cfg, seed=seed + 3, device=dev)
         batches = []
         for i in range(2):
             frames, toks = _whisper_inputs(cfg, dev, seed + 3 + i, batch,
@@ -5394,51 +5434,10 @@ def whisper_train_agreement(dev, seed, batch=2, seq=64):
             batches.append({"inputs": frames,
                             "decoder_tokens": toks[:, :-1],
                             "labels": toks[:, 1:]})
-        step = make_train_step(cfg, opt, dev)
-        out = []
-        for swap in ([], plain):
-            with _swapped(swap):
-                _build.reset_launches()
-                p, st, losses = params, adamw_init(params), []
-                for b in batches:
-                    p, st, m = step(p, st, b)
-                    losses.append(float(m["loss"]))
-                counts = {k: _build.launch_counts()[k] for k in (
-                    "flash_attention_fwd", "flash_attention_bwd")}
-            want = ({"flash_attention_fwd": 4 * calls,
-                     "flash_attention_bwd": 2 * calls} if not swap
-                    else dict.fromkeys(counts, 0))
-            _require(counts == want, f"path O3 agreement {dtype}: launches "
-                                     f"{counts}, want {want}")
-            out.append((p, losses))
-        (got_p, got_l), (want_p, want_l) = out
-        dloss = max(abs(a - b) for a, b in zip(got_l, want_l))
-        _require(dloss <= 2e-2, f"path O3 agreement {dtype}: losses "
-                                f"{got_l} and {want_l} differ by {dloss}")
-        uv = update_verdict(
-            (name, new.float() - old.float(), ref.float() - old.float())
-            for (name, old), new, ref in zip(_tree.items(params),
-                                             _tree.leaves(got_p),
-                                             _tree.leaves(want_p)))
-        print(f"agreement {cfg.name} training d_model={cfg.d_model} "
-              f"{O_AGREE_LAYERS} + {O_AGREE_LAYERS} layers {dtype}, 2 steps "
-              f"of {batch} x ({cfg.encoder_seq_len} frames + {seq} tokens) "
-              f"(AdamW lr {L2_LR}, eps {K2_EPS}), flash kernels against "
-              f"their plain versions on the card: losses {got_l!r} vs "
-              f"{want_l!r} (|diff| {dloss!r}, within 2e-2); updates within "
-              f"{uv['max_rel']!r} of the largest (worst {uv['max_rel_at']}"
-              f"{'' if dtype == 'bfloat16' else f', held to {K2_TOL}'}), "
-              f"relative norm by leaf {uv['rel_norm']!r} (worst "
-              f"{uv['rel_norm_at']}, held to {L2_UPDATE_REL_TOL})")
-        _require(uv["rel_ok"], f"path O3 agreement {dtype}: "
-                               f"{uv['rel_norm_at']}'s update differs by a "
-                               f"relative norm of {uv['rel_norm']:.3g} "
-                               f"(> {L2_UPDATE_REL_TOL})")
-        _require(dtype != "float32" or uv["max_rel"] <= K2_TOL,
-                 f"path O3 agreement {dtype}: {uv['max_rel_at']}'s update "
-                 f"differs by {uv['max_rel']:.3g} of its largest "
-                 f"(> {K2_TOL})")
-        del params, got_p, want_p, out
+        train_agreement(dev, cfg, batches, opt, f"path O3 agreement {dtype}",
+                        params=init_params(cfg, seed=seed + 3, device=dev),
+                        calls=3 * O_AGREE_LAYERS,
+                        loss_tol=R_LOSS_TOL if dtype == "float32" else 2e-2)
 
 
 def whisper_rows(o0, launches) -> list:
@@ -5446,11 +5445,15 @@ def whisper_rows(o0, launches) -> list:
     the launches of O1-O3 (``launches`` by part; a part that did not run
     counts none): the forward at O1's encoder call, the backward at O3's
     encoder call, the decode kernel at O2's cross call, each with all its
-    whisper calls under ``whisper``."""
+    whisper calls under ``calls``."""
     def fields(case):
         return {k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms",
                                      "wrapper_ms")}
+
+    def calls(*cases):
+        return [dict(fields(o0[k]), at=f"whisper's {k} call (path O)")
+                for k in cases]
 
     def count(part, key):
         return (launches.get(part) or {}).get(key, 0)
@@ -5465,22 +5468,19 @@ def whisper_rows(o0, launches) -> list:
              replaces="src/repro/kernels/flash_attention.py:73",
              launches=sum(fwd.values()), launches_by_path=fwd,
              **fields(o0["fwd_encoder"]),
-             whisper={k: fields(o0[k]) for k in ("fwd_encoder", "fwd_cross",
-                                                 "fwd_self")}),
+             calls=calls("fwd_encoder", "fwd_cross", "fwd_self")),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
              replaces="src/repro/kernels/ops.py:48",
              launches=sum(bwd.values()), launches_by_path=bwd,
              **fields(o0["bwd_encoder"]),
-             whisper={k: fields(o0[k]) for k in ("bwd_encoder", "bwd_cross",
-                                                 "bwd_self")}),
+             calls=calls("bwd_encoder", "bwd_cross", "bwd_self")),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:65",
              launches=sum(dec.values()), launches_by_path=dec,
              **fields(o0["decode_cross"]),
-             whisper={k: fields(o0[k]) for k in ("decode_cross",
-                                                 "decode_self")})]
+             calls=calls("decode_cross", "decode_self"))]
 
 
 #: path P: qwen2-vl-72b at full width, its depth cut to P_LAYERS of 80
@@ -5956,12 +5956,609 @@ def tailed_agreement(dev, seed, layers=4, batch=2, prompt=48, steps=16,
           f"max_abs_diff={drift!r} (within 2e-2)")
 
 
+#: path R: training the MoE and hybrid Mamba families.  R1: qwen2-moe-
+#: a2.7b at full width cut to R1_LAYERS of its 24 layers (f32 parameters
+#: and AdamW at ~16 B a parameter: 4 layers and the 151936 x 2048 embedding
+#: and head are ~2.90e9 parameters, ~46.5 GB; 24 layers, 14.3e9, do not
+#: fit one card); R2: the agreement at R2_LAYERS in float32; R3: SMOKE
+#: jamba (its one period of 8 full-width layers is 13.3e9 parameters,
+#: ~213 GB) and llama4-scout (one full-width layer with its embedding and
+#: head, ~4e9, is ~68 GB before its logits)
+R1_LAYERS, R1_BATCH, R1_SEQ, R1_STEPS = 4, 4, 2048, 4
+R2_LAYERS, R2_BATCH, R2_SEQ = 2, 2, 512
+R3_ARCHS, R3_BATCH, R3_SEQ, R3_STEPS = (
+    ("jamba-v0.1-52b", "llama4-scout-17b-a16e"), 2, 64, 3)
+#: the agreements' loss check: float32 throughout (the kernels and their
+#: plain versions sum in other orders)
+R_LOSS_TOL = 1e-5
+#: the float32 training agreements' update check (:func:`update_verdict`'s
+#: relative norm by leaf; L2_UPDATE_REL_TOL is bf16's).  Sound runs read
+#: 8.2e-6 to 3.9e-5 on an H100 80GB HBM3 at 700 W (R2, R3 and O3's float32
+#: agreement; PERF.md §6): the kernels' summation order and the float
+#: atomics of the dispatch gather's backward.  The control of
+#: :func:`agreement_controls`, a backward in bfloat16, must read above it
+F32_UPDATE_REL_TOL = 1e-4
+
+
+def _moe_train_cfg(**over):
+    """qwen2-moe-a2.7b as published for training: f32 parameters, bf16
+    compute, ``remat``."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get(MOE)
+    _require(cfg.param_dtype == "float32" and cfg.dtype == "bfloat16"
+             and cfg.remat, f"{MOE}: not the published training config")
+    return dataclasses.replace(cfg, **over)
+
+
+@contextlib.contextmanager
+def _routed_experts(seen: list):
+    """Within the block, every MoE routing call appends its expert choices
+    (B, S, k) to ``seen`` (no sync)."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recorded(p, cfg, x):
+        probs, gate, eidx = route(p, cfg, x)
+        seen.append(eidx.detach())
+        return probs, gate, eidx
+
+    with _swapped([(moe, "route", recorded)]):
+        yield
+
+
+def dead_moe_leaves(mu, routed) -> list:
+    """The leaves of a routed model's first moment after one step (0.1 x
+    the clipped gradient) that are zero where they must not be: every
+    layer's router, ``wq``/``wk``/``wv`` and shared expert, and the
+    ``wi``/``wg``/``wo`` of every expert that ``routed`` (the layer's
+    (B, S, k) choices, one a layer) says took a token."""
+    dead = []
+    for i, (lp, eidx) in enumerate(zip(mu["layers"], routed)):
+        ffn = lp["ffn"]
+        watched = {"ffn.router": ffn["router"],
+                   **{f"attn.{w}": lp["attn"][w] for w in ("wq", "wk", "wv")},
+                   **{f"ffn.shared.{w}": x
+                      for w, x in ffn.get("shared", {}).items()}}
+        dead += [f"layers.{i}.{k}" for k, x in watched.items()
+                 if not float(x.abs().max()) > 0]
+        took = experts_taken(eidx)
+        for w in ("wi", "wg", "wo"):
+            live = ffn[w].flatten(1).abs().amax(1) > 0
+            dead += [f"layers.{i}.ffn.{w}[{e}]" for e in took
+                     if not bool(live[e])]
+    return dead
+
+
+def experts_taken(eidx) -> list:
+    """The experts a layer's choices name, sorted."""
+    return sorted(int(e) for e in eidx.unique().tolist())
+
+
+def _ranged(module, name: str):
+    """A ``_swapped`` entry that runs ``module.name`` inside a
+    ``record_function`` range of that name."""
+    from torch.profiler import record_function
+
+    fn = getattr(module, name)
+
+    def ranged(*a, **k):
+        with record_function(name):
+            return fn(*a, **k)
+
+    return module, name, ranged
+
+
+def moe_step_parts(vocab: int):
+    """:func:`profile_train_step`'s split of a MoE train step into its
+    parts' device ms: the flash kernels (forward and backward, by kernel
+    name), then each operator once, by the first of: AdamW (an operator
+    under the ``adamw_update`` range that :func:`_ranged` puts around the
+    update, its CPU parent; the card's profiler records no Python stacks;
+    none found fails the path), the expert einsums
+    (``aten::bmm``), the other matmuls (``aten::mm``, ``aten::addmm``),
+    the f32 loss (an operator on a (.., vocab) tensor), the dispatch's
+    gathers (``aten::gather``) and the scatter-adds that are their
+    backward."""
+    def parts(prof, by_name):
+        out = {"flash_attention forward kernel": sum(
+                   v for k, v in by_name.items()
+                   if "flash_attention" in k and "bwd" not in k),
+               "flash_attention backward kernels": sum(
+                   v for k, v in by_name.items() if "flash_bwd" in k),
+               "AdamW": 0.0,
+               "expert einsums (aten::bmm)": 0.0,
+               "other matmuls (aten::mm, aten::addmm)": 0.0,
+               "f32 loss (ops on (.., vocab) tensors)": 0.0,
+               "dispatch gathers (aten::gather)": 0.0,
+               "their backward (aten::scatter_add)": 0.0}
+        events = prof.events()
+        adamw = {id(e) for e in events if e.name == "adamw_update"
+                 and not str(getattr(e, "device_type", "")).endswith("CUDA")}
+        todo = [e for e in events if id(e) in adamw]
+        while todo:
+            for c in todo.pop().cpu_children:
+                if id(c) not in adamw:
+                    adamw.add(id(c))
+                    todo.append(c)
+        _require(adamw, "moe_step_parts: no operator under adamw_update in "
+                        "the profile")
+        for e in events:
+            ms = (e.self_device_time_total
+                  if hasattr(e, "self_device_time_total")
+                  else e.self_cuda_time_total) / 1e3
+            if not ms or str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            shapes = [x for x in (e.input_shapes or []) if x]
+            if id(e) in adamw:
+                out["AdamW"] += ms
+            elif e.name == "aten::bmm":
+                out["expert einsums (aten::bmm)"] += ms
+            elif e.name in ("aten::mm", "aten::addmm"):
+                out["other matmuls (aten::mm, aten::addmm)"] += ms
+            elif any(x[-1] == vocab for x in shapes):
+                out["f32 loss (ops on (.., vocab) tensors)"] += ms
+            elif e.name == "aten::gather":
+                out["dispatch gathers (aten::gather)"] += ms
+            elif e.name in ("aten::scatter_add_", "aten::scatter_add"):
+                out["their backward (aten::scatter_add)"] += ms
+        return out
+
+    return parts
+
+
+def run_path_r1(dev, seed):
+    """R1: qwen2-moe-a2.7b at full width cut to R1_LAYERS layers (60
+    experts top-4 and 4 shared a layer, 16 heads of 128), f32 parameters,
+    bf16 compute, remat, R1_STEPS AdamW steps of R1_BATCH x R1_SEQ tokens
+    from ``TokenPipeline`` through ``make_train_step(..., donate=True)``.
+    Exactly 2 x R1_LAYERS forward (remat recomputes each layer) and
+    R1_LAYERS backward flash launches a step, finite loss, ce and aux
+    with aux > 0, and a nonzero gradient (the first moment after step 1)
+    in every layer's router, wq/wk/wv and shared expert, and in the
+    wi/wg/wo of every expert that took a token.  Then one step under the
+    profiler (:func:`profile_train_step`, split by :func:`moe_step_parts`) and the flash forward with
+    its lse at R1's call, timed.  Returns the launch counts and that
+    call's figures."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params, param_bytes
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = _moe_train_cfg(n_layers=R1_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device=dev)
+    opt_state = adamw_init(params)
+    torch.cuda.synchronize()
+    print(f"path R1: {cfg.name} at full width, {cfg.n_layers} of its 24 "
+          f"layers d_model={cfg.d_model} {_heads(cfg)} "
+          f"vocab={cfg.vocab_size}, f32 "
+          f"parameters, bf16 compute, remat={cfg.remat}: {cfg.n_params()} "
+          f"parameters, {param_bytes(params)} bytes and "
+          f"{param_bytes(opt_state)} bytes of AdamW state on the card, drawn "
+          f"in {time.perf_counter() - t0!r} s")
+    step = steps.make_train_step(cfg, AdamWConfig(warmup_steps=2,
+                                                  total_steps=R1_STEPS),
+                                 dev, donate=True)
+    pipe = TokenPipeline(R1_BATCH, R1_SEQ, cfg.vocab_size, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    walls = []
+    for i in range(R1_STEPS):
+        seen = []
+        t0 = time.perf_counter()
+        with _routed_experts(seen) if i == 0 else contextlib.nullcontext():
+            params, opt_state, m = step(params, opt_state, pipe.next_batch())
+            loss = float(m["loss"])        # syncs: the step's wall is whole
+        walls.append(time.perf_counter() - t0)
+        ce, aux = float(m["ce"]), float(m["aux"])
+        _require(all(map(math.isfinite, (loss, ce, aux))) and aux > 0,
+                 f"path R1 step {i + 1}: loss {loss}, ce {ce}, aux {aux}")
+        if i == 0:
+            # the forward routes each layer once, then remat's recompute
+            _require(len(seen) == 2 * cfg.n_layers,
+                     f"path R1: {len(seen)} routing calls in a step")
+            dead = dead_moe_leaves(opt_state["mu"], seen[:cfg.n_layers])
+            _require(not dead, f"path R1: zero gradients in {dead}")
+            took = [len(experts_taken(e)) for e in seen[:cfg.n_layers]]
+        print(f"path R1 step {i + 1}: loss={loss!r} ce={ce!r} aux={aux!r} "
+              f"lr={float(m['lr'])!r} grad_norm={float(m['grad_norm'])!r} "
+              f"wall_s={walls[-1]!r}")
+    peak = torch.cuda.max_memory_allocated()
+    counts = _build.launch_counts()
+    launches = {k: counts[k] for k in ("flash_attention_fwd",
+                                       "flash_attention_bwd")}
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * R1_STEPS,
+            "flash_attention_bwd": cfg.n_layers * R1_STEPS}
+    _require(launches == want, f"path R1: launches {launches}, want {want}")
+    others = {k: n for k, n in counts.items() if n and k not in launches}
+    _require(not others, f"path R1 launched {others}")
+    tokens = R1_BATCH * R1_SEQ
+    steady = walls[1:]
+    print(f"path R1: {R1_STEPS} steps of {R1_BATCH} x {R1_SEQ} tokens: "
+          f"wall_s={sum(walls)!r} first step {walls[0]!r} s, steps 2-"
+          f"{R1_STEPS} mean {sum(steady) / len(steady)!r} s "
+          f"({tokens * len(steady) / sum(steady)!r} tokens/s); "
+          f"peak_mem_bytes={peak} (of which {held} held by earlier paths "
+          f"before R1) launches={launches} (a step: {2 * cfg.n_layers} "
+          f"forward, {cfg.n_layers} of them recomputed by remat, and "
+          f"{cfg.n_layers} backward); experts that took a token in step 1, "
+          f"by layer: {took} of {cfg.n_experts}; every layer's router, wq, "
+          f"wk, wv, shared expert and every such expert's wi, wg, wo "
+          f"gradient nonzero")
+    with _swapped([_ranged(steps, "adamw_update")]):
+        profile_train_step(
+            lambda: step(params, opt_state, pipe.next_batch()), "path R1",
+            (("flash_attention_bwd", "flash_bwd"),
+             ("flash_attention", "flash_attention")),
+            parts=moe_step_parts(cfg.vocab_size))
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches, call=r1_attention_call(dev, seed, cfg))
+
+
+def r1_attention_call(dev, seed, cfg) -> dict:
+    """The flash forward with its lse stored (training's call) at R1's
+    shape, [R1_BATCH, heads, R1_SEQ, head_dim] causal bf16 (K1's shape),
+    against its plain version and SDPA: ``ms`` (graph replays),
+    ``wrapper_ms`` (eager), ``plain_ms``, ``library_ms``, its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(dev).manual_seed(seed + 7)
+    b, h, kv, s, hd = (R1_BATCH, cfg.n_heads, cfg.n_kv_heads, R1_SEQ,
+                       cfg.head_dim)
+    q = _normal(gen, (b, h, s, hd), "bfloat16", dev)
+    k = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    v = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
+    kern = lambda: fa.flash_attention_fwd(  # noqa: E731
+        q, k, v, causal=True, return_lse=True)
+    plain = lambda: fa.flash_attention_plain(  # noqa: E731
+        q, k, v, causal=True, return_lse=True)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    (o, lse), (o_p, lse_p) = kern(), plain()
+    err = _attn_close(o, o_p, "bfloat16", "flash_attention with lse at "
+                                          "path R1's call")
+    lse_err = _max_err(lse, lse_p)
+    _require(lse_err <= 1e-5 * max(1.0, float(lse_p.abs().max())),
+             f"flash_attention at path R1's call: lse differs by {lse_err}")
+    # bytes: q, k, v in, o out (bf16), lse out (f32); operations: the
+    # causal half of QK^T and PV
+    bnd, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel())
+                       + 4 * b * h * s, 4 * b * h * s * s * hd / 2,
+                       BF16_OPS_PER_S)
+    out = dict(shape=[b, h, kv, s, hd], ms=graph_ms(kern, 10),
+               wrapper_ms=cuda_ms(kern, 10)[0], plain_ms=graph_ms(plain, 3),
+               library_ms=graph_ms(lib, 10), bound_ms=bnd, bound_by=by,
+               max_abs_err=err, lse_max_abs_err=lse_err)
+    print(f"path R1's attention call, the flash forward with lse "
+          f"[{b}, {h} over {kv}, {s}, {hd}] causal bf16: ms={out['ms']!r} "
+          f"wrapper_ms={out['wrapper_ms']!r} plain_ms={out['plain_ms']!r} "
+          f"library_ms={out['library_ms']!r} (SDPA, no lse) "
+          f"bound_ms={bnd!r} ({by}, {bnd / out['ms']:.1%} of it) "
+          f"max_abs_err={err!r} lse_max_abs_err={lse_err!r}")
+    return out
+
+
+def agreement_controls() -> tuple:
+    """The fault the float32 training agreement must reject, as ``(name,
+    swaps)`` pairs: the flash backward computed in bfloat16 where
+    ``models.attention`` reads it (its inputs and gradients rounded to
+    bf16; on the card the bf16 kernel at head dims 64 and 128, the
+    CUDA-core one at 16)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    def bf16(q, k, v, o, do, lse, *, causal=True):
+        return tuple(g.float() for g in fa.flash_attention_bwd(
+            *(x.bfloat16() for x in (q, k, v, o, do)), lse, causal=causal))
+
+    return (("the backward in bfloat16",
+             [(attention, "flash_attention_bwd", bf16)]),)
+
+
+def train_agreement(dev, cfg, batches, opt, tag: str, *, params=None,
+                    calls=None, loss_tol: float = R_LOSS_TOL,
+                    controls=()) -> dict:
+    """``make_train_step`` steps of ``cfg`` over ``batches`` from the same
+    weights (``params``, or drawn from ``cfg``'s seed 5), on the card:
+    with the flash kernels' plain versions swapped in where
+    ``models.attention`` reads them (forward and backward), then with the
+    kernels, then under each of ``controls`` (``(name, swaps)`` pairs,
+    :func:`agreement_controls`).  Held: every loss within ``loss_tol``;
+    every leaf's update over the steps by its relative norm
+    (:func:`update_verdict`), within F32_UPDATE_REL_TOL in float32 (and
+    every update within K2_TOL of its leaf's largest) and within
+    L2_UPDATE_REL_TOL in bfloat16; every control's updates outside that
+    limit; the kernels launched 2 (remat) or 1 forward and 1 backward a
+    step and attention call (``calls`` a forward; by default one an
+    attention layer), the plain steps none.  Prints and returns the
+    losses, the verdict, the controls' readings and the smallest top-k
+    routing margin (None without routing; a margin near a float32 ulp
+    tells a routing flip from a fault)."""
+    import torch
+
+    from repro_torch import _tree
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention, init_params
+    from repro_torch.models.transformer import attention_layers
+    from repro_torch.optim import adamw_init
+
+    f32 = cfg.dtype == "float32"
+    tol = F32_UPDATE_REL_TOL if f32 else L2_UPDATE_REL_TOL
+    plain = [(attention, "flash_attention_fwd", fa.flash_attention_plain),
+             (attention, "flash_attention_bwd", fa.flash_attention_bwd_plain)]
+    if params is None:
+        params = init_params(cfg, seed=5, device=dev)
+    calls = len(attention_layers(cfg)) if calls is None else calls
+    step = make_train_step(cfg, opt, dev)
+    margins = []
+
+    def run(swap):
+        with _swapped(swap), _topk_margins(margins):
+            _build.reset_launches()
+            p, st, losses = params, adamw_init(params), []
+            for b in batches:
+                p, st, m = step(p, st, b)
+                losses.append(float(m["loss"]))
+            counts = {k: _build.launch_counts()[k] for k in (
+                "flash_attention_fwd", "flash_attention_bwd")}
+        return p, losses, counts
+
+    def verdict(got_p):
+        return update_verdict(
+            ((name, new.float() - old.float(), ref.float() - old.float())
+             for (name, old), new, ref in zip(_tree.items(params),
+                                              _tree.leaves(got_p),
+                                              _tree.leaves(want_p))), tol)
+
+    want_p, want_l, counts = run(plain)
+    _require(not any(counts.values()),
+             f"{tag}: the plain steps launched {counts}")
+    got_p, got_l, launches = run([])
+    want = {"flash_attention_fwd": (1 + cfg.remat) * calls * len(batches),
+            "flash_attention_bwd": calls * len(batches)}
+    _require(launches == want, f"{tag}: launches {launches}, want {want}")
+    uv = verdict(got_p)
+    del got_p
+    readings = {}
+    for name, swap in controls:
+        p, _, _ = run(swap)
+        readings[name] = verdict(p)
+        del p
+    del want_p
+    margin = (float(torch.stack([m.detach() for m in margins]).min())
+              if margins else None)
+    dloss = max(abs(a - b) for a, b in zip(got_l, want_l))
+    routed = ("" if margin is None else f"; smallest "
+              f"top-{cfg.experts_per_token} routing margin {margin!r}")
+    print(f"{tag}: {cfg.name} d_model={cfg.d_model} {cfg.n_layers} layers "
+          f"{cfg.dtype}, {len(batches)} step(s) of inputs "
+          f"{' + '.join(str(tuple(b['inputs'].shape)) for b in batches)} "
+          f"(AdamW lr {opt.lr}, eps {opt.eps}), flash kernels against "
+          f"their plain versions on the card: losses {got_l!r} vs {want_l!r} "
+          f"(|diff| {dloss!r}, held to {loss_tol}); updates within "
+          f"{uv['max_rel']!r} of the largest (worst {uv['max_rel_at']}"
+          f"{f', held to {K2_TOL}' if f32 else ''}), relative norm by leaf "
+          f"{uv['rel_norm']!r} (worst {uv['rel_norm_at']}, held to "
+          f"{tol}){routed}; kernel launches {launches} ({1 + cfg.remat} "
+          f"forward and 1 backward a step and attention call), none in the "
+          f"plain steps")
+    for name, cv in readings.items():
+        print(f"{tag} control, {name}: relative norm by leaf "
+              f"{cv['rel_norm']!r} (worst {cv['rel_norm_at']}; must exceed "
+              f"{tol}), updates within {cv['max_rel']!r} of the largest")
+    _require(dloss <= loss_tol, f"{tag}: losses {got_l} and {want_l} differ "
+                                f"by {dloss}{routed}")
+    _require(uv["rel_ok"], f"{tag}: {uv['rel_norm_at']}'s update differs by "
+                           f"a relative norm of {uv['rel_norm']:.3g} (> "
+                           f"{tol}){routed}")
+    _require(not f32 or uv["max_rel"] <= K2_TOL,
+             f"{tag}: {uv['max_rel_at']}'s update differs by "
+             f"{uv['max_rel']:.3g} of its largest (> {K2_TOL}){routed}")
+    for name, cv in readings.items():
+        _require(not cv["rel_ok"], f"{tag}: the control {name!r} passed "
+                                   f"(relative norm {cv['rel_norm']:.3g} <= "
+                                   f"{tol})")
+    return dict(launches, losses=(got_l, want_l), verdict=uv, margin=margin,
+                controls={k: v["rel_norm"] for k, v in readings.items()})
+
+
+def run_path_r2(dev, seed):
+    """R2: qwen2-moe-a2.7b at full width, R2_LAYERS layers in float32,
+    one step of R2_BATCH x R2_SEQ tokens (AdamW lr L2_LR, eps K2_EPS, as
+    L2): :func:`train_agreement`, with :func:`agreement_controls`."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import AdamWConfig
+
+    cfg = _moe_train_cfg(n_layers=R2_LAYERS, dtype="float32")
+    batch = TokenPipeline(R2_BATCH, R2_SEQ, cfg.vocab_size,
+                          seed=seed + 4).next_batch()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_agreement(dev, cfg, [batch],
+                          AdamWConfig(lr=L2_LR, warmup_steps=1, eps=K2_EPS),
+                          "path R2", controls=agreement_controls())
+    print(f"path R2: peak_mem_bytes={torch.cuda.max_memory_allocated()}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_path_r3(dev, seed):
+    """R3: jamba-smoke (the hybrid's period layout: Mamba layers, one
+    attention layer a period, MoE every second layer, top-2) and
+    llama4-scout-smoke (top-1 routing and a shared expert), float32 with
+    remat, R3_STEPS steps of R3_BATCH x R3_SEQ tokens each:
+    :func:`train_agreement`, with :func:`agreement_controls`."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import AdamWConfig
+
+    keys = ("flash_attention_fwd", "flash_attention_bwd")
+    out = dict.fromkeys(keys, 0)
+    for arch in R3_ARCHS:
+        cfg = dataclasses.replace(configs.get(arch, smoke=True),
+                                  dtype="float32", remat=True)
+        pipe = TokenPipeline(R3_BATCH, R3_SEQ, cfg.vocab_size, seed=seed + 5)
+        got = train_agreement(
+            dev, cfg, [pipe.next_batch() for _ in range(R3_STEPS)],
+            AdamWConfig(lr=L2_LR, warmup_steps=1, eps=K2_EPS),
+            f"path R3 {cfg.name}", controls=agreement_controls())
+        out.update({k: out[k] + got[k] for k in keys}, **{arch: got})
+    return out
+
+
+#: path S: the five lag-twin examples on the card, ``main`` at their
+#: ``--smoke`` sizes where they have one and their defaults otherwise,
+#: and the kernels each must launch (any of them; quickstart's
+#: ``api.pack`` runs the host packer, so it is held to running through;
+#: lag_slo_sweep's ``--use-kernel`` drains on ``lag_update``, and its
+#: packers run ``pack_rows`` either way)
+S_EXAMPLES = (("quickstart", (), ()),
+              ("scenario_sweep", (), ("pack_rows",)),
+              ("lag_slo_sweep", ("--smoke", "--use-kernel"),
+               ("lag_update_batch",)),
+              ("pareto_frontier", (), ("anneal_step",)),
+              ("live_dashboard", ("--smoke",),
+               ("pack_rows", "lag_update_batch")))
+#: the kernel calls path S makes, as :func:`_kernel_calls` records them
+#: and the check helpers take them: ``pack_rows`` (rows, N) at
+#: quickstart's evaluation (3 deltas x 30 partitions), scenario_sweep's
+#: sweep (5 families x 3 streams, 16 partitions), lag_slo_sweep's and
+#: live_dashboard's smoke fleets (2 streams x 6 partitions, masked) and
+#: pareto_frontier's heuristic points (one row of 8); ``lag_update_batch``
+#: (B, N, M bins) at lag_slo_sweep's drain; ``anneal_step`` (rows, K
+#: chains a row, N) at pareto_frontier's 4 restarts x 7 lambdas
+S_CALLS = {"pack_rows": ((3, 30), (15, 16), (2, 6), (1, 8)),
+           "lag_update_batch": ((2, 6, 14),),
+           "anneal_step": ((1, 28, 8),)}
+
+
+@contextlib.contextmanager
+def _kernel_calls(seen: dict):
+    """Within the block, every call of ``pack_rows``, ``lag_update_batch``
+    and ``anneal_step_launcher`` (a run of anneal steps over one state)
+    adds one to ``seen[(kernel, shape)]``, the shape as S_CALLS gives it.
+    The functions are swapped where the port's other modules hold them;
+    their own modules keep them, for there the launch counters live."""
+    import sys
+
+    from repro_torch.kernels import binpack_select as bs
+    from repro_torch.kernels import lag_update as lu
+    from repro_torch.kernels import move_eval as me
+
+    def spy(kernel, fn, shape):
+        def called(*a, **k):
+            key = (kernel, shape(*a, **k))
+            seen[key] = seen.get(key, 0) + 1
+            return fn(*a, **k)
+        return called
+
+    spies = {id(fn): spy(kernel, fn, shape) for kernel, fn, shape in (
+        ("pack_rows", bs.pack_rows, lambda sp, *a, **k: tuple(sp.shape)),
+        ("lag_update_batch", lu.lag_update_batch,
+         lambda lag, p, a, r, cap, **k: (*lag.shape, cap.shape[-1])),
+        ("anneal_step", me.anneal_step_launcher,
+         lambda st, sp, pv, lam, cap, temps, draws, **k: (
+             st.assign.shape[0] // draws, draws, st.assign.shape[1])))}
+    swaps = [(mod, attr, spies[id(v)])
+             for mod in list(sys.modules.values())
+             if getattr(mod, "__name__", "").startswith("repro_torch")
+             and mod not in (bs, lu, me)
+             for attr, v in list(vars(mod).items()) if id(v) in spies]
+    with _swapped(swaps):
+        yield
+
+
+def run_path_s(dev, seed):
+    """Path S: each example's ``main([..., "--device", "cuda"])``, its
+    launch counts zeroed before and read after and its kernel calls
+    recorded (:func:`_kernel_calls`); an example that raises, that
+    launched none of the kernels its route reaches, or whose launches
+    its recorded calls do not account for, fails the path, as does a
+    call at a shape outside S_CALLS (the shapes :func:`check_s_calls`
+    holds).  Each example's output is kept, and its line count and last
+    line printed.  Returns the launch counts by example."""
+    import importlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import _build
+
+    out, shapes = {}, set()
+    for name, argv, kernels in S_EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf, seen = io.StringIO(), {}
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), _kernel_calls(seen):
+            mod.main(list(argv) + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in _build.launch_counts().items() if n}
+        _require(not kernels or any(counts.get(k) for k in kernels),
+                 f"path S {name}: launched {counts}, none of {kernels}")
+        calls = {k: sum(n for (kern, _), n in seen.items() if kern == k)
+                 for k in S_CALLS}
+        _require(not set(counts) - set(S_CALLS)
+                 and all(counts.get(k, 0) == calls[k]
+                         for k in ("pack_rows", "lag_update_batch"))
+                 and bool(counts.get("anneal_step")) == bool(
+                     calls["anneal_step"]),
+                 f"path S {name}: launches {counts}, recorded calls {calls}")
+        shapes |= set(seen)
+        lines = buf.getvalue().splitlines()
+        print(f"path S {name} {' '.join(argv)}: wall_s={wall!r} launches="
+              f"{counts} (held: {' or '.join(kernels) or 'none'}) at "
+              f"{sorted(seen)}; {len(lines)} lines printed, the last: "
+              f"{lines[-1]!r}")
+        out[name] = counts
+    extra = sorted((k, s) for k, s in shapes if s not in S_CALLS[k])
+    _require(not extra, f"path S: kernel calls at {extra}, outside S_CALLS")
+    return out
+
+
+def check_s_calls(dev, gen) -> dict:
+    """Each kernel against its plain version at path S's calls (S_CALLS);
+    the largest error by kernel."""
+    return {"pack_rows": max(check_pack_rows(dev, gen, rows, n)
+                             for rows, n in S_CALLS["pack_rows"]),
+            "lag_update_batch": max(
+                check_lag_update(dev, gen, b, n, m, names=m)
+                for b, n, m in S_CALLS["lag_update_batch"]),
+            "anneal_step": max(check_anneal_step(dev, gen, rows, k, n)
+                               for rows, k, n in S_CALLS["anneal_step"])}
+
+
 #: ``--paths``' names in the order of the full run: a letter names the
-#: path with all its parts, C1, C2, J1, J2, K0-K3, L0-L2 and O0-O3 one
-#: part
+#: path with all its parts, C1, C2, J1, J2, K0-K3, L0-L2, O0-O3 and R1-R3
+#: one part
 PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "M", "N",
               "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2", "O0",
-              "O1", "O2", "O3", "P", "Q")
+              "O1", "O2", "O3", "P", "Q", "R1", "R2", "R3", "S")
 
 
 def select_paths(spec: str):
@@ -5973,7 +6570,7 @@ def select_paths(spec: str):
            and not any(p.startswith(x) for p in PATH_NAMES)]
     if bad or not want:
         raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
-                         f"{', '.join(PATH_NAMES)} or a letter A-Q")
+                         f"{', '.join(PATH_NAMES)} or a letter A-S")
     return [p for p in PATH_NAMES
             if any(p == x or (len(x) == 1 and p.startswith(x))
                    for x in want)]
@@ -6025,6 +6622,10 @@ def run_named_paths(dev, seed, names) -> dict:
         "O3": lambda: run_path_o3(dev, seed),
         "P": lambda: run_path_p(dev, seed),
         "Q": lambda: run_path_q(dev, seed),
+        "R1": lambda: run_path_r1(dev, seed),
+        "R2": lambda: run_path_r2(dev, seed),
+        "R3": lambda: run_path_r3(dev, seed),
+        "S": lambda: run_path_s(dev, seed),
     }
     for name in names:
         t0 = time.perf_counter()
@@ -6044,8 +6645,8 @@ def card_line() -> str:
 
 def check_kernels(dev, seed) -> dict:
     """Every kernel against its plain version at stress shapes and at the
-    shapes paths A, B, C2, F, G, I, J and D-E give it (the full run
-    only).  Returns the largest error by kernel."""
+    shapes paths A, B, C2, F, G, I, J, D-E, P, Q and S give it (the full
+    run only).  Returns the largest error by kernel."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
@@ -6131,6 +6732,8 @@ def check_kernels(dev, seed) -> dict:
             check_wkv(dev, gen, 2, 77, 4, 128))}
     for k, err in check_new_calls(dev, gen).items():     # paths P and Q
         errs[k] = max(errs.get(k, 0.0), err)
+    for k, err in check_s_calls(dev, gen).items():       # path S
+        errs[k] = max(errs[k], err)
     return errs
 
 
@@ -6156,6 +6759,10 @@ def kernel_rows(dev, seed, out, errs) -> list:
     launches_d = dict(launches_d, **out["M"], **out["N"], **out["P"],
                       **out["Q"], J2=out["J2"]["decode_attention_fwd"])
     k0 = out["K0"]
+    # path S's launches, over its examples
+    launches_s = {k: sum(c.get(k, 0) for c in out["S"].values())
+                  for k in ("loop_fused", "lag_update_batch", "pack_rows",
+                            "anneal_step")}
 
     kernels = []
     kw = dict(heuristic_kwargs(), active=act_a)
@@ -6186,7 +6793,10 @@ def kernel_rows(dev, seed, out, errs) -> list:
         name="loop_fused", route="cuda",
         source="src/repro_torch/kernels/csrc/loop_fused.cu",
         replaces="src/repro/kernels/loop_fused.py:220",
-        launches=launches_a["loop_fused"], max_abs_err=errs["loop_fused"],
+        launches=launches_a["loop_fused"] + launches_s["loop_fused"],
+        launches_by_path={"A": launches_a["loop_fused"],
+                          "S": launches_s["loop_fused"]},
+        max_abs_err=errs["loop_fused"],
         ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
         wrapper_ms=ms))
     print(f"loop_fused at path A's shape: ms={ms!r} against its bound "
@@ -6225,12 +6835,14 @@ def kernel_rows(dev, seed, out, errs) -> list:
         replaces="src/repro/kernels/lag_update.py:125",
         launches=launches_b["lag_update_batch"]
         + launches_f["lag_update_batch"] + launches_h["lag_update_batch"]
-        + launches_i["lag_update_batch"] + launches_j1["lag_update_batch"],
+        + launches_i["lag_update_batch"] + launches_j1["lag_update_batch"]
+        + launches_s["lag_update_batch"],
         launches_by_path={"B": launches_b["lag_update_batch"],
                           "F": launches_f["lag_update_batch"],
                           "H": launches_h["lag_update_batch"],
                           "I": launches_i["lag_update_batch"],
-                          "J1": launches_j1["lag_update_batch"]},
+                          "J1": launches_j1["lag_update_batch"],
+                          "S": launches_s["lag_update_batch"]},
         max_abs_err=errs["lag_update_batch"],
         max_abs_err_j1_bytes=errs["lag_update_j1_bytes"],
         ms=graph_ms(kern, 200),
@@ -6305,14 +6917,15 @@ def kernel_rows(dev, seed, out, errs) -> list:
         launches=launches_b["pack_rows"] + launches_c2["pack_rows"]
         + launches_f["pack_rows"] + launches_g["pack_rows"]
         + launches_h["pack_rows"] + launches_i["pack_rows"]
-        + launches_j1["pack_rows"],
+        + launches_j1["pack_rows"] + launches_s["pack_rows"],
         launches_by_path={"B": launches_b["pack_rows"],
                           "C2": launches_c2["pack_rows"],
                           "F": launches_f["pack_rows"],
                           "G": launches_g["pack_rows"],
                           "H": launches_h["pack_rows"],
                           "I": launches_i["pack_rows"],
-                          "J1": launches_j1["pack_rows"]},
+                          "J1": launches_j1["pack_rows"],
+                          "S": launches_s["pack_rows"]},
         max_abs_err=errs["pack_rows"], ms=graph_ms(kern, 50),
         plain_ms=graph_ms(ref, 1), bound_ms=bnd, bound_by=by,
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
@@ -6338,7 +6951,7 @@ def kernel_rows(dev, seed, out, errs) -> list:
         library_ms=None, wrapper_ms=cuda_ms(kern, 50)[0]))
     del margs, mact
     kernels.append(anneal_step_row(dev, g, launches_c1, launches_c2,
-                                   launches_i, errs))
+                                   launches_i, launches_s, errs))
 
     # lag_update_single: the same kernel at batch 1 ([1, 32], 66 bins);
     # no path calls it (the per-step loop drains every stream at once),
@@ -6368,6 +6981,7 @@ def kernel_rows(dev, seed, out, errs) -> list:
     fwd_row = kernels[-2]
     fwd_row["launches_by_path"]["K1"] = launches_k["flash_attention_fwd"]
     fwd_row["launches"] += launches_k["flash_attention_fwd"]
+    merge_rows(kernels, [r_row(out)])
     kernels.append(dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
@@ -6381,8 +6995,11 @@ def kernel_rows(dev, seed, out, errs) -> list:
         replaces_note="the backward rule of the flash_attention custom_vjp "
         "(:29-60), which recomputes through the jnp online softmax; the "
         "reference has no Pallas backward kernel",
-        launches=launches_k["flash_attention_bwd"],
-        launches_by_path={"K1": launches_k["flash_attention_bwd"]},
+        launches=launches_k["flash_attention_bwd"]
+        + sum(out[p]["flash_attention_bwd"] for p in ("R1", "R2", "R3")),
+        launches_by_path={"K1": launches_k["flash_attention_bwd"],
+                          **{p: out[p]["flash_attention_bwd"]
+                             for p in ("R1", "R2", "R3")}},
         **{k: v for k, v in k0["olmo"].items()},
         max_abs_err_f32=max(k0[c]["max_abs_err"]
                             for c in ("f32", "single_key_f32")),
@@ -6409,16 +7026,33 @@ def kernel_rows(dev, seed, out, errs) -> list:
     kernels.append(wkv_row(dev, seed, dict(
         launches_e, L1=launches_l["rwkv6_wkv_fwd"]), errs))
     kernels.append(wkv_bwd_row(out["L0"], launches_l["rwkv6_wkv_bwd"]))
-    merge_whisper_rows(kernels, whisper_rows(out["O0"], out))
+    merge_rows(kernels, whisper_rows(out["O0"], out))
     kernels.append(tailed_row(dev, seed, out["Q"],
                               errs["decode_attention_tailed_fwd"]))
     return kernels
 
 
-def merge_whisper_rows(kernels, rows) -> None:
-    """Path O's launches and calls into the full run's attention rows:
-    each row's launches grow by O's, its error by O's worst, and its
-    whisper calls stand under ``whisper``."""
+def r_row(out) -> dict:
+    """The flash forward's row from path R: the launches of R1-R3 (the
+    parts that ran), and R1's call (the forward with its lse, timed by
+    :func:`r1_attention_call`) as the row's own figures and as one of its
+    ``calls``; :func:`merge_rows` adds it to the full run's row."""
+    call = out["R1"]["call"]
+    parts = {p: out[p]["flash_attention_fwd"] for p in ("R1", "R2", "R3")
+             if p in out}
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+                replaces="src/repro/kernels/flash_attention.py:73",
+                launches=sum(parts.values()), launches_by_path=parts,
+                **call, calls=[dict(
+                    call, at="path R1's call with its lse (training's "
+                             "forward, K1's shape)")])
+
+
+def merge_rows(kernels, rows) -> None:
+    """A path's rows (:func:`whisper_rows`, :func:`r_row`) into the full
+    run's: each row's launches grow by the path's, its error by the
+    path's worst, and the path's ``calls`` join its own."""
     by_name = {k["name"]: k for k in kernels}
     for row in rows:
         kern = by_name[row["name"]]
@@ -6426,103 +7060,35 @@ def merge_whisper_rows(kernels, rows) -> None:
         kern.setdefault("launches_by_path", {}).update(
             row["launches_by_path"])
         kern["max_abs_err"] = max(kern["max_abs_err"], row["max_abs_err"])
-        kern["whisper"] = row["whisper"]
+        kern.setdefault("calls", []).extend(row.get("calls", []))
 
 
 def print_rows(kernels) -> None:
-    """Each kernel row's times, launches and notes, a line each."""
+    """Each kernel row's times, launches (by path where the row has them)
+    and notes, a line each, then a line for each of its other ``calls``
+    (``at`` names the call; its figures as measured)."""
     for kern in kernels:
         print(f"kernel {kern['name']}: ms={kern['ms']!r} "
               f"plain_ms={kern['plain_ms']!r} bound_ms={kern['bound_ms']!r} "
               f"({kern['bound_by']}, {kern['bound_ms'] / kern['ms']:.1%} of "
               f"it) library_ms={kern['library_ms']!r} "
               f"wrapper_ms={kern['wrapper_ms']!r} "
-              f"launches={kern['launches']}")
+              f"launches={kern['launches']} "
+              f"{kern.get('launches_by_path', '')}")
         if "design" in kern:
             print(f"kernel {kern['name']} design: {kern['design']}")
         if "casts_ms" in kern:
             print(f"kernel {kern['name']}: the engine's int64 assign and "
                   f"bool masks go in uncast; casting them to int32 would "
                   f"add {kern['casts_ms']!r} ms a call (eager)")
-        if "ms_c2" in kern:
-            print(f"kernel {kern['name']} at path C2's shape: "
-                  f"ms={kern['ms_c2']!r} plain_ms={kern['plain_ms_c2']!r} "
-                  f"bound_ms={kern['bound_ms_c2']!r} "
-                  f"({kern['bound_by_c2']}) "
-                  f"wrapper_ms={kern['wrapper_ms_c2']!r} "
-                  f"launches={kern['launches_by_path']}")
-        if "ms_lse" in kern:
-            print(f"kernel {kern['name']} with its lse stored (training's "
-                  f"call), same shape: ms={kern['ms_lse']!r} "
-                  f"wrapper_ms={kern['wrapper_ms_lse']!r}")
         if "routes" in kern:
             print(f"kernel {kern['name']} routes: {kern['routes']}")
-        if "ms_f32" in kern:
-            print(f"kernel {kern['name']} in float32 at the same shape: "
-                  f"ms={kern['ms_f32']!r} plain_ms={kern['plain_ms_f32']!r} "
-                  f"bound_ms={kern['bound_ms_f32']!r} "
-                  f"({kern['bound_by_f32']}) "
-                  f"library_ms={kern['library_ms_f32']!r} "
-                  f"wrapper_ms={kern['wrapper_ms_f32']!r}")
-        if "ms_m1" in kern:
-            print(f"kernel {kern['name']} at path M1's call (16/16 heads): "
-                  f"ms={kern['ms_m1']!r} plain_ms={kern['plain_ms_m1']!r} "
-                  f"bound_ms={kern['bound_ms_m1']!r} ({kern['bound_by_m1']}) "
-                  f"library_ms={kern['library_ms_m1']!r} "
-                  f"wrapper_ms={kern['wrapper_ms_m1']!r} "
-                  f"launches={kern['launches_by_path']}")
-        if "ms_m2" in kern:
-            print(f"kernel {kern['name']} at path M2's call (1 query head a "
-                  f"KV head, 16 KV heads): ms={kern['ms_m2']!r} "
-                  f"plain_ms={kern['plain_ms_m2']!r} "
-                  f"bound_ms={kern['bound_ms_m2']!r} ({kern['bound_by_m2']}) "
-                  f"library_ms={kern['library_ms_m2']!r} "
-                  f"wrapper_ms={kern['wrapper_ms_m2']!r}")
-        if "ms_j2" in kern:
-            print(f"kernel {kern['name']} at path J2's call (cache 16, "
-                  f"4 filled): ms={kern['ms_j2']!r} "
-                  f"plain_ms={kern['plain_ms_j2']!r} "
-                  f"bound_ms={kern['bound_ms_j2']!r} ({kern['bound_by_j2']}) "
-                  f"library_ms={kern['library_ms_j2']!r} "
-                  f"wrapper_ms={kern['wrapper_ms_j2']!r} "
-                  f"launches={kern['launches_by_path']}")
-        if "ms_p1" in kern:
-            print(f"kernel {kern['name']} at paths P1's and Q1's call (64/8 "
-                  f"heads): ms={kern['ms_p1']!r} "
-                  f"plain_ms={kern['plain_ms_p1']!r} "
-                  f"bound_ms={kern['bound_ms_p1']!r} ({kern['bound_by_p1']}) "
-                  f"library_ms={kern['library_ms_p1']!r} "
-                  f"wrapper_ms={kern['wrapper_ms_p1']!r}")
-        if "ms_p2" in kern:
-            print(f"kernel {kern['name']} at paths P2's and Q2's control call "
-                  f"(8 query heads a KV head, 8 KV heads, fill "
-                  f"{D_PROMPT + D_GEN - 1}): ms={kern['ms_p2']!r} "
-                  f"plain_ms={kern['plain_ms_p2']!r} "
-                  f"bound_ms={kern['bound_ms_p2']!r} ({kern['bound_by_p2']}) "
-                  f"library_ms={kern['library_ms_p2']!r} "
-                  f"wrapper_ms={kern['wrapper_ms_p2']!r}")
-        if "ms_untailed" in kern:
-            print(f"kernel {kern['name']}: the untailed kernel over the same "
-                  f"rows as one cache ms={kern['ms_untailed']!r}")
-        for case, c in kern.get("whisper", {}).items():
-            print(f"kernel {kern['name']} at whisper's {case} call (path "
-                  f"O): ms={c['ms']!r} plain_ms={c['plain_ms']!r} "
-                  f"bound_ms={c['bound_ms']!r} ({c['bound_by']}, "
-                  f"{c['bound_ms'] / c['ms']:.1%} of it) "
-                  f"library_ms={c['library_ms']!r} "
-                  f"wrapper_ms={c['wrapper_ms']!r} "
-                  f"max_abs_err={c['max_abs_err']!r}")
-        if "ms_decode" in kern:
-            print(f"kernel {kern['name']} at one decode step: "
-                  f"ms={kern['ms_decode']!r} "
-                  f"plain_ms={kern['plain_ms_decode']!r} "
-                  f"bound_ms={kern['bound_ms_decode']!r} "
-                  f"({kern['bound_by_decode']}, "
-                  f"{kern['bound_ms_decode'] / kern['ms_decode']:.1%} of it) "
-                  f"wrapper_ms={kern['wrapper_ms_decode']!r} "
-                  f"launches={kern['launches_by_path']}; a copy_ of the "
-                  f"same state bytes: {kern['state_copy_ms_decode']!r} ms")
-
+        for c in kern.get("calls", []):
+            share = (f" ({c['bound_ms'] / c['ms']:.1%} of the bound)"
+                     if "bound_ms" in c else "")
+            print(f"kernel {kern['name']} at {c['at']}: "
+                  + " ".join(f"{k}={v!r}" for k, v in c.items() if k != "at")
+                  + share)
 
 
 def main(argv=None) -> int:
@@ -6533,7 +7099,7 @@ def main(argv=None) -> int:
                          "L0,L1 or K,L; a letter takes all its parts): "
                          "the build and its checks, the named paths, the "
                          "kernel rows they make whole, and a last line "
-                         "that names them; default: every path A-Q, "
+                         "that names them; default: every path A-S, "
                          "every kernel checked and every kernel row")
     args = ap.parse_args(argv)
     try:
@@ -6572,12 +7138,14 @@ def main(argv=None) -> int:
     print(f"build_s={time.perf_counter() - t0!r}")
     check_sass(lib)
     check_ptxas()
-    errs = None
     if full:
         errs = check_kernels(dev, args.seed)
-    elif {"P", "Q"} & set(names):
-        errs = check_new_calls(dev, torch.Generator(dev).manual_seed(
-            args.seed))
+    else:
+        gen = torch.Generator(dev).manual_seed(args.seed)
+        errs = dict(check_new_calls(dev, gen) if {"P", "Q"} & set(names)
+                    else {})
+        if "S" in names:
+            errs.update(check_s_calls(dev, gen))
     out = run_named_paths(dev, args.seed, names)
     if full:
         kernels = kernel_rows(dev, args.seed, out, errs)
@@ -6591,6 +7159,8 @@ def main(argv=None) -> int:
         if "Q" in out:
             kernels.append(tailed_row(dev, args.seed, out["Q"],
                                       errs["decode_attention_tailed_fwd"]))
+        if "R1" in out:
+            kernels.append(r_row(out))
     print_rows(kernels)
     if full:
         z = torch.zeros(1, device=dev)

@@ -37,10 +37,10 @@ def _inputs(x, dev: torch.device) -> torch.Tensor:
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     device=None, *, donate: bool = False) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` of a dense or RWKV-6 model (the MoE and hybrid families
-    raise :class:`NotPortedError`: the port serves them, training them is
-    the next slice): the loss and its gradient with respect to every parameter
-    (``models.forward``, one backward pass), then ``adamw_update``.
+    metrics)`` of any model the port carries (dense, MoE, hybrid Mamba,
+    RWKV-6, whisper, the VLM): the loss and its gradient with respect to
+    every parameter (``models.forward``, one backward pass), then
+    ``adamw_update``.
     ``batch`` holds ``inputs`` (B, S) token ids (or (B, S, d) embeddings
     where ``input_mode="embeddings"``) and ``labels`` (B, S), tensors or
     arrays (the data pipeline's numpy batches), and optionally
@@ -53,11 +53,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     parameters and state are left as they were, unless ``donate``: then,
     like the reference driver's ``donate_argnums=(0, 1)``, they are
     updated in place and returned (the same bits), so that the step holds
-    no second copy of them.  On the card every dense layer's attention
-    runs the flash forward kernel (twice with ``cfg.remat``: once more
-    when the backward recomputes the layer) and the flash backward kernel
-    once; every RWKV layer's recurrence the WKV forward kernel (twice
-    with ``cfg.remat``) and the WKV backward kernel once.  Whisper
+    no second copy of them.  On the card every attention layer (each
+    layer of a dense or MoE model, one a period of a hybrid one) runs the
+    flash forward kernel (twice with ``cfg.remat``: once more when the
+    backward recomputes the layer) and the flash backward kernel once: a
+    MoE model of L layers launches 2L forward and L backward a step (the
+    expert dispatch and products are plain PyTorch, as the reference's
+    are jnp, and so is a Mamba layer's scan); every RWKV layer's
+    recurrence the WKV forward kernel (twice with ``cfg.remat``) and the
+    WKV backward kernel once.  Whisper
     launches three flash forwards a layer pair (the encoder layer's
     self-attention without the mask, the decoder layer's causal
     self-attention and its cross-attention without the mask), each twice

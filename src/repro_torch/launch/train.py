@@ -8,10 +8,13 @@ the pipeline's cursor (in the manifest's ``extra``).  Restart-safe: a run
 resumes from the latest checkpoint in ``ckpt_dir``, and ``die_at_step``
 stops a run there to stand for a preemption.
 
-Usage (``--device`` defaults to the CUDA card):
+Usage (``--device`` defaults to the CUDA card; ``--arch`` takes every
+token-fed arch, the MoE and hybrid families included):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
       --smoke --device cpu --steps 50 --batch 4 --seq 64 --ckpt /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen2-moe-a2.7b --smoke --device cpu --steps 3
 """
 from __future__ import annotations
 

@@ -27,10 +27,14 @@ the window, as the reference's do).  Only RWKV's
 ``AUX_LOSS_COEF`` times the summed MoE auxiliary loss); with
 ``cfg.remat`` its backbone checkpoints each layer
 (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint(nothing_saveable)`` does over its scan body.  An RWKV
-layer's recurrence takes its gradient from the WKV backward kernel
-(``kernels.rwkv6_scan.WKV``).  Training itself (``check_trainable``)
-still refuses the MoE and hybrid families.
+``jax.checkpoint(nothing_saveable)`` does over its scan body.  The
+reference checkpoints a hybrid model a period at a time; a layer at a
+time recomputes the same arithmetic and keeps less.  An RWKV layer's
+recurrence takes its gradient from the WKV backward kernel
+(``kernels.rwkv6_scan.WKV``); an MoE layer's from autograd of the
+dispatch (the router through the renormalised gate and the auxiliary
+loss's mean probability), a Mamba layer's from autograd of the chunked
+scan.  Every family the port carries trains (``check_trainable``).
 """
 from __future__ import annotations
 
@@ -81,17 +85,10 @@ def check_ported(cfg: ArchConfig) -> None:
 
 
 def check_trainable(cfg: ArchConfig) -> None:
-    """Raise :class:`NotPortedError` for what the port cannot train: what
-    it does not carry at all (:func:`check_ported`), and the MoE and
-    hybrid families, which it serves but does not yet train (gradients
-    through the expert dispatch and the selective scan are the next
-    slice).  Dense models, RWKV-6 and whisper it trains."""
+    """Raise what :func:`check_ported` raises: the port trains every
+    family it carries (dense, MoE, hybrid Mamba, RWKV-6, whisper, the
+    VLM)."""
     check_ported(cfg)
-    for flag, what in ((cfg.moe, "training mixture-of-experts layers"),
-                       (_hybrid(cfg), "training the hybrid Mamba family")):
-        if flag:
-            raise NotPortedError(f"{cfg.name}: {what} is not yet ported to "
-                                 f"repro_torch (serving is)")
 
 
 def _hybrid(cfg: ArchConfig) -> bool:

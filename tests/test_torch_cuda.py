@@ -45,7 +45,9 @@ scaled by the largest gradient of the plain result, and beside it
 ``chip_smoke.bwd_rel_errs``'s relative norms, whole and by blocks of 64
 rows of one head, within ``chip_smoke.BWD_REL_TOL``); a train step of a
 smoke model on the card against the CPU within 1e-4 of each leaf's largest
-magnitude (loss, parameters, moments); the WKV kernel (float32 only)
+magnitude (loss, parameters, moments), and MoE and hybrid smoke models'
+train steps with the kernels against their plain versions on the card
+(``chip_smoke.train_agreement``); the WKV kernel (float32 only)
 within 1e-4 of the largest magnitude of its plain result, the reference's
 own tolerance for its kernel; its backward (``rwkv6_wkv_bwd``) at every
 head size, T not a multiple of its checkpoint stride and T = 1, decays
@@ -334,6 +336,35 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
                                     _tree.leaves(tree_cpu)):
                 scale = max(float(w.abs().max()), 1.0)
                 assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b"])
+def test_moe_and_hybrid_train_steps_on_the_card_match_their_plain_steps(
+        cuda, chip_smoke, arch):
+    """A MoE and a hybrid smoke model (float32, remat on): two AdamW steps
+    on the card with the flash kernels against the same steps with their
+    plain versions swapped in where ``models.attention`` reads them, as
+    ``chip_smoke.py`` paths R2 and R3 hold them
+    (``chip_smoke.train_agreement``: losses within 1e-5, every leaf's
+    update by its relative norm within the float32 limit, two forward and
+    one backward launch a step and attention layer, the bfloat16 backward
+    of ``agreement_controls`` rejected)."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import attention_layers
+    from repro_torch.optim import AdamWConfig
+
+    cfg = dataclasses.replace(configs.get(arch, smoke=True),
+                              dtype="float32", remat=True)
+    pipe = TokenPipeline(2, 32, cfg.vocab_size, seed=2)
+    out = chip_smoke.train_agreement(
+        cuda, cfg, [pipe.next_batch() for _ in range(2)],
+        AdamWConfig(lr=1e-3, warmup_steps=1, eps=1e-3), f"{arch} on the card",
+        controls=chip_smoke.agreement_controls())
+    n_attn = len(attention_layers(cfg))
+    assert out["flash_attention_fwd"] == 2 * 2 * n_attn
+    assert out["flash_attention_bwd"] == 2 * n_attn
+    assert out["verdict"]["rel_ok"]
+    assert min(out["controls"].values()) > chip_smoke.F32_UPDATE_REL_TOL
 
 
 @pytest.mark.parametrize("b,kv,g,s,hd", [

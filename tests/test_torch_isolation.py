@@ -16,6 +16,9 @@ from repro_torch.core import scenarios  # noqa: E402
 from repro_torch.convert import opt_state_from_numpy  # noqa: E402
 from repro_torch.examples import autoscale_serve  # noqa: E402
 from repro_torch.examples import elastic_train  # noqa: E402
+from repro_torch.examples import (lag_slo_sweep, live_dashboard,  # noqa: E402
+                                  pareto_frontier, quickstart,
+                                  scenario_sweep)
 from repro_torch.fleet import FleetRunner  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.lagsim import simulate_lag, sweep_lag  # noqa: E402
@@ -31,6 +34,7 @@ from repro_torch.serving import SharedModel, Sink  # noqa: E402
 from repro_torch.serving.llm_replica import LLMReplica  # noqa: E402
 
 LLM = configs.get("qwen3-8b", smoke=True)
+LLAMA4 = configs.get("llama4-scout-17b-a16e", smoke=True)
 RWKV = configs.get("rwkv6-3b", smoke=True)
 MOE = configs.get("qwen2-moe-a2.7b", smoke=True)
 HYBRID = configs.get("jamba-v0.1-52b", smoke=True)
@@ -119,6 +123,14 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
     lambda: make_train_step(WHISPER, AdamWConfig()),
     lambda: init_decode_state(WHISPER, 1, 4),
     lambda: params_from_numpy({}, WHISPER),
+    lambda: make_train_step(MOE, AdamWConfig()),
+    lambda: make_train_step(LLAMA4, AdamWConfig()),
+    lambda: make_train_step(HYBRID, AdamWConfig()),
+    lambda: quickstart.main([]),
+    lambda: scenario_sweep.main([]),
+    lambda: lag_slo_sweep.main(["--smoke"]),
+    lambda: pareto_frontier.main([]),
+    lambda: live_dashboard.main(["--smoke"]),
 ), ids=("api.simulate", "sweep_lag", "simulate_lag", "make_policy",
         "scenarios.generate", "api.optimize", "opt.anneal_pack",
         "opt.anneal_assign", "opt.anneal_frontier", "make_prefill_step",
@@ -136,7 +148,11 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
         "hybrid-params_from_numpy", "whisper-init_params",
         "whisper-make_prefill_step", "whisper-make_serve_step",
         "whisper-make_train_step", "whisper-init_decode_state",
-        "whisper-params_from_numpy"))
+        "whisper-params_from_numpy", "moe-make_train_step",
+        "llama4-make_train_step", "hybrid-make_train_step",
+        "examples.quickstart", "examples.scenario_sweep",
+        "examples.lag_slo_sweep", "examples.pareto_frontier",
+        "examples.live_dashboard"))
 def test_default_device_without_cuda_raises_named_error(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError, match="device='cpu'"):

@@ -32,15 +32,13 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch._tree import items as _tree_items  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
-                                      make_train_step)
+from repro_torch.launch.steps import make_prefill_step  # noqa: E402
 from repro_torch.models import (NotPortedError, init_decode_state,  # noqa: E402
                                 init_params)
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.base import torch_dtype  # noqa: E402
 from repro_torch.models.transformer import param_shapes  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
 
 ARCHS = ("qwen3-8b", "olmo-1b", "granite-3-8b", "deepseek-67b")
 #: archs whose layers are not [attention + MLP]; the family-agnostic
@@ -206,19 +204,6 @@ def test_unported_options_raise(opt):
             == {k: (tuple(v.shape), str(v.dtype))
                 for k, v in _tree_items(jstate)})
     assert ("tail" in state) == (cfg.decode_tail_window > 0)
-
-
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
-                                  "jamba-v0.1-52b"])
-@pytest.mark.parametrize("smoke", [False, True])
-def test_train_step_refuses_moe_and_hybrid(arch, smoke):
-    """The port serves the MoE and hybrid families but does not train
-    them yet: ``make_train_step`` (through ``check_trainable``) raises
-    before it touches a device."""
-    cfg = tconfigs.get(arch, smoke=smoke)
-    with pytest.raises(NotPortedError, match="not yet ported"):
-        make_train_step(cfg, AdamWConfig(), device="cpu")
-    init_params(tconfigs.get(arch, smoke=True), device="cpu")
 
 
 # ---------------------------------------------------------------------------

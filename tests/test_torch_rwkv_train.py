@@ -327,7 +327,9 @@ def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
     assert chip_smoke.select_paths("O") == ["O0", "O1", "O2", "O3"]
     assert chip_smoke.select_paths("q,P") == ["P", "Q"]
     assert chip_smoke.select_paths("P,D") == ["D", "P"]
-    for bad in ("L3", "R", "P1", ""):
+    assert chip_smoke.select_paths("R") == ["R1", "R2", "R3"]
+    assert chip_smoke.select_paths("s,R2,q") == ["Q", "R2", "S"]
+    for bad in ("L3", "R4", "T", "P1", ""):
         with pytest.raises(ValueError):
             chip_smoke.select_paths(bad)
 
@@ -360,7 +362,9 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
                      ("L2", "run_path_l2"), ("O0", "run_path_o0"),
                      ("O1", "run_path_o1"), ("O2", "run_path_o2"),
                      ("O3", "run_path_o3"), ("P", "run_path_p"),
-                     ("Q", "run_path_q")):
+                     ("Q", "run_path_q"), ("R1", "run_path_r1"),
+                     ("R2", "run_path_r2"), ("R3", "run_path_r3"),
+                     ("S", "run_path_s")):
         monkeypatch.setattr(chip_smoke, fn, path(name))
     made = []
     monkeypatch.setattr(chip_smoke, "path_a_traffic",

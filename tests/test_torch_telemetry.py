@@ -461,7 +461,11 @@ def test_counter_state_flows_into_fleet_sketch():
             sweep_lag((name, "KEDA_LAG"), speeds, cfg=dataclasses.replace(
                 CFG, telemetry=TelemetryConfig()), active=active, **CPU)
     finally:
-        registry._REGISTRY.pop(name, None)
+        # the registry keys a spec by (name, backend) and lists the name
+        # in _ORDER: both go, or later tests still see the policy
+        registry._REGISTRY.pop((name, "torch"), None)
+        if name in registry._ORDER:
+            registry._ORDER.remove(name)
 
 
 # ---------------------------------------------------------------------------

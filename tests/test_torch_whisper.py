@@ -634,11 +634,16 @@ def test_chip_whisper_rows_carry_every_key_and_o_launches(chip_smoke):
     assert [r["launches"] for r in partial] == [96, 0, 0]
     full = [dict(name=r["name"], launches=10, launches_by_path={"D1": 10},
                  max_abs_err=0.0) for r in rows]
-    chip_smoke.merge_whisper_rows(full, rows)
+    chip_smoke.merge_rows(full, rows)
     assert [k["launches"] for k in full] == [906, 394, 16394]
     assert full[0]["launches_by_path"] == {"D1": 10, "O1": 96, "O2": 32,
                                            "O3": 768}
-    assert all(k["max_abs_err"] == 1e-3 and "whisper" in k for k in full)
+    assert all(k["max_abs_err"] == 1e-3 for k in full)
+    assert [[c["at"] for c in k["calls"]] for k in full] == [
+        [f"whisper's {c} call (path O)" for c in cases] for cases in (
+            ("fwd_encoder", "fwd_cross", "fwd_self"),
+            ("bwd_encoder", "bwd_cross", "bwd_self"),
+            ("decode_cross", "decode_self"))]
 
 
 def test_chip_whisper_step_bytes(chip_smoke):
