@@ -6,8 +6,8 @@ the hybrid Mamba family, the paper's own system with
 an autoscaled fleet of LLM replicas, training of a dense LLM and of
 RWKV-6, serving and training of the encoder-decoder family, serving of
 the VLM and of a dense model through the tailed decode, training of the
-MoE and hybrid Mamba families, and the lag twin's five examples) on one
-NVIDIA card.
+MoE and hybrid Mamba families, the lag twin's six examples, and the
+one-card dry run against the card) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--paths L0,L1]
 
@@ -116,11 +116,12 @@ Run from a checkout of the repository on a machine with a CUDA card and
    on the CPU (the plain versions): integers, sketch counts and
    histograms and incident tables exact, floats within ``1e-5``; then
    the torch ops a policy-step with the telemetry and the control plane
-   on, each alone and both off.  H2 is path A's heuristics at [1024, 960,
+   on, each alone and both off.  H2 is path A's heuristics at [1024, 480,
    14] under ``fused_steps=8, fused_kernel=True`` with a sketch and
    alerts on: no ``loop_fused`` launch (the kernel carries no
    telemetry), trajectories equal to the kernel's with telemetry off bit
-   for bit.  H3 is a ragged fleet of 256 of path F's groups with BFD, MBF
+   for bit.  H3 is a ragged fleet of 256 of path F's groups of at most 480
+   steps with BFD, MBF
    and KEDA_LAG_REAL through ``FleetRunner.simulate``, a sketch and
    alerts on: exact launch counts, and 16 groups at their own shapes with
    equal sketches and incident tables;
@@ -139,7 +140,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
    versions; ANNEAL with the card's draws injected), integers and
    incident tables exact, lag within ``1e-5``.  I2 is
    ``api.attack("MBF")`` at a capacity planner's size (pop 32 x 4
-   scenarios of 960 steps x 32 partitions a fitness call, 8
+   scenarios of 960 steps x 32 partitions a fitness call, 4
    generations) through a fresh ``FleetRunner``: exactly 960 x 2 x
    ``generations_run`` launches of each kernel, one cache miss and
    ``2 x generations_run - 1`` hits, the oracle's batch at its shape
@@ -204,7 +205,7 @@ Run from a checkout of the repository on a machine with a CUDA card and
    600 ``pack_rows`` and 600 ``lag_update`` launches.  J2 is the serving
    example's world (``repro_torch.examples.autoscale_serve``: 6 request
    streams, 64 KiB request records, MBFP, a replica capacity of 0.25 MB/s)
-   over 120 ticks with a x4 spike on streams 0-2 at 40-80 s, every
+   over 60 ticks with a x4 spike on streams 0-2 at 20-40 s, every
    replica an ``LLMReplica`` on one ``SharedModel(max_len=16,
    max_batch=8)`` of qwen3-8b at full width and depth in bfloat16
    (weights drawn on the card from ``--seed``): exactly 36
@@ -342,12 +343,23 @@ Run from a checkout of the repository on a machine with a CUDA card and
    by its relative norm (``update_verdict``), the smallest top-k margin
    printed; R3 the same for 3 steps of jamba-smoke (the period layout,
    Mamba layers) and llama4-scout-smoke (top-1 routing);
-25. path S, the lag twin's five examples (``repro_torch.examples``:
+25. path S, the lag twin's six examples (``repro_torch.examples``:
    quickstart, scenario_sweep, lag_slo_sweep ``--smoke --use-kernel``,
-   pareto_frontier, live_dashboard ``--smoke``) on the card, each held
-   to running through and to launching the kernels its route reaches
-   (``pack_rows``; ``lag_update``; ``anneal_step``);
-26. each kernel's time at its path's shapes beside its bound, its plain
+   pareto_frontier, live_dashboard ``--smoke``, adversarial_report
+   ``--attack MWF``) on the card, each held to running through and to
+   launching the kernels its route reaches (``pack_rows``;
+   ``lag_update``; ``anneal_step``);
+26. path T, the one-card dry run (``repro_torch.launch.dryrun``) against
+   the card: qwen3-8b decode_32k (T1) and prefill_32k (T2) and olmo-1b
+   train_4k (T3) walked at full width and depth under fake tensors (in
+   spawned processes started before the build), then each run for real
+   at the batch its record names after a warm-up, the peak allocated
+   since the cell began held within 15% of the record's live bytes, the
+   step beside the roofline (T1 also as a graph replay), the capacity
+   bridge's tokens/s from the record; then the decode kernel at T1's
+   call and the flash forward at T2's (its last rows against the plain
+   version over the whole K/V), 32,768 positions each;
+27. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
@@ -374,7 +386,8 @@ pays.
 takes all its parts), and prints the kernel rows they make whole (the
 WKV backward's, after L0; the three attention kernels' at whisper's
 calls, after O0; the tailed decode's, after Q; the flash forward's at
-R1's call, after R1) and the last line.
+R1's call, after R1; the flash forward's and the decode kernel's at T's
+calls, after T) and the last line.
 
 Kernel launch counts are zeroed just before each path and read just
 after it; a path that launched none of its kernels fails.  The line
@@ -393,14 +406,18 @@ import sys
 import time
 from pathlib import Path
 
+SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))
+try:            # the card's roofline peaks, which the dry run's records use
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32
+except ImportError:         # outside a checkout: main says so and exits 2
+    HBM_BW = PEAK_FLOPS_BF16 = PEAK_FLOPS_F32 = None
+
 HEURISTICS = ("NF", "NFD", "FF", "FFD", "BF", "BFD", "WF", "WFD")
 PATH_B = ("MWF", "MBF", "MWFP", "MBFP", "KEDA_LAG", "RATE_THRESHOLD", "BFD")
 PATH_C1 = ("ANNEAL", "ANNEAL_STICKY")
 TOL = 1e-5
 CAPACITY = 1.0                # a consumer's drain rate (LagSimConfig's default)
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LLM = "qwen3-8b"
 D_BATCH, D_PROMPT, D_GEN = 8, 1024, 128  # paths D, E, M, N: requests, tokens
@@ -446,6 +463,20 @@ def cuda_ms(fn, reps: int, warmup: int = 1):
     return start.elapsed_time(end) / reps, out
 
 
+_SIDE_STREAM = []
+
+
+def side_stream():
+    """One side stream for every warm-up and capture: cuBLAS keeps a 32 MiB
+    workspace for each stream it has run on, never freed, so a new stream
+    a capture would hold memory across the paths."""
+    import torch
+
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    return _SIDE_STREAM[0]
+
+
 def graph_ms(fn, calls: int, prepare=None) -> float:
     """Device milliseconds per call of ``fn``: ``calls`` back-to-back calls
     captured in one CUDA graph, replayed and timed with CUDA events, so
@@ -454,7 +485,7 @@ def graph_ms(fn, calls: int, prepare=None) -> float:
     autograd forward, whose backward runs on its forward's stream)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):          # warm up off the default stream
         if prepare is not None:
@@ -471,8 +502,8 @@ def graph_ms(fn, calls: int, prepare=None) -> float:
 
 
 def bound_ms(n_bytes: float, n_ops: float,
-             ops_per_s: float = FP32_OPS_PER_S):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+             ops_per_s: float = PEAK_FLOPS_F32):
+    t_bytes = n_bytes / HBM_BW * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -752,11 +783,13 @@ def check_anneal_step(dev, gen, rows, k, n, steps=48):
     return 0.0
 
 
-def _attn_close(got, want, dtype, what: str) -> float:
+def _attn_close(got, want, dtype, what: str, tol=None) -> float:
+    """The largest error of ``got`` against ``want``, held at ``tol`` (by
+    default ATTN_TOL[dtype]) as both absolute and relative tolerance."""
     import torch
 
     err = _max_err(got, want)
-    tol = ATTN_TOL[dtype]
+    tol = ATTN_TOL[dtype] if tol is None else tol
     _require(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
              f"{what}: kernel disagrees with its plain version (max abs err "
              f"{err})")
@@ -837,7 +870,7 @@ def check_decode_graph(dev, gen, b, kv, g, s, hd, fills):
         k = _normal(gen, (b, kv, s, hd), dtype, dev)
         v = _normal(gen, (b, kv, s, hd), dtype, dev)
         clen = torch.tensor(fills[0], dtype=torch.int32, device=dev)
-        side = torch.cuda.Stream()
+        side = side_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             da.decode_attention_fwd(q, k, v, clen)
@@ -925,7 +958,7 @@ def check_decode_tailed_graph(dev, gen, b, kv, g, s, w, hd, fills):
                  "tail": {"k": kt[None], "v": vt[None]}}
         call = lambda: da.decode_attention_tailed_fwd(  # noqa: E731
             q, km, vm, kt, vt, clen, w)
-        side = torch.cuda.Stream()
+        side = side_stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             call()
@@ -1179,7 +1212,7 @@ def step_bytes(cfg, params, state, fill: int) -> dict:
                                 or [])
     return {"weights": weights, "kv": kv_read, "state": recurrent,
             "bound_ms": (weights + kv_read + recurrent)
-            / HBM_BYTES_PER_S * 1e3}
+            / HBM_BW * 1e3}
 
 
 def _launched(kernel: str, want: int, what: str) -> int:
@@ -1491,7 +1524,7 @@ def attention_rows(dev, seed, launches, errs):
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
     bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
-                       4 * b * h * s * s * hd / 2, BF16_OPS_PER_S)
+                       4 * b * h * s * s * hd / 2, PEAK_FLOPS_BF16)
     rows = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
@@ -1533,7 +1566,7 @@ def attention_rows(dev, seed, launches, errs):
     k = _normal(gen, (b, 16, s, hd), "bfloat16", dev)
     v = _normal(gen, (b, 16, s, hd), "bfloat16", dev)
     bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
-                       4 * b * 16 * s * s * hd / 2, BF16_OPS_PER_S)
+                       4 * b * 16 * s * s * hd / 2, PEAK_FLOPS_BF16)
     rows[0]["calls"].append(dict(
         at="path M1's call (16 over 16 heads)", ms=graph_ms(kern, 10),
         plain_ms=graph_ms(plain, 3), bound_ms=bnd, bound_by=by,
@@ -1544,7 +1577,7 @@ def attention_rows(dev, seed, launches, errs):
     k = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
     v = _normal(gen, (b, kv, s, hd), "bfloat16", dev)
     bnd, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()),
-                       4 * b * 64 * s * s * hd / 2, BF16_OPS_PER_S)
+                       4 * b * 64 * s * s * hd / 2, PEAK_FLOPS_BF16)
     rows[0]["calls"].append(dict(
         at="paths P1's and Q1's call (64 over 8 heads)",
         ms=graph_ms(kern, 10), plain_ms=graph_ms(plain, 3), bound_ms=bnd,
@@ -1567,7 +1600,7 @@ def attention_rows(dev, seed, launches, errs):
                             rtol=2e-2, atol=2e-2),
              "decode_attention and scaled_dot_product_attention disagree")
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
-                       4 * b * h * (fill + 1) * hd, BF16_OPS_PER_S)
+                       4 * b * h * (fill + 1) * hd, PEAK_FLOPS_BF16)
     rows.append(dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1592,7 +1625,7 @@ def attention_rows(dev, seed, launches, errs):
              "decode_attention and scaled_dot_product_attention disagree "
              "at path M2's call")
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * 16 * (fill + 1) * hd),
-                       4 * b * 16 * (fill + 1) * hd, BF16_OPS_PER_S)
+                       4 * b * 16 * (fill + 1) * hd, PEAK_FLOPS_BF16)
     rows[-1]["calls"].append(dict(
         at="path M2's call (1 query head over each of 16 KV heads)",
         ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50), bound_ms=bnd,
@@ -1611,7 +1644,7 @@ def attention_rows(dev, seed, launches, errs):
              "decode_attention and scaled_dot_product_attention disagree "
              "at path P2's call")
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
-                       4 * b * kv * 8 * (fill + 1) * hd, BF16_OPS_PER_S)
+                       4 * b * kv * 8 * (fill + 1) * hd, PEAK_FLOPS_BF16)
     rows[-1]["calls"].append(dict(
         at=f"paths P2's and Q2's control call (8 query heads over "
            f"each of 8 KV heads, fill {fill})",
@@ -1629,7 +1662,7 @@ def attention_rows(dev, seed, launches, errs):
     clen = torch.tensor(fill, dtype=torch.int32, device=dev)
     q4 = q.reshape(b, h, 1, hd)
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
-                       4 * b * h * (fill + 1) * hd, BF16_OPS_PER_S)
+                       4 * b * h * (fill + 1) * hd, PEAK_FLOPS_BF16)
     rows[-1]["calls"].append(dict(
         at="path J2's call (cache 16, 4 filled)",
         ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50), bound_ms=bnd,
@@ -1678,7 +1711,7 @@ def tailed_row(dev, seed, launches, err) -> dict:
              "decode_attention_tailed and scaled_dot_product_attention "
              "disagree at path Q2's call")
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * n * hd),
-                       4 * b * kv * g * n * hd, BF16_OPS_PER_S)
+                       4 * b * kv * g * n * hd, PEAK_FLOPS_BF16)
     return dict(
         name="decode_attention_tailed", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2426,7 +2459,7 @@ def run_path_g(dev, seed, rates, act):
 # benchmarks/adversarial_bench.py:53), and a search a capacity planner runs
 I1_SEARCH = dict(pop_size=8, generations=6, iters=96, n=6,
                  incident_weight=0.05)
-I2_SEARCH = dict(pop_size=32, scenarios_per_genome=4, generations=8,
+I2_SEARCH = dict(pop_size=32, scenarios_per_genome=4, generations=4,
                  iters=960, n=32)
 PATH_I_REPLAY = ("MBF", "BFD", "KEDA_LAG")
 
@@ -2710,7 +2743,10 @@ J1_REC = 16384                # Kafka's producer batch.size default (bytes)
 # drains 140 records (2,293,760 B) a tick and a bin packed to 140 records
 # never drains in the world while the twin drains it at 6,240 B/s
 J1_C = 140 * J1_REC
-J2_TICKS, J2_SPIKE, J2_MARKS = 120, (40, 80), (30, 70, 115)
+#: J2's world: 60 ticks, a quarter of the example's 240 (120 before the
+#: dry run's path T came), cut for the time limit; the x4 spike over ticks
+#: 20-40, replicas printed at the marks
+J2_TICKS, J2_SPIKE, J2_MARKS = 60, (20, 40), (15, 35, 57)
 
 
 def j1_world(n: int, seed: int):
@@ -3012,7 +3048,10 @@ H_CP = dict(polling_interval=1, observation_delay=1, actuation_delay=1,
             cooldown_period=10, min_replicas=1, max_replicas=16,
             warmup_steps=2)
 PATH_H3 = ("BFD", "MBF", "KEDA_LAG_REAL")
-H3_GROUPS = 256
+#: H3's fleet: H3_GROUPS of path F's groups, those of at most H3_MAX_T
+#: steps (a host-bound fleet's time goes with its bucket groups' steps,
+#: not their rows: the 960-step buckets would double it)
+H3_GROUPS, H3_MAX_T = 256, 480
 
 
 def h_telemetry(frames: bool = True, hist_max=None):
@@ -3185,8 +3224,12 @@ def path_h_ops(rates, act):
     return rows
 
 
+#: H2's steps (cut from 960 for the script's time limit)
+H2_STEPS = 480
+
+
 def run_path_h2(dev, seed):
-    """Path A's heuristics at [1024, 960, 14] under ``fused_steps=8,
+    """Path A's heuristics at [1024, H2_STEPS, 14] under ``fused_steps=8,
     fused_kernel=True`` with a sketch and alerts on: the reference's
     routing sends them to ``_fused_wide`` (``loop_fused`` carries no
     telemetry), so ``loop_fused`` launches 0 times; the trajectories must
@@ -3198,7 +3241,7 @@ def run_path_h2(dev, seed):
     from repro_torch.kernels import _build
     from repro_torch.kernels import loop_fused as lf
 
-    rates, act = traffic_mix(1024, 960, 14, seed + 20, dev)
+    rates, act = traffic_mix(1024, H2_STEPS, 14, seed + 20, dev)
     p, (b, t, n) = len(HEURISTICS), rates.shape
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -3232,29 +3275,31 @@ def run_path_h2(dev, seed):
 
 
 def h3_rows(seed):
-    """Path H3's 256 of path F's 4096 groups, and the 16 of them held
-    against their direct runs: 8 of each of the two commonest shapes that
-    a bucket pads (so that two batched direct runs cover them), then the
-    first groups of each family up to 256."""
+    """Path H3's H3_GROUPS of path F's 4096 groups, of at most H3_MAX_T
+    steps, and the 16 of them held against their direct runs: 8 of each
+    of the two commonest shapes that a bucket pads (so that two batched
+    direct runs cover them), then the first groups of each family up to
+    H3_GROUPS."""
     import numpy as np
 
     t_i, n_i = fleet_cuts(seed)
     shapes = {}
     for i, (t, n) in enumerate(zip(t_i.tolist(), n_i.tolist())):
-        if (t, n) != (_bucket(t, F_T_BUCKETS), _bucket(n, F_N_BUCKETS)):
+        if t <= H3_MAX_T and (t, n) != (_bucket(t, F_T_BUCKETS),
+                                        _bucket(n, F_N_BUCKETS)):
             shapes.setdefault((t, n), []).append(i)
     best = sorted(shapes.items(), key=lambda kv: (-len(kv[1]), kv[0]))[:2]
     checked = [i for _, idx in best for i in idx[:8]]
     per = F_GROUPS // len(FAMILIES_F)
     rest = [i for j in range(per) for i in range(j, F_GROUPS, per)
-            if i not in checked]
+            if i not in checked and t_i[i] <= H3_MAX_T]
     rows = np.array(sorted(checked + rest[:H3_GROUPS - len(checked)]))
     return rows, [(s, [int(np.flatnonzero(rows == i)[0])
                        for i in idx[:8]]) for s, idx in best]
 
 
 def run_path_h3(dev, seed):
-    """A ragged fleet of 256 of path F's groups (``h3_rows``, path F's
+    """A ragged fleet of H3_GROUPS of path F's groups (``h3_rows``, path F's
     cuts) with BFD, MBF and KEDA_LAG_REAL through ``FleetRunner.simulate``,
     a sketch and alerts on: exact launch counts; 16 groups (8 of each of
     two shapes) run at their own shapes through ``sweep_lag`` must have
@@ -3294,9 +3339,10 @@ def run_path_h3(dev, seed):
     res = runner.simulate(PATH_H3, pairs, cfg, device=dev)
     wall = time.perf_counter() - t0
     counts = _build.launch_counts()
-    _require(runner.stats()["cache_misses"] == 8, f"path H3: "
-             f"{runner.stats()['cache_misses']} groups, want 8 (one a "
-             f"bucket)")
+    n_groups = len(set(zip(tb.tolist(), nb.tolist())))
+    _require(runner.stats()["cache_misses"] == n_groups, f"path H3: "
+             f"{runner.stats()['cache_misses']} groups, want {n_groups} "
+             f"(one a bucket)")
     launches = {"pack_rows": _packers(PATH_H3) * sum_tb,
                 "lag_update_batch": len(PATH_H3) * sum_tb,
                 "select_slot_grid": 0}
@@ -3590,13 +3636,6 @@ def bwd_controls(q, k, v, o, do, lse, got, causal):
             "last head left out": (got[0], left[1], left[2])}
 
 
-def _causal_pairs(sq, skv, causal) -> int:
-    """(query, key) pairs the mask keeps, one (batch row, head)."""
-    if not causal:
-        return sq * skv
-    return sum(min(q + 1, skv) for q in range(sq))
-
-
 def bwd_case(dev, gen, b, h, kv, s, hd, dtype, causal, reps=5, skv=None):
     """K0: the backward kernel against its plain version at q [b, h, s,
     hd] over k/v [b, kv, skv (default s), hd], both fed the forward
@@ -3612,6 +3651,7 @@ def bwd_case(dev, gen, b, h, kv, s, hd, dtype, causal, reps=5, skv=None):
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
 
     skv = s if skv is None else skv
     q = _normal(gen, (b, h, s, hd), dtype, dev)
@@ -3674,9 +3714,9 @@ def bwd_case(dev, gen, b, h, kv, s, hd, dtype, causal, reps=5, skv=None):
     n_bytes = (esize * (3 * q.numel() + 2 * k.numel()     # q, o, do; k, v
                         + q.numel() + 2 * k.numel())      # dq; dk, dv
                + 4 * lse.numel())                         # lse
-    n_ops = 5 * 2 * hd * b * h * _causal_pairs(s, skv, causal)
-    bnd, by = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if dtype == "bfloat16"
-                       else FP32_OPS_PER_S)
+    n_ops = 5 * 2 * hd * b * h * dryrun.causal_pairs(s, skv, causal)
+    bnd, by = bound_ms(n_bytes, n_ops, PEAK_FLOPS_BF16 if dtype == "bfloat16"
+                       else PEAK_FLOPS_F32)
     row.update(max_abs_err=err, ms=graph_ms(kern, reps),
                plain_ms=graph_ms(plain, 2), bound_ms=bnd, bound_by=by,
                library_ms=graph_ms(lib, reps, prepare=sdpa_fwd),
@@ -4322,7 +4362,7 @@ def wkv_bwd_case(dev, gen, b, t, h, hd, controls=False, timed=False):
               f"bound_ms={bnd!r} ({by}, {bnd / row['ms']:.1%} of it) "
               f"wrapper_ms={row['wrapper_ms']!r}; it also reads "
               f"{row['ckpt_bytes']} bytes of checkpoints "
-              f"({row['ckpt_bytes'] / HBM_BYTES_PER_S * 1e3!r} ms at the "
+              f"({row['ckpt_bytes'] / HBM_BW * 1e3!r} ms at the "
               f"memory rate); the forward kernel on the same inputs "
               f"{row['fwd_ms']!r} ms without checkpoints, "
               f"{row['fwd_ckpt_ms']!r} ms with them (training's call); "
@@ -4978,7 +5018,7 @@ def whisper_step_bytes(cfg, params, state, fill: int) -> dict:
     kv_read = 2 * param_bytes(kv["k"]) * (fill + 1) // kv["k"].shape[3]
     cross = param_bytes(state["cross_k"]) + param_bytes(state["cross_v"])
     return {"weights": weights, "kv": kv_read, "cross_kv": cross,
-            "bound_ms": (weights + kv_read + cross) / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": (weights + kv_read + cross) / HBM_BW * 1e3}
 
 
 def _flash_call(dev, gen, b, h, kv, sq, skv, hd, causal, what):
@@ -4989,6 +5029,7 @@ def _flash_call(dev, gen, b, h, kv, sq, skv, hd, causal, what):
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
 
     err = check_flash(dev, gen, b, h, kv, sq, skv, hd, causal=causal)
     q = _normal(gen, (b, h, sq, hd), "bfloat16", dev)
@@ -5000,8 +5041,8 @@ def _flash_call(dev, gen, b, h, kv, sq, skv, hd, causal, what):
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=causal, enable_gqa=kv != h)
     bnd, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
-                       4 * b * h * hd * _causal_pairs(sq, skv, causal),
-                       BF16_OPS_PER_S)
+                       4 * b * h * hd * dryrun.causal_pairs(sq, skv, causal),
+                       PEAK_FLOPS_BF16)
     row = dict(max_abs_err=err, ms=graph_ms(kern, 10),
                plain_ms=graph_ms(plain, 2), bound_ms=bnd, bound_by=by,
                library_ms=graph_ms(lib, 10), wrapper_ms=cuda_ms(kern, 10)[0])
@@ -5035,7 +5076,7 @@ def _decode_call(dev, gen, b, kv, g, s, fill, hd, what):
                             rtol=2e-2, atol=2e-2),
              f"{what}: decode_attention and SDPA disagree")
     bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * kv * (fill + 1) * hd),
-                       4 * b * kv * g * (fill + 1) * hd, BF16_OPS_PER_S)
+                       4 * b * kv * g * (fill + 1) * hd, PEAK_FLOPS_BF16)
     row = dict(ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50),
                bound_ms=bnd, bound_by=by, library_ms=graph_ms(lib, 200),
                wrapper_ms=cuda_ms(kern, 200)[0])
@@ -5242,7 +5283,7 @@ def run_path_o2(dev, seed):
     moved = whisper_step_bytes(cfg, params, state, cache - 1)
     print(f"  bytes a decode step must move: weights={moved['weights']} "
           f"self_kv={moved['kv']} cross_kv={moved['cross_kv']}; "
-          f"bound_ms={moved['bound_ms']!r} at {HBM_BYTES_PER_S:.3g} B/s "
+          f"bound_ms={moved['bound_ms']!r} at {HBM_BW:.3g} B/s "
           f"({moved['bound_ms'] / step_ms:.1%} of the replayed step)")
     del params, state
     torch.cuda.empty_cache()
@@ -5603,7 +5644,7 @@ def _step_report(tag, cfg, params, state, run, fill, wall_ms) -> float:
           f"step in the run; bytes it must move: weights="
           f"{moved['weights']} kv_cache={moved['kv']} recurrent_state="
           f"{moved['state']}; bound_ms="
-          f"{moved['bound_ms']!r} at {HBM_BYTES_PER_S:.3g} B/s "
+          f"{moved['bound_ms']!r} at {HBM_BW:.3g} B/s "
           f"({moved['bound_ms'] / step_ms:.1%} of the replayed step)")
     return step_ms
 
@@ -5855,7 +5896,7 @@ def run_path_q(dev, seed):
     print(f"  Q2 one flush_kv_tail ({Q_LAYERS} layers' tails of "
           f"{Q_WINDOW} rows into the main cache, then zeroed): device_ms="
           f"{flush_ms!r} (CUDA graph replay), {moved} bytes read and "
-          f"written: bound_ms={moved / HBM_BYTES_PER_S * 1e3!r}; a "
+          f"written: bound_ms={moved / HBM_BW * 1e3!r}; a "
           f"flush every {Q_WINDOW} steps adds {flush_ms / Q_WINDOW!r} ms a "
           f"step")
     del params, state, state_c
@@ -6243,7 +6284,7 @@ def r1_attention_call(dev, seed, cfg) -> dict:
     # causal half of QK^T and PV
     bnd, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel())
                        + 4 * b * h * s, 4 * b * h * s * s * hd / 2,
-                       BF16_OPS_PER_S)
+                       PEAK_FLOPS_BF16)
     out = dict(shape=[b, h, kv, s, hd], ms=graph_ms(kern, 10),
                wrapper_ms=cuda_ms(kern, 10)[0], plain_ms=graph_ms(plain, 3),
                library_ms=graph_ms(lib, 10), bound_ms=bnd, bound_by=by,
@@ -6430,7 +6471,7 @@ def run_path_r3(dev, seed):
     return out
 
 
-#: path S: the five lag-twin examples on the card, ``main`` at their
+#: path S: the six lag-twin examples on the card, ``main`` at their
 #: ``--smoke`` sizes where they have one and their defaults otherwise,
 #: and the kernels each must launch (any of them; quickstart's
 #: ``api.pack`` runs the host packer, so it is held to running through;
@@ -6442,16 +6483,19 @@ S_EXAMPLES = (("quickstart", (), ()),
                ("lag_update_batch",)),
               ("pareto_frontier", (), ("anneal_step",)),
               ("live_dashboard", ("--smoke",),
-               ("pack_rows", "lag_update_batch")))
+               ("pack_rows", "lag_update_batch")),
+              ("adversarial_report", ("--attack", "MWF"), ("pack_rows",)))
 #: the kernel calls path S makes, as :func:`_kernel_calls` records them
 #: and the check helpers take them: ``pack_rows`` (rows, N) at
 #: quickstart's evaluation (3 deltas x 30 partitions), scenario_sweep's
 #: sweep (5 families x 3 streams, 16 partitions), lag_slo_sweep's and
 #: live_dashboard's smoke fleets (2 streams x 6 partitions, masked) and
-#: pareto_frontier's heuristic points (one row of 8); ``lag_update_batch``
+#: pareto_frontier's heuristic points (one row of 8) and
+#: adversarial_report's ``--attack MWF`` (its search's population of 8
+#: genomes x 6 partitions); ``lag_update_batch``
 #: (B, N, M bins) at lag_slo_sweep's drain; ``anneal_step`` (rows, K
 #: chains a row, N) at pareto_frontier's 4 restarts x 7 lambdas
-S_CALLS = {"pack_rows": ((3, 30), (15, 16), (2, 6), (1, 8)),
+S_CALLS = {"pack_rows": ((3, 30), (15, 16), (2, 6), (1, 8), (8, 6)),
            "lag_update_batch": ((2, 6, 14),),
            "anneal_step": ((1, 28, 8),)}
 
@@ -6553,12 +6597,328 @@ def check_s_calls(dev, gen) -> dict:
                                for rows, k, n in S_CALLS["anneal_step"])}
 
 
+#: path T: the one-card dry run's cells at full width and depth, each also
+#: run for real at the batch its record names: (part, arch, shape)
+T_CELLS = (("T1", LLM, "decode_32k"), ("T2", LLM, "prefill_32k"),
+           ("T3", TRAIN, "train_4k"))
+#: a measured peak's largest distance from the dry run's live bytes
+T_PEAK_TOL = 0.15
+#: T2's flash call is held against its plain version on its last rows over
+#: the whole K/V (the full f32 score matrix would not fit the card)
+T_FLASH_ROWS = 512
+#: T2's flash tolerance (absolute and relative), scaled to what it compares:
+#: over ~12k causal keys of N(0, 1) rows an output element is ~N(0, 0.009)
+#: and the largest ~0.05, whose bfloat16 step is 2.44e-4 (the reading at
+#: this call); ATTN_TOL's 2e-2 would pass an element off by twice a typical
+#: value, 2e-3 passes none off by more than a quarter of one
+T_FLASH_TOL = 2e-3
+#: the kernels each part must launch, a step: (kernel, launches a layer)
+T_KERNELS = {"T1": (("decode_attention_fwd", 1),),
+             "T2": (("flash_attention_fwd", 1),),
+             "T3": (("flash_attention_fwd", 2), ("flash_attention_bwd", 1))}
+
+
+class TWalks:
+    """The dry run of T_CELLS (``repro_torch.launch.dryrun.lower_cell``,
+    the baseline rules), one spawned process a cell, all at once: started
+    when made (``main`` makes it before the build, so that the walks, host
+    work alone, overlap the build and the paths before T), read by
+    :meth:`records`, its processes stopped by :meth:`close`."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        from repro_torch.launch import dryrun
+
+        self.t0 = time.perf_counter()
+        self.pool = ProcessPoolExecutor(
+            len(T_CELLS), mp_context=multiprocessing.get_context("spawn"))
+        self.futs = {tag: self.pool.submit(dryrun.lower_cell, arch, shape,
+                                           "baseline")
+                     for tag, arch, shape in T_CELLS}
+
+    def records(self, out_path) -> dict:
+        """The records by part, each also written to ``out_path`` (for
+        ``derived_replica_capacity``), once all are done."""
+        recs = {tag: f.result() for tag, f in self.futs.items()}
+        print(f"path T: dry run of {len(recs)} cells done "
+              f"{time.perf_counter() - self.t0!r} s after it began")
+        with open(out_path, "w") as f:
+            for tag, _, _ in T_CELLS:
+                f.write(json.dumps(recs[tag]) + "\n")
+        self.close()
+        return recs
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+#: the walks of path T, started by ``main`` before the build
+T_WALKS = None
+
+
+def _t_flash_rows_plain(q, k, v, start):
+    """The flash forward's plain version on query rows ``start ..`` of a
+    causal call (q holds those rows): the full-softmax formula of
+    ``ref.attention_ref`` with the mask at the rows' absolute positions."""
+    import torch
+
+    from repro_torch.kernels.ref import NEG_INF, attention_scores
+
+    b, h, sq, hd = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    s = attention_scores(q, k, causal=False)         # (B, KV, G*Sq, Skv)
+    q_pos = start + torch.arange(sq, device=q.device).repeat(h // kvh)
+    mask = q_pos[:, None] >= torch.arange(skv, device=q.device)[None, :]
+    s = torch.where(mask, s, NEG_INF)
+    return (torch.softmax(s, dim=-1) @ v.float()).reshape(b, h, sq, hd).to(
+        q.dtype)
+
+
+def t_kernel_calls(dev, gen, recs) -> dict:
+    """The decode kernel at T1's call ([b, 8, 4, 128] over a 32,768-position
+    cache, float32 and bfloat16, full and half filled) and the flash
+    forward at T2's ([b, 32, 32,768, 128] over 8 KV heads, bfloat16, its
+    last T_FLASH_ROWS rows against the plain version over the whole K/V),
+    each timed beside its plain version, bound and SDPA.  Returns
+    ``{kernel: (worst error, the call's row figures)}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.shapes import SHAPES
+
+    out = {}
+    s = SHAPES["decode_32k"].seq_len
+    b = recs["T1"]["batch_per_device"]
+    err = check_decode(dev, gen, b, 8, 4, s, 128, (s - 1, s // 2))
+    q = _normal(gen, (b, 8, 4, 128), "bfloat16", dev)
+    kc = _normal(gen, (b, 8, s, 128), "bfloat16", dev)
+    vc = _normal(gen, (b, 8, s, 128), "bfloat16", dev)
+    clen = torch.tensor(s - 1, dtype=torch.int32, device=dev)
+    kern = lambda: da.decode_attention_fwd(q, kc, vc, clen)  # noqa: E731
+    plain = lambda: da.decode_attention_plain(q, kc, vc, clen)  # noqa: E731
+    q4 = q.reshape(b, 32, 1, 128)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kc, vc, enable_gqa=True)
+    _require(torch.allclose(lib().reshape(q.shape).float(), kern().float(),
+                            rtol=2e-2, atol=2e-2),
+             "decode_attention and scaled_dot_product_attention disagree at "
+             "path T1's call")
+    bnd, by = bound_ms(2 * (2 * q.numel() + 2 * b * 8 * s * 128),
+                       4 * b * 32 * s * 128, PEAK_FLOPS_BF16)
+    out["decode_attention"] = (err, dict(
+        at=f"path T1's call [{b}, 8, 4, 128] over {s} positions, full",
+        max_abs_err=err, ms=graph_ms(kern, 20), plain_ms=graph_ms(plain, 3),
+        bound_ms=bnd, bound_by=by, library_ms=graph_ms(lib, 20),
+        wrapper_ms=cuda_ms(kern, 20)[0]))
+    del q, kc, vc, q4
+
+    s = SHAPES["prefill_32k"].seq_len
+    b = recs["T2"]["batch_per_device"]
+    q = _normal(gen, (b, 32, s, 128), "bfloat16", dev)
+    k = _normal(gen, (b, 8, s, 128), "bfloat16", dev)
+    v = _normal(gen, (b, 8, s, 128), "bfloat16", dev)
+    kern = lambda: fa.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    start = s - T_FLASH_ROWS
+    rows = lambda: _t_flash_rows_plain(q[:, :, start:], k, v,  # noqa: E731
+                                       start)
+    got, want = kern()[:, :, start:], rows()
+    err = _attn_close(got, want, "bfloat16", f"flash_attention at path "
+                      f"T2's call [{b}, 32, {s}, 128], rows {start}..",
+                      tol=T_FLASH_TOL)
+    print(f"check flash_attention q=[{b}, 32, {s}, 128] kv_heads=8 causal "
+          f"bfloat16, its last {T_FLASH_ROWS} rows: max_abs_err={err!r} "
+          f"(tolerance {T_FLASH_TOL}; the plain rows' largest "
+          f"{want.float().abs().max().item()!r}, their rms "
+          f"{want.float().pow(2).mean().sqrt().item()!r})")
+    del got, want
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    bnd, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                       4 * b * 32 * 128 * s * (s + 1) / 2, PEAK_FLOPS_BF16)
+    out["flash_attention"] = (err, dict(
+        at=f"path T2's call [{b}, 32, {s}, 128] over 8 KV heads (plain_ms: "
+           f"its last {T_FLASH_ROWS} rows over the whole K/V)",
+        max_abs_err=err, ms=graph_ms(kern, 2), plain_ms=graph_ms(rows, 1),
+        bound_ms=bnd, bound_by=by, library_ms=graph_ms(lib, 2),
+        wrapper_ms=cuda_ms(kern, 2)[0]))
+    return out
+
+
+def _t_cell(dev, seed, tag, rec, cap):
+    """One cell of path T run for real at ``rec``'s batch: its inputs drawn
+    on the card from ``seed``, a warm-up step at batch 1 (T1: the same
+    step), then one step with the launch counts zeroed before and read
+    after; the peak allocated since the cell began against the record's
+    live bytes (within T_PEAK_TOL), the step's wall against the roofline.
+    Returns the part's figures."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import SHAPES, input_specs
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    shape = SHAPES[rec["shape"]]
+    cfg = dryrun.cell_config(rec["arch"], shape)
+    b = rec["batch_per_device"]
+    gen = torch.Generator(dev).manual_seed(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def batch(n):
+        return {k: (torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                                  device=dev) if not t.is_floating_point()
+                    else torch.randn(t.shape, generator=gen, device=dev
+                                     ).to(t.dtype))
+                for k, t in input_specs(cfg, shape, batch=n).items()}
+
+    params = init_params(cfg, seed=seed, device=dev)
+    if shape.kind == "decode":
+        state = init_decode_state(cfg, b, shape.seq_len, dev)
+        for name in ("k", "v"):           # a full cache, drawn from the seed
+            for layer in state["kv"][name]:
+                layer.normal_(generator=gen)
+        state["cache_len"].fill_(shape.seq_len - 1)  # attend all of it
+        step = make_serve_step(cfg, dev)
+        warm = run = (lambda bt=batch(b): step(params, state, bt))
+    elif shape.kind == "prefill":
+        step = make_prefill_step(cfg, dev)
+        warm = (lambda bt=batch(1): step(params, bt))
+        run = (lambda bt=batch(b): step(params, bt))
+    else:
+        opt = adamw_init(params)
+        step = make_train_step(cfg, AdamWConfig(), dev, donate=True)
+        warm = (lambda bt=batch(1): step(params, opt, bt))
+        run = (lambda bt=batch(b): step(params, opt, bt))
+    warm()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = _build.launch_counts()
+    del res
+    want = {k: n * cfg.n_layers for k, n in T_KERNELS[tag]}
+    got = {k: counts[k] for k in want}
+    _require(got == want, f"path {tag}: launches {got}, want {want}")
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    _require(not others, f"path {tag} launched {others}")
+    pred = rec["memory"]["live_bytes_per_device"]
+    rl = rec["roofline"]
+    roof = max(rl["t_compute_s"], rl["t_memory_s"])
+    tokens = b * (1 if shape.kind == "decode" else shape.seq_len)
+    print(f"{card_line()}: path {tag} {cfg.name} {rec['shape']} at "
+          f"batch_per_device={b} (global {shape.global_batch}): peak "
+          f"{peak} bytes allocated since the cell began (held before: "
+          f"{before}) against the dry run's {pred} live bytes "
+          f"({peak / pred - 1:+.2%}; within {T_PEAK_TOL:.0%} required)")
+    print(f"{card_line()}: path {tag}: step wall_s={wall!r} against the "
+          f"roofline's {roof!r} s ({rl['bottleneck']}-bound: compute "
+          f"{rl['t_compute_s']!r}, memory {rl['t_memory_s']!r}), "
+          f"{tokens / wall!r} tokens/s measured; the capacity bridge "
+          f"(derived_replica_capacity) gives "
+          f"{cap['tokens_per_s'] * tokens / b!r} tokens/s from the record "
+          f"({cap['step_seconds']!r} s a step); "
+          f"launches {got}")
+    part = dict(peak=peak, predicted=pred, held_before=before, wall_s=wall,
+                roofline_s=roof, batch=b, launches=got)
+    if shape.kind == "decode":
+        part["graph_ms"] = graph_ms(run, 1)
+        print(f"{card_line()}: path {tag}: one step replayed as a CUDA "
+              f"graph {part['graph_ms']!r} ms (roofline {roof * 1e3!r} ms)")
+    _require(abs(peak / pred - 1) <= T_PEAK_TOL,
+             f"path {tag}: peak {peak} bytes is not within {T_PEAK_TOL:.0%} "
+             f"of the dry run's {pred}")
+    del params, run, warm, step
+    return part
+
+
+def run_path_t(dev, seed):
+    """Path T: the one-card dry run (``repro_torch.launch.dryrun``) of
+    T_CELLS at full width and depth -- qwen3-8b decode_32k (T1) and
+    prefill_32k (T2), olmo-1b train_4k (T3) -- then each cell's own step
+    for real on the card at the record's ``batch_per_device`` (T1 also as
+    a graph replay), its peak held within T_PEAK_TOL of the record's live
+    bytes and its kernels' launches counted; then the decode and flash
+    kernels at T1's and T2's calls against their plain versions.  Returns
+    the parts' figures, the launches by part and the calls' rows."""
+    import torch
+
+    from repro_torch.launch.mesh import MESH_NAME
+    from repro_torch.serving.capacity import derived_replica_capacity
+
+    global T_WALKS
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    path = build / "dryrun_path_t.jsonl"
+    walks, T_WALKS = T_WALKS or TWalks(), None
+    recs = walks.records(path)
+    for tag, rec in recs.items():
+        print(f"path T {tag} record: " + json.dumps(
+            {k: rec[k] for k in ("arch", "shape", "mesh", "batch_per_device",
+                                 "flops_per_device", "bytes_per_device",
+                                 "roofline", "memory", "walk_s")}))
+    out = {"records": recs}
+    for tag, rec in recs.items():
+        cap = derived_replica_capacity(rec["arch"], rec["shape"],
+                                       mesh=MESH_NAME, results_path=str(path))
+        out[tag] = _t_cell(dev, seed, tag, rec, cap)
+    gen = torch.Generator(dev).manual_seed(seed)
+    out["calls"] = t_kernel_calls(dev, gen, recs)
+    return out
+
+
+def t_rows(out) -> list:
+    """Path T's launches and calls as rows for :func:`merge_rows`: the flash
+    forward (T2, T3), its backward (T3) and the decode kernel (T1), the
+    calls at T1's and T2's shapes joining rows 7 and 6."""
+    def launches(kernel):
+        return {tag: out[tag]["launches"].get(kernel, 0)
+                for tag in ("T1", "T2", "T3") if tag in out}
+
+    def row(name, kernel, source, replaces, call=None):
+        by = launches(kernel)
+        r = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 launches=sum(by.values()), launches_by_path=by,
+                 max_abs_err=0.0, calls=[])
+        if call is not None:
+            err, fig = out["calls"][call]
+            r.update(fig, max_abs_err=err, calls=[fig])
+            r.pop("at")
+        return r
+
+    return [row("flash_attention", "flash_attention_fwd",
+                "src/repro_torch/kernels/csrc/flash_attention_bf16.cu",
+                "src/repro/kernels/flash_attention.py:73", "flash_attention"),
+            row("flash_attention_bwd", "flash_attention_bwd",
+                "src/repro_torch/kernels/csrc/flash_attention_bwd_bf16.cu",
+                "src/repro/kernels/ops.py:48"),
+            row("decode_attention", "decode_attention_fwd",
+                "src/repro_torch/kernels/csrc/decode_attention.cu",
+                "src/repro/kernels/decode_attention.py:65",
+                "decode_attention")]
+
+
 #: ``--paths``' names in the order of the full run: a letter names the
 #: path with all its parts, C1, C2, J1, J2, K0-K3, L0-L2, O0-O3 and R1-R3
 #: one part
 PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "M", "N",
               "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2", "O0",
-              "O1", "O2", "O3", "P", "Q", "R1", "R2", "R3", "S")
+              "O1", "O2", "O3", "P", "Q", "R1", "R2", "R3", "S", "T")
 
 
 def select_paths(spec: str):
@@ -6570,7 +6930,7 @@ def select_paths(spec: str):
            and not any(p.startswith(x) for p in PATH_NAMES)]
     if bad or not want:
         raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
-                         f"{', '.join(PATH_NAMES)} or a letter A-S")
+                         f"{', '.join(PATH_NAMES)} or a letter A-T")
     return [p for p in PATH_NAMES
             if any(p == x or (len(x) == 1 and p.startswith(x))
                    for x in want)]
@@ -6580,9 +6940,12 @@ def run_named_paths(dev, seed, names) -> dict:
     """The paths ``names`` (parts of PATH_NAMES, in its order; all of
     them in the full run), each with the data the full run gives it and
     its checks held, launch counts zeroed before and read after each.
-    Returns each path's result by name, with paths A's and B's traffic
-    under ``traffic_a`` and ``traffic_b`` where a path that takes it
-    ran."""
+    Returns each path's result by name.  Paths A's and B's traffic are
+    made once, for the paths that read them (TRAFFIC_READERS), and
+    dropped after the last of those: the kernel rows make them again.
+    After each path the bytes still allocated are printed."""
+    import gc
+
     import torch
 
     out = {}
@@ -6626,15 +6989,23 @@ def run_named_paths(dev, seed, names) -> dict:
         "R2": lambda: run_path_r2(dev, seed),
         "R3": lambda: run_path_r3(dev, seed),
         "S": lambda: run_path_s(dev, seed),
+        "T": lambda: run_path_t(dev, seed),
     }
-    for name in names:
+    for i, name in enumerate(names):
         t0 = time.perf_counter()
         out[name] = steps[name]()
+        for key, readers in TRAFFIC_READERS.items():
+            if key in out and not set(readers) & set(names[i + 1:]):
+                del out[key]
+        gc.collect()            # tensors a path left in reference cycles
         torch.cuda.empty_cache()
-        print(f"path {name}: wall_s={time.perf_counter() - t0!r}")
+        print(f"path {name}: wall_s={time.perf_counter() - t0!r} "
+              f"held_bytes={torch.cuda.memory_allocated()}")
     return out
 
 
+#: the paths that read paths A's and B's traffic
+TRAFFIC_READERS = {"traffic_a": ("A",), "traffic_b": ("B", "C1", "G", "H")}
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -6749,8 +7120,8 @@ def kernel_rows(dev, seed, out, errs) -> list:
     from repro_torch.kernels import loop_fused as lf
     from repro_torch.kernels import move_eval as me
 
-    rates_a, act_a = out["traffic_a"]
-    rates_b, act_b = out["traffic_b"]
+    rates_a, act_a = out.get("traffic_a") or path_a_traffic(dev, seed)
+    rates_b, act_b = out.get("traffic_b") or path_b_traffic(dev, seed)
     (launches_a, launches_b, launches_c1, launches_c2, launches_f,
      launches_g, launches_h, launches_i, launches_d, launches_e,
      launches_j1, launches_k, launches_l) = (out[p] for p in (
@@ -7029,6 +7400,7 @@ def kernel_rows(dev, seed, out, errs) -> list:
     merge_rows(kernels, whisper_rows(out["O0"], out))
     kernels.append(tailed_row(dev, seed, out["Q"],
                               errs["decode_attention_tailed_fwd"]))
+    merge_rows(kernels, t_rows(out["T"]))
     return kernels
 
 
@@ -7099,7 +7471,7 @@ def main(argv=None) -> int:
                          "L0,L1 or K,L; a letter takes all its parts): "
                          "the build and its checks, the named paths, the "
                          "kernel rows they make whole, and a last line "
-                         "that names them; default: every path A-S, "
+                         "that names them; default: every path A-T, "
                          "every kernel checked and every kernel row")
     args = ap.parse_args(argv)
     try:
@@ -7115,18 +7487,30 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "drives the port on a CUDA card", file=sys.stderr)
         return 2
-    src = Path(__file__).resolve().parent / "src"
-    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
-        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(src))
+    global T_WALKS
+    if "T" in names:
+        T_WALKS = TWalks()          # path T's walks, while the rest runs
+    try:
+        return _main(args, names, full, dev=torch.device("cuda"))
+    finally:
+        if T_WALKS is not None:
+            T_WALKS.close()
+
+
+def _main(args, names, full, dev) -> int:
+    """``main`` after its checks: the build, the checks, the paths, the
+    kernel rows and the last line."""
+    import torch
+
     from repro_torch.kernels import _build
 
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    dev = torch.device("cuda")
     # full float32 products: the plain versions are the yardsticks
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7161,6 +7545,8 @@ def main(argv=None) -> int:
                                       errs["decode_attention_tailed_fwd"]))
         if "R1" in out:
             kernels.append(r_row(out))
+        if "T" in out:
+            kernels += [r for r in t_rows(out["T"]) if "ms" in r]
     print_rows(kernels)
     if full:
         z = torch.zeros(1, device=dev)

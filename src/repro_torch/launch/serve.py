@@ -2,16 +2,19 @@
 capacity (a copy of ``repro.launch.serve``: the same flags and printed
 lines; host code, as the reference's).
 
-Wires the full loop the paper + this framework describe: the dry-run's
-compiled ``serve_step`` roofline gives the replica capacity C
-(`repro_torch.serving.capacity`), the monitor measures per-stream arrival rates,
-and the controller packs streams onto the fewest replicas with the selected
-algorithm (default MBFP), migrating via the two-phase protocol.
+Wires the full loop the paper + this framework describe: the one-card dry
+run's ``serve_step`` roofline (``repro_torch.launch.dryrun``, one H100 a
+replica) gives the replica capacity C (``repro_torch.serving.capacity``),
+the monitor measures per-stream arrival rates, and the controller packs
+streams onto the fewest replicas with the selected algorithm (default
+MBFP), migrating via the two-phase protocol.
 
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --shape decode_32k \
+      --rules tail256
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-67b \
       --algorithm MBFP --seconds 300
-(falls back to a configured capacity when no dry-run results exist;
-the port has no dry run yet, so pass ``--capacity`` or a results file)
+(falls back to a configured capacity when no dry-run record of the arch
+fits one card, e.g. deepseek-67b's 134 GB of weights; pass ``--capacity``)
 """
 from __future__ import annotations
 
@@ -40,9 +43,10 @@ def main(argv=None):
     source = "flag"
     if cap is None:
         try:
+            from repro_torch.launch.mesh import MESH_NAME
             from repro_torch.serving.capacity import derived_replica_capacity
             d = derived_replica_capacity(args.arch, "decode_32k",
-                                         rules=args.rules)
+                                         mesh=MESH_NAME, rules=args.rules)
             cap = d["tokens_per_s"]
             source = (f"dry-run roofline ({d['bottleneck']}-bound, "
                       f"{d['step_seconds'] * 1e3:.0f} ms/step)")

@@ -116,6 +116,18 @@ class ArchConfig:
 
         return sum(math.prod(s) for s in param_shapes(self).values())
 
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only routed-to experts count)."""
+        total = self.n_params()
+        if not self.moe:
+            return total
+        e, k = self.n_experts, self.experts_per_token
+        # expert block params per MoE layer
+        per_expert = 3 * self.d_model * self.expert_ff
+        n_moe_layers = sum(1 for i in range(self.n_layers)
+                           if self.is_moe_layer(i))
+        return total - n_moe_layers * per_expert * (e - k)
+
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}

@@ -84,8 +84,8 @@ def _freqs(hd: int, theta: float, device: str) -> torch.Tensor:
 def _sections(sections: Tuple[int, ...], device: str) -> torch.Tensor:
     """The position stream of each of the hd/2 frequency slots: for
     (16, 24, 24), slots 0-15 read t, 16-39 h and 40-63 w."""
-    return torch.repeat_interleave(torch.arange(len(sections)),
-                                   torch.tensor(sections)).to(device)
+    return torch.tensor([i for i, n in enumerate(sections)
+                         for _ in range(n)], device=device)
 
 
 Rope = Tuple[torch.Tensor, torch.Tensor]

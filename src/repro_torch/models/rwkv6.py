@@ -12,8 +12,10 @@ runs the same function as a ``lax.scan`` (``wkv_impl="scan"``).  Where
 autograd records (training), the recurrence is the ``WKV`` autograd
 function: the forward kernel, and the ``rwkv6_wkv_bwd`` kernel for its
 gradient, where the reference differentiates its scan.  Its
-traffic stand-in ``wkv_impl="kernel_stub"`` computes another function and
-serves only the reference's roofline dry runs: it is not ported.
+traffic stand-in ``wkv_impl="kernel_stub"`` (the dry run's ``wkv_kernel``
+variant) computes another function, one pass over the streams, ``out = r
+* (k * v + u * w)`` and ``s_last = s0 + k[:, -1]ᵀ v[:, -1]``, as the
+reference's does: plain PyTorch, which launches no kernel.
 
 Each function keeps the reference's dtypes step by step: the token-shift
 lerps in the activation dtype, the decay LoRA and ``exp(-exp(.))`` in
@@ -119,7 +121,9 @@ def rwkv_time_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     ins = [z.to(f32).reshape(shp) for z in (r, k, v, w)]
     ins += [p["bonus_u"].float(), state["wkv"]]
     grad = records(*ins)
-    if grad:
+    if cfg.wkv_impl == "kernel_stub":
+        out, s_last = _wkv_stub(*ins, in_place=not grad)
+    elif grad:
         out, s_last = WKV.apply(*ins, rwkv6_wkv_fwd, rwkv6_wkv_bwd)
     else:
         out, _ = rwkv6_wkv_fwd(*ins, s_last=state["wkv"])
@@ -134,6 +138,16 @@ def rwkv_time_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,
         return y, {"shift": x[:, -1, :], "wkv": s_last}
     state["shift"].copy_(x[:, -1, :])
     return y, state
+
+
+def _wkv_stub(r, k, v, w, u, s0, *, in_place: bool):
+    """The reference's traffic stand-in for the WKV kernel
+    (``wkv_impl="kernel_stub"``): ``out = r * (k * v + u * w)`` and the
+    last state ``s0 + k[:, -1]ᵀ v[:, -1]``, written into s0 where
+    ``in_place``."""
+    out = r * (k * v + u * w)
+    kv = k[:, -1, :, :, None] * v[:, -1, :, None, :]
+    return out, (s0.add_(kv) if in_place else s0 + kv)
 
 
 def rwkv_channel_mix(p: Dict, cfg: ArchConfig, x: torch.Tensor,

@@ -20,8 +20,10 @@ A decoder-only model with ``input_mode="embeddings"`` (the VLM) reads
 M-RoPE positions where ``mrope_sections`` is set.  With
 ``decode_tail_window > 0`` a dense or MoE model decodes through a tail
 (``attention.decode_attention_tailed``; hybrid and RWKV models ignore
-the window, as the reference's do).  Only RWKV's
-``wkv_impl="kernel_stub"`` raises :class:`NotPortedError`.
+the window, as the reference's do).  RWKV's ``wkv_impl="kernel_stub"``
+runs the reference's one-pass traffic stand-in for the WKV kernel (the
+dry run's ``wkv_kernel`` variant): nothing the reference builds is
+refused.
 
 ``forward`` is the training loss (the token-mean cross-entropy plus
 ``AUX_LOSS_COEF`` times the summed MoE auxiliary loss); with
@@ -48,7 +50,7 @@ from repro_torch._device import resolve_device
 from .attention import (attention_block, decode_attention,
                         decode_attention_tailed, init_attention,
                         init_kv_cache, init_kv_tail)
-from .base import ArchConfig, NotPortedError
+from .base import ArchConfig
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_inputs,
                      init_embedding, init_lm_head, init_mlp, init_norm,
                      logits_fn, rope_tables, tied_head)
@@ -67,15 +69,10 @@ AUX_LOSS_COEF = 0.01
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise :class:`NotPortedError` for the one option of the reference's
-    model code the port does not carry: RWKV's ``wkv_impl`` other than
-    ``"scan"`` (``"kernel_stub"``, the dry run's roofline stand-in for the
-    WKV kernel); ``ValueError`` / ``NotImplementedError`` for layouts the
-    reference cannot build either."""
-    if cfg.rwkv and cfg.wkv_impl != "scan":
-        raise NotPortedError(f"{cfg.name}: wkv_impl={cfg.wkv_impl!r} (the "
-                             f"reference's roofline stand-in for the WKV "
-                             f"kernel) is not yet ported to repro_torch")
+    """Raise ``ValueError`` / ``NotImplementedError`` for layouts the
+    reference cannot build either.  The port carries every option of the
+    reference's model code, RWKV's ``wkv_impl="kernel_stub"`` included,
+    so it refuses nothing the reference builds."""
     if _hybrid(cfg) and cfg.n_layers % cfg.attn_layer_period:
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
                          f"whole number of periods of "
@@ -86,8 +83,9 @@ def check_ported(cfg: ArchConfig) -> None:
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise what :func:`check_ported` raises: the port trains every
-    family it carries (dense, MoE, hybrid Mamba, RWKV-6, whisper, the
-    VLM)."""
+    family it carries (dense, MoE, hybrid Mamba, RWKV-6 with the WKV
+    kernels or ``kernel_stub``, whisper, the VLM), so it refuses nothing
+    the reference builds."""
     check_ported(cfg)
 
 

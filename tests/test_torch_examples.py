@@ -12,6 +12,7 @@ Torch and JAX draws never agree, so the port's own runs (``main([...,
 printing the reference's layout.
 """
 import contextlib
+import json
 import io
 import runpy
 import sys
@@ -32,7 +33,8 @@ from repro.core.scenarios import scenario_suite as j_suite  # noqa: E402
 from repro.opt.anneal import _temperature_schedule as j_schedule  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.convert import anneal_noise_from_numpy  # noqa: E402
-from repro_torch.examples import (lag_slo_sweep, live_dashboard,  # noqa: E402
+from repro_torch.examples import (adversarial_report,  # noqa: E402
+                                  lag_slo_sweep, live_dashboard,
                                   pareto_frontier, quickstart,
                                   scenario_sweep)
 
@@ -265,6 +267,97 @@ def test_live_dashboard_main_runs_at_smoke_size():
 
 
 # ---------------------------------------------------------------------------
+# adversarial_report
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def envelope(tmp_path):
+    """A small artifact in the envelope of ``BENCH_adversarial.json``: one
+    row for every registry family, drawn from a seeded RNG."""
+    from repro.scenarios import family_representatives
+
+    rng = np.random.default_rng(3)
+    knobs = ("base_rate", "tail_sigma", "burst_start_frac", "burst_len_frac",
+             "burst_amp", "churn_p", "lifecycle_frac", "birth_frac",
+             "death_frac", "noise")
+    fams = {}
+    for fam, policy in sorted(family_representatives().items()):
+        genome = rng.uniform(0, 4, len(knobs)).tolist()
+        fams[fam] = {
+            "policy": policy, "evals": 48, "generations_run": 6,
+            "worst_violation_frac": float(rng.uniform()),
+            "worst_incidents": float(rng.integers(0, 20)),
+            "worst_fitness": float(rng.uniform()),
+            "baseline": {"best_violation_frac": float(rng.uniform()),
+                         "best_fitness": float(rng.uniform()), "evals": 48},
+            "beats_baseline": bool(rng.integers(0, 2)),
+            "witness_genome": genome,
+            "witness_knobs": dict(zip(knobs, genome))}
+    report = {"schema_version": 1, "kind": "adversarial",
+              "config": {"seed": 0, "pop_size": 8, "generations": 6,
+                         "iters": 96, "n_partitions": 6},
+              "families": fams}
+    path = tmp_path / "adversarial.json"
+    path.write_text(json.dumps(report))
+    return str(path)
+
+
+@pytest.mark.parametrize("mode", ([], ["--smoke"]))
+def test_adversarial_report_prints_the_reference_lines(envelope, mode,
+                                                       monkeypatch):
+    argv = ["--bench", envelope] + mode
+    want = reference_output("adversarial_report", argv, monkeypatch)
+    got, _ = printed(adversarial_report.main, argv)
+    same_lines(got, want)
+    assert got.count("\n") > 6
+    assert ("adversarial report smoke OK" in got) == bool(mode)
+
+
+def test_adversarial_report_smoke_refuses_a_missing_family(envelope,
+                                                           tmp_path):
+    report = json.loads(Path(envelope).read_text())
+    report["families"].pop("sticky")
+    short = tmp_path / "short.json"
+    short.write_text(json.dumps(report))
+    with pytest.raises(AssertionError, match="registry families"):
+        printed(adversarial_report.main, ["--bench", str(short), "--smoke"])
+    assert Path(adversarial_report.BENCH_PATH) == \
+        ROOT / "BENCH_adversarial_torch.json"
+
+
+def _test_module(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_adversarial_report_attack_row_follows_the_reference(monkeypatch):
+    """``--attack NF``: the reference's search and baseline (its evolution
+    step with jit off, as ``tests/test_torch_search.py`` runs it), and the
+    port's fed the reference's draws, print the same row."""
+    from repro_torch.scenarios import search as tsearch
+
+    ts_tests = _test_module("test_torch_search")
+    with ts_tests._eager_evolution():
+        want = reference_output("adversarial_report", ["--attack", "NF"],
+                                monkeypatch)
+    cfg = tsearch.SearchConfig(pop_size=8, generations=5, iters=96, n=6)
+    noise = ts_tests._reference_noise(cfg, 0, cfg.generations)
+    for name in ("attack", "random_search"):
+        fn = getattr(tsearch, name)
+        monkeypatch.setattr(tsearch, name, lambda *a, _fn=fn, **k: _fn(
+            *a, noise=noise, **k))
+    got, _ = printed(adversarial_report.main,
+                     ["--attack", "NF", "--device", "cpu"])
+    same_lines(got, want)
+
+
+# ---------------------------------------------------------------------------
 # chip_smoke's path S: the kernel calls the examples make
 # ---------------------------------------------------------------------------
 
@@ -286,7 +379,8 @@ def path_s_calls(chip_smoke):
     mods = {"quickstart": quickstart, "scenario_sweep": scenario_sweep,
             "lag_slo_sweep": lag_slo_sweep,
             "pareto_frontier": pareto_frontier,
-            "live_dashboard": live_dashboard}
+            "live_dashboard": live_dashboard,
+            "adversarial_report": adversarial_report}
     out = {}
     for name, argv, _ in chip_smoke.S_EXAMPLES:
         seen = {}
@@ -298,7 +392,7 @@ def path_s_calls(chip_smoke):
 
 @pytest.mark.parametrize("name", ["quickstart", "scenario_sweep",
                                   "lag_slo_sweep", "pareto_frontier",
-                                  "live_dashboard"])
+                                  "live_dashboard", "adversarial_report"])
 def test_chip_path_s_holds_each_example_at_its_calls(chip_smoke,
                                                      path_s_calls, name):
     """Every kernel call an example of path S makes is at a shape that

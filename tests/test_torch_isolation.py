@@ -67,6 +67,27 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
             assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
 
 
+def test_the_dry_run_and_the_last_example_stand_alone():
+    """The dry run's modules and the adversarial report are among the files
+    scanned above, and importing them loads neither JAX nor the
+    reference."""
+    import subprocess
+    import sys
+
+    mods = ("launch.shapes", "launch.mesh", "launch.cost_walk",
+            "launch.dryrun", "examples.adversarial_report")
+    files = set(_port_files())
+    for m in mods:
+        assert ROOT / "src" / "repro_torch" / (m.replace(".", "/") + ".py") \
+            in files
+    code = ("import sys\n"
+            + "".join(f"import repro_torch.{m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'flax', 'repro')]\nassert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+
+
 @pytest.mark.parametrize("call", (
     lambda: api.simulate(np.zeros((1, 3, 2), np.float32), policies=("BFD",)),
     lambda: sweep_lag(("BFD",), np.zeros((1, 3, 2), np.float32)),

@@ -242,10 +242,12 @@ def test_derived_capacity_equals_the_reference(tmp_path, rules):
 
 def test_missing_results_raise_file_not_found(tmp_path):
     missing = tmp_path / "none.jsonl"
-    with pytest.raises(FileNotFoundError, match="the port has no dry run"):
+    with pytest.raises(FileNotFoundError,
+                       match="repro_torch.launch.dryrun --arch qwen3-8b"):
         tcapacity.derived_replica_capacity("qwen3-8b",
                                            results_path=str(missing))
-    assert Path(tcapacity.DEFAULT_RESULTS) == ROOT / "dryrun_results.jsonl"
+    assert (Path(tcapacity.DEFAULT_RESULTS)
+            == ROOT / "dryrun_results_torch.jsonl")
     assert Path(tcapacity._REPO_ROOT) == ROOT
 
 

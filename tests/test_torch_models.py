@@ -175,18 +175,16 @@ def test_init_params_draws_truncated_scaled_normals(arch):
 ], ids=("moe_tailed", "rwkv", "mrope", "encoder_decoder", "embeddings",
         "tailed"))
 def test_unported_options_raise(opt):
-    """RWKV's ``wkv_impl="kernel_stub"`` (the dry run's roofline stand-in)
-    is the one option the port still refuses.  The others, ported since
+    """No option of the reference's model code is refused any more: each
     (``encoder_decoder`` with whisper; M-RoPE, the embeddings front end
-    and the tailed decode with qwen2-vl and deepseek), draw the
+    and the tailed decode with qwen2-vl and deepseek; RWKV's
+    ``wkv_impl="kernel_stub"``, the dry run's roofline stand-in) draws the
     reference's tree: every parameter's shape as the reference's
     ``init_params`` of the same config, and every decode-state leaf's
-    shape and dtype as its ``init_decode_state`` (the tail's too)."""
+    shape and dtype as its ``init_decode_state`` (the tail's too).  The
+    stub's prefill logits also equal the reference's within 1e-5 in
+    float32."""
     cfg = dataclasses.replace(tconfigs.get("qwen3-8b", smoke=True), **opt)
-    if cfg.rwkv:
-        with pytest.raises(NotPortedError, match="not yet ported"):
-            init_params(cfg, device="cpu")
-        return
     jcfg = dataclasses.replace(jconfigs.get("qwen3-8b", smoke=True), **opt)
     want = jax.eval_shape(lambda k: j_init_params(k, jcfg),
                           jax.random.key(0))
@@ -199,11 +197,27 @@ def test_unported_options_raise(opt):
         return
     jstate = jax.eval_shape(lambda: j_init_state(jcfg, 2, 8))
     state = init_decode_state(cfg, 2, 8, device="cpu")
+    if cfg.rwkv:        # the port keeps a layer's state a list item
+        state = dict(state, rwkv={k: torch.stack([st[k] for st in
+                                                  state["rwkv"]])
+                                  for k in state["rwkv"][0]})
     assert ({k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
              for k, v in _tree_items(state)}
             == {k: (tuple(v.shape), str(v.dtype))
                 for k, v in _tree_items(jstate)})
     assert ("tail" in state) == (cfg.decode_tail_window > 0)
+    if cfg.rwkv:
+        jcfg = dataclasses.replace(jcfg, dtype="float32")
+        jp = j_init_params(jax.random.key(1), jcfg)
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp),
+                               dataclasses.replace(cfg, dtype="float32"),
+                               device="cpu")
+        ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
+        want = j_prefill(jcfg)(jp, {"inputs": jnp.asarray(ids, jnp.int32)})
+        got = make_prefill_step(dataclasses.replace(cfg, dtype="float32"),
+                                device="cpu")(tp, {"inputs": ids})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

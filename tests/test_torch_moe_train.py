@@ -56,7 +56,6 @@ from repro_torch.models import forward  # noqa: E402
 from repro_torch.models import mamba as tmamba  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.base import NotPortedError  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
 #: the routed families: two MoE archs and the hybrid Mamba one
@@ -159,13 +158,25 @@ def test_train_step_accepts_moe_and_hybrid(arch, smoke):
 
 
 def test_check_trainable_refuses_only_what_check_ported_refuses():
-    stub = dataclasses.replace(tconfigs.get("rwkv6-3b", smoke=True),
-                               wkv_impl="kernel_stub")
+    """Both checks take every arch and RWKV's ``kernel_stub``, whose
+    training loss equals the reference's within 1e-5 in float32."""
+    jstub, stub = (dataclasses.replace(m.get("rwkv6-3b", smoke=True),
+                                       wkv_impl="kernel_stub",
+                                       dtype="float32")
+                   for m in (jconfigs, tconfigs))
     for check in (transformer.check_ported, transformer.check_trainable):
-        with pytest.raises(NotPortedError, match="kernel_stub"):
-            check(stub)
+        check(stub)
     for arch in tconfigs.PORTED:
         transformer.check_trainable(tconfigs.get(arch, smoke=True))
+    jp = j_init_params(jax.random.key(2), jstub)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), stub, device="cpu")
+    batch = TokenPipeline(2, 16, stub.vocab_size, seed=3).next_batch()
+    jloss, _ = j_forward(jp, jstub, {k: jnp.asarray(v)
+                                     for k, v in batch.items()})
+    loss, _ = forward(tp, stub, {k: torch.tensor(v)
+                                 for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5,
+                               atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -329,7 +329,8 @@ def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
     assert chip_smoke.select_paths("P,D") == ["D", "P"]
     assert chip_smoke.select_paths("R") == ["R1", "R2", "R3"]
     assert chip_smoke.select_paths("s,R2,q") == ["Q", "R2", "S"]
-    for bad in ("L3", "R4", "T", "P1", ""):
+    assert chip_smoke.select_paths("t,S") == ["S", "T"]
+    for bad in ("L3", "R4", "U", "P1", ""):
         with pytest.raises(ValueError):
             chip_smoke.select_paths(bad)
 
@@ -339,7 +340,8 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
     """The full run and ``--paths`` share ``run_named_paths``: each named
     path runs once, in the given order, and paths A, B, C1, G and H get
     the traffic the full run makes for them (B's made once for four
-    paths), which the result keeps for the kernel rows."""
+    paths), which is dropped after the last path that reads it (the
+    kernel rows make it again)."""
     calls = []
 
     def path(name):
@@ -364,7 +366,7 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
                      ("O3", "run_path_o3"), ("P", "run_path_p"),
                      ("Q", "run_path_q"), ("R1", "run_path_r1"),
                      ("R2", "run_path_r2"), ("R3", "run_path_r3"),
-                     ("S", "run_path_s")):
+                     ("S", "run_path_s"), ("T", "run_path_t")):
         monkeypatch.setattr(chip_smoke, fn, path(name))
     made = []
     monkeypatch.setattr(chip_smoke, "path_a_traffic",
@@ -376,10 +378,13 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
     assert made == ["a", "b"]
     assert dict(calls)["A"] == ("ra", "aa")
     assert all(dict(calls)[p] == ("rb", "ab") for p in ("B", "C1", "G", "H"))
-    assert out["traffic_a"] == ("ra", "aa") and out["traffic_b"] == (
-        "rb", "ab")
+    assert "traffic_a" not in out and "traffic_b" not in out
     assert all(out[p] == {p: i + 1}
                for i, p in enumerate(chip_smoke.PATH_NAMES))
+    calls.clear()
+    out = chip_smoke.run_named_paths("cpu", 0, ["B", "C1"])
+    assert [c[0] for c in calls] == ["B", "C1"] and made == ["a", "b", "b"]
+    assert set(out) == {"B", "C1"}
     calls.clear()
     out = chip_smoke.run_named_paths("cpu", 0, ["L0", "L1"])
     assert [c[0] for c in calls] == ["L0", "L1"]

@@ -59,8 +59,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
                                     attention_scores)
 from repro_torch.launch.steps import make_train_step  # noqa: E402
-from repro_torch.models import (NotPortedError, cross_entropy,  # noqa: E402
-                                forward)
+from repro_torch.models import cross_entropy, forward  # noqa: E402
 from repro_torch.models.transformer import check_trainable  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
@@ -541,18 +540,32 @@ def test_train_step_leaves_its_inputs_as_they_were():
 
 def test_rwkv_training_is_ported(monkeypatch):
     """RWKV-6 trains (its recurrence's gradient is the WKV backward
-    kernel); its roofline stand-in ``wkv_impl="kernel_stub"`` is still
-    refused; and a WKV call on tensors off the CPU (the meta device stands
-    for the card on a host without one) goes to the kernels, which raise
-    without ``nvcc``, rather than running the plain pair."""
+    kernel); its roofline stand-in ``wkv_impl="kernel_stub"`` trains too,
+    one step's loss equal to the reference's jitted step's within 1e-5 in
+    float32, and launches no kernel; and a WKV call on tensors off the CPU
+    (the meta device stands for the card on a host without one) goes to
+    the kernels, which raise without ``nvcc``, rather than running the
+    plain pair."""
     from repro_torch.kernels import rwkv6_scan as ws
 
     for smoke in (False, True):
         check_trainable(tconfigs.get("rwkv6-3b", smoke=smoke))
-    stub = dataclasses.replace(tconfigs.get("rwkv6-3b", smoke=True),
-                               wkv_impl="kernel_stub")
-    with pytest.raises(NotPortedError, match="kernel_stub"):
-        check_trainable(stub)
+    jstub, stub = (dataclasses.replace(m.get("rwkv6-3b", smoke=True),
+                                       wkv_impl="kernel_stub",
+                                       dtype="float32")
+                   for m in (jconfigs, tconfigs))
+    check_trainable(stub)
+    jp = j_init_params(jax.random.key(4), jstub)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), stub, device="cpu")
+    batch = TokenPipeline(2, 16, stub.vocab_size, seed=5).next_batch()
+    _, _, jm = jax.jit(j_train_step(jstub, JAdamWConfig()))(
+        jp, j_adamw_init(jp), {k: jnp.asarray(v) for k, v in batch.items()})
+    _build.reset_launches()
+    _, _, m = make_train_step(stub, AdamWConfig(), device="cpu")(
+        tp, adamw_init(tp), batch)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-5, atol=1e-5)
+    assert ws.rwkv6_wkv_fwd.launches == ws.rwkv6_wkv_bwd.launches == 0
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
     monkeypatch.setenv("PATH", "")
     monkeypatch.setattr(_build, "NVCC_FALLBACKS", ())

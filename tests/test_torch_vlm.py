@@ -377,4 +377,4 @@ def test_chip_step_bytes_of_the_vlm_and_a_tailed_state():
         dp["embedding"]["table"])
     assert got["kv"] == 2 * param_bytes(st["kv"]["k"]) * 6 // 8
     assert got["bound_ms"] == pytest.approx(
-        (got["weights"] + got["kv"]) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+        (got["weights"] + got["kv"]) / chip_smoke.HBM_BW * 1e3)
