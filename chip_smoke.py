@@ -6,8 +6,9 @@ the hybrid Mamba family, the paper's own system with
 an autoscaled fleet of LLM replicas, training of a dense LLM and of
 RWKV-6, serving and training of the encoder-decoder family, serving of
 the VLM and of a dense model through the tailed decode, training of the
-MoE and hybrid Mamba families, the lag twin's six examples, and the
-one-card dry run against the card) on one NVIDIA card.
+MoE and hybrid Mamba families, the lag twin's six examples, the
+one-card dry run against the card, and the sharded steps) on one NVIDIA
+card.
 
     python3 chip_smoke.py [--seed 0] [--paths L0,L1]
 
@@ -359,7 +360,21 @@ Run from a checkout of the repository on a machine with a CUDA card and
    bridge's tokens/s from the record; then the decode kernel at T1's
    call and the flash forward at T2's (its last rows against the plain
    version over the whole K/V), 32,768 positions each;
-27. each kernel's time at its path's shapes beside its bound, its plain
+27. path U, the sharded steps (``repro_torch.models.sharding``): U1
+   qwen3-8b ``train_4k`` (baseline rules) and qwen2-moe-a2.7b
+   ``train_4k`` (``ep``: 60 experts padded to 64) walked on the 16x16
+   mesh of H100s over a fake 512-rank process group (``launch.dryrun.
+   lower_mesh_cell``, host only, in spawned processes started before the
+   build), each failing on an ``error``, on no collective bytes or on
+   parameter bytes a device other than the spec trees' shards'; U2 on a
+   one-rank NCCL group's (1, 1) mesh: 4 decode steps of qwen3-8b (full
+   width, 2 layers) on the decode kernel and one donated AdamW step of
+   olmo-1b (full width, 2 layers; the flash forward and backward through
+   ``local_map``), DTensor parameters and state under the rules, each bit
+   for bit equal to the same steps with no rules, host ms a decode step
+   each way, and ``ef_int8_psum`` over the group bit for bit equal to the
+   stacked form; its launches join the flash and decode rows;
+28. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
@@ -6913,12 +6928,332 @@ def t_rows(out) -> list:
                 "decode_attention")]
 
 
+#: path U1: the dry run's cells on the 16x16 mesh of H100s (fake 512-rank
+#: group, on the host): (arch, shape, rules variant)
+U_CELLS = (("qwen3-8b", "train_4k", "baseline"),
+           ("qwen2-moe-a2.7b", "train_4k", "ep"))
+#: path U2's depth (full width), decode batch, cache positions and steps,
+#: and its training batch and sequence
+U_LAYERS = 2
+U_DECODE = (8, 1024, 4)
+U_TRAIN = (1, 2048)
+#: the kernels each U2 step must launch: (kernel, launches a layer a step)
+U_KERNELS = {"decode": (("decode_attention_fwd", 1),),
+             "train": (("flash_attention_fwd", 2), ("flash_attention_bwd", 1))}
+
+
+class UWalks(TWalks):
+    """Path U1's dry-run cells (``dryrun.lower_mesh_cell`` on the 16x16
+    mesh), one spawned process a cell, started with T's before the
+    build."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        from repro_torch.launch import dryrun
+
+        self.t0 = time.perf_counter()
+        self.pool = ProcessPoolExecutor(
+            len(U_CELLS), mp_context=multiprocessing.get_context("spawn"))
+        self.futs = {f"U1 {arch} {shape} {rules}": self.pool.submit(
+            dryrun.lower_mesh_cell, arch, shape, False, rules)
+            for arch, shape, rules in U_CELLS}
+
+    def records(self, out_path=None) -> dict:
+        recs = {tag: f.result() for tag, f in self.futs.items()}
+        print(f"path U1: dry run of {len(recs)} cells done "
+              f"{time.perf_counter() - self.t0!r} s after it began (host)")
+        self.close()
+        return recs
+
+
+#: path U1's walks, started by ``main`` before the build
+U_WALKS = None
+
+
+def u1_verdict(rec) -> list:
+    """What is wrong with a U1 record: an error, no collective bytes, or
+    per-device parameter bytes other than the spec trees' shards'."""
+    bad = []
+    if "error" in rec or "roofline" not in rec:
+        bad.append(f"error {rec.get('error')!r}")
+        return bad
+    if not rec["collective_bytes_per_device"] > 0:
+        bad.append("no collective bytes")
+    mem = rec["memory"]
+    if mem["params_bytes"] != mem["params_spec_bytes"]:
+        bad.append(f"parameter bytes {mem['params_bytes']} a device, the "
+                   f"spec trees' shards {mem['params_spec_bytes']}")
+    return bad
+
+
+def run_path_u1(dev, seed):
+    """Path U1: qwen3-8b train_4k (baseline rules) and qwen2-moe-a2.7b
+    train_4k (``ep``: 60 experts padded to 64) walked on the 16x16 mesh of
+    H100s over the fake 512-rank group (host only, spawned before the
+    build): each cell's walk seconds, per-device live bytes, FLOPs and
+    collective bytes by kind; fails on an ``error``, no collective bytes,
+    or parameter bytes other than the spec trees' shards'."""
+    global U_WALKS
+    walks, U_WALKS = U_WALKS or UWalks(), None
+    recs = walks.records()
+    for tag, rec in recs.items():
+        bad = u1_verdict(rec)
+        _require(not bad, f"path {tag}: {bad}")
+        print(f"path {tag} (host): walk_s={rec['walk_s']!r} "
+              f"batch_per_device={rec['batch_per_device']} "
+              f"live_bytes_per_device="
+              f"{rec['memory']['live_bytes_per_device']} "
+              f"params_bytes={rec['memory']['params_bytes']} "
+              f"flops_per_device={rec['flops_per_device']!r} "
+              f"collective_bytes_per_device="
+              f"{rec['collective_bytes_per_device']!r} "
+              f"by kind {json.dumps(rec['collectives'])} "
+              f"t_collective_s={rec['roofline']['t_collective_s']!r} "
+              f"(NVLink {rec['roofline']['t_collective_nvlink_s']!r}, IB "
+              f"{rec['roofline']['t_collective_ib_s']!r}) "
+              f"bottleneck={rec['roofline']['bottleneck']}")
+    return recs
+
+
+@contextlib.contextmanager
+def one_rank_mesh(dev):
+    """A one-rank process group (NCCL on the card, gloo on the CPU; a file
+    store under the git-ignored ``build/``) and a (1, 1) mesh ``("data",
+    "model")`` on ``dev``; the group is destroyed on exit."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    store = build / f"u2_store_{dev.type}"
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        yield DeviceMesh(dev.type, torch.arange(1).reshape(1, 1),
+                         mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _u_rules(mesh, rules):
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.sharding import axis_rules
+
+    with axis_rules(mesh, rules), implicit_replication():
+        yield
+
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _u_counts(part: str, layers: int, steps: int) -> dict:
+    """The launches since the counts were zeroed, held to U_KERNELS."""
+    from repro_torch.kernels import _build
+
+    counts = _build.launch_counts()
+    want = {k: n * layers * steps for k, n in U_KERNELS[part]}
+    got = {k: counts[k] for k in want}
+    _require(got == want, f"path U2 {part}: launches {got}, want {want}")
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    _require(not others, f"path U2 {part} launched {others}")
+    return got
+
+
+def u2_decode(dev, seed, mesh) -> dict:
+    """qwen3-8b at full width, U_LAYERS layers, bfloat16: U_DECODE's
+    decode steps without a rules context, then the same steps on DTensor
+    parameters and state under ``serve_rules()`` on the (1, 1) mesh, each
+    step's logits bit for bit equal; host ms a step each way."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.rules import serve_rules
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import (decode_state_specs, init_decode_state,
+                                    init_params, param_specs)
+    from repro_torch.models.sharding import distribute_tree
+
+    b, s, steps = U_DECODE
+    cfg = dataclasses.replace(configs.get(LLM), n_layers=U_LAYERS,
+                              param_dtype="bfloat16")
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_params(cfg, seed=seed, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (steps, b), generator=gen,
+                         device=dev)
+    step = make_serve_step(cfg, dev)
+
+    def run(p, state, place):
+        outs, ms = [], []
+        for t in range(steps):
+            batch = place({"inputs": toks[t]})
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, state = step(p, state, batch)
+            _sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(_local(logits).clone())
+        return outs, ms
+
+    _build.reset_launches()
+    plain, ms_plain = run(params, init_decode_state(cfg, b, s, dev),
+                          lambda x: x)
+    rules = serve_rules()
+    with _u_rules(mesh, rules):
+        dp = distribute_tree(params, param_specs(cfg), mesh, rules)
+        ds = distribute_tree(init_decode_state(cfg, b, s, dev),
+                             decode_state_specs(cfg), mesh, rules)
+        _build.reset_launches()
+        sharded, ms_sharded = run(dp, ds, lambda x: distribute_tree(
+            x, {"inputs": ("batch",)}, mesh, rules))
+        launches = _u_counts("decode", U_LAYERS, steps)
+    same = all(torch.equal(a, c) for a, c in zip(plain, sharded))
+    _require(same, "path U2 decode: the sharded steps' logits differ from "
+                   "the unsharded steps'")
+    print(f"{card_line()}: path U2 decode ({cfg.name}, {U_LAYERS} layers, "
+          f"batch {b}, {s} positions, {steps} steps): logits bit for bit "
+          f"equal; host ms a step {ms_plain!r} without the rules, "
+          f"{ms_sharded!r} with them (DTensor, (1, 1) mesh); launches "
+          f"{launches}")
+    return dict(launches=launches, ms_plain=ms_plain, ms_sharded=ms_sharded)
+
+
+def u2_train(dev, seed, mesh) -> dict:
+    """olmo-1b at full width, U_LAYERS layers: one donated AdamW train step
+    of U_TRAIN tokens without a rules context, then on DTensor parameters,
+    optimizer state and batch under ``train_rules()`` (the flash forward
+    and backward per shard through ``local_map``), the loss and every
+    updated parameter and moment bit for bit equal."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch._tree import leaves
+    from repro_torch.kernels import _build
+    from repro_torch.launch.rules import train_rules
+    from repro_torch.launch.shapes import SHAPES, batch_logical_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.models.sharding import distribute_tree
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         opt_state_specs)
+
+    b, s = U_TRAIN
+    cfg = dataclasses.replace(configs.get(TRAIN), n_layers=U_LAYERS)
+    gen = torch.Generator(dev).manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                              device=dev) for k in ("inputs", "labels")}
+    step = make_train_step(cfg, AdamWConfig(), dev, donate=True)
+    p1 = init_params(cfg, seed=seed, device=dev)
+    o1 = adamw_init(p1)
+    p1, o1, m1 = step(p1, o1, batch)
+    _sync(dev)
+    rules = train_rules()
+    specs = param_specs(cfg)
+    with _u_rules(mesh, rules):
+        p2 = init_params(cfg, seed=seed, device=dev)
+        dp = distribute_tree(p2, specs, mesh, rules)
+        do = distribute_tree(adamw_init(p2), opt_state_specs(specs), mesh,
+                             rules)
+        db = distribute_tree(batch, batch_logical_specs(
+            cfg, SHAPES["train_4k"]), mesh, rules)
+        del p2
+        _build.reset_launches()
+        dp, do, m2 = step(dp, do, db)
+        _sync(dev)
+        launches = _u_counts("train", U_LAYERS, 1)
+        loss2 = _local(m2["loss"])
+        got = [_local(t) for t in leaves(dp) + leaves(do)]
+    want = leaves(p1) + leaves(o1)
+    diff = [i for i, (a, c) in enumerate(zip(want, got))
+            if not torch.equal(a, c)]
+    _require(torch.equal(m1["loss"], loss2) and not diff,
+             f"path U2 train: loss {float(m1['loss'])!r} vs "
+             f"{float(loss2)!r}, {len(diff)} of {len(want)} leaves differ")
+    print(f"{card_line()}: path U2 train ({cfg.name}, {U_LAYERS} layers, "
+          f"{b} x {s} tokens): loss {float(loss2)!r} and all {len(want)} "
+          f"parameter and state leaves bit for bit equal; launches "
+          f"{launches}")
+    return dict(launches=launches, loss=float(loss2))
+
+
+def u2_ef(dev, seed) -> bool:
+    """``ef_int8_psum`` over the one-rank group against the stacked form
+    at P = 1, bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch._tree import leaves, tree_map
+    from repro_torch.optim.compress import ef_int8_psum
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    grads = {"a": torch.randn(64, 128, generator=gen, device=dev),
+             "b": [torch.randn(4096, generator=gen, device=dev) * 1e-3]}
+    res = tree_map(lambda g: g * 1e-2, grads)
+    red, new_r = ef_int8_psum(grads, res, group=dist.group.WORLD)
+    one = lambda t: t[None]  # noqa: E731
+    red_s, new_s = ef_int8_psum(tree_map(one, grads), tree_map(one, res))
+    same = all(torch.equal(x, y[0]) for x, y in
+               zip(leaves(red) + leaves(new_r), leaves(red_s)
+                   + leaves(new_s)))
+    _require(same, "path U2: ef_int8_psum over the group differs from the "
+                   "stacked form")
+    print(f"path U2: ef_int8_psum over the {dev.type} group bit for bit "
+          f"equal to the stacked form at P = 1")
+    return same
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_path_u2(dev, seed):
+    """Path U2 on the card: a one-rank NCCL group, a (1, 1) mesh, the
+    sharded decode and train steps and ``ef_int8_psum`` held bit for bit
+    against the unsharded ones; the group destroyed at its end."""
+    with one_rank_mesh(dev) as mesh:
+        out = {"decode": u2_decode(dev, seed, mesh),
+               "train": u2_train(dev, seed, mesh),
+               "ef_int8": u2_ef(dev, seed)}
+    return out
+
+
+def u_rows(out) -> list:
+    """Path U2's launches as rows for :func:`merge_rows` (the flash
+    forward's and backward's and the decode kernel's)."""
+    def row(name, part, kernel):
+        n = out["U2"][part]["launches"].get(kernel, 0) if "U2" in out else 0
+        return dict(name=name, launches=n, launches_by_path={"U2": n},
+                    max_abs_err=0.0, calls=[])
+
+    return [row("flash_attention", "train", "flash_attention_fwd"),
+            row("flash_attention_bwd", "train", "flash_attention_bwd"),
+            row("decode_attention", "decode", "decode_attention_fwd")]
+
+
+
 #: ``--paths``' names in the order of the full run: a letter names the
 #: path with all its parts, C1, C2, J1, J2, K0-K3, L0-L2, O0-O3 and R1-R3
 #: one part
 PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "M", "N",
               "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2", "O0",
-              "O1", "O2", "O3", "P", "Q", "R1", "R2", "R3", "S", "T")
+              "O1", "O2", "O3", "P", "Q", "R1", "R2", "R3", "S", "T", "U1",
+              "U2")
 
 
 def select_paths(spec: str):
@@ -6930,7 +7265,7 @@ def select_paths(spec: str):
            and not any(p.startswith(x) for p in PATH_NAMES)]
     if bad or not want:
         raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
-                         f"{', '.join(PATH_NAMES)} or a letter A-T")
+                         f"{', '.join(PATH_NAMES)} or a letter A-U")
     return [p for p in PATH_NAMES
             if any(p == x or (len(x) == 1 and p.startswith(x))
                    for x in want)]
@@ -6990,6 +7325,8 @@ def run_named_paths(dev, seed, names) -> dict:
         "R3": lambda: run_path_r3(dev, seed),
         "S": lambda: run_path_s(dev, seed),
         "T": lambda: run_path_t(dev, seed),
+        "U1": lambda: run_path_u1(dev, seed),
+        "U2": lambda: run_path_u2(dev, seed),
     }
     for i, name in enumerate(names):
         t0 = time.perf_counter()
@@ -7401,6 +7738,7 @@ def kernel_rows(dev, seed, out, errs) -> list:
     kernels.append(tailed_row(dev, seed, out["Q"],
                               errs["decode_attention_tailed_fwd"]))
     merge_rows(kernels, t_rows(out["T"]))
+    merge_rows(kernels, u_rows(out))
     return kernels
 
 
@@ -7471,7 +7809,7 @@ def main(argv=None) -> int:
                          "L0,L1 or K,L; a letter takes all its parts): "
                          "the build and its checks, the named paths, the "
                          "kernel rows they make whole, and a last line "
-                         "that names them; default: every path A-T, "
+                         "that names them; default: every path A-U, "
                          "every kernel checked and every kernel row")
     args = ap.parse_args(argv)
     try:
@@ -7491,14 +7829,17 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
               f"checkout of the repository", file=sys.stderr)
         return 2
-    global T_WALKS
+    global T_WALKS, U_WALKS
     if "T" in names:
         T_WALKS = TWalks()          # path T's walks, while the rest runs
+    if "U1" in names:
+        U_WALKS = UWalks()          # path U1's walks, the same way
     try:
         return _main(args, names, full, dev=torch.device("cuda"))
     finally:
-        if T_WALKS is not None:
-            T_WALKS.close()
+        for walks in (T_WALKS, U_WALKS):
+            if walks is not None:
+                walks.close()
 
 
 def _main(args, names, full, dev) -> int:
@@ -7547,6 +7888,8 @@ def _main(args, names, full, dev) -> int:
             kernels.append(r_row(out))
         if "T" in out:
             kernels += [r for r in t_rows(out["T"]) if "ms" in r]
+        if "T" in out and "U2" in out:
+            merge_rows(kernels, u_rows(out))
     print_rows(kernels)
     if full:
         z = torch.zeros(1, device=dev)

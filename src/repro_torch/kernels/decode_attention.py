@@ -20,6 +20,13 @@ cache_len, window)`` is the tailed decode's call (``decode_tail_window >
 softmax, ``main_len = (cache_len // W) * W``.  The same kernel runs it
 (its own entry points); ``decode_attention_tailed_plain`` is
 ``ref.decode_attention_tailed_ref``, the reference's two-part merge.
+
+``decode_attention_partial(q, k, v, fill)`` is one shard's part of a
+decode over a cache sharded along its sequence: the f32 row max, sum and
+unnormalised output that the shards merge by log-sum-exp rescaling
+(``models.attention``).  The kernel returns no log-sum-exp, so only the
+plain version runs it: a CUDA tensor raises :class:`SeqShardedDecodeError`
+rather than run the plain version on the card.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch
 
 from . import _build
 from .flash_attention import check_attention_inputs
-from .ref import decode_attention_ref, decode_attention_tailed_ref
+from .ref import (decode_attention_partial_ref, decode_attention_ref,
+                  decode_attention_tailed_ref)
 
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
@@ -122,6 +130,26 @@ def _alloc(q, s: int):
     buf = torch.empty(-(-(ws_at + ws_bytes) // size), dtype=q.dtype,
                       device=q.device)
     return buf.as_strided(q.shape, q.stride()), buf.data_ptr() + ws_at, splits
+
+
+class SeqShardedDecodeError(RuntimeError):
+    """A decode over a cache sharded along its sequence on CUDA tensors:
+    the decode kernel returns no log-sum-exp to merge the shards by."""
+
+
+def decode_attention_partial(q, k, v, fill):
+    """One shard's ``(m, l, acc)`` of a decode over a sequence-sharded
+    cache (``ref.decode_attention_partial_ref``).  CPU tensors run the
+    plain version; CUDA tensors raise :class:`SeqShardedDecodeError`: the
+    kernel has no log-sum-exp output yet, and the plain version is never
+    run on the card in its place."""
+    if q.device.type != "cpu":
+        raise SeqShardedDecodeError(
+            "decode over a cache sharded along its sequence on a mesh axis "
+            "of more than one card: the decode kernel returns no "
+            "log-sum-exp to merge the shards by (ROADMAP queue 2); shard "
+            "the cache by batch or kv heads (serve rules 'cache_batch')")
+    return decode_attention_partial_ref(q, k, v, fill)
 
 
 @_build.counted

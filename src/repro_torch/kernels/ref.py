@@ -79,6 +79,26 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len):
     return o.to(q.dtype)
 
 
+def decode_attention_partial_ref(q, k, v, fill):
+    """One shard's part of a decode over a cache split along its sequence
+    (flash-decoding): q (B, KV, G, hd) over the shard's K/V (B, KV, S_l,
+    hd), positions ``0 .. fill`` of the shard attended (``fill`` an int
+    or an integer tensor of one element; below 0 none is).  Returns the
+    float32 ``(m, l, acc)``: the row max (B, KV, G) of the masked scores
+    (``NEG_INF`` where none is attended), the sum of ``exp(s - m)`` and
+    the unnormalised output (B, KV, G, hd), which shards merge by
+    log-sum-exp rescaling."""
+    hd, s_len = q.shape[-1], k.shape[2]
+    if torch.is_tensor(fill):
+        fill = fill.reshape(())
+    s = (q.float() @ k.float().transpose(-1, -2)) * hd ** -0.5
+    valid = torch.arange(s_len, device=q.device) <= fill
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(-1), p @ v.float()
+
+
 def decode_attention_tailed_ref(q, k_main, v_main, k_tail, v_tail,
                                 cache_len, window: int):
     """The tailed decode's attention in float32, the reference's two-part

@@ -1,7 +1,8 @@
-"""One-card dry run: for every (architecture x input shape x variant)
-cell, run the port's own step (``make_train_step`` with AdamW, remat and
-donation; ``make_prefill_step``; ``make_serve_step``) once under fake
-tensors on one H100 and record
+"""Dry run: for every (architecture x input shape x variant) cell, run
+the port's own step (``make_train_step`` with AdamW, remat and donation;
+``make_prefill_step``; ``make_serve_step``) once under fake tensors, on
+the reference's 16x16 and 2x16x16 meshes (now meshes of H100s) or on one
+H100, and record
 
   * the cost walk (``launch.cost_walk``) -- FLOPs by dtype and HBM bytes
     for the roofline;
@@ -16,9 +17,20 @@ tensors on one H100 and record
 appending one JSON line per cell to the output file (resumable: cells
 already present are skipped).  The counterpart of ``repro.launch.dryrun``,
 which lowers the same cells on the reference's 16x16 and 2x16x16 TPU
-meshes; the port's sharded meshes and their collective bytes come with
-its sharding rules, so the variants that only change those rules record
-``skipped``.
+meshes.
+
+On a mesh (``--mesh single``: 16x16, ``multi``: 2x16x16, ``both``, the
+default) a cell walks one step at the shape's global batch over a fake
+process group of 512 ranks (``launch.mesh.fake_world``): parameters,
+optimizer and decode state are DTensors placed by their spec trees under
+``launch.rules``' ``train_rules`` / ``serve_rules`` and the variant's
+rules, the batch by ``batch_logical_specs``, and the walk costs rank 0's
+local operators and the collectives DTensor issues
+(``collective_bytes_per_device``, ``collectives`` by kind and mesh axis,
+``t_collective_s`` split into NVLink and InfiniBand time) -- the
+counterpart of the reference's partitioned HLO.  ``--mesh card`` is the
+one-card run with its fitted batch; there the variants that only change
+the sharding rules are the baseline and record ``skipped``.
 
 No tensor is allocated (``FakeTensorMode`` on the CPU device), so the dry
 run runs on a host without the card.  The hand-written kernels launch
@@ -30,13 +42,13 @@ bytes (``PERF.md`` §6's bounds).  They are restored on exit.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
-      [--rules baseline|wkv_kernel|tail256|...] [--out FILE]
-      [--no-skip-existing]
+      [--mesh single|multi|both|card] [--rules baseline|ep|...]
+      [--out FILE] [--no-skip-existing]
 
 The flags are the reference's, name for name, so that one command line
-drives either dry run: ``--mesh`` takes only ``single`` on one card, and
-``--skip-existing`` is the default that ``--no-skip-existing`` turns off,
-as in the reference.
+drives either dry run (``--mesh`` adds ``card``), and ``--skip-existing``
+is the default that ``--no-skip-existing`` turns off, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -54,9 +67,14 @@ import torch
 
 from repro_torch import configs
 from repro_torch.launch.cost_walk import CostWalk, WalkStats, current
-from repro_torch.launch.mesh import HBM_BW, HBM_BYTES, MESH_NAME, N_CHIPS
+from repro_torch.launch.mesh import (HBM_BW, HBM_BYTES, MESH_NAME,
+                                     MULTI_POD_MESH, N_CHIPS, SINGLE_POD_MESH,
+                                     fake_world, make_production_mesh,
+                                     n_chips)
+from repro_torch.launch.rules import serve_rules, train_rules
 from repro_torch.launch.shapes import (SHAPES, ShapeSpec, applicable,
-                                       input_specs, model_flops)
+                                       batch_logical_specs, input_specs,
+                                       model_flops)
 from repro_torch.serving.capacity import DEFAULT_RESULTS
 
 # named experiment variants: (sharding-rules variant, ArchConfig
@@ -178,6 +196,21 @@ def decode_tailed_stand_in(q, k_main, v_main, k_tail, v_tail, cache_len,
     return out
 
 
+def decode_partial_stand_in(q, k, v, fill):
+    """``decode_attention_partial`` (one shard of a sequence-sharded
+    cache): the shard's share of the decode (4 hd FLOPs a position and
+    query head over the shard's positions), q and the shard's K/V read,
+    the f32 (m, l, acc) written; the merge's collectives are the
+    caller's."""
+    b, kvh, g, hd = q.shape
+    m = torch.empty((b, kvh, g), dtype=torch.float32, device=q.device)
+    l_ = torch.empty_like(m)
+    acc = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
+    _charge("decode_attention_partial", 4.0 * b * kvh * g * k.shape[2] * hd,
+            q.dtype, _nbytes(q, k, v, m, l_, acc))
+    return m, l_, acc
+
+
 def wkv_fwd_stand_in(r, k, v, w, u, s0, s_last=None,
                      checkpoints: bool = False):
     """``rwkv6_wkv_fwd``: 5 hd^2 + 5 hd FLOPs a step and head (f32), the
@@ -223,6 +256,8 @@ STAND_INS = {
         decode_stand_in,
     ("repro_torch.models.attention", "decode_attention_tailed_fwd"):
         decode_tailed_stand_in,
+    ("repro_torch.models.attention", "decode_attention_partial"):
+        decode_partial_stand_in,
     ("repro_torch.models.rwkv6", "rwkv6_wkv_fwd"): wkv_fwd_stand_in,
     ("repro_torch.models.rwkv6", "rwkv6_wkv_bwd"): wkv_bwd_stand_in,
 }
@@ -257,11 +292,39 @@ def stand_ins() -> Iterator[None]:
 
 
 @contextlib.contextmanager
+def _strided_shards_on_host() -> Iterator[None]:
+    """DTensor computes a strided shard's indices with ``torch.arange`` and
+    ``tolist`` (a tensor dim sharded over two mesh axes and then flattened,
+    as a matmul flattens (B, S, d) with B and S sharded), which fails on
+    fake tensors; within the block that helper runs with every dispatch
+    mode off, on small real tensors."""
+    from torch.distributed.tensor import placement_types as pt
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    cls = getattr(pt, "_StridedShard", None)
+    orig = getattr(cls, "local_shard_size_and_offset", None)
+    if orig is None:
+        yield
+        return
+
+    def on_host(self, *args, **kwargs):
+        with _disable_current_modes():
+            return orig(self, *args, **kwargs)
+
+    cls.local_shard_size_and_offset = on_host
+    try:
+        yield
+    finally:
+        cls.local_shard_size_and_offset = orig
+
+
+@contextlib.contextmanager
 def fake_mode() -> Iterator[None]:
     """Fake tensors (no storage) with the kernels' stand-ins in place."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    with FakeTensorMode(allow_non_fake_inputs=True), stand_ins():
+    with FakeTensorMode(allow_non_fake_inputs=True), stand_ins(), \
+            _strided_shards_on_host():
         yield
 
 
@@ -285,28 +348,81 @@ def _batch(cfg, shape: ShapeSpec, b: int) -> Dict[str, torch.Tensor]:
             for k, t in input_specs(cfg, shape, batch=b).items()}
 
 
-def _sizes(*trees) -> int:
+def _leaves(tree):
     from repro_torch._tree import leaves
 
+    return [t for t in leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def leaves_of(spec_tree) -> list:
+    """A spec tree's leaves in the port's tree order (dict keys sorted,
+    list items in order), as ``_tree.leaves`` visits a parameter tree."""
+    from repro_torch.models.sharding import is_spec
+
+    if is_spec(spec_tree):
+        return [spec_tree]
+    if isinstance(spec_tree, dict):
+        return [s for k in sorted(spec_tree) for s in leaves_of(spec_tree[k])]
+    return [s for v in spec_tree for s in leaves_of(v)]
+
+
+def _sizes(*trees) -> int:
+    """Bytes of the trees' tensors, a DTensor's local shard."""
     return sum(t.numel() * t.element_size() for tree in trees
-               for t in leaves(tree) if isinstance(t, torch.Tensor))
+               for t in (getattr(x, "_local_tensor", x)
+                         for x in _leaves(tree)))
 
 
-def walk_step(cfg, shape: ShapeSpec, b: int) -> Tuple[WalkStats, Dict]:
+def step_rules(shape: ShapeSpec, variant: str, multi_pod: bool) -> Dict:
+    """The cell's rules table: ``serve_rules`` for a decode shape, else
+    ``train_rules``, in the variant's rules variant."""
+    name = VARIANTS.get(variant, (variant, {}))[0]
+    return (serve_rules if shape.kind == "decode" else train_rules)(
+        multi_pod, name)
+
+
+@contextlib.contextmanager
+def _sharded(mesh, rules) -> Iterator[None]:
+    """The rules context and DTensor's implicit replication (tensors the
+    models make themselves join the DTensors as replicated), or nothing
+    without a mesh."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models.sharding import axis_rules
+
+    with axis_rules(mesh, rules), implicit_replication():
+        yield
+
+
+def walk_step(cfg, shape: ShapeSpec, b: int, mesh=None, rules=None
+              ) -> Tuple[WalkStats, Dict]:
     """One step of ``cfg`` at ``shape`` and batch ``b`` under fake tensors:
     its walk, and the bytes of its parameters, state and batch (plus the
-    tailed state's flush's walk, where the config has a window)."""
+    tailed state's flush's walk, where the config has a window).  With a
+    ``mesh`` (and its ``rules``), every tree is placed on it by its spec
+    tree and the walk costs one rank's share; the bytes are that rank's."""
     from repro_torch.launch.steps import (make_prefill_step,
                                           make_serve_step, make_train_step)
-    from repro_torch.models import init_decode_state, init_params
+    from repro_torch.models import (decode_state_specs, init_decode_state,
+                                    init_params, param_specs)
     from repro_torch.models.attention import flush_kv_tail
-    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.models.sharding import distribute_tree
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         opt_state_specs)
 
-    with fake_mode():
+    def place(tree, specs):
+        return tree if mesh is None else distribute_tree(tree, specs, mesh,
+                                                         rules)
+
+    with fake_mode(), _sharded(mesh, rules):
         params = init_params(cfg, 0, device=DEVICE)
-        batch = _batch(cfg, shape, b)
+        p_specs = param_specs(cfg)
+        batch = place(_batch(cfg, shape, b), batch_logical_specs(cfg, shape))
         if shape.kind == "train":
-            state = adamw_init(params)
+            state = place(adamw_init(params), opt_state_specs(p_specs))
             step = make_train_step(cfg, AdamWConfig(), DEVICE, donate=True)
             run = lambda: step(params, state, batch)  # noqa: E731
         elif shape.kind == "prefill":
@@ -314,15 +430,27 @@ def walk_step(cfg, shape: ShapeSpec, b: int) -> Tuple[WalkStats, Dict]:
             step = make_prefill_step(cfg, DEVICE)
             run = lambda: step(params, batch)  # noqa: E731
         else:
-            state = init_decode_state(cfg, b, shape.seq_len, DEVICE)
+            state = place(init_decode_state(cfg, b, shape.seq_len, DEVICE),
+                          decode_state_specs(cfg))
             step = make_serve_step(cfg, DEVICE)
             run = lambda: step(params, state, batch)  # noqa: E731
+        params = place(params, p_specs)
         with CostWalk() as walk:
             walk.track(params, state, batch)
             out = run()
             del out
         sizes = {"params_bytes": _sizes(params), "state_bytes": _sizes(state),
                  "batch_bytes": _sizes(batch)}
+        if mesh is not None:
+            from repro_torch.models.sharding import resolve_tree, shard_shape
+
+            shard_bytes = 0
+            for spec, t in zip(leaves_of(resolve_tree(p_specs, params, mesh,
+                                                      rules)),
+                               _leaves(params)):
+                shard_bytes += (math.prod(shard_shape(t.shape, spec, mesh))
+                                * t.element_size())
+            sizes["params_spec_bytes"] = shard_bytes
         flush = None
         if "tail" in state:             # a tailed decode's W-step flush
             with CostWalk() as fw:
@@ -379,7 +507,7 @@ def lower_cell(arch: str, shape_name: str, rules_variant: str = "baseline"
         "flops_per_device": w.flops,
         "flops_by_dtype": dict(w.flops_by_dtype),
         "bytes_per_device": w.hbm_bytes,
-        "collective_bytes_per_device": 0.0,
+        "collective_bytes_per_device": w.collective_bytes,
         "cost": w.summary(),
         "model_flops_global": model_flops(cfg, shape),
         "model_flops_per_device": mf_b,
@@ -387,9 +515,9 @@ def lower_cell(arch: str, shape_name: str, rules_variant: str = "baseline"
         "roofline": {
             "t_compute_s": t_compute,
             "t_memory_s": t_memory,
-            "t_collective_s": 0.0,
+            "t_collective_s": w.t_collective_s(),
             "bottleneck": max([("compute", t_compute), ("memory", t_memory),
-                               ("collective", 0.0)],
+                               ("collective", w.t_collective_s())],
                               key=lambda kv: kv[1])[0],
         },
         "memory": {
@@ -408,20 +536,152 @@ def lower_cell(arch: str, shape_name: str, rules_variant: str = "baseline"
         win = cfg.decode_tail_window
         res["flush_amortized"] = {"window": win,
                                   "t_memory_s": fl.hbm_bytes / HBM_BW / win,
-                                  "t_collective_s": 0.0}
+                                  "t_collective_s": fl.t_collective_s() / win}
     return res
 
 
-def _skip_reason(cfg, shape_name: str, rules: str) -> Optional[str]:
+_MESHES: Dict[bool, object] = {}
+
+
+def production_mesh(multi_pod: bool):
+    """The 16x16 (or 2x16x16) mesh over the fake 512-rank group, made once
+    a process."""
+    if multi_pod not in _MESHES:
+        fake_world()
+        _MESHES[multi_pod] = make_production_mesh(multi_pod)
+    return _MESHES[multi_pod]
+
+
+def batch_per_device(cfg, shape: ShapeSpec, mesh, rules) -> int:
+    """Rows of the global batch a device holds: the batch split over its
+    ``batch`` axes, or whole where they do not divide it (replicated)."""
+    from repro_torch.models.sharding import logical_spec, shard_shape
+
+    spec = logical_spec(("batch",), (shape.global_batch,), mesh, rules)
+    return shard_shape((shape.global_batch,), spec, mesh)[0]
+
+
+def lower_mesh_cell(arch: str, shape_name: str, multi_pod: bool,
+                    rules_variant: str = "baseline") -> Dict:
+    """A result dict for one cell on the 16x16 (or 2x16x16) mesh: one
+    walk of the step at the shape's global batch, costed for one rank
+    (raises on failure)."""
+    shape = SHAPES[shape_name]
+    cfg = cell_config(arch, shape, rules_variant)
+    mesh = production_mesh(multi_pod)
+    rules = step_rules(shape, rules_variant, multi_pod)
+    chips = n_chips(multi_pod)
+    t0 = time.time()
+    w, extra = walk_step(cfg, shape, shape.global_batch, mesh, rules)
+    walk_s = time.time() - t0
+    t_compute, t_memory = w.t_compute_s(), w.t_memory_s()
+    t_coll = w.t_collective_s()
+    mf = model_flops(cfg, shape)
+    res = {
+        "arch": arch, "shape": shape_name,
+        "mesh": MULTI_POD_MESH if multi_pod else SINGLE_POD_MESH,
+        "rules": rules_variant, "kind": shape.kind, "chips": chips,
+        "walk_s": round(walk_s, 1),
+        "batch_per_device": batch_per_device(cfg, shape, mesh, rules),
+        "global_batch": shape.global_batch,
+        "flops_per_device": w.flops,
+        "flops_by_dtype": dict(w.flops_by_dtype),
+        "bytes_per_device": w.hbm_bytes,
+        "collective_bytes_per_device": w.collective_bytes,
+        "collectives": w.collectives_by_kind(),
+        "cost": w.summary(),
+        "model_flops_global": mf,
+        "useful_flops_ratio": (mf / (w.flops * chips) if w.flops > 0
+                               else None),
+        "roofline": {
+            "t_compute_s": t_compute,
+            "t_memory_s": t_memory,
+            "t_collective_s": t_coll,
+            "t_collective_nvlink_s": w.t_nvlink_s(),
+            "t_collective_ib_s": w.t_ib_s(),
+            "bottleneck": max([("compute", t_compute), ("memory", t_memory),
+                               ("collective", t_coll)],
+                              key=lambda kv: kv[1])[0],
+        },
+        "memory": {
+            "live_bytes_per_device": int(w.peak_bytes),
+            "fits_hbm": bool(w.peak_bytes <= HBM_BYTES),
+            "hbm_bytes": HBM_BYTES,
+            "inputs_bytes": int(w.start_bytes),
+            "params_bytes": extra["params_bytes"],
+            "params_spec_bytes": extra["params_spec_bytes"],
+            "state_bytes": extra["state_bytes"],
+            "batch_bytes": extra["batch_bytes"],
+        },
+    }
+    fl = extra["flush"]
+    if fl is not None:
+        win = cfg.decode_tail_window
+        res["flush_amortized"] = {"window": win,
+                                  "t_memory_s": fl.hbm_bytes / HBM_BW / win,
+                                  "t_collective_s": fl.t_collective_s() / win}
+    return res
+
+
+#: ``--mesh`` -> the meshes it walks: ``True`` the 2x16x16 mesh, ``False``
+#: the 16x16 one, ``None`` one card
+MESHES = {"single": [False], "multi": [True], "both": [False, True],
+          "card": [None]}
+
+
+def mesh_record_name(multi_pod: Optional[bool]) -> str:
+    if multi_pod is None:
+        return MESH_NAME
+    return MULTI_POD_MESH if multi_pod else SINGLE_POD_MESH
+
+
+def _skip_reason(cfg, shape_name: str, rules: str,
+                 multi_pod: Optional[bool] = None) -> Optional[str]:
     ok, why = applicable(cfg, shape_name)
     if not ok:
         return why
-    if VARIANTS.get(rules, (rules, {}))[0] != "baseline":
+    if multi_pod is None and VARIANTS.get(rules, (rules, {}))[0] != \
+            "baseline":
         return (f"SKIP(sharding): rules {VARIANTS[rules][0]!r} shard a "
-                f"multi-chip mesh; on one card they are the baseline, and "
-                f"the port's multi-chip meshes and sharding rules are not "
-                f"ported yet")
+                f"mesh of cards; on one card they are the baseline")
     return None
+
+
+def _one_cell(out, done, cfg, arch: str, shape_name: str,
+              mp: Optional[bool], rules: str) -> list:
+    """Walk (or skip) one cell, append its line; the failures, if any."""
+    mesh_name = mesh_record_name(mp)
+    key = (arch, shape_name, mesh_name, rules)
+    head = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+            "rules": rules}
+    if key in done:
+        print(f"[skip-done] {key}", flush=True)
+        return []
+    why = _skip_reason(cfg, shape_name, rules, mp)
+    if why:
+        out.write(json.dumps({**head, "skipped": why}) + "\n")
+        out.flush()
+        print(f"[skip] {key}: {why}", flush=True)
+        return []
+    print(f"[cell] {key} ...", flush=True)
+    try:
+        res = (lower_cell(arch, shape_name, rules) if mp is None
+               else lower_mesh_cell(arch, shape_name, mp, rules))
+    except Exception as e:  # recorded, as the reference does
+        tb = traceback.format_exc(limit=20)
+        out.write(json.dumps({**head, "error": str(e)[:2000]}) + "\n")
+        out.flush()
+        print(f"  FAIL: {e}\n{tb}", flush=True)
+        return [(key, str(e))]
+    out.write(json.dumps(res) + "\n")
+    out.flush()
+    rl, mem = res["roofline"], res["memory"]
+    print(f"  ok walk={res['walk_s']}s b={res['batch_per_device']} "
+          f"bottleneck={rl['bottleneck']} tc={rl['t_compute_s']:.3e} "
+          f"tm={rl['t_memory_s']:.3e} tcol={rl['t_collective_s']:.3e} "
+          f"live={mem['live_bytes_per_device'] / 2**30:.2f}GiB "
+          f"fits={mem['fits_hbm']}", flush=True)
+    return []
 
 
 def main(argv=None) -> int:
@@ -429,9 +689,9 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None, help="single arch (default: all)")
     ap.add_argument("--shape", default=None,
                     help="single shape (default: all)")
-    ap.add_argument("--mesh", default="single", choices=["single"],
-                    help="single: one H100 (the reference's multi and both, "
-                         "its 2x16x16 mesh, come with the port's sharding)")
+    ap.add_argument("--mesh", default="both", choices=list(MESHES),
+                    help="single: the 16x16 mesh, multi: 2x16x16, both "
+                         "(default), card: one H100")
     ap.add_argument("--rules", default="baseline", choices=sorted(VARIANTS))
     ap.add_argument("--out", default=DEFAULT_RESULTS)
     ap.add_argument("--skip-existing", action="store_true", default=True)
@@ -457,41 +717,9 @@ def main(argv=None) -> int:
         for arch in archs:
             cfg = configs.get(arch)
             for shape_name in shapes:
-                key = (arch, shape_name, MESH_NAME, args.rules)
-                if key in done:
-                    print(f"[skip-done] {key}", flush=True)
-                    continue
-                why = _skip_reason(cfg, shape_name, args.rules)
-                if why:
-                    rec = {"arch": arch, "shape": shape_name,
-                           "mesh": MESH_NAME, "rules": args.rules,
-                           "skipped": why}
-                    out.write(json.dumps(rec) + "\n")
-                    out.flush()
-                    print(f"[skip] {key}: {why}", flush=True)
-                    continue
-                print(f"[cell] {key} ...", flush=True)
-                try:
-                    res = lower_cell(arch, shape_name, args.rules)
-                    out.write(json.dumps(res) + "\n")
-                    out.flush()
-                    rl, mem = res["roofline"], res["memory"]
-                    print(f"  ok walk={res['walk_s']}s "
-                          f"b={res['batch_per_device']} "
-                          f"bottleneck={rl['bottleneck']} "
-                          f"tc={rl['t_compute_s']:.3e} "
-                          f"tm={rl['t_memory_s']:.3e} "
-                          f"live={mem['live_bytes_per_device'] / 2**30:.2f}"
-                          f"GiB fits={mem['fits_hbm']}", flush=True)
-                except Exception as e:  # recorded, as the reference does
-                    tb = traceback.format_exc(limit=20)
-                    failures.append((key, str(e)))
-                    out.write(json.dumps(
-                        {"arch": arch, "shape": shape_name,
-                         "mesh": MESH_NAME, "rules": args.rules,
-                         "error": str(e)[:2000]}) + "\n")
-                    out.flush()
-                    print(f"  FAIL: {e}\n{tb}", flush=True)
+                for mp in MESHES[args.mesh]:
+                    failures += _one_cell(out, done, cfg, arch, shape_name,
+                                          mp, args.rules)
     if failures:
         print(f"\n{len(failures)} FAILURES:", flush=True)
         for k, e in failures:

@@ -1,5 +1,5 @@
 """Assigned input shapes x applicability, the dry run's abstract inputs
-(a copy of ``repro.launch.shapes``).
+and the batch's logical specs (a copy of ``repro.launch.shapes``).
 
 LM transformer shapes are seq_len x global_batch.  ``decode_*``/``long_*``
 run ``serve_step`` (one new token against a seq_len KV cache), NOT
@@ -94,7 +94,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec,
 
 def batch_logical_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict:
     """Logical axis names for each batch leaf (the reference's
-    in_shardings; the port's sharding rules come with its mesh)."""
+    in_shardings; ``models.sharding.distribute_tree`` places a batch on a
+    mesh by them)."""
     specs: Dict = {}
     if shape.kind in ("train", "prefill"):
         if cfg.encoder_decoder:

@@ -4,7 +4,10 @@ and ``make_serve_step`` (one decode step).
 
 Each builder resolves its device once (``None`` = the CUDA card; a host
 without CUDA raises ``CudaUnavailableError`` unless ``device="cpu"``) and
-the step moves its batch there.
+the step moves its batch there.  Given DTensor parameters, state and
+batch inside a ``models.sharding.axis_rules`` context (and DTensor's
+``implicit_replication``), the same steps run sharded: each rank runs its
+shard, the kernels per shard through ``local_map``.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from repro_torch._tree import items, unflatten
 from repro_torch.models import (ArchConfig, forward,
                                 serve_step as model_serve_step)
 from repro_torch.models.layers import embed_inputs, logits_fn
+from repro_torch.models.sharding import distribute_like
 from repro_torch.models.transformer import (backbone, check_ported,
                                             check_trainable)
 from repro_torch.models.whisper import decoder, encode
@@ -122,7 +126,9 @@ def make_prefill_step(cfg: ArchConfig, device=None) -> Callable:
         inputs = _inputs(batch["inputs"], dev)
         b, s = inputs.shape[:2]
         positions = batch.get("positions")
-        positions = (torch.arange(s, device=dev).expand(b, s)
+        positions = (distribute_like(inputs,
+                                     torch.arange(s, device=dev).expand(b, s),
+                                     "batch", None)
                      if positions is None else _ids(positions, dev))
         x = embed_inputs(params["embedding"], cfg, inputs)
         h = backbone(params, cfg, x, positions)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .base import ArchConfig, scaled_normal
+from .sharding import is_dtensor, mm, shard
 
 # ---------------------------------------------------------------------------
 # norms
@@ -34,6 +35,14 @@ def init_norm(cfg: ArchConfig, *, device=None) -> Dict[str, torch.Tensor]:
     if cfg.norm_type == "nonparametric_ln":   # olmo: no affine params
         return {}
     raise ValueError(cfg.norm_type)
+
+
+def norm_specs(cfg: ArchConfig) -> Dict:
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": (None,)}
+    if cfg.norm_type == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    return {}
 
 
 def _rms(xf: torch.Tensor) -> torch.Tensor:
@@ -156,15 +165,25 @@ def init_mlp(cfg: ArchConfig, *, generator: torch.Generator,
     return p
 
 
+def mlp_specs(cfg: ArchConfig) -> Dict:
+    s = {"wi": ("p_embed", "p_ffn"), "wo": ("p_ffn", "p_embed")}
+    if cfg.gated_mlp:
+        s["wg"] = ("p_embed", "p_ffn")
+    return s
+
+
 def apply_mlp(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.adtype
-    h = x @ p["wi"].to(dt)
+    h = mm(x, p["wi"].to(dt))
     if cfg.gated_mlp:
-        g = x @ p["wg"].to(dt)
+        g = mm(x, p["wg"].to(dt))
         h = F.silu(g.float()).to(dt) * h
     else:   # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(dt)
-    return h @ p["wo"].to(dt)
+    # Megatron-style: the intermediate is ffn-sharded (the sequence
+    # gathered here; the residual outside stays sequence-sharded)
+    h = shard(h, "batch", None, "ffn") if h.dim() == 3 else h
+    return mm(h, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +203,12 @@ def init_embedding(cfg: ArchConfig, *,
                                      cfg.pdtype, generator=generator)}
 
 
+def embedding_specs(cfg: ArchConfig) -> Dict:
+    if cfg.input_mode == "tokens":
+        return {"table": ("p_vocab", "p_embed")}
+    return {"adapter": (None, "p_embed")}
+
+
 def embed_inputs(p: Dict, cfg: ArchConfig, inputs: torch.Tensor
                  ) -> torch.Tensor:
     """Token ids (...) -> embeddings (..., d) in the activation dtype (the
@@ -191,9 +216,55 @@ def embed_inputs(p: Dict, cfg: ArchConfig, inputs: torch.Tensor
     cast-then-gather); or embeddings (..., d) through the adapter, both
     cast to the activation dtype first, as the reference's
     cast-then-einsum."""
-    if cfg.input_mode == "tokens":
-        return p["table"][inputs.long()].to(cfg.adtype)
-    return inputs.to(cfg.adtype) @ p["adapter"].to(cfg.adtype)
+    if cfg.input_mode != "tokens":
+        x = mm(inputs.to(cfg.adtype), p["adapter"].to(cfg.adtype))
+    elif is_dtensor(p["table"]):
+        x = vocab_embedding(inputs, p["table"]).to(cfg.adtype)
+    else:
+        x = p["table"][inputs.long()].to(cfg.adtype)
+    return shard(x, "batch", "seq_sp", None)
+
+
+def vocab_embedding(ids, table):
+    """The rows of a DTensor ``table`` (V, d) at ``ids`` (B, ...), per shard
+    (``local_map``): each rank gathers the rows its vocabulary shard holds
+    (the rest zero) from its batch rows' ids, whole along the sequence, and
+    the shards' rows sum (a partial sum over the vocabulary's mesh dims,
+    reduced where the caller annotates the result).  The table's other
+    dims are gathered for the call (FSDP); its gradient is partial over the
+    batch's mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from .sharding import local_call
+
+    mesh = table.device_mesh
+    ids = shard(ids.long(), "batch", *([None] * (ids.dim() - 1)))
+    vocab = [j for j, p in enumerate(table.placements) if p == Shard(0)]
+    coord = mesh.get_coordinate()
+    v_l = table.shape[0] // math.prod(mesh.size(j) for j in vocab)
+    idx = 0
+    for j in vocab:
+        idx = idx * mesh.size(j) + coord[j]
+    v0 = idx * v_l
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate()
+                 for p in ids.placements)
+    t_pl = tuple(Shard(0) if j in vocab else Replicate()
+                 for j in range(mesh.ndim))
+    out_pl = tuple(Partial() if j in vocab else rows[j]
+                   for j in range(mesh.ndim))
+    t_grad = tuple(Shard(0) if j in vocab else
+                   (Partial() if rows[j] == Shard(0) else Replicate())
+                   for j in range(mesh.ndim))
+
+    def local(i, t):
+        if not vocab:
+            return F.embedding(i, t)
+        at = i - v0
+        mine = (at >= 0) & (at < v_l)
+        return F.embedding(at.clamp(0, v_l - 1), t) * mine[..., None]
+
+    return local_call(local, out_pl, (rows, t_pl), mesh,
+                      in_grad_placements=(rows, t_grad))(ids, table)
 
 
 def tied_head(cfg: ArchConfig) -> bool:
@@ -211,11 +282,66 @@ def init_lm_head(cfg: ArchConfig, *,
                                cfg.pdtype, generator=generator)}
 
 
+def lm_head_specs(cfg: ArchConfig) -> Dict:
+    if tied_head(cfg):
+        return {}
+    return {"w": ("p_embed", "p_vocab")}
+
+
 def logits_fn(params: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.adtype
     if tied_head(cfg):
-        return x @ params["embedding"]["table"].to(dt).T
-    return x @ params["lm_head"]["w"].to(dt)
+        logits = mm(x, params["embedding"]["table"].to(dt).T)
+    else:
+        logits = mm(x, params["lm_head"]["w"].to(dt))
+    if logits.dim() == 3:
+        logits = shard(logits, "batch", "seq_sp", "vocab")
+    return logits
+
+
+def _vocab_parallel_nll(lf, labels):
+    """Each token's negative log-likelihood over DTensor f32 logits, per
+    shard (``local_map``; DTensor's own gather would gather the logits
+    whole).  Where the vocabulary is split (the rules' ``vocab`` where the
+    sequence is not, e.g. ``no_sp``), the row max and the sum of
+    exponentials are all-reduced over its mesh dims and the gold logit is
+    taken on the rank whose shard holds the label (a masked gather,
+    summed over those dims), as a vocabulary-parallel loss does; else each
+    rank's rows are the plain formula's."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+
+    from .sharding import local_call
+
+    mesh, last = lf.device_mesh, Shard(lf.dim() - 1)
+    groups = [(mesh, j) for j, p in enumerate(lf.placements) if p == last]
+    coord = mesh.get_coordinate()
+    v_l = lf.shape[-1] // math.prod(mesh.size(j) for _, j in groups)
+    idx = 0
+    for _, j in groups:
+        idx = idx * mesh.size(j) + coord[j]
+    v0 = idx * v_l
+    row = tuple(Replicate() if p == last else p for p in lf.placements)
+
+    def local(lf_, lab):
+        if not groups:
+            gold = lf_.gather(-1, lab.long()[..., None])[..., 0]
+            return torch.logsumexp(lf_, dim=-1) - gold
+        m = lf_.detach().amax(-1)      # a shift only: no gradient through it
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        se = torch.exp(lf_ - m[..., None]).sum(-1)
+        at = lab.long() - v0
+        mine = (at >= 0) & (at < v_l)
+        gold = torch.where(mine, lf_.gather(
+            -1, at.clamp(0, v_l - 1)[..., None])[..., 0], 0.0)
+        for g in groups:
+            se = funcol.all_reduce(se, "sum", g)
+            gold = funcol.all_reduce(gold, "sum", g)
+        return torch.log(se) + m - gold
+
+    return local_call(local, row, (tuple(lf.placements), row), mesh)(
+        lf, labels)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -224,8 +350,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits (..., V); labels (...) int; ``mask`` (...), optional: the mean
     over masked-in tokens (at least one in the divisor)."""
     lf = logits.float()
-    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
-    nll = torch.logsumexp(lf, dim=-1) - gold
+    if is_dtensor(lf):
+        nll = _vocab_parallel_nll(lf, labels)
+    else:
+        gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+        nll = torch.logsumexp(lf, dim=-1) - gold
     if mask is not None:
         m = mask.to(nll.dtype)
         return (nll * m).sum() / m.sum().clamp(min=1.0)

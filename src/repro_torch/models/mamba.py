@@ -22,6 +22,7 @@ The projections are plain matrix products, as the reference's einsums.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -29,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from .base import ArchConfig, MambaConfig, scaled_normal
+from .sharding import (distribute_like, is_dtensor, local_call, mm, shard,
+                       spec_placements)
 
 
 def _mcfg(cfg: ArchConfig) -> MambaConfig:
@@ -51,6 +54,18 @@ def mamba_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
             "w_x": (d_in, dt_rank + 2 * n), "w_dt": (dt_rank, d_in),
             "dt_bias": (d_in,), "A_log": (d_in, n), "D": (d_in,),
             "w_out": (d_in, d)}
+
+
+def mamba_specs(cfg: ArchConfig) -> Dict:
+    return {"w_in": ("p_embed", "p_ffn"), "conv": (None, "p_ffn"),
+            "conv_b": ("p_ffn",), "w_x": ("p_ffn", None),
+            "w_dt": (None, "p_ffn"), "dt_bias": ("p_ffn",),
+            "A_log": ("p_ffn", None), "D": ("p_ffn",),
+            "w_out": ("p_ffn", "p_embed")}
+
+
+def mamba_state_specs() -> Dict:
+    return {"h": ("batch", "p_ffn", None), "conv": ("batch", None, "p_ffn")}
 
 
 def init_mamba(cfg: ArchConfig, *,
@@ -134,14 +149,42 @@ def _selective_ssm(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     _, n, _, dt_rank = _dims(cfg)
     c = min(cfg.mamba_chunk, s)
     n_chunks = -(-s // c)
-    xf = F.pad(x.float(), (0, 0, 0, n_chunks * c - s))
+    pad = n_chunks * c - s
+    if not is_dtensor(x):
+        xf = F.pad(x.float(), (0, 0, 0, pad))
+    elif pad:           # DTensor (torch 2.11) has no padding rule here
+        xf = torch.cat([x.float(), distribute_like(x, torch.zeros(
+            (b, pad, d_in), device=x.device.type), "batch", None, "ffn")],
+            dim=1)
+    else:
+        xf = x.float()
 
-    proj = xf @ p["w_x"].float()
+    proj = mm(xf, p["w_x"].float())
     dt_r, B_, C_ = torch.split(proj, [dt_rank, n, n], dim=-1)
-    dt = F.softplus(dt_r @ p["w_dt"].float()
+    dt = F.softplus(mm(dt_r, p["w_dt"].float())
                     + p["dt_bias"].float())                    # (B, S, d_in)
     A = -torch.exp(p["A_log"].float())                         # (d_in, n)
 
+    chunks = functools.partial(_scan_chunks, c=c, n_chunks=n_chunks)
+    if is_dtensor(x):
+        # the recurrence is independent per (batch row, channel): it runs
+        # per shard of the batch and of d_in (``ffn``), B and C gathered
+        ch = spec_placements(xf, "batch", None, "ffn")
+        row = spec_placements(B_, "batch", None, None)
+        chunks = local_call(chunks, (ch, spec_placements(h0, "batch", "ffn",
+                                                          None)),
+                            (ch, row, row, ch, spec_placements(
+                                A, "ffn", None), spec_placements(
+                                h0, "batch", "ffn", None)), x.device_mesh)
+    ys, h = chunks(dt, B_, C_, xf, A, h0)
+    y = ys[:, :s] + xf[:, :s] * p["D"].float()
+    return y.to(x.dtype), h
+
+
+def _scan_chunks(dt, B_, C_, xf, A, h0, *, c: int, n_chunks: int):
+    """The selective scan a chunk at a time: dt, xf (B, S, d_in), B_, C_
+    (B, S, n), A (d_in, n), h0 (B, d_in, n).  Returns (the C-read states
+    (B, S, d_in), the last state)."""
     h = h0.float()
     ys = []
     for i in range(n_chunks):
@@ -151,8 +194,7 @@ def _selective_ssm(p: Dict, cfg: ArchConfig, x: torch.Tensor,
         dBx = dt_c * B_[:, t, None, :] * xf[:, t, :, None]
         h_all, h = _ssm_chunk_scan(dA, dBx, h)
         ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_[:, t]))
-    y = torch.cat(ys, dim=1)[:, :s] + xf[:, :s] * p["D"].float()
-    return y.to(x.dtype), h
+    return torch.cat(ys, dim=1), h
 
 
 def _causal_conv(p: Dict, x: torch.Tensor,
@@ -172,7 +214,7 @@ def _causal_conv(p: Dict, x: torch.Tensor,
 
 
 def _in_proj(p: Dict, cfg: ArchConfig, x: torch.Tensor):
-    xz = x @ p["w_in"].to(cfg.adtype)
+    xz = mm(x, p["w_in"].to(cfg.adtype))
     return torch.chunk(xz, 2, dim=-1)
 
 
@@ -180,7 +222,7 @@ def _out_proj(p: Dict, cfg: ArchConfig, y: torch.Tensor,
               z: torch.Tensor) -> torch.Tensor:
     dt = cfg.adtype
     y = y * F.silu(z.float()).to(dt)
-    return y @ p["w_out"].to(dt)
+    return mm(y, p["w_out"].to(dt))
 
 
 def mamba_block(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -188,9 +230,12 @@ def mamba_block(p: Dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     d_in, n, _, _ = _dims(cfg)
     dt = cfg.adtype
     xs, z = _in_proj(p, cfg, x)
+    xs = shard(xs, "batch", None, "ffn")
     xs = F.silu(_causal_conv(p, xs).float()).to(dt)
-    h0 = torch.zeros((x.shape[0], d_in, n), dtype=torch.float32,
-                     device=x.device)
+    h0 = distribute_like(xs, torch.zeros((x.shape[0], d_in, n),
+                                         dtype=torch.float32,
+                                         device=x.device),
+                         "batch", "ffn", None)
     y, _ = _selective_ssm(p, cfg, xs, h0)
     return _out_proj(p, cfg, y, z)
 
@@ -224,4 +269,5 @@ def mamba_decode_step(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 __all__ = ["init_mamba", "init_mamba_state", "mamba_block",
-           "mamba_decode_step", "mamba_shapes"]
+           "mamba_decode_step", "mamba_shapes", "mamba_specs",
+           "mamba_state_specs"]

@@ -47,22 +47,27 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 
-from .attention import (attention_block, decode_attention,
+from .attention import (attention_block, attention_specs, decode_attention,
                         decode_attention_tailed, init_attention,
-                        init_kv_cache, init_kv_tail)
+                        init_kv_cache, init_kv_tail, kv_cache_specs,
+                        kv_tail_specs)
 from .base import ArchConfig
 from .layers import (apply_mlp, apply_norm, cross_entropy, embed_inputs,
-                     init_embedding, init_lm_head, init_mlp, init_norm,
-                     logits_fn, rope_tables, tied_head)
+                     embedding_specs, init_embedding, init_lm_head, init_mlp,
+                     init_norm, lm_head_specs, logits_fn, mlp_specs,
+                     norm_specs, rope_tables, tied_head)
 from .mamba import (init_mamba, init_mamba_state, mamba_block,
-                    mamba_decode_step, mamba_shapes)
-from .moe import apply_moe, init_moe
+                    mamba_decode_step, mamba_shapes, mamba_specs,
+                    mamba_state_specs)
+from .moe import apply_moe, init_moe, moe_specs
 from .rwkv6 import (LORA_RANK, _dims, init_rwkv_channel_mix,
                     init_rwkv_state, init_rwkv_time_mix, rwkv_channel_mix,
-                    rwkv_time_mix)
+                    rwkv_channel_mix_specs, rwkv_state_specs,
+                    rwkv_time_mix, rwkv_time_mix_specs)
+from .sharding import distribute_like, shard
 from .whisper import (WHISPER_MAX_TARGET_POSITIONS, init_whisper,
-                      init_whisper_decode_state, whisper_forward,
-                      whisper_serve_step)
+                      init_whisper_decode_state, whisper_decode_state_specs,
+                      whisper_forward, whisper_serve_step, whisper_specs)
 
 #: the weight of the MoE auxiliary loss in the training loss
 AUX_LOSS_COEF = 0.01
@@ -214,6 +219,33 @@ def _whisper_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+def _layer_specs(cfg: ArchConfig, i: int) -> Dict:
+    """Layer ``i``'s logical specs: the reference's per-layer specs (a
+    hybrid layer its period's ``sub{i % period}``), without the stacked
+    layer dim (the port's layers are a list)."""
+    if cfg.rwkv:
+        return {"ln1": norm_specs(cfg), "tm": rwkv_time_mix_specs(cfg),
+                "ln2": norm_specs(cfg), "cm": rwkv_channel_mix_specs(cfg)}
+    mixer, ffn = _kinds(cfg, i)
+    return {"ln1": norm_specs(cfg),
+            _mix_key(cfg): (attention_specs(cfg) if mixer == "attn"
+                            else mamba_specs(cfg)),
+            "ln2": norm_specs(cfg),
+            "ffn": moe_specs(cfg) if ffn == "moe" else mlp_specs(cfg)}
+
+
+def param_specs(cfg: ArchConfig) -> Dict:
+    """Logical axis names of every parameter, in ``init_params``' tree
+    (``layers`` a list of per-layer specs)."""
+    check_ported(cfg)
+    if cfg.encoder_decoder:
+        return whisper_specs(cfg)
+    return {"embedding": embedding_specs(cfg),
+            "layers": [_layer_specs(cfg, i) for i in range(cfg.n_layers)],
+            "final_norm": norm_specs(cfg),
+            "lm_head": lm_head_specs(cfg)}
+
+
 def _init_layer(cfg: ArchConfig, i: int, gen: torch.Generator,
                 dev: torch.device) -> Dict[str, Any]:
     if cfg.rwkv:
@@ -281,7 +313,7 @@ def _block(lp: Dict, cfg: ArchConfig, i: int, x: torch.Tensor,
         y, aux = apply_moe(lp["ffn"], cfg, h)
     else:
         y, aux = apply_mlp(lp["ffn"], cfg, h), None
-    return x + y, aux
+    return shard(x + y, "batch", "seq_sp", None), aux
 
 
 def _rwkv_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -294,7 +326,8 @@ def _rwkv_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
     h = apply_norm(lp["ln1"], cfg, x)
     x = x + rwkv_time_mix(lp["tm"], cfg, h, tm)[0]
     h = apply_norm(lp["ln2"], cfg, x)
-    return x + rwkv_channel_mix(lp["cm"], cfg, h, cm)[0]
+    return shard(x + rwkv_channel_mix(lp["cm"], cfg, h, cm)[0],
+                 "batch", "seq_sp", None)
 
 
 def _backbone(params: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -356,7 +389,9 @@ def forward(params: Dict, cfg: ArchConfig, batch: Dict
     b, s = inputs.shape[0], inputs.shape[1]
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(s, device=inputs.device).expand(b, s)
+        positions = distribute_like(
+            inputs, torch.arange(s, device=inputs.device).expand(b, s),
+            "batch", None)
     x = embed_inputs(params["embedding"], cfg, inputs)
     h, aux = _backbone(params, cfg, x, positions)
     logits = logits_fn(params, cfg, h)
@@ -402,6 +437,27 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
         state["tail"] = init_kv_tail(cfg, batch, cfg.decode_tail_window,
                                      cfg.n_layers, device=dev)
     return state
+
+
+def decode_state_specs(cfg: ArchConfig) -> Dict:
+    """Logical axis names of every decode-state leaf, in
+    ``init_decode_state``'s tree: the stacked caches keep the reference's
+    five-dim specs, the per-layer state lists (``rwkv``, ``mamba``) a
+    layer's spec each."""
+    check_ported(cfg)
+    if cfg.encoder_decoder:
+        return whisper_decode_state_specs(cfg)
+    specs: Dict[str, Any] = {"cache_len": ()}
+    if cfg.rwkv:
+        specs["rwkv"] = [rwkv_state_specs() for _ in range(cfg.n_layers)]
+        return specs
+    specs["kv"] = kv_cache_specs()
+    if _hybrid(cfg):
+        specs["mamba"] = [mamba_state_specs() for i in range(cfg.n_layers)
+                          if _kinds(cfg, i)[0] == "mamba"]
+    elif cfg.decode_tail_window > 0:
+        specs["tail"] = kv_tail_specs()
+    return specs
 
 
 def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
@@ -463,5 +519,6 @@ def serve_step(params: Dict, cfg: ArchConfig, state: Dict, batch: Dict
 
 
 __all__ = ["AUX_LOSS_COEF", "attention_layers", "backbone", "check_ported",
-           "check_trainable", "forward", "init_decode_state", "init_params",
-           "param_bytes", "param_shapes", "serve_step"]
+           "check_trainable", "decode_state_specs", "forward",
+           "init_decode_state", "init_params", "param_bytes", "param_shapes",
+           "param_specs", "serve_step"]

@@ -41,7 +41,9 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn
 from .base import ArchConfig, scaled_normal
 from .layers import (apply_mlp, apply_norm, cross_entropy, init_mlp,
-                     init_norm, logits_fn, rope_tables, sinusoidal_positions)
+                     init_norm, logits_fn, mlp_specs, norm_specs,
+                     rope_tables, sinusoidal_positions, vocab_embedding)
+from .sharding import distribute_like, is_dtensor, mm, shard
 
 WHISPER_MAX_TARGET_POSITIONS = 448
 
@@ -86,6 +88,24 @@ def init_whisper(cfg: ArchConfig, gen: torch.Generator,
     return params
 
 
+def whisper_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Logical axis names of every parameter, in ``init_whisper``'s tree
+    (the layer lists a spec a layer)."""
+    enc = {"ln1": norm_specs(cfg), "attn": attn.attention_specs(cfg),
+           "ln2": norm_specs(cfg), "mlp": mlp_specs(cfg)}
+    dec = {"ln1": norm_specs(cfg), "self_attn": attn.attention_specs(cfg),
+           "ln2": norm_specs(cfg), "cross_attn": attn.attention_specs(cfg),
+           "ln3": norm_specs(cfg), "mlp": mlp_specs(cfg)}
+    return {"embedding": {"adapter": (None, "p_embed")},
+            "enc_layers": [enc for _ in range(cfg.n_encoder_layers)],
+            "enc_norm": norm_specs(cfg),
+            "dec_embed": ("p_vocab", "p_embed"),
+            "dec_pos": (None, "p_embed"),
+            "layers": [dec for _ in range(cfg.n_layers)],
+            "final_norm": norm_specs(cfg),
+            "lm_head": {"w": ("p_embed", "p_vocab")}}
+
+
 # ---------------------------------------------------------------------------
 # encoder
 # ---------------------------------------------------------------------------
@@ -97,7 +117,7 @@ def _enc_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
     x = x + attn.attention_block(lp["attn"], cfg, h, positions,
                                  causal=False, rope=rope)
     h = apply_norm(lp["ln2"], cfg, x)
-    return x + apply_mlp(lp["mlp"], cfg, h)
+    return shard(x + apply_mlp(lp["mlp"], cfg, h), "batch", "seq_sp", None)
 
 
 def encode(params: Dict, cfg: ArchConfig, frames: torch.Tensor
@@ -107,10 +127,12 @@ def encode(params: Dict, cfg: ArchConfig, frames: torch.Tensor
     gradients on and ``cfg.remat`` each layer runs under
     ``torch.utils.checkpoint``."""
     dt = cfg.adtype
-    x = frames.to(dt) @ params["embedding"]["adapter"].to(dt)
+    x = mm(frames.to(dt), params["embedding"]["adapter"].to(dt))
     b, t, d = x.shape
     x = x + sinusoidal_positions(t, d, x.device).to(dt)[None]
-    positions = torch.arange(t, device=x.device).expand(b, t)
+    x = shard(x, "batch", "seq_sp", None)
+    positions = distribute_like(
+        x, torch.arange(t, device=x.device).expand(b, t), "batch", None)
     rope = rope_tables(positions, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["enc_layers"]:
@@ -129,9 +151,16 @@ def _dec_embed(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """Token embeddings plus the learned positions, clipped to 0..447."""
     dt = cfg.adtype
+    if is_dtensor(params["dec_embed"]):     # vocab-parallel embeddings
+        # each table's rows reduced to the residual's layout before the sum
+        pos = positions.long().clamp(0, WHISPER_MAX_TARGET_POSITIONS - 1)
+        rows = [shard(vocab_embedding(i, t).to(dt), "batch", "seq_sp", None)
+                for i, t in ((tokens, params["dec_embed"]),
+                             (pos, params["dec_pos"]))]
+        return rows[0] + rows[1]
     x = params["dec_embed"][tokens.long()].to(dt)
     pos = positions.long().clamp(0, WHISPER_MAX_TARGET_POSITIONS - 1)
-    return x + params["dec_pos"][pos].to(dt)
+    return shard(x + params["dec_pos"][pos].to(dt), "batch", "seq_sp", None)
 
 
 def cross_attention(p: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -143,11 +172,7 @@ def cross_attention(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     q = attn._proj(x, p["wq"], dt)
     k = attn._proj(enc, p["wk"], dt)
     v = attn._proj(enc, p["wv"], dt)
-    out = attn.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=False,
-                               fwd=attn.flash_attention_fwd,
-                               bwd=attn.flash_attention_bwd)
-    return attn._out(p, cfg, out.transpose(1, 2))
+    return attn._out(p, cfg, attn.flash(q, k, v, causal=False))
 
 
 def _dec_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -159,7 +184,7 @@ def _dec_block(lp: Dict, cfg: ArchConfig, x: torch.Tensor,
     h = apply_norm(lp["ln2"], cfg, x)
     x = x + cross_attention(lp["cross_attn"], cfg, h, enc)
     h = apply_norm(lp["ln3"], cfg, x)
-    return x + apply_mlp(lp["mlp"], cfg, h)
+    return shard(x + apply_mlp(lp["mlp"], cfg, h), "batch", "seq_sp", None)
 
 
 def decoder(params: Dict, cfg: ArchConfig, enc: torch.Tensor,
@@ -168,7 +193,9 @@ def decoder(params: Dict, cfg: ArchConfig, enc: torch.Tensor,
     the final norm's output (B, S, d).  With gradients on and
     ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``."""
     b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    positions = distribute_like(
+        tokens, torch.arange(s, device=tokens.device).expand(b, s),
+        "batch", None)
     x = _dec_embed(params, cfg, tokens, positions)
     rope = rope_tables(positions, cfg)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -220,6 +247,17 @@ def init_whisper_decode_state(cfg: ArchConfig, batch: int, max_len: int,
     }
 
 
+def whisper_decode_state_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    """Logical axis names of the decode state: the reference's, the cross
+    K/V's read onto the port's kv-major (L, B, KV, T_enc, hd) layout, and
+    the replicated ``cross_len``."""
+    return {"cache_len": (),
+            "kv": attn.kv_cache_specs(),
+            "cross_k": (None, "batch", "p_kv", "cache_seq", None),
+            "cross_v": (None, "batch", "p_kv", "cache_seq", None),
+            "cross_len": ()}
+
+
 def precompute_cross_kv(params: Dict, cfg: ArchConfig, enc: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encoder output (B, T_enc, d) -> every layer's cross K and V, each
@@ -262,9 +300,14 @@ def whisper_serve_step(params: Dict, cfg: ArchConfig, state: Dict,
         x = x + y
         h = apply_norm(lp["ln2"], cfg, x)
         p = lp["cross_attn"]
-        q = attn._proj(h, p["wq"], dt).reshape(b, kv, h_ // kv, hd)
-        o = attn.decode_attention_fwd(q, ck[i], cv[i], cross_len)
-        x = x + attn._out(p, cfg, o.reshape(b, 1, h_, hd))
+        if is_dtensor(h):
+            o = attn._sharded_decode(attn._proj(h, p["wq"], dt), None, None,
+                                     (ck[i], cv[i]), (), cross_len, 0)
+            x = x + attn._out(p, cfg, o)
+        else:
+            q = attn._proj(h, p["wq"], dt).reshape(b, kv, h_ // kv, hd)
+            o = attn.decode_attention_fwd(q, ck[i], cv[i], cross_len)
+            x = x + attn._out(p, cfg, o.reshape(b, 1, h_, hd))
         h = apply_norm(lp["ln3"], cfg, x)
         x = x + apply_mlp(lp["mlp"], cfg, h)
     h = apply_norm(params["final_norm"], cfg, x)
@@ -274,4 +317,5 @@ def whisper_serve_step(params: Dict, cfg: ArchConfig, state: Dict,
 
 __all__ = ["WHISPER_MAX_TARGET_POSITIONS", "cross_attention", "decoder",
            "encode", "init_whisper", "init_whisper_decode_state",
-           "precompute_cross_kv", "whisper_forward", "whisper_serve_step"]
+           "precompute_cross_kv", "whisper_decode_state_specs",
+           "whisper_forward", "whisper_serve_step", "whisper_specs"]

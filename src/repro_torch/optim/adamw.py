@@ -8,9 +8,10 @@ returns new tensors and leaves its inputs as they were, except
 ``adamw_update(..., in_place=True)``: the counterpart of the reference's
 donated buffers (``jax.jit(..., donate_argnums=(0, 1))`` in its training
 driver), which overwrites the parameters, the state and the gradients
-with the same bits and so never holds a second copy of them.  The
-reference's ``opt_state_specs`` (logical sharding specs) waits for the
-port's mesh rules.
+with the same bits and so never holds a second copy of them.
+``opt_state_specs`` gives the state's logical sharding specs, the
+parameters' own, as the reference's does.  On DTensor parameters every
+op runs per shard and the global norm's sum is all-reduced.
 """
 from __future__ import annotations
 
@@ -34,6 +35,12 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
+
+
+def opt_state_specs(param_spec_tree) -> Dict[str, Any]:
+    """The optimizer state's logical specs: the moments mirror the
+    parameters' specs, the step is a replicated scalar."""
+    return {"mu": param_spec_tree, "nu": param_spec_tree, "step": ()}
 
 
 def warmup_cosine(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

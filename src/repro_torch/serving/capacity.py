@@ -13,11 +13,13 @@ closes the loop: the packer sizes the fleet with a capacity that comes from
 the same step the dry run walked.
 
 The port's dry run (``repro_torch.launch.dryrun``) writes
-``dryrun_results_torch.jsonl`` at the repo root (``DEFAULT_RESULTS``), one
-H100 a replica (``mesh="1xH100"``): a record names the batch a card takes
-(``batch_per_device``).  The reference's TPU records (mesh ``"16x16"``,
-the default here) carry no such field and decode the shape's global batch
-across the mesh slice; they give a TPU replica's capacity, not the card's.
+``dryrun_results_torch.jsonl`` at the repo root (``DEFAULT_RESULTS``).  A
+``mesh="1xH100"`` record is one H100 a replica and names the batch the
+card takes (``batch_per_device``).  A ``"16x16"`` (``"2x16x16"``) record
+is a replica of 256 (512) H100s that decodes the shape's global batch a
+step across the mesh, its step the largest of its compute, memory and
+collective (NVLink and InfiniBand) terms, as the reference's TPU records
+of the same meshes are read.
 """
 from __future__ import annotations
 
@@ -43,7 +45,9 @@ def derived_replica_capacity(arch: str, shape: str = "decode_32k",
             f"no dry-run results at {path}. The replica capacity is derived "
             f"from a dry run's roofline records: run `python -m "
             f"repro_torch.launch.dryrun --arch {arch} --shape {shape} "
-            f"--rules {rules}`, pass results_path= pointing at a file of "
+            f"--rules {rules} --mesh "
+            f"{'card' if mesh == '1xH100' else 'both'}`, pass "
+            f"results_path= pointing at a file of "
             f"records for {arch}/{shape}/{mesh}/{rules}, or give the "
             f"controller a capacity directly (ControllerConfig(capacity="
             f"...), launch.serve --capacity).")
@@ -63,17 +67,20 @@ def derived_replica_capacity(arch: str, shape: str = "decode_32k",
     mem = best.get("memory", {})
     if mem.get("fits_hbm") is False and "batch_per_device" in best:
         raise ValueError(
-            f"{arch}/{shape}/{mesh}/{rules} does not fit one card: "
-            f"{mem.get('live_bytes_per_device')} live bytes at batch "
-            f"{best['batch_per_device']}, over {mem.get('hbm_bytes')}")
+            f"{arch}/{shape}/{mesh}/{rules} does not fit "
+            f"{'one card' if best.get('chips', 1) == 1 else 'its cards'}: "
+            f"{mem.get('live_bytes_per_device')} live bytes a card at "
+            f"batch {best['batch_per_device']}, over {mem.get('hbm_bytes')}")
     rl = best["roofline"]
     step_s = max(rl["t_compute_s"], rl["t_memory_s"], rl["t_collective_s"])
     fl = best.get("flush_amortized")
     if fl:
         step_s += fl["t_memory_s"] + fl["t_collective_s"]
-    # a card's record names the batch it decodes a step; the reference's
-    # decode global_batch tokens a step across the whole mesh slice
-    batch = best.get("batch_per_device")
+    # a card's record names the batch it decodes a step; a mesh's (the
+    # reference's and the port's) decodes global_batch tokens a step across
+    # the whole mesh slice
+    batch = (best.get("batch_per_device") if best.get("chips", 1) == 1
+             else None)
     if batch is None:
         from repro_torch.launch.shapes import SHAPES
         batch = SHAPES[shape].global_batch

@@ -175,7 +175,8 @@ def _records(path):
 
 def test_records_and_skips_of_smoke_cells(tmp_path, smoke, capsys):
     out = tmp_path / "dryrun.jsonl"
-    assert dryrun.main(["--arch", "qwen3-8b", "--out", str(out)]) == 0
+    card = ["--mesh", "card"]
+    assert dryrun.main(["--arch", "qwen3-8b", "--out", str(out)] + card) == 0
     recs = _records(out)
     assert [(r["shape"], "skipped" in r) for r in recs] == [
         ("train_4k", False), ("prefill_32k", False), ("decode_32k", False),
@@ -200,13 +201,89 @@ def test_records_and_skips_of_smoke_cells(tmp_path, smoke, capsys):
         assert r["model_flops_global"] == tshapes.model_flops(
             tconfigs.get("qwen3-8b"), shape)
     # resumable: a second run writes nothing new
-    assert dryrun.main(["--arch", "qwen3-8b", "--out", str(out)]) == 0
+    assert dryrun.main(["--arch", "qwen3-8b", "--out", str(out)] + card) == 0
     assert len(_records(out)) == 4
     assert "[skip-done]" in capsys.readouterr().out
     # a sharding variant means nothing on one card: skipped, pointing on
     assert dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k",
-                        "--rules", "ep", "--out", str(out)]) == 0
+                        "--rules", "ep", "--out", str(out)] + card) == 0
     assert _records(out)[-1]["skipped"].startswith("SKIP(sharding)")
+
+
+# ---------------------------------------------------------------------------
+# the 16x16 and 2x16x16 cells (SMOKE widths, short sequences)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def short(smoke, monkeypatch):
+    """SMOKE configs at 64 positions (a decode cache of 4096, whose 256
+    positions a rank of the model axis holds a 256-row tail fits in), and
+    the fake 512-rank group torn down after the test."""
+    import torch.distributed as dist
+
+    short = {k: dataclasses.replace(v, seq_len=v.seq_len // 8 if
+                                    v.kind == "decode" else 64)
+             for k, v in tshapes.SHAPES.items()}
+    monkeypatch.setattr(tshapes, "SHAPES", short)
+    monkeypatch.setattr(dryrun, "SHAPES", short)
+    yield
+    dryrun._MESHES.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_the_mesh_flag_is_the_references_plus_card():
+    assert list(dryrun.MESHES) == ["single", "multi", "both", "card"]
+    assert dryrun.MESHES["both"] == [False, True]
+    assert [dryrun.mesh_record_name(m) for m in (False, True, None)] == [
+        "16x16", "2x16x16", MESH_NAME]
+
+
+def test_mesh_cells_record_collectives_and_spec_shards(tmp_path, short):
+    """qwen3-8b decode_32k on both meshes (the default): the global batch
+    of 128 over 16 (32) batch ranks, nonzero collective bytes split into
+    NVLink and InfiniBand time, the parameters' per-device bytes those of
+    the spec trees' shards."""
+    from repro_torch.launch.mesh import IB_BW, NVLINK_BW
+
+    out = tmp_path / "dryrun.jsonl"
+    assert dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k",
+                        "--out", str(out)]) == 0
+    recs = _records(out)
+    assert [(r["mesh"], r["chips"], r["batch_per_device"]) for r in recs] \
+        == [("16x16", 256, 8), ("2x16x16", 512, 4)]
+    for r in recs:
+        assert r["collective_bytes_per_device"] > 0
+        assert sum(r["collectives"].values()) == pytest.approx(
+            r["collective_bytes_per_device"])
+        cost, rl = r["cost"], r["roofline"]
+        assert cost["nvlink_bytes"] + cost["ib_bytes"] == pytest.approx(
+            r["collective_bytes_per_device"])
+        assert rl["t_collective_s"] == pytest.approx(
+            cost["nvlink_bytes"] / NVLINK_BW + cost["ib_bytes"] / IB_BW)
+        mem = r["memory"]
+        assert mem["params_bytes"] == mem["params_spec_bytes"] > 0
+        assert mem["fits_hbm"] is True
+
+
+@pytest.mark.parametrize("arch,shape,rules", [
+    ("qwen2-moe-a2.7b", "train_4k", "ep"),
+    ("deepseek-67b", "decode_32k", "ep_tail256"),
+])
+def test_sharding_variants_run_on_the_meshes(tmp_path, short, arch, shape,
+                                             rules):
+    """The variants one card skips run on a mesh: expert parallelism (6
+    SMOKE experts padded to 16) and the tailed decode's flush, whose
+    amortized cost now has its collective term."""
+    out = tmp_path / "dryrun.jsonl"
+    assert dryrun.main(["--arch", arch, "--shape", shape, "--rules", rules,
+                        "--mesh", "single", "--out", str(out)]) == 0
+    (rec,) = _records(out)
+    assert "skipped" not in rec and "error" not in rec
+    assert rec["collective_bytes_per_device"] > 0
+    if rules == "ep_tail256":
+        assert set(rec["flush_amortized"]) == {"window", "t_memory_s",
+                                               "t_collective_s"}
 
 
 def test_the_batch_is_the_largest_power_of_two_within_the_budget():
@@ -234,7 +311,7 @@ def bridge_records(tmp_path, smoke):
     out = tmp_path / "dryrun_results_torch.jsonl"
     for rules in ("baseline", "tail256"):
         assert dryrun.main(["--arch", "deepseek-67b", "--shape",
-                            "decode_32k", "--rules", rules,
+                            "decode_32k", "--rules", rules, "--mesh", "card",
                             "--out", str(out)]) == 0
     return str(out)
 

@@ -68,14 +68,15 @@ def test_port_imports_nothing_of_jax_flax_or_repro():
 
 
 def test_the_dry_run_and_the_last_example_stand_alone():
-    """The dry run's modules and the adversarial report are among the files
-    scanned above, and importing them loads neither JAX nor the
-    reference."""
+    """The dry run's modules (the rules and the sharding among them) and the
+    adversarial report are among the files scanned above, and importing
+    them loads neither JAX nor the reference."""
     import subprocess
     import sys
 
     mods = ("launch.shapes", "launch.mesh", "launch.cost_walk",
-            "launch.dryrun", "examples.adversarial_report")
+            "launch.dryrun", "launch.rules", "models.sharding",
+            "examples.adversarial_report")
     files = set(_port_files())
     for m in mods:
         assert ROOT / "src" / "repro_torch" / (m.replace(".", "/") + ".py") \

@@ -2,7 +2,12 @@
 reference: gradients through the expert dispatch (``models.moe``) and
 the chunked selective scan (``models.mamba``), the whole loss and every
 gradient of qwen2-moe, llama4-scout and jamba SMOKE, remat, AdamW train
-steps and the training CLI (``launch.train``).
+steps and the training CLI (``launch.train``).  This file holds what
+trains and the chip helpers; ``test_torch_moe_train_grads.py`` the whole
+loss and every gradient, ``test_torch_moe_train_steps.py`` the AdamW
+steps and the CLI, ``test_torch_moe_train_dispatch.py`` the dispatch's
+and the scan's gradients (split so that ``--dist loadfile`` spreads them
+over workers; the helpers are ``_torch_moe_train_common.py``).
 
 The reference's weights are carried across with
 ``convert.params_from_numpy``; inputs are drawn with numpy from a seed.
@@ -23,10 +28,7 @@ renormalised gate and the auxiliary loss's mean probability only: the
 load count is a one-hot (reference) or a scatter of ones (port), with no
 gradient.
 """
-import contextlib
 import dataclasses
-import functools
-import io
 import sys
 from pathlib import Path
 
@@ -35,99 +37,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-
-from repro import configs as jconfigs  # noqa: E402
-from repro.launch import train as jtrain  # noqa: E402
-from repro.launch.steps import make_train_step as j_train_step  # noqa: E402
-from repro.models import forward as j_forward  # noqa: E402
-from repro.models import init_params as j_init_params  # noqa: E402
-from repro.models import mamba as jmamba  # noqa: E402
-from repro.models import moe as jmoe  # noqa: E402
-from repro.optim.adamw import AdamWConfig as JAdamWConfig  # noqa: E402
-from repro.optim.adamw import adamw_init as j_adamw_init  # noqa: E402
-from repro_torch import _tree, configs as tconfigs  # noqa: E402
-from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.data import TokenPipeline  # noqa: E402
-from repro_torch.launch import train as ttrain  # noqa: E402
-from repro_torch.launch.steps import make_train_step  # noqa: E402
-from repro_torch.models import forward  # noqa: E402
-from repro_torch.models import mamba as tmamba  # noqa: E402
-from repro_torch.models import moe as tmoe  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
-from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
-
-#: the routed families: two MoE archs and the hybrid Mamba one
-ARCHS = ("qwen2-moe-a2.7b", "llama4-scout-17b-a16e", "jamba-v0.1-52b")
-MOE = "qwen2-moe-a2.7b"
-HYBRID = "jamba-v0.1-52b"
-
-
-def configs(arch, dtype="float32", **over):
-    over = dict(dtype=dtype, param_dtype="float32", **over)
-    return tuple(dataclasses.replace(m.get(arch, smoke=True), **over)
-                 for m in (jconfigs, tconfigs))
-
-
-@functools.lru_cache(maxsize=None)
-def models(arch, dtype="float32", remat=False):
-    """(reference cfg, port cfg, reference params, port params)."""
-    jcfg, tcfg = configs(arch, dtype, remat=remat)
-    jp = j_init_params(jax.random.key(0), jcfg)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
-    return jcfg, tcfg, jp, tp
-
-
-def batch_of(cfg, seed, b=2, s=16):
-    return TokenPipeline(b, s, cfg.vocab_size, seed=seed).next_batch()
-
-
-def reference(fn, dtype):
-    """The reference's ``fn``: jitted in float32, eager in bfloat16."""
-    if dtype == "float32":
-        return jax.jit(fn)
-
-    def eager(*args):
-        with jax.disable_jit():
-            return fn(*args)
-    return eager
-
-
-def as_port(jtree, tcfg):
-    """A reference tree (parameters, gradients, moments) as the port's
-    flat ``{name: tensor}``."""
-    return dict(_tree.items(params_from_numpy(
-        jax.tree.map(np.asarray, jtree), tcfg, device="cpu")))
-
-
-def grad_close(got, want, tol, what):
-    """Within ``tol`` absolute, and within ``tol`` (float32: 1e-4) of the
-    leaf's largest magnitude."""
-    got, want = got.float().numpy(), np.asarray(want, np.float32)
-    scale = max(float(np.abs(want).max()), 1e-30)
-    err = float(np.abs(got - want).max())
-    assert err <= max(tol, 1e-4 * scale if tol < 1e-4 else tol * scale), \
-        f"{what}: max abs err {err} (largest {scale})"
-
-
-def port_loss_and_grads(tp, tcfg, batch):
-    leaves = {k: p.clone().requires_grad_(True)
-              for k, p in _tree.items(tp)}
-    loss, metrics = forward(_tree.unflatten(tp, leaves), tcfg,
-                            {k: torch.tensor(v) for k, v in batch.items()})
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), metrics, dict(zip(leaves, grads))
-
-
-@functools.lru_cache(maxsize=None)
-def reference_loss_and_grads(arch, dtype, remat, seed):
-    jcfg, tcfg, jp, _ = models(arch, dtype, remat)
-    batch = batch_of(tcfg, seed)
-    (loss, m), g = reference(jax.value_and_grad(
-        lambda p, bt: j_forward(p, jcfg, bt), has_aux=True), dtype)(
-            jp, {k: jnp.asarray(v) for k, v in batch.items()})
-    return float(loss), float(m["ce"]), float(m["aux"]), as_port(g, tcfg)
+from _torch_moe_train_common import *  # noqa: E402,F401,F403
+from _torch_moe_train_common import _tree  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------------
@@ -178,29 +89,6 @@ def test_check_trainable_refuses_only_what_check_ported_refuses():
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5,
                                atol=1e-5)
 
-
-# ---------------------------------------------------------------------------
-# the whole loss and every gradient
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("remat", [False, True])
-def test_forward_and_every_gradient_match_reference(arch, dtype, remat):
-    _, tcfg, _, tp = models(arch, dtype, remat)
-    jloss, jce, jaux, want = reference_loss_and_grads(arch, dtype, remat, 7)
-    loss, metrics, grads = port_loss_and_grads(tp, tcfg, batch_of(tcfg, 7))
-    tol = 1e-5 if dtype == "float32" else 5e-2
-    for got, ref in ((loss, jloss), (metrics["ce"], jce),
-                     (metrics["aux"], jaux)):
-        np.testing.assert_allclose(float(got.detach()), ref, rtol=tol,
-                                   atol=tol)
-    assert float(metrics["aux"].detach()) > 0
-    assert set(grads) == set(want)
-    for name, g in grads.items():
-        assert g.dtype == torch.float32 and g.shape == want[name].shape
-        grad_close(g, want[name].numpy(), tol, f"{arch} {dtype} {name}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -265,130 +153,6 @@ def test_remat_checkpoints_and_recomputes_each_layer(arch, monkeypatch):
         assert calls.count("apply_moe") == times * n_moe
         assert calls.count("mamba_block") == times * n_mamba
 
-
-# ---------------------------------------------------------------------------
-# train steps
-# ---------------------------------------------------------------------------
-
-OPT = dict(lr=1e-3, warmup_steps=2, total_steps=6)
-
-
-def rel_close(got, want, what, tol=1e-5):
-    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
-    scale = max(float(np.abs(want).max()), 1.0)
-    err = float(np.abs(got - want).max()) if want.size else 0.0
-    assert err <= tol * scale, f"{what}: max abs err {err} (scale {scale})"
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("eps", [1e-8, 1e-6])
-def test_three_train_steps_match_reference(arch, eps):
-    """Three jitted reference steps against three port steps from the
-    same weights and batches: loss, ce, aux, lr and grad_norm, every
-    parameter and both moments after each step, and the step count (the
-    conventions of ``tests/test_torch_train.py``: metrics and moments
-    within 1e-5 of each leaf's largest magnitude).
-
-    A parameter moves by lr * mhat / (sqrt(nhat) + eps) a step; where a
-    gradient element is about eps, Adam turns a last-bit difference of
-    the gradient into up to lr * |dg| / eps.  The routed models have such
-    elements at both eps (llama4-scout-smoke's ``shared/wo`` moves 5.2e-5
-    apart at eps 1e-8, jamba-smoke's embedding 4.8e-5 at eps 1e-6, lr
-    1e-3, while the moments agree within 7e-8), so parameters are held
-    within 1e-4 (lr / 10; the dense archs' 5e-5 at eps 1e-8 is lr / 20)."""
-    param_tol = 1e-4
-    jcfg, tcfg, jp, tp = models(arch)
-    opt = dict(OPT, eps=eps)
-    jstep = jax.jit(j_train_step(jcfg, JAdamWConfig(**opt)))
-    tstep = make_train_step(tcfg, AdamWConfig(**opt), device="cpu")
-    jst, tst = j_adamw_init(jp), adamw_init(tp)
-    pipe = TokenPipeline(2, 16, tcfg.vocab_size, seed=3)
-    for i in range(3):
-        batch = pipe.next_batch()
-        jp, jst, jm = jstep(jp, jst, {k: jnp.asarray(v)
-                                      for k, v in batch.items()})
-        tp, tst, tm = tstep(tp, tst, batch)
-        assert set(tm) == set(jm)
-        for k in jm:
-            rel_close(tm[k], jm[k], f"step {i} {k}")
-        assert float(tm["aux"]) > 0
-        assert int(tst["step"]) == int(jst["step"]) == i + 1
-        for name, tree, jtree in (("params", tp, jp),
-                                  ("mu", tst["mu"], jst["mu"]),
-                                  ("nu", tst["nu"], jst["nu"])):
-            want = as_port(jtree, tcfg)
-            got = dict(_tree.items(tree))
-            assert set(got) == set(want)
-            for k, t in got.items():
-                rel_close(t.numpy(), want[k].numpy(), f"step {i} {name} {k}",
-                          param_tol if name == "params" else 1e-5)
-
-
-@pytest.mark.parametrize("arch", [MOE, HYBRID])
-def test_donated_step_gives_the_same_bits_in_place(arch):
-    cfg = dataclasses.replace(tconfigs.get(arch, smoke=True), remat=True)
-    params = transformer.init_params(cfg, seed=2, device="cpu")
-    state = adamw_init(params)
-    kept = make_train_step(cfg, AdamWConfig(**OPT), device="cpu")
-    donated = make_train_step(cfg, AdamWConfig(**OPT), device="cpu",
-                              donate=True)
-    p2, s2 = (_tree.tree_map(torch.clone, t) for t in (params, state))
-    before = _tree.leaves(p2)
-    pipe = TokenPipeline(2, 16, cfg.vocab_size, seed=5)
-    for _ in range(2):
-        batch = pipe.next_batch()
-        params, state, m = kept(params, state, batch)
-        out_p, out_s, m2 = donated(p2, s2, batch)
-        assert out_p is p2 and out_s is s2
-        for a, b in zip(_tree.leaves({"p": params, "s": state, "m": m}),
-                        _tree.leaves({"p": p2, "s": s2, "m": m2})):
-            assert a.dtype == b.dtype and torch.equal(a, b)
-    assert all(a is b for a, b in zip(before, _tree.leaves(p2)))
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_train_cli_prints_the_reference_clis_losses(dtype, monkeypatch):
-    """``python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --smoke
-    --device cpu --steps 3`` against the reference's CLI with the same
-    arguments, both from the reference's weights: each step's loss and
-    the same printed lines.  The SMOKE config computes in bfloat16, where
-    the two packages' attention rounds apart (ROADMAP queue 3,
-    "Attention and RoPE"): its losses are held within 5e-2, with the
-    reference run eagerly; both CLIs given the config in float32 compute
-    (``configs.get`` patched alike) print losses within 1e-5."""
-    recorded = {}
-    for mod, key in ((jtrain, "reference"), (ttrain, "port")):
-        real = mod.train
-        monkeypatch.setattr(
-            mod, "train", lambda *a, _r=real, _k=key, **kw:
-            recorded.setdefault(_k, _r(*a, **kw)))
-        real_get = mod.configs.get
-        monkeypatch.setattr(
-            mod.configs, "get", lambda *a, _g=real_get, **kw:
-            dataclasses.replace(_g(*a, **kw), dtype=dtype))
-    jcfg = jconfigs.get(MOE, smoke=True)
-    jp = j_init_params(jax.random.key(0), jcfg)
-    monkeypatch.setattr(ttrain, "init_params", lambda cfg, **kw:
-                        params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
-                                          device=kw["device"]))
-    argv = ["--arch", MOE, "--smoke", "--steps", "3", "--batch", "2",
-            "--seq", "32" if dtype == "float32" else "16"]
-    printed = []
-    for main, extra in ((jtrain.main, []),
-                        (ttrain.main, ["--device", "cpu"])):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out), (
-                jax.disable_jit() if dtype == "bfloat16"
-                else contextlib.nullcontext()):
-            main(argv + extra)
-        printed.append(out.getvalue())
-    want, got = recorded["reference"]["losses"], recorded["port"]["losses"]
-    assert len(got) == len(want) == 3
-    tol = 1e-5 if dtype == "float32" else 5e-2
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
-    assert "[train] done: 3 steps" in printed[1]
-    if dtype == "float32":
-        assert printed[0] == printed[1]
 
 
 @pytest.fixture(scope="module")
@@ -546,277 +310,3 @@ def test_chip_r_row_carries_r1s_call_and_rs_launches(chip_smoke):
     assert full[0]["max_abs_err"] == 2e-3 and full[0]["calls"] == row["calls"]
 
 
-# ---------------------------------------------------------------------------
-# the expert dispatch's gradients
-# ---------------------------------------------------------------------------
-
-
-def moe_layer(arch, cf, dtype="float32", shared=True, tie=False):
-    """(reference cfg, port cfg, reference weights, port weights) of the
-    first MoE layer at capacity factor ``cf``; ``tie`` copies router
-    column 0 into column 1 (every token's two probabilities tie
-    exactly); ``shared=False`` leaves the shared expert out."""
-    jcfg, tcfg = configs(arch, dtype, capacity_factor=cf)
-    if not shared:
-        jcfg, tcfg = (dataclasses.replace(c, n_shared_experts=0)
-                      for c in (jcfg, tcfg))
-    _, _, jp, _ = models(arch)
-    j = next(j for j in range(tcfg.n_layers) if tcfg.is_moe_layer(j))
-    layers = jp["layers"][f"sub{j}"] if tcfg.attn_layer_period else \
-        jp["layers"]
-    w = {k: np.asarray(v[0]) for k, v in layers["ffn"].items()
-         if k != "shared"}
-    if shared and "shared" in layers["ffn"]:
-        w["shared"] = {k: np.asarray(v[0])
-                       for k, v in layers["ffn"]["shared"].items()}
-    if tie:
-        w["router"] = w["router"].copy()
-        w["router"][:, 1] = w["router"][:, 0]
-    jw = jax.tree.map(jnp.asarray, w)
-    tw = jax.tree.map(lambda a: torch.tensor(np.asarray(a)), w)
-    return jcfg, tcfg, jw, tw
-
-
-def moe_grads(jcfg, tcfg, jw, tw, shape, seed, with_aux=True):
-    """The gradients of ``sum(y * r) + aux`` (``r`` a fixed draw) with
-    respect to x and every weight, in both packages: ``(port, reference)``
-    as flat ``{name: numpy}``."""
-    rng = np.random.default_rng(seed)
-    x = rng.standard_normal(shape, dtype=np.float32)
-    r = rng.standard_normal(shape, dtype=np.float32)
-
-    def jloss(w, x):
-        y, aux = jmoe.apply_moe(w, jcfg, x)
-        return (y.astype(jnp.float32) * r).sum() + (aux if with_aux else 0.0)
-
-    jg = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jw, jnp.asarray(x))
-    leaves = {k: v.clone().requires_grad_(True)
-              for k, v in _tree.items(tw)}
-    tx = torch.tensor(x).requires_grad_(True)
-    y, aux = tmoe.apply_moe(_tree.unflatten(tw, leaves), tcfg, tx)
-    loss = (y.float() * torch.tensor(r)).sum() + (aux if with_aux else 0.0)
-    tg = torch.autograd.grad(loss, [tx, *leaves.values()])
-    got = {"x": tg[0].numpy(), **{k: g.numpy()
-                                  for k, g in zip(leaves, tg[1:])}}
-    want = {"x": np.asarray(jg[1]),
-            **{k: np.asarray(v) for k, v in _tree.items(jg[0])}}
-    return got, want
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("cf", [0.01, 1.25, 8.0])
-def test_apply_moe_gradients_match_reference(arch, cf):
-    """x, router, experts and shared expert: at cf 8 nothing drops, at
-    1.25 some entries do, at 0.01 every expert keeps one slot a row."""
-    jcfg, tcfg, jw, tw = moe_layer(arch, cf)
-    got, want = moe_grads(jcfg, tcfg, jw, tw, (2, 40, tcfg.d_model), 12)
-    assert set(got) == set(want)
-    for k in got:
-        grad_close(torch.tensor(got[k]), want[k], 1e-5, f"{arch} cf {cf} {k}")
-    assert float(np.abs(got["router"]).max()) > 0
-
-
-def test_a_dropped_entry_gives_its_token_no_gradient_through_its_expert():
-    """At capacity 1 an expert, most (token, expert) entries are dropped.
-    Pulling back from one token's output alone (no shared expert, no
-    auxiliary loss): no expert it was dropped from gets a gradient, nor
-    does any other token; a token whose every entry was dropped passes no
-    gradient to x or the router at all.  The overflow column the dropped
-    entries are sent to is cut off, so nothing leaks from it."""
-    arch = "qwen2-moe-a2.7b"
-    jcfg, tcfg, jw, tw = moe_layer(arch, 0.01, shared=False)
-    b, s, d = 1, 24, tcfg.d_model
-    x = torch.tensor(np.random.default_rng(3).standard_normal(
-        (b, s, d), dtype=np.float32))
-    assert tmoe._capacity(tcfg, s) == 1
-    _, gate, eidx = tmoe.route(tw, tcfg, x)
-    y, _ = tmoe.apply_moe(tw, tcfg, x)
-    served = (y[0].abs() > 0).any(-1)
-    # the entries kept: the first token of each expert (in token order)
-    first = {}
-    for t in range(s):
-        for e in eidx[0, t].tolist():
-            first.setdefault(e, t)
-    checked_dropped_token = False
-    for t in range(s):
-        kept = {e for e in eidx[0, t].tolist() if first[e] == t}
-        dropped = set(eidx[0, t].tolist()) - kept
-        leaves = {k: v.clone().requires_grad_(True)
-                  for k, v in _tree.items(tw)}
-        tx = x.clone().requires_grad_(True)
-        yt, _ = tmoe.apply_moe(_tree.unflatten(tw, leaves), tcfg, tx)
-        g = dict(zip(["x", *leaves], torch.autograd.grad(
-            yt[0, t].sum(), [tx, *leaves.values()])))
-        others = torch.ones(s, dtype=torch.bool)
-        others[t] = False
-        assert float(g["x"][0, others].abs().max()) == 0.0, t
-        for w in ("wi", "wg", "wo"):
-            for e in range(tcfg.n_experts):
-                nz = float(g[w][e].abs().max()) > 0
-                assert nz == (e in kept), (t, w, e, kept, dropped)
-        if not kept:
-            assert not bool(served[t])
-            assert float(g["x"].abs().max()) == 0.0
-            assert float(g["router"].abs().max()) == 0.0
-            checked_dropped_token = True
-    assert checked_dropped_token
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_router_gradient_with_exact_ties_matches_reference(arch):
-    """Router columns 0 and 1 equal: every token's two probabilities tie
-    exactly; both packages pick the lower expert (``lax.top_k`` and a
-    stable descending sort) and pass the gradient to the value picked."""
-    jcfg, tcfg, jw, tw = moe_layer(arch, 8.0, tie=True)
-    probs, _, eidx = tmoe.route(tw, tcfg, torch.randn(2, 8, tcfg.d_model))
-    assert torch.equal(probs[..., 0], probs[..., 1])
-    got, want = moe_grads(jcfg, tcfg, jw, tw, (2, 24, tcfg.d_model), 14)
-    for k in got:
-        grad_close(torch.tensor(got[k]), want[k], 1e-5, f"{arch} tie {k}")
-    assert float(np.abs(got["router"][:, :2]).max()) > 0
-
-
-def test_the_load_count_takes_no_gradient():
-    """Only the gate and the mean probability carry the router's
-    gradient: the auxiliary loss alone pulls back through ``me`` (the
-    per-expert count is a constant), equal to the reference's."""
-    jcfg, tcfg, jw, tw = moe_layer(MOE, 1.25)
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal((2, 16, tcfg.d_model), dtype=np.float32)
-    jg = jax.jit(jax.grad(lambda w, x: jmoe.apply_moe(w, jcfg, x)[1]))(
-        jw, jnp.asarray(x))
-    router = tw["router"].clone().requires_grad_(True)
-    _, aux = tmoe.apply_moe(dict(tw, router=router), tcfg, torch.tensor(x))
-    (g,) = torch.autograd.grad(aux, [router])
-    grad_close(g, np.asarray(jg["router"]), 1e-5, "router from aux alone")
-    probs, _, eidx = tmoe.route(tw, tcfg, torch.tensor(x))
-    ce = torch.nn.functional.one_hot(eidx, tcfg.n_experts).float().mean(
-        (0, 1, 2))
-    me = probs.mean((0, 1))
-    np.testing.assert_allclose(float(aux), float(tcfg.n_experts
-                                                 * (me * ce).sum()),
-                               rtol=1e-6)
-
-
-# ---------------------------------------------------------------------------
-# the selective scan's gradients
-# ---------------------------------------------------------------------------
-
-
-def combine(x, y):
-    (a1, b1), (a2, b2) = x, y
-    return a1 * a2, b1 * a2 + b2
-
-
-@pytest.mark.parametrize("num", [1, 2, 3, 7, 8, 13, 16])
-def test_associative_scan_gradients_match_reference(num):
-    """The recursion's gradient (slices, the interleave's slice writes and
-    the concatenations, through autograd) against ``jax.grad`` of
-    ``lax.associative_scan`` on the same pairs and cotangents."""
-    rng = np.random.default_rng(num)
-    a = rng.uniform(0.2, 1.0, (2, num, 3, 4)).astype(np.float32)
-    b = rng.standard_normal((2, num, 3, 4)).astype(np.float32)
-    ca, cb = (rng.standard_normal((2, num, 3, 4)).astype(np.float32)
-              for _ in range(2))
-
-    def jloss(a, b):
-        sa, sb = jax.lax.associative_scan(combine, (a, b), axis=1)
-        return (sa * ca).sum() + (sb * cb).sum()
-
-    want = jax.jit(jax.grad(jloss, argnums=(0, 1)))(jnp.asarray(a),
-                                                   jnp.asarray(b))
-    ta, tb = (torch.tensor(v).requires_grad_(True) for v in (a, b))
-    sa, sb = tmamba._associative_scan(ta, tb)
-    got = torch.autograd.grad((sa * torch.tensor(ca)).sum()
-                              + (sb * torch.tensor(cb)).sum(), [ta, tb])
-    for g, w, name in zip(got, want, ("a", "b")):
-        grad_close(g, w, 1e-5, f"num {num} d{name}")
-
-
-def mamba_layer(chunk):
-    jcfg, tcfg = configs(HYBRID, mamba_chunk=chunk)
-    _, _, jp, _ = models(HYBRID)
-    w = {k: np.asarray(v[0]) for k, v in jp["layers"]["sub0"]["mix"].items()}
-    return (jcfg, tcfg, jax.tree.map(jnp.asarray, w),
-            {k: torch.tensor(v) for k, v in w.items()})
-
-
-@pytest.mark.parametrize("chunk,s", [(4, 16), (8, 16), (5, 16), (7, 13),
-                                     (16, 9)])
-def test_selective_ssm_gradients_match_reference(chunk, s):
-    """Chunks that divide S and chunks that pad the last one; a nonzero
-    state carried in; cotangents on y and on the last state (which has
-    passed the padding, as in the reference)."""
-    jcfg, tcfg, jw, tw = mamba_layer(chunk)
-    d_in, n = tw["A_log"].shape
-    rng = np.random.default_rng(chunk * 100 + s)
-    x = rng.standard_normal((2, s, d_in), dtype=np.float32)
-    h0 = rng.standard_normal((2, d_in, n), dtype=np.float32) * 0.3
-    cy = rng.standard_normal((2, s, d_in), dtype=np.float32)
-    ch = rng.standard_normal((2, d_in, n), dtype=np.float32)
-
-    def jloss(w, x, h):
-        y, last = jmamba._selective_ssm(w, jcfg, x, h)
-        return (y * cy).sum() + (last * ch).sum()
-
-    jg = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jw, jnp.asarray(x),
-                                                    jnp.asarray(h0))
-    leaves = {k: tw[k].clone().requires_grad_(True)
-              for k in ("w_x", "w_dt", "dt_bias", "A_log", "D")}
-    tx, th = (torch.tensor(v).requires_grad_(True) for v in (x, h0))
-    y, last = tmamba._selective_ssm(leaves, tcfg, tx, th)
-    tg = torch.autograd.grad((y * torch.tensor(cy)).sum()
-                             + (last * torch.tensor(ch)).sum(),
-                             [tx, th, *leaves.values()])
-    want = {"x": jg[1], "h0": jg[2], **jg[0]}
-    got = dict(zip(["x", "h0", *leaves], tg))
-    for k in ("x", "h0", "w_x", "w_dt", "dt_bias", "A_log", "D"):
-        grad_close(got[k], want[k], 1e-5, f"chunk {chunk} S {s} {k}")
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [6, 19])
-def test_mamba_block_gradients_match_reference(dtype, s):
-    """The whole mixer (in-projection, causal conv, scan, gate,
-    out-projection): every weight's gradient and x's."""
-    jcfg, tcfg, jw, tw = mamba_layer(8)
-    jcfg, tcfg = (dataclasses.replace(c, dtype=dtype) for c in (jcfg, tcfg))
-    rng = np.random.default_rng(50 + s)
-    x = rng.standard_normal((2, s, tcfg.d_model), dtype=np.float32)
-    r = rng.standard_normal((2, s, tcfg.d_model), dtype=np.float32)
-    jx = jnp.asarray(x).astype(dtype)
-
-    def jloss(w, x):
-        return (jmamba.mamba_block(w, jcfg, x).astype(jnp.float32) * r).sum()
-
-    jg = reference(jax.grad(jloss, argnums=(0, 1)), dtype)(jw, jx)
-    leaves = {k: v.clone().requires_grad_(True) for k, v in tw.items()}
-    tx = torch.tensor(np.asarray(jx.astype(jnp.float32))).to(
-        tcfg.adtype).requires_grad_(True)
-    y = tmamba.mamba_block(leaves, tcfg, tx)
-    tg = torch.autograd.grad((y.float() * torch.tensor(r)).sum(),
-                             [tx, *leaves.values()])
-    want = {"x": jg[1], **jg[0]}
-    tol = 1e-5 if dtype == "float32" else 5e-2
-    for k, g in zip(["x", *leaves], tg):
-        grad_close(g, np.asarray(want[k], np.float32), tol,
-                   f"{dtype} S {s} {k}")
-
-
-@pytest.mark.parametrize("s", [1, 5, 13])
-def test_causal_conv_gradients_match_reference(s):
-    jcfg, tcfg, jw, tw = mamba_layer(8)
-    d_in = tw["conv"].shape[1]
-    rng = np.random.default_rng(s)
-    x = rng.standard_normal((2, s, d_in), dtype=np.float32)
-    r = rng.standard_normal((2, s, d_in), dtype=np.float32)
-    jg = jax.jit(jax.grad(lambda w, x: (jmamba._causal_conv(w, x) * r).sum(),
-                          argnums=(0, 1)))(jw, jnp.asarray(x))
-    leaves = {k: tw[k].clone().requires_grad_(True)
-              for k in ("conv", "conv_b")}
-    tx = torch.tensor(x).requires_grad_(True)
-    tg = torch.autograd.grad((tmamba._causal_conv(leaves, tx)
-                              * torch.tensor(r)).sum(),
-                             [tx, *leaves.values()])
-    for k, g in zip(("x", "conv", "conv_b"), tg):
-        grad_close(g, jg[1] if k == "x" else jg[0][k], 1e-5, f"S {s} {k}")

@@ -330,7 +330,8 @@ def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
     assert chip_smoke.select_paths("R") == ["R1", "R2", "R3"]
     assert chip_smoke.select_paths("s,R2,q") == ["Q", "R2", "S"]
     assert chip_smoke.select_paths("t,S") == ["S", "T"]
-    for bad in ("L3", "R4", "U", "P1", ""):
+    assert chip_smoke.select_paths("u,T") == ["T", "U1", "U2"]
+    for bad in ("L3", "R4", "U3", "V", "P1", ""):
         with pytest.raises(ValueError):
             chip_smoke.select_paths(bad)
 
@@ -366,7 +367,8 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
                      ("O3", "run_path_o3"), ("P", "run_path_p"),
                      ("Q", "run_path_q"), ("R1", "run_path_r1"),
                      ("R2", "run_path_r2"), ("R3", "run_path_r3"),
-                     ("S", "run_path_s"), ("T", "run_path_t")):
+                     ("S", "run_path_s"), ("T", "run_path_t"),
+                     ("U1", "run_path_u1"), ("U2", "run_path_u2")):
         monkeypatch.setattr(chip_smoke, fn, path(name))
     made = []
     monkeypatch.setattr(chip_smoke, "path_a_traffic",
