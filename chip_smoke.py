@@ -7,8 +7,8 @@ an autoscaled fleet of LLM replicas, training of a dense LLM and of
 RWKV-6, serving and training of the encoder-decoder family, serving of
 the VLM and of a dense model through the tailed decode, training of the
 MoE and hybrid Mamba families, the lag twin's six examples, the
-one-card dry run against the card, and the sharded steps) on one NVIDIA
-card.
+one-card dry run against the card, the sharded steps, and the decode
+over a cache sharded along its sequence on 16 ranks) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--paths L0,L1]
 
@@ -374,7 +374,24 @@ Run from a checkout of the repository on a machine with a CUDA card and
    for bit equal to the same steps with no rules, host ms a decode step
    each way, and ``ef_int8_psum`` over the group bit for bit equal to the
    stacked form; its launches join the flash and decode rows;
-28. each kernel's time at its path's shapes beside its bound, its plain
+28. path V, the decode over a cache sharded along its sequence (the
+   decode kernel's partial entry, ``decode_attention_partial``): V1 the
+   entry against its plain version at qwen3-8b ``decode_32k``'s shard on
+   the 16-way model axis (q [8, 8, 4, 128] over K/V [8, 8, 2048, 128]),
+   at hd 64 with one query row a KV head (whisper-large-v3's
+   self-attention) and at 8 query rows a KV head, at fills -1, 0, 1000,
+   2047 and 5000, eager and replayed from a CUDA graph, empty shards
+   exactly ``(-1e30, 0, 0)``; the 16 partials of one 32,768-position
+   cache merged in-process against ``decode_attention_fwd`` over the
+   whole cache; V2 qwen3-8b at full width (2 layers, 8 rows, a
+   32,768-position cache of seeded K/V filled to 29,000) decoding on 16
+   ranks of torch's threaded process group on the one card, a (1, 16)
+   mesh under ``serve_rules()`` with the cache's sequence on the model
+   axis, in float32 and bfloat16, untailed and with a 256-row tail
+   flushed once, each step's logits held against the same steps
+   unsharded, every rank launching the entry and the plain version never
+   running on the card;
+29. each kernel's time at its path's shapes beside its bound, its plain
    version's time and, for the attention kernels, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (``library_ms``,
    a yardstick the port never calls; for the flash backward, the
@@ -402,7 +419,7 @@ takes all its parts), and prints the kernel rows they make whole (the
 WKV backward's, after L0; the three attention kernels' at whisper's
 calls, after O0; the tailed decode's, after Q; the flash forward's at
 R1's call, after R1; the flash forward's and the decode kernel's at T's
-calls, after T) and the last line.
+calls, after T; the partial decode entry's, after V) and the last line.
 
 Kernel launch counts are zeroed just before each path and read just
 after it; a path that launched none of its kernels fails.  The line
@@ -1179,7 +1196,8 @@ def check_ptxas() -> None:
 #: the serving paths' kernel wrappers: each phase of a serving path
 #: launches its own kernel and none of the others
 SERVING_KERNELS = ("flash_attention_fwd", "decode_attention_fwd",
-                   "decode_attention_tailed_fwd", "rwkv6_wkv_fwd")
+                   "decode_attention_tailed_fwd", "decode_attention_partial",
+                   "rwkv6_wkv_fwd")
 
 
 def _heads(cfg) -> str:
@@ -7247,13 +7265,543 @@ def u_rows(out) -> list:
 
 
 
+#: path V: a decode over a cache sharded along its sequence (``serve_rules``
+#: puts ``cache_seq`` on the model axis where the KV heads do not divide
+#: it), at qwen3-8b ``decode_32k``'s layout on the reference's 16-way model
+#: axis: 16 ranks on the one card, each holding 2048 of the 32,768
+#: positions of a V_BATCH-row cache
+V_RANKS = 16
+V_CACHE = 32768
+V_BATCH = 8
+#: V1's local fills on one shard: empty, one position, partly filled,
+#: full, and past the shard's end
+V_FILLS = (-1, 0, 1000, 2047, 5000)
+#: V2's starting fill and steps: shards 0-13 full, shard 14 partly filled
+#: (its positions 0-328), shard 15 empty
+V_START, V_STEPS = 29000, 3
+#: V2's tailed run: window, starting fill and steps.  At 28,670 the main
+#: cache holds 28,416 rows (shard 13 partly filled, 14 and 15 empty) and
+#: the tail 254; the second step reaches 28,672, a multiple of the window,
+#: and the tail is flushed into shard 13, which it fills
+V_WINDOW, V_TAIL_START, V_TAIL_STEPS = 256, 28670, 4
+#: V2's logits against the unsharded step's, of the largest logit: the
+#: repo's logits tolerance in float32, the bf16 decode tolerance in bf16
+V_LOGIT_TOL = {"float32": 1e-4, "bfloat16": ATTN_TOL["bfloat16"]}
+#: seconds a V2 run's rank threads may take before the path fails
+V_TIMEOUT = 300
+
+
+def merge_partials(parts):
+    """``models.attention._merge``'s arithmetic over shards held in one
+    process: the row max of all, then the sums and outputs rescaled to it
+    and added.  Returns the merged ``(m, l, acc)``."""
+    import torch
+
+    mg = torch.stack([m for m, _, _ in parts]).amax(0)
+    scales = [torch.exp(m - mg) for m, _, _ in parts]
+    acc = sum(a * c[..., None] for (_, _, a), c in zip(parts, scales))
+    l_ = sum(lp * c for (_, lp, _), c in zip(parts, scales))
+    return mg, l_, acc
+
+
+def partial_close(got, want, dtype, what: str) -> float:
+    """A partial ``(m, l, acc)`` held against its plain version: m, and l
+    and acc divided by the plain l of their row (the output's scale, what
+    the merge hands on), at ATTN_TOL; a row with nothing attended (plain
+    l = 0) must be ``(NEG_INF, 0, 0)`` exactly.  Returns the largest error
+    of the three."""
+    import torch
+
+    from repro_torch.kernels.ref import NEG_INF
+
+    (m, l_, acc), (mw, lw, accw) = got, want
+    empty = lw == 0
+    _require(bool((m[empty] == NEG_INF).all() and (l_[empty] == 0).all()
+                  and (acc[empty] == 0).all()),
+             f"{what}: an empty row is not (NEG_INF, 0, 0)")
+    scale = torch.where(empty, 1.0, lw)
+    return max(_attn_close(m, mw, dtype, f"{what} m"),
+               _attn_close(l_ / scale, lw / scale, dtype, f"{what} l"),
+               _attn_close(acc / scale[..., None], accw / scale[..., None],
+                           dtype, f"{what} acc"))
+
+
+def check_decode_partial(dev, gen, b, kv, g, s, hd, fills):
+    """The decode kernel's partial entry against its plain version at q
+    [b, kv, g, hd] over one shard's K/V [b, kv, s, hd] at each local
+    fill, float32 and bfloat16; then one call captured in a CUDA graph and
+    replayed at the same fills set in place on the card."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        q = _normal(gen, (b, kv, g, hd), dtype, dev)
+        k = _normal(gen, (b, kv, s, hd), dtype, dev)
+        v = _normal(gen, (b, kv, s, hd), dtype, dev)
+        for fill in fills:
+            clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+            got = da.decode_attention_partial(q, k, v, clen)
+            want = da.decode_attention_partial_plain(q, k, v, clen)
+            torch.cuda.synchronize()
+            err = partial_close(got, want, dtype, f"decode_attention_partial"
+                                f" q={[b, kv, g, hd]} S_l={s} fill={fill} "
+                                f"{dtype}")
+            print(f"check decode_attention_partial q=[{b}, {kv}, {g}, {hd}] "
+                  f"S_l={s} fill={fill} {dtype}: max_abs_err={err!r} (m, "
+                  f"and l, acc over the plain l)")
+            worst = max(worst, err)
+        clen = torch.tensor(fills[0], dtype=torch.int32, device=dev)
+        call = lambda: da.decode_attention_partial(  # noqa: E731
+            q, k, v, clen)
+        side = side_stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = call()
+        for fill in fills:
+            clen.fill_(fill)
+            graph.replay()
+            torch.cuda.synchronize()
+            worst = max(worst, partial_close(
+                got, da.decode_attention_partial_plain(q, k, v, clen), dtype,
+                f"decode_attention_partial graph replay at fill={fill} "
+                f"{dtype}"))
+        print(f"check decode_attention_partial q=[{b}, {kv}, {g}, {hd}] "
+              f"S_l={s} {dtype}: one call captured in a CUDA graph, replayed "
+              f"at fills {list(fills)} set on the card: within "
+              f"{ATTN_TOL[dtype]}")
+        del q, k, v, got, graph
+    return worst
+
+
+def check_partial_merge(dev, gen, fills):
+    """The 16 partials of one V_CACHE-position cache (q [V_BATCH, 8, 4,
+    128], qwen3-8b's decode on V_RANKS shards), merged in-process with
+    :func:`merge_partials`, against ``decode_attention_fwd`` over the
+    whole cache at each fill, float32 and bfloat16."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    b, kv, g, hd, s_l = V_BATCH, 8, 4, 128, V_CACHE // V_RANKS
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        q = _normal(gen, (b, kv, g, hd), dtype, dev)
+        k = _normal(gen, (b, kv, V_CACHE, hd), dtype, dev)
+        v = _normal(gen, (b, kv, V_CACHE, hd), dtype, dev)
+        for fill in fills:
+            clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+            m, l_, acc = merge_partials([da.decode_attention_partial(
+                q, k[:, :, j * s_l:(j + 1) * s_l],
+                v[:, :, j * s_l:(j + 1) * s_l], clen - j * s_l)
+                for j in range(V_RANKS)])
+            got = (acc / l_.clamp(min=1e-30)[..., None]).to(q.dtype)
+            want = da.decode_attention_fwd(q, k, v, clen)
+            torch.cuda.synchronize()
+            err = _attn_close(got, want, dtype, f"decode_attention_partial "
+                              f"x{V_RANKS} merged at fill={fill} {dtype}")
+            print(f"check decode_attention_partial: {V_RANKS} shards of "
+                  f"[{b}, {kv}, {V_CACHE}, {hd}] merged in-process at fill="
+                  f"{fill} {dtype} against decode_attention_fwd over the "
+                  f"whole cache: max_abs_err={err!r}")
+            worst = max(worst, err)
+        del q, k, v
+    return worst
+
+
+def run_path_v1(dev, seed) -> float:
+    """V1: the partial entry at qwen3-8b ``decode_32k``'s shard on the
+    16-way model axis (q [8, 8, 4, 128] over K/V [8, 8, 2048, 128]), at
+    whisper-large-v3's self-attention (20 KV heads of one query head, hd
+    64) and at 8 query rows a KV head (deepseek-67b, qwen2-vl-72b), at
+    V_FILLS; then the 16-shard merge.  Returns the largest error."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    s_l = V_CACHE // V_RANKS
+    return max(
+        check_decode_partial(dev, gen, V_BATCH, 8, 4, s_l, 128, V_FILLS),
+        check_decode_partial(dev, gen, V_BATCH, 20, 1, s_l, 64, V_FILLS),
+        check_decode_partial(dev, gen, V_BATCH, 8, 8, s_l, 128, V_FILLS),
+        check_partial_merge(dev, gen, (0, V_START, V_CACHE - 1)))
+
+
+@contextlib.contextmanager
+def threaded_ranks():
+    """torch's threaded process group (``multi_threaded_pg``, which
+    DTensor's own tests run on) installed for the block: ranks are threads
+    of this process, each seeing its own process groups."""
+    import torch
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mt._install_threaded_pg()
+    try:
+        yield
+    finally:
+        mt.ProcessLocalGroup.reset()
+        mt._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+
+
+def run_on_ranks(n: int, fn, dev, timeout: float = V_TIMEOUT) -> list:
+    """``fn(rank, mesh)`` on ``n`` threads, each rank ``rank`` of a threaded
+    group of ``n`` (inside :func:`threaded_ranks`) with its (1, n) mesh
+    ``("data", "model")`` on ``dev``, DTensor's implicit replication on.
+    Returns the results by rank; re-raises a rank's failure; fails if a
+    rank has not finished within ``timeout`` seconds."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+
+    store = dist.HashStore()
+    results, errors = [None] * n, []
+
+    def rank_main(rank):
+        dist.init_process_group("threaded", rank=rank, world_size=n,
+                                store=store)
+        try:
+            DTensor._op_dispatcher._allow_implicit_replication = True
+            mesh = DeviceMesh(dev.type, torch.arange(n).reshape(1, n),
+                              mesh_dim_names=("data", "model"))
+            results[rank] = fn(rank, mesh)
+        except BaseException as e:      # noqa: B036 (wakes the other ranks)
+            errors.append((rank, e))
+            mt.ProcessLocalGroup.exception_handle(e)
+        finally:
+            try:
+                dist.destroy_process_group()
+            except AttributeError:
+                # torch 2.11's threaded world has no ``comms`` list for
+                # destroy_process_group to walk; the rank's groups live in
+                # its thread's own world and end with it
+                pass
+
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True)
+               for r in range(n)]
+    for t in threads:
+        t.start()
+    end = time.perf_counter() + timeout
+    for t in threads:
+        t.join(max(0.0, end - time.perf_counter()))
+    DTensor._op_dispatcher._allow_implicit_replication = False
+    _require(not any(t.is_alive() for t in threads),
+             f"{n} rank threads: not finished within {timeout} s")
+    real = [(r, e) for r, e in errors if not isinstance(e, SystemExit)]
+    if real or errors:
+        raise (real or errors)[0][1]
+    return results
+
+
+def place_shards(tree, specs, mesh, rules):
+    """``tree`` (full tensors every rank shares, as threads of one process)
+    placed on ``mesh`` by its logical specs, each rank copying only its own
+    shard: ``DTensor.from_local`` over the rank's chunk (a replicated leaf
+    keeps the shared tensor).  ``distribute_tree`` would scatter from rank
+    0 after every rank had split the whole tensor into contiguous chunks,
+    a full copy a rank."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.models.sharding import spec_map, spec_tree_to_shardings
+
+    coord = mesh.get_coordinate()
+
+    def place(spec, t, pl):
+        local = t
+        for j, p in enumerate(pl):
+            if isinstance(p, Shard):
+                local = local.chunk(mesh.size(j), dim=p.dim)[coord[j]]
+        return DTensor.from_local(local.contiguous(), mesh, pl,
+                                  run_check=False)
+
+    return spec_map(place, specs, tree,
+                    spec_tree_to_shardings(specs, tree, mesh, rules))
+
+
+@contextlib.contextmanager
+def entries_by_rank(rank_of: dict):
+    """A spy on ``_build.launch`` (which still launches): a Counter of
+    ``(rank, entry point)``, the rank from ``rank_of`` by thread."""
+    import collections
+    import threading
+
+    from repro_torch.kernels import _build
+
+    seen = collections.Counter()
+    launch = _build.launch
+
+    def spy(name, *args):
+        seen[(rank_of.get(threading.get_ident()), name)] += 1
+        return launch(name, *args)
+
+    _build.launch = spy
+    try:
+        yield seen
+    finally:
+        _build.launch = launch
+
+
+@contextlib.contextmanager
+def plain_partial_on_card():
+    """A spy on ``decode_attention_partial_plain``: the calls it took with
+    tensors off the CPU (there must be none)."""
+    from repro_torch.kernels import decode_attention as da
+
+    seen, plain = [], da.decode_attention_partial_plain
+
+    def spy(q, *args):
+        if q.device.type != "cpu":
+            seen.append(q.device)
+        return plain(q, *args)
+
+    da.decode_attention_partial_plain = spy
+    try:
+        yield seen
+    finally:
+        da.decode_attention_partial_plain = plain
+
+
+def v2_run(dev, seed, dtype: str, window: int) -> dict:
+    """qwen3-8b at full width, U_LAYERS layers, in ``dtype``: a V_BATCH-row
+    cache of V_CACHE positions filled with seeded K/V (and, tailed, its
+    tail) to V_START (V_TAIL_START), then V_STEPS (V_TAIL_STEPS) decode
+    steps sharded on V_RANKS rank threads under ``serve_rules()`` on a (1,
+    V_RANKS) mesh, the cache's sequence on the model axis, and the same
+    steps unsharded on the same weights and cache; tailed, the tail is
+    flushed whenever ``cache_len`` reaches a multiple of the window (known
+    on the host), as path Q does.  Every rank must launch the partial
+    entry one a layer a step (two tailed: the main shards and the local
+    tail) and the plain version must never run on the card; each step's
+    logits within V_LOGIT_TOL of the largest unsharded logit."""
+    import dataclasses
+    import threading
+
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.rules import serve_rules
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import (decode_state_specs, flush_kv_tail,
+                                    init_decode_state, init_params,
+                                    param_specs)
+    from repro_torch.models.sharding import axis_rules
+
+    start, steps = (V_TAIL_START, V_TAIL_STEPS) if window else (V_START,
+                                                                V_STEPS)
+    cfg = dataclasses.replace(configs.get(LLM), n_layers=U_LAYERS,
+                              dtype=dtype, param_dtype=dtype,
+                              decode_tail_window=window)
+    tag = f"path V2 {dtype}" + (f" tailed (window {window})" if window
+                                else "")
+    gen = torch.Generator(dev).manual_seed(seed)
+    params = init_params(cfg, seed=seed, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (steps, V_BATCH), generator=gen,
+                         device=dev)
+    src = init_decode_state(cfg, V_BATCH, V_CACHE, dev)
+    for part in ("kv", "tail"):
+        for t in src.get(part, {}).values():
+            t.normal_(generator=gen)
+    src["cache_len"].fill_(start)
+    step = make_serve_step(cfg, dev)
+    rules = serve_rules()
+    specs = decode_state_specs(cfg)
+    rank_of = {}
+
+    def flush_due(t: int) -> bool:
+        return bool(window) and (start + t + 1) % window == 0
+
+    def rank_run(rank, mesh):
+        rank_of[threading.get_ident()] = rank
+        with axis_rules(mesh, rules), torch.no_grad():
+            dp = place_shards(params, param_specs(cfg), mesh, rules)
+            mine = dict(src, cache_len=src["cache_len"].clone())
+            if window:
+                mine["tail"] = {k: t.clone() for k, t in src["tail"].items()}
+            ds = place_shards(mine, specs, mesh, rules)
+            pl = tuple(ds["kv"]["k"].placements)
+            outs, ms = [], []
+            for t in range(steps):
+                batch = place_shards({"inputs": toks[t]},
+                                     {"inputs": ("batch",)}, mesh, rules)
+                _sync(dev)
+                t0 = time.perf_counter()
+                logits, ds = step(dp, ds, batch)
+                _sync(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if flush_due(t):
+                    ds = flush_kv_tail(cfg, ds)
+                outs.append(logits.full_tensor())
+        return dict(placements=pl, logits=outs, ms=ms)
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with threaded_ranks(), entries_by_rank(rank_of) as seen, \
+            plain_partial_on_card() as on_card:
+        ranks = run_on_ranks(V_RANKS, rank_run, dev)
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    per = U_LAYERS * steps * (2 if window else 1)
+    entry = "decode_attention_partial_" + ("bf16" if dtype == "bfloat16"
+                                           else "f32")
+    by_rank = {r: seen[(r, entry)] for r in range(V_RANKS)}
+    _require(all(n == per for n in by_rank.values()),
+             f"{tag}: partial entry launches by rank {by_rank}, want {per} "
+             f"each")
+    _require(not on_card, f"{tag}: the plain partial ran on {on_card}")
+    others = {k: n for k, n in counts.items()
+              if n and k != "decode_attention_partial"}
+    _require(counts["decode_attention_partial"] == V_RANKS * per
+             and not others,
+             f"{tag}: launches {counts}, want decode_attention_partial "
+             f"{V_RANKS * per} and no other")
+    launches = counts["decode_attention_partial"]
+    pl = ranks[0]["placements"]
+    _require(all(r["placements"] == pl for r in ranks)
+             and pl[1] == Shard(3) and pl[0] != Shard(3),
+             f"{tag}: cache placements {pl}, want the sequence (dim 3) on "
+             f"the model axis")
+
+    # the same steps unsharded, on the same weights and cache
+    kernel = "decode_attention_tailed_fwd" if window else \
+        "decode_attention_fwd"
+    _build.reset_launches()
+    state, plain, ms_plain = src, [], []
+    with torch.no_grad():
+        for t in range(steps):
+            _sync(dev)
+            t1 = time.perf_counter()
+            logits, state = step(params, state, {"inputs": toks[t]})
+            _sync(dev)
+            ms_plain.append((time.perf_counter() - t1) * 1e3)
+            if flush_due(t):
+                state = flush_kv_tail(cfg, state)
+            plain.append(logits)
+    _launched(kernel, U_LAYERS * steps, tag + " unsharded")
+    errs = []
+    for t, want in enumerate(plain):
+        scale = float(want.float().abs().max())
+        worst = max(float((r["logits"][t].float() - want.float()).abs().max())
+                    for r in ranks)
+        errs.append(worst / scale)
+    _require(max(errs) <= V_LOGIT_TOL[dtype],
+             f"{tag}: logits differ from the unsharded steps' by {errs} of "
+             f"the largest, over {V_LOGIT_TOL[dtype]}")
+    ms = ranks[0]["ms"]
+    print(f"{card_line()}: {tag} ({cfg.name}, {U_LAYERS} layers, {V_BATCH} "
+          f"rows, {V_CACHE} positions from fill {start}, {steps} steps, "
+          f"cache placements {pl}): {V_RANKS} rank threads, every rank "
+          f"launched {entry} {per} times, the plain version never; logits "
+          f"against the unsharded steps, of the largest: {errs!r} (tol "
+          f"{V_LOGIT_TOL[dtype]}); host ms a step {ms!r} sharded (rank 0, "
+          f"all ranks' steps in one process), {ms_plain!r} unsharded; "
+          f"wall_s {wall!r} for the sharded run")
+    del params, src, state, ranks
+    return dict(launches=launches, errs=errs, ms=ms, ms_plain=ms_plain,
+                placements=str(pl), wall_s=wall)
+
+
+def run_path_v(dev, seed) -> dict:
+    """Path V: V1 the partial entry against its plain version and the
+    16-shard merge; V2 the sequence-sharded decode step on V_RANKS rank
+    threads on the one card, float32 and bfloat16, untailed and tailed."""
+    v1 = run_path_v1(dev, seed)
+    v2 = {f"{dtype}{'_tailed' if w else ''}": v2_run(dev, seed, dtype, w)
+          for dtype in ("float32", "bfloat16") for w in (0, V_WINDOW)}
+    return dict(v1_err=v1, v2=v2,
+                decode_attention_partial=sum(r["launches"]
+                                             for r in v2.values()))
+
+
+def v_row(dev, seed, out) -> dict:
+    """The partial entry's row at V1's qwen3-8b shard (q [8, 8, 4, 128]
+    over K/V [8, 8, 2048, 128], bfloat16, fill 2047: the whole shard),
+    timed beside its plain version and beside one call that gives the same
+    merge inputs, ``_scaled_dot_product_efficient_attention`` with its
+    log-sum-exp (the G query rows as its query length); float32 as a
+    ``calls`` entry; the launches of path V2."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    b, kv, g, hd, s_l = V_BATCH, 8, 4, 128, V_CACHE // V_RANKS
+    fill = s_l - 1
+    row = None
+    for dtype in ("bfloat16", "float32"):
+        q = _normal(gen, (b, kv, g, hd), dtype, dev)
+        k = _normal(gen, (b, kv, s_l, hd), dtype, dev)
+        v = _normal(gen, (b, kv, s_l, hd), dtype, dev)
+        clen = torch.tensor(fill, dtype=torch.int32, device=dev)
+        kern = lambda: da.decode_attention_partial(  # noqa: E731
+            q, k, v, clen)
+        plain = lambda: da.decode_attention_partial_plain(  # noqa: E731
+            q, k, v, clen)
+        efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+        lib = lambda: efficient(q, k, v, None, True)  # noqa: E731
+        err = partial_close(kern(), plain(), dtype,
+                            f"decode_attention_partial at V1's call {dtype}")
+        m, l_, acc = kern()
+        o, lse = lib()[:2]
+        _require(torch.allclose(o.float(), (acc / l_[..., None]).float(),
+                                rtol=2e-2, atol=2e-2)
+                 and torch.allclose(lse[..., :g].float(),
+                                    (m + torch.log(l_)).float(), rtol=2e-2,
+                                    atol=2e-2),
+                 f"decode_attention_partial and the efficient attention "
+                 f"with its log-sum-exp disagree ({dtype})")
+        size = q.element_size()
+        bnd, by = bound_ms(size * (q.numel() + 2 * k.numel())
+                           + 4 * (2 * b * kv * g + b * kv * g * hd),
+                           4 * b * kv * g * (fill + 1) * hd,
+                           PEAK_FLOPS_BF16 if dtype == "bfloat16"
+                           else PEAK_FLOPS_F32)
+        figures = dict(ms=graph_ms(kern, 200), plain_ms=graph_ms(plain, 50),
+                       bound_ms=bnd, bound_by=by,
+                       library_ms=graph_ms(lib, 200),
+                       wrapper_ms=cuda_ms(kern, 200)[0], max_abs_err=err)
+        if row is None:
+            n = out["V"]["decode_attention_partial"] if "V" in out else 0
+            row = dict(
+                name="decode_attention_partial", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/models/attention.py:263",
+                replaces_note="the reference's jnp decode_attention under "
+                "GSPMD with its K/V sharded along cache_seq (no Pallas "
+                "kernel), run on the decode kernel's partial entry points "
+                "decode_attention_partial_{f32,bf16}",
+                launches=n, launches_by_path={"V2": n}, **figures,
+                calls=[],
+                design="the decode kernel's splits over the shard's filled "
+                "positions, the fill read on the card; a merge variant "
+                "combines the splits by log-sum-exp rescaling and writes "
+                "the shard's f32 (m, l, acc) undivided, m = -1e30 where "
+                "nothing is attended")
+            if "V" in out:
+                row["max_abs_err"] = max(err, out["V"]["v1_err"])
+        else:
+            row["calls"].append(dict(at="V1's call in float32", **figures))
+        del q, k, v, kern, plain, lib
+    return row
+
+
 #: ``--paths``' names in the order of the full run: a letter names the
 #: path with all its parts, C1, C2, J1, J2, K0-K3, L0-L2, O0-O3 and R1-R3
 #: one part
 PATH_NAMES = ("A", "B", "C1", "C2", "F", "G", "H", "I", "D", "E", "M", "N",
               "J1", "J2", "K0", "K1", "K2", "K3", "L0", "L1", "L2", "O0",
               "O1", "O2", "O3", "P", "Q", "R1", "R2", "R3", "S", "T", "U1",
-              "U2")
+              "U2", "V")
 
 
 def select_paths(spec: str):
@@ -7265,7 +7813,7 @@ def select_paths(spec: str):
            and not any(p.startswith(x) for p in PATH_NAMES)]
     if bad or not want:
         raise ValueError(f"--paths {spec!r}: not paths {bad}; name some of "
-                         f"{', '.join(PATH_NAMES)} or a letter A-U")
+                         f"{', '.join(PATH_NAMES)} or a letter A-V")
     return [p for p in PATH_NAMES
             if any(p == x or (len(x) == 1 and p.startswith(x))
                    for x in want)]
@@ -7327,6 +7875,7 @@ def run_named_paths(dev, seed, names) -> dict:
         "T": lambda: run_path_t(dev, seed),
         "U1": lambda: run_path_u1(dev, seed),
         "U2": lambda: run_path_u2(dev, seed),
+        "V": lambda: run_path_v(dev, seed),
     }
     for i, name in enumerate(names):
         t0 = time.perf_counter()
@@ -7739,6 +8288,7 @@ def kernel_rows(dev, seed, out, errs) -> list:
                               errs["decode_attention_tailed_fwd"]))
     merge_rows(kernels, t_rows(out["T"]))
     merge_rows(kernels, u_rows(out))
+    kernels.append(v_row(dev, seed, out))
     return kernels
 
 
@@ -7809,7 +8359,7 @@ def main(argv=None) -> int:
                          "L0,L1 or K,L; a letter takes all its parts): "
                          "the build and its checks, the named paths, the "
                          "kernel rows they make whole, and a last line "
-                         "that names them; default: every path A-U, "
+                         "that names them; default: every path A-V, "
                          "every kernel checked and every kernel row")
     args = ap.parse_args(argv)
     try:
@@ -7890,6 +8440,8 @@ def _main(args, names, full, dev) -> int:
             kernels += [r for r in t_rows(out["T"]) if "ms" in r]
         if "T" in out and "U2" in out:
             merge_rows(kernels, u_rows(out))
+        if "V" in out:
+            kernels.append(v_row(dev, args.seed, out))
     print_rows(kernels)
     if full:
         z = torch.zeros(1, device=dev)

@@ -92,6 +92,12 @@ SIGNATURES = {
                                     _I, _I, _I, _I, _I, _P),
     "decode_attention_tailed_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _I, _I, _P),
+    # q, k, v (one shard of the cache), fill (device int32), m, l, acc
+    # (f32), f32 partials, B, KV, G, S, hd, splits, stream
+    "decode_attention_partial_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _I, _P),
+    "decode_attention_partial_bf16": (_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _P),
     # r, k, v, w, u, s0, out, s_last (may alias s0), B, T, H, hd, stream
     "rwkv6_wkv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # the same and the checkpoints (B, H, ceil(T / chunk), hd, hd), chunk,

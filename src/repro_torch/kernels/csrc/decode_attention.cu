@@ -35,6 +35,17 @@
 //     log-sum-exp rescaling and writes the output in the input type (zeros
 //     when n = 0).
 //
+// The partial call (decode_attention_partial_*; one shard of a decode over
+// a cache sharded along its sequence, the reference's jnp decode_attention
+// under GSPMD, src/repro/models/attention.py:263-302, which has no Pallas
+// kernel) takes the shard's local fill in place of cache_len (positions
+// 0..fill of the shard: none below 0, all of them at fill >= S) and runs
+// the same split kernel; its merge combines the splits by the same
+// rescaling but writes the shard's f32 (m, l, acc) undivided, for the
+// shards to merge across ranks.  A shard with no position attended gets
+// the finite m = -1e30 (the reference's NEG_INF) with l = acc = 0, never
+// -inf: a merge over shards that are all empty then takes exp(0) * 0.
+//
 // The tailed call (decode_attention_tailed_*; the reference's jnp
 // decode_attention_tailed, src/repro/models/attention.py:185, which has no
 // Pallas kernel) attends main[0:main_len] ++ tail[0:tail_len] inclusive
@@ -62,6 +73,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxGroup = 8;        // query rows a block keeps
 constexpr int kMergeThreads = 256;
+constexpr float kNegInf = -1e30f;   // an empty shard's m (ref.NEG_INF)
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000);
@@ -355,11 +367,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 // out[b, kv, g, :] = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30) with
 // w_s = exp(m_s - max_s m_s) (0 for an empty split): one block per (batch
 // row, kv head), the weights first (a thread per (split, row), coalesced),
-// then a thread per output element over the splits
-template <typename T, int HD>
+// then a thread per output element over the splits.  kPartial: the f32
+// (m, l, acc) of the merged splits instead, acc undivided, into out (acc),
+// m_out and l_out; m = kNegInf where no split holds a position
+template <typename T, int HD, bool kPartial>
 __global__ void __launch_bounds__(kMergeThreads)
-decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int G,
-                    int splits, long long rows) {
+decode_merge_kernel(const float* __restrict__ ws, void* __restrict__ out,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    int G, int splits, long long rows) {
   extern __shared__ float s_w[];                      // [splits][G], [G]
   float* s_l = s_w + splits * G;
   const long long base = (long long)blockIdx.x * splits * G;
@@ -384,7 +399,13 @@ decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int G,
     float l = 0.0f;
     for (int s = 0; s < splits; ++s)
       l = fmaf(ws_l[s * G + g], s_w[s * G + g], l);
-    s_l[g] = fmaxf(l, 1e-30f);
+    if constexpr (kPartial) {
+      const long long r = (long long)blockIdx.x * G + g;
+      m_out[r] = s_l[g] == neg_inf() ? kNegInf : s_l[g];
+      l_out[r] = l;
+    } else {
+      s_l[g] = fmaxf(l, 1e-30f);
+    }
   }
   __syncthreads();
   for (int e = tid; e < G * HD; e += kMergeThreads) {
@@ -399,15 +420,22 @@ decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int G,
     }
     for (; s < splits; ++s)
       a[0] = fmaf(ws_acc[(long long)s * G * HD + e], s_w[s * G + g], a[0]);
-    store(&o[(long long)blockIdx.x * G * HD + e],
-          ((a[0] + a[1]) + (a[2] + a[3])) / s_l[g]);
+    const long long at = (long long)blockIdx.x * G * HD + e;
+    const float sum = (a[0] + a[1]) + (a[2] + a[3]);
+    if constexpr (kPartial)
+      static_cast<float*>(out)[at] = sum;
+    else
+      store(&static_cast<T*>(out)[at], sum / s_l[g]);
   }
 }
 
+// m_out, l_out null: the output o in T; else the partial (m, l, acc = o) in
+// f32
 template <typename T, int HD, int GB>
 int launch(const T* q, const T* k, const T* v, const T* kt, const T* vt,
-           const int* cache_len, T* o, float* ws, int B, int KV, int G,
-           int S, int W, int splits, cudaStream_t stream) {
+           const int* cache_len, void* o, float* m_out, float* l_out,
+           float* ws, int B, int KV, int G, int S, int W, int splits,
+           cudaStream_t stream) {
   using P = Plan<T, HD, GB>;
   auto kernel = decode_split_kernel<T, HD, GB>;
   if (P::kSmem > 48 * 1024) {
@@ -421,35 +449,42 @@ int launch(const T* q, const T* k, const T* v, const T* kt, const T* vt,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_merge_kernel<T, HD>
-      <<<B * KV, kMergeThreads, 4 * (splits + 1) * G, stream>>>(
-          ws, o, G, splits, (long long)B * KV * splits * G);
+  const long long rows = (long long)B * KV * splits * G;
+  const int merge_smem = 4 * (splits + 1) * G;
+  if (m_out != nullptr)
+    decode_merge_kernel<T, HD, true>
+        <<<B * KV, kMergeThreads, merge_smem, stream>>>(
+            ws, o, m_out, l_out, G, splits, rows);
+  else
+    decode_merge_kernel<T, HD, false>
+        <<<B * KV, kMergeThreads, merge_smem, stream>>>(
+            ws, o, nullptr, nullptr, G, splits, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
 int by_group(const T* q, const T* k, const T* v, const T* kt, const T* vt,
-             const int* cache_len, T* o, float* ws, int B, int KV, int G,
-             int S, int W, int splits, cudaStream_t stream) {
-  if (G <= 1)
-    return launch<T, HD, 1>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S,
-                            W, splits, stream);
-  if (G <= 2)
-    return launch<T, HD, 2>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S,
-                            W, splits, stream);
-  if (G <= 4)
-    return launch<T, HD, 4>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S,
-                            W, splits, stream);
-  return launch<T, HD, kMaxGroup>(q, k, v, kt, vt, cache_len, o, ws, B, KV,
-                                  G, S, W, splits, stream);
+             const int* cache_len, void* o, float* m_out, float* l_out,
+             float* ws, int B, int KV, int G, int S, int W, int splits,
+             cudaStream_t stream) {
+  auto run = [&](auto gb) {
+    return launch<T, HD, decltype(gb)::value>(q, k, v, kt, vt, cache_len, o,
+                                              m_out, l_out, ws, B, KV, G, S,
+                                              W, splits, stream);
+  };
+  if (G <= 1) return run(std::integral_constant<int, 1>());
+  if (G <= 2) return run(std::integral_constant<int, 2>());
+  if (G <= 4) return run(std::integral_constant<int, 4>());
+  return run(std::integral_constant<int, kMaxGroup>());
 }
 
-// W = 0: the cache alone (kt, vt unused); W > 0: the tailed call
+// W = 0: the cache alone (kt, vt unused); W > 0: the tailed call; m_out
+// and l_out given: the partial call (o its f32 acc)
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* kt,
-             const void* vt, const int* cache_len, void* o, void* ws, int B,
-             int KV, int G, int S, int W, int hd, int splits,
-             cudaStream_t stream) {
+             const void* vt, const int* cache_len, void* o, void* m_out,
+             void* l_out, void* ws, int B, int KV, int G, int S, int W,
+             int hd, int splits, cudaStream_t stream) {
   if (B <= 0 || KV <= 0 || G <= 0) return static_cast<int>(cudaGetLastError());
   if (S <= 0 || W < 0 || splits <= 0 || splits > S)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -457,8 +492,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* kt,
     return by_group<T, decltype(hd_tag)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(kt),
-        static_cast<const T*>(vt), cache_len, static_cast<T*>(o),
-        static_cast<float*>(ws), B, KV, G, S, W, splits, stream);
+        static_cast<const T*>(vt), cache_len, o, static_cast<float*>(m_out),
+        static_cast<float*>(l_out), static_cast<float*>(ws), B, KV, G, S, W,
+        splits, stream);
   };
   switch (hd) {
     case 16: return run(std::integral_constant<int, 16>());
@@ -478,8 +514,8 @@ extern "C" int decode_attention_f32(const void* q, const void* k,
                                     void* o, void* ws, int B, int KV, int G,
                                     int S, int hd, int splits,
                                     cudaStream_t stream) {
-  return dispatch<float>(q, k, v, nullptr, nullptr, cache_len, o, ws, B, KV,
-                         G, S, 0, hd, splits, stream);
+  return dispatch<float>(q, k, v, nullptr, nullptr, cache_len, o, nullptr,
+                         nullptr, ws, B, KV, G, S, 0, hd, splits, stream);
 }
 
 extern "C" int decode_attention_bf16(const void* q, const void* k,
@@ -487,8 +523,9 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      void* o, void* ws, int B, int KV, int G,
                                      int S, int hd, int splits,
                                      cudaStream_t stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, cache_len, o, ws,
-                                 B, KV, G, S, 0, hd, splits, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, cache_len, o,
+                                 nullptr, nullptr, ws, B, KV, G, S, 0, hd,
+                                 splits, stream);
 }
 
 // the tailed call: caches (B, KV, S, hd), tails (B, KV, W, hd), W >= 1
@@ -500,8 +537,8 @@ extern "C" int decode_attention_tailed_f32(const void* q, const void* k,
                                            int S, int W, int hd, int splits,
                                            cudaStream_t stream) {
   if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<float>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G, S, W,
-                         hd, splits, stream);
+  return dispatch<float>(q, k, v, kt, vt, cache_len, o, nullptr, nullptr, ws,
+                         B, KV, G, S, W, hd, splits, stream);
 }
 
 extern "C" int decode_attention_tailed_bf16(const void* q, const void* k,
@@ -512,6 +549,30 @@ extern "C" int decode_attention_tailed_bf16(const void* q, const void* k,
                                             int S, int W, int hd, int splits,
                                             cudaStream_t stream) {
   if (W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<__nv_bfloat16>(q, k, v, kt, vt, cache_len, o, ws, B, KV, G,
-                                 S, W, hd, splits, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, kt, vt, cache_len, o, nullptr,
+                                 nullptr, ws, B, KV, G, S, W, hd, splits,
+                                 stream);
+}
+
+// the partial call: one shard's k/v (B, KV, S, hd), fill (device int32) the
+// shard's last attended position; m, l (B, KV, G) and acc (B, KV, G, hd)
+// float32
+extern "C" int decode_attention_partial_f32(const void* q, const void* k,
+                                            const void* v, const int* fill,
+                                            void* m, void* l, void* acc,
+                                            void* ws, int B, int KV, int G,
+                                            int S, int hd, int splits,
+                                            cudaStream_t stream) {
+  return dispatch<float>(q, k, v, nullptr, nullptr, fill, acc, m, l, ws, B,
+                         KV, G, S, 0, hd, splits, stream);
+}
+
+extern "C" int decode_attention_partial_bf16(const void* q, const void* k,
+                                             const void* v, const int* fill,
+                                             void* m, void* l, void* acc,
+                                             void* ws, int B, int KV, int G,
+                                             int S, int hd, int splits,
+                                             cudaStream_t stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, fill, acc, m, l,
+                                 ws, B, KV, G, S, 0, hd, splits, stream);
 }

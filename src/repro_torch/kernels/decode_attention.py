@@ -24,9 +24,9 @@ softmax, ``main_len = (cache_len // W) * W``.  The same kernel runs it
 ``decode_attention_partial(q, k, v, fill)`` is one shard's part of a
 decode over a cache sharded along its sequence: the f32 row max, sum and
 unnormalised output that the shards merge by log-sum-exp rescaling
-(``models.attention``).  The kernel returns no log-sum-exp, so only the
-plain version runs it: a CUDA tensor raises :class:`SeqShardedDecodeError`
-rather than run the plain version on the card.
+(``models.attention``).  The same kernel runs it (its partial entry
+points: the merge of its splits writes ``(m, l, acc)`` undivided);
+``decode_attention_partial_plain`` is ``ref.decode_attention_partial_ref``.
 """
 from __future__ import annotations
 
@@ -43,12 +43,16 @@ _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
 _TAILED_ENTRY = {torch.float32: "decode_attention_tailed_f32",
                  torch.bfloat16: "decode_attention_tailed_bf16"}
+_PARTIAL_ENTRY = {torch.float32: "decode_attention_partial_f32",
+                  torch.bfloat16: "decode_attention_partial_bf16"}
 
 
 #: the plain version: masked softmax over the whole cache in float32
 decode_attention_plain = decode_attention_ref
 #: the tailed call's plain version: the reference's two-part merge in f32
 decode_attention_tailed_plain = decode_attention_tailed_ref
+#: one shard's (m, l, acc) in f32: the masked scores' max, exp-sum, P @ V
+decode_attention_partial_plain = decode_attention_partial_ref
 
 #: blocks a decode call aims for: two on each of the H100's 132 SMs
 SPLIT_BLOCKS = 2 * 132
@@ -132,24 +136,66 @@ def _alloc(q, s: int):
     return buf.as_strided(q.shape, q.stride()), buf.data_ptr() + ws_at, splits
 
 
-class SeqShardedDecodeError(RuntimeError):
-    """A decode over a cache sharded along its sequence on CUDA tensors:
-    the decode kernel returns no log-sum-exp to merge the shards by."""
+def _alloc_partial(q, s: int):
+    """``(m, l, acc, the address of the f32 partials, splits)`` for a
+    partial call over a shard of ``s`` positions: one f32 allocation, acc,
+    m and l, then the partials 16-byte aligned."""
+    b, kvh, g, hd = q.shape
+    splits = decode_splits(b, kvh, s)
+    rows = b * kvh * g
+    ws_at = -(-rows * (hd + 2) // 4) * 4
+    buf = torch.empty(ws_at + rows * splits * (hd + 2), dtype=torch.float32,
+                      device=q.device)
+    acc = buf[:rows * hd].view(b, kvh, g, hd)
+    m = buf[rows * hd:rows * (hd + 1)].view(b, kvh, g)
+    l_ = buf[rows * (hd + 1):rows * (hd + 2)].view(b, kvh, g)
+    return m, l_, acc, buf.data_ptr() + 4 * ws_at, splits
 
 
+@_build.counted
 def decode_attention_partial(q, k, v, fill):
-    """One shard's ``(m, l, acc)`` of a decode over a sequence-sharded
-    cache (``ref.decode_attention_partial_ref``).  CPU tensors run the
-    plain version; CUDA tensors raise :class:`SeqShardedDecodeError`: the
-    kernel has no log-sum-exp output yet, and the plain version is never
-    run on the card in its place."""
-    if q.device.type != "cpu":
-        raise SeqShardedDecodeError(
-            "decode over a cache sharded along its sequence on a mesh axis "
-            "of more than one card: the decode kernel returns no "
-            "log-sum-exp to merge the shards by (ROADMAP queue 2); shard "
-            "the cache by batch or kv heads (serve rules 'cache_batch')")
-    return decode_attention_partial_ref(q, k, v, fill)
+    """One shard's part of a decode over a cache sharded along its
+    sequence: q (B, KV, G, hd) over the shard's K/V (B, KV, S_l, hd),
+    positions ``0 .. fill`` of the shard attended (``fill`` an int32
+    tensor of one element on q's device, or an int; below 0 none is, at
+    ``S_l`` or above all are).  Returns the float32 ``(m, l, acc)``: the
+    row max (B, KV, G) of the scaled scores (``ref.NEG_INF``, finite,
+    where none is attended), the sum of ``exp(s - m)`` and the
+    unnormalised output (B, KV, G, hd), which the shards merge by
+    log-sum-exp rescaling.
+
+    Replaces the reference's jnp ``decode_attention`` under GSPMD with its
+    K/V sharded along ``cache_seq`` (``src/repro/models/attention.py:263``),
+    which has no Pallas kernel: the decode kernel
+    (``csrc/decode_attention.cu``) runs it through its partial entry
+    points, ``fill`` read on the card (no host sync: a step replays in a
+    CUDA graph), its splits merged into the shard's ``(m, l, acc)``
+    without the division.  Bound by bytes, as the whole-cache call.  A
+    call is two launches and counts one.
+
+    CPU tensors run ``decode_attention_partial_plain``; CUDA tensors launch
+    the kernel or raise.
+    """
+    b, kvh, g, hd = q.shape
+    s = k.shape[2]
+    if k.shape != (b, kvh, s, hd) or v.shape != k.shape or s < 1:
+        raise ValueError(f"decode_attention_partial: want q (B, KV, G, hd) "
+                         f"and a shard's K/V (B, KV, S_l, hd), S_l >= 1; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return decode_attention_partial_plain(q, k, v, fill)
+    what = "decode_attention_partial"
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    check_attention_inputs(q, k, v, what=what)
+    fill = _clen(fill, q, what)
+    m, l_, acc, ws, splits = _alloc_partial(q, s)
+    _build.launch(_PARTIAL_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), fill.data_ptr(), m.data_ptr(), l_.data_ptr(),
+                  acc.data_ptr(), ws, b, kvh, g, s, hd, splits,
+                  _build.stream_ptr(q.device))
+    decode_attention_partial.launches += 1
+    return m, l_, acc
 
 
 @_build.counted

@@ -198,9 +198,11 @@ def decode_tailed_stand_in(q, k_main, v_main, k_tail, v_tail, cache_len,
 
 def decode_partial_stand_in(q, k, v, fill):
     """``decode_attention_partial`` (one shard of a sequence-sharded
-    cache): the shard's share of the decode (4 hd FLOPs a position and
-    query head over the shard's positions), q and the shard's K/V read,
-    the f32 (m, l, acc) written; the merge's collectives are the
+    cache, the decode kernel's partial entry): the shard's share of the
+    decode (4 hd FLOPs a position and query head over the shard's
+    positions), q and the shard's K/V read, the f32 (m, l, acc) written:
+    the bytes of the kernel's bound at a full shard (``chip_smoke.py``'s
+    row ``decode_attention_partial``); the merge's collectives are the
     caller's."""
     b, kvh, g, hd = q.shape
     m = torch.empty((b, kvh, g), dtype=torch.float32, device=q.device)

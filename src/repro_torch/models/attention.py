@@ -37,9 +37,9 @@ wrappers see plain local tensors:
   (``cache_seq``), q is gathered over that axis, each rank attends its
   slice, and the slices merge by log-sum-exp rescaling (an all-reduce of
   the row max, then of the rescaled sums and outputs), as flash-decoding
-  does.  The decode kernel returns no log-sum-exp, so that merge runs on
-  the plain version (``decode_attention_partial``) and raises on CUDA
-  tensors when the axis holds more than one card.
+  does.  Each rank's slice (and, tailed, its local tail) runs on the
+  decode kernel's partial entry (``decode_attention_partial``), which
+  returns the slice's f32 ``(m, l, acc)`` undivided.
 """
 from __future__ import annotations
 
@@ -48,12 +48,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                  decode_attention_partial,
                                                   decode_attention_tailed_fwd)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_fwd)
-
-from repro_torch.kernels.decode_attention import decode_attention_partial
 
 from .base import ArchConfig, scaled_normal
 from .layers import Rope, rms_norm_headwise, rope_tables, rotate

@@ -71,7 +71,8 @@ from repro_torch.kernels.binpack_select import (  # noqa: E402
     PACK_MAX_N, PackWidthError, pack_rows, select_slot_grid,
     select_slot_plain)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_fwd, decode_attention_plain,
+    decode_attention_fwd, decode_attention_partial,
+    decode_attention_partial_plain, decode_attention_plain,
     decode_attention_tailed_fwd, decode_attention_tailed_plain,
     decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -437,6 +438,35 @@ def test_decode_graph_replays_at_other_fills(cuda, dtype):
             out.float(), decode_attention_plain(q, k, v, clen).float(),
             rtol=TOL[dtype], atol=TOL[dtype],
             msg=lambda m: f"fill {fill}: {m}")
+
+
+@pytest.mark.parametrize("b,kv,g,s,hd", [
+    (8, 8, 4, 2048, 128), (8, 20, 1, 2048, 64), (8, 8, 8, 2048, 128),
+    (2, 2, 4, 16, 32), (1, 3, 2, 100, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_partial_kernel_matches_plain(cuda, b, kv, g, s, hd, dtype):
+    """The partial entry (one shard of a sequence-sharded cache) at an
+    empty shard, one position, mid-way, full and past the end: one counted
+    launch a call; m, and l and acc over the plain l, within the decode
+    tolerance; an empty shard's rows exactly (-1e30, 0, 0)."""
+    q, k, v = _normal(13, [(b, kv, g, hd), (b, kv, s, hd), (b, kv, s, hd)],
+                      dtype, cuda)
+    for fill in (-1, 0, s // 2, s - 1, s + 7):
+        clen = torch.tensor(fill, dtype=torch.int32, device=cuda)
+        before = decode_attention_partial.launches
+        m, l_, acc = decode_attention_partial(q, k, v, clen)
+        torch.cuda.synchronize()
+        assert decode_attention_partial.launches == before + 1
+        mw, lw, accw = decode_attention_partial_plain(q, k, v, clen)
+        if fill < 0:
+            assert (m == -1e30).all() and not l_.any() and not acc.any()
+            continue
+        tol = TOL[dtype]
+        torch.testing.assert_close(m, mw, rtol=tol, atol=tol)
+        torch.testing.assert_close(l_ / lw, torch.ones_like(lw), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(acc / lw[..., None], accw / lw[..., None],
+                                   rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("b,kv,g,s,w", [

@@ -331,7 +331,8 @@ def test_chip_paths_selector_keeps_the_full_runs_order(chip_smoke):
     assert chip_smoke.select_paths("s,R2,q") == ["Q", "R2", "S"]
     assert chip_smoke.select_paths("t,S") == ["S", "T"]
     assert chip_smoke.select_paths("u,T") == ["T", "U1", "U2"]
-    for bad in ("L3", "R4", "U3", "V", "P1", ""):
+    assert chip_smoke.select_paths("v,U2") == ["U2", "V"]
+    for bad in ("L3", "R4", "U3", "V1", "W", "P1", ""):
         with pytest.raises(ValueError):
             chip_smoke.select_paths(bad)
 
@@ -368,7 +369,8 @@ def test_chip_runs_every_path_through_one_dispatcher(chip_smoke,
                      ("Q", "run_path_q"), ("R1", "run_path_r1"),
                      ("R2", "run_path_r2"), ("R3", "run_path_r3"),
                      ("S", "run_path_s"), ("T", "run_path_t"),
-                     ("U1", "run_path_u1"), ("U2", "run_path_u2")):
+                     ("U1", "run_path_u1"), ("U2", "run_path_u2"),
+                     ("V", "run_path_v")):
         monkeypatch.setattr(chip_smoke, fn, path(name))
     made = []
     monkeypatch.setattr(chip_smoke, "path_a_traffic",

@@ -378,18 +378,51 @@ def test_a_group_within_one_node_moves_over_nvlink(meshes):
     assert s.t_collective_s() == 7 * 256 / tmesh.NVLINK_BW
 
 
-def test_a_sequence_sharded_decode_off_the_cpu_raises():
-    """The decode kernel returns no log-sum-exp, so a shard's part of a
-    decode over a sequence-sharded cache runs only the plain version on
-    CPU tensors; any other device raises instead of running the plain
-    version there."""
+def test_a_sequence_sharded_decode_off_the_cpu_raises(monkeypatch):
+    """A shard's part of a decode over a sequence-sharded cache: CPU
+    tensors run the plain version; tensors off the CPU reach the decode
+    kernel's partial entry (here a stand-in library that records the
+    call) and never the plain version, and raise where no kernel can be
+    built."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
 
-    q = torch.randn(1, 2, 2, 8)
-    k = torch.randn(1, 2, 5, 8)
+    q = torch.randn(1, 2, 2, 16)
+    k = torch.randn(1, 2, 5, 16)
     m, l_, acc = da.decode_attention_partial(q, k, k, 2)
-    assert m.shape == (1, 2, 2) and acc.shape == (1, 2, 2, 8)
+    assert m.shape == (1, 2, 2) and acc.shape == (1, 2, 2, 16)
     assert torch.isfinite(l_).all() and (l_ > 0).all()
-    with pytest.raises(da.SeqShardedDecodeError):
+
+    plain, calls = [], []
+    monkeypatch.setattr(da, "decode_attention_partial_plain",
+                        lambda *a: plain.append(a))
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "_LIB", Library())
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    before = da.decode_attention_partial.launches
+    for dtype, entry in ((torch.float32, "decode_attention_partial_f32"),
+                         (torch.bfloat16, "decode_attention_partial_bf16")):
+        qm, km = q.to(dtype).to("meta"), k.to(dtype).to("meta")
+        m, l_, acc = da.decode_attention_partial(qm, km, km, -1)
+        name, args = calls[-1]
+        assert name == entry
+        assert args[8:14] == (1, 2, 2, 5, 16, da.decode_splits(1, 2, 5))
+        assert (m.shape, l_.shape, acc.shape) == ((1, 2, 2), (1, 2, 2),
+                                                  (1, 2, 2, 16))
+        assert {t.dtype for t in (m, l_, acc)} == {torch.float32}
+        assert {t.device.type for t in (m, l_, acc)} == {"meta"}
+    assert len(calls) == 2
+    assert da.decode_attention_partial.launches == before + 2
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "NVCC_FALLBACKS", ())
+    monkeypatch.setattr(_build, "BUILD_ROOT",
+                        _build.BUILD_ROOT / "nonexistent-for-this-test")
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         da.decode_attention_partial(q.to("meta"), k.to("meta"),
                                     k.to("meta"), 2)
+    assert not plain
